@@ -1,0 +1,704 @@
+"""Cross-eval kernel-launch coalescing: one device launch per wave.
+
+Counterpart of ``nomad_tpu/parallel/coalesce.py``. A worker runs B
+evaluations concurrently, each on its own thread against one shared
+snapshot. When an eval reaches its placement launch it parks here; once
+every still-running eval of the batch is parked (or finished, or its
+adaptive deadline expired) the wave fires as ONE device call and each
+thread resumes with its slice of the output.
+
+Batching is exact: ``KernelIn`` always carries every plane and
+``KernelFeatures`` only selects which planes the computation reads. A
+wave runs the union of its members' features; members that did not ask
+for a feature carry neutral planes, which the kernel defines as no-ops.
+
+Waiting for later slices of the port (each named where the JAX launcher
+has it): the node-axis mesh and sharded dispatch, the chaos fault
+points, wave cohorts (plan-queue batching), tracer spans and the kernel
+profiler, and the device-state registry of resident shared planes (a
+leaf that is already a device tensor is used as it is instead).
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from collections import deque
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from nomad_tpu_torch.device import DeviceLike, resolve_device
+from nomad_tpu_torch.ops.cuda_kernel import (
+    fused_wave_apply,
+    fused_wave_place,
+    fused_wave_place_reference,
+)
+from nomad_tpu_torch.ops.kernel import (
+    KernelFeatures,
+    KernelIn,
+    KernelOut,
+    canonical_features,
+    fused_wave_supported,
+    neutral_step_planes,
+    pad_steps,
+    unpack_fused_wave,
+)
+
+#: B is bucketed to bound the number of wave shapes; 32 is the default
+#: worker batch size
+_WAVE_BUCKETS = (1, 4, 16, 32, 64, 256)
+
+
+def _percentile(values, q: float) -> float:
+    """Exact nearest-rank percentile (q in [0, 1]) of a small sample."""
+    if not values:
+        return 0.0
+    vs = sorted(values)
+    if q <= 0.0:
+        return vs[0]
+    rank = min(math.ceil(q * len(vs)), len(vs))
+    return vs[max(rank, 1) - 1]
+
+
+class _FusedWaveStats:
+    """Fused-dispatch accounting. ``launches`` counts waves that ran the
+    fused kernel; ``fallbacks`` counts waves that ran the composite
+    because their feature union left the envelope (spreads, devices,
+    cores, network). Steady live traffic fits the envelope."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.launches = 0
+        self.fallbacks = 0
+
+    def note_launch(self) -> None:
+        with self._lock:
+            self.launches += 1
+
+    def note_fallback(self) -> None:
+        with self._lock:
+            self.fallbacks += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+            self.fallbacks = 0
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"launches": self.launches, "fallbacks": self.fallbacks}
+
+
+#: process-wide fused-wave stats (coalescers are per batch and too
+#: short-lived to carry their own history)
+fused_wave_stats = _FusedWaveStats()
+
+
+class _UploadStats:
+    """Host -> device uploads made by the wave launcher: one per distinct
+    plane per wave (a shared leaf counts once, a stacked leaf once for
+    the whole member stack)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.uploads = 0
+        self.bytes = 0
+
+    def note(self, nbytes: int) -> None:
+        with self._lock:
+            self.uploads += 1
+            self.bytes += nbytes
+
+    def reset(self) -> None:
+        with self._lock:
+            self.uploads = 0
+            self.bytes = 0
+
+
+upload_stats = _UploadStats()
+
+
+def _upload(x, device: torch.device) -> torch.Tensor:
+    """One plane to the wave's device. A tensor already there (a resident
+    plane) moves nothing; host numpy is copied once and counted."""
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"plane on {x.device}, wave on {device}")
+        return x
+    arr = np.asarray(x)
+    upload_stats.note(arr.nbytes)
+    return torch.tensor(arr, device=device)
+
+
+class _WaveTopK:
+    """One wave's top-k planes, resident on device until first use. All
+    members share the holder; the first reader fetches both planes once
+    and caches the host copy for the rest."""
+
+    __slots__ = ("_idx", "_scores", "_host", "_lock", "_fetching", "_done")
+
+    def __init__(self, idx_dev, scores_dev) -> None:
+        self._idx = idx_dev
+        self._scores = scores_dev
+        self._host = None
+        self._lock = threading.Lock()
+        self._fetching = False
+        self._done = threading.Event()
+
+    def host(self):
+        # claim-then-fetch: the lock only decides WHO fetches; the copy
+        # runs unlocked and the losers wait on the claim's event
+        while True:
+            with self._lock:
+                if self._host is not None:
+                    return self._host
+                if not self._fetching:
+                    self._fetching = True
+                    done = self._done = threading.Event()
+                    break
+                done = self._done
+            done.wait()
+        try:
+            host = (self._idx.cpu().numpy(), self._scores.cpu().numpy())
+            with self._lock:
+                self._host = host
+                self._idx = self._scores = None
+        finally:
+            with self._lock:
+                self._fetching = False
+            done.set()
+        return self._host
+
+
+class _TopKSlice:
+    """A member's lazy [k, TOPK] view of the wave's top-k plane."""
+
+    __slots__ = ("_wave", "_field", "_start", "_stop")
+
+    def __init__(self, wave: _WaveTopK, field: int, start: int,
+                 stop: int) -> None:
+        self._wave = wave
+        self._field = field          # 0 = idx, 1 = scores
+        self._start = start
+        self._stop = stop
+
+    def _resolve(self):
+        return self._wave.host()[self._field][self._start:self._stop]
+
+    def __array__(self, dtype=None, copy=None):
+        a = self._resolve()
+        return a if dtype is None else a.astype(dtype)
+
+    def __getitem__(self, item):
+        return self._resolve()[item]
+
+    def __len__(self) -> int:
+        return self._stop - self._start
+
+
+#: node planes shipped once per wave (unbatched) when every member
+#: shares them by identity: cluster-static planes plus the snapshot's
+#: utilization
+_SHAREABLE_FIELDS = (
+    "cap_cpu", "cap_mem", "cap_disk", "free_cores", "shares_per_core",
+    "avail_mbits", "free_dyn",
+    "used_cpu", "used_mem", "used_disk", "used_cores", "used_mbits",
+)
+
+#: second group: the wide ask planes that stay neutral for the common
+#: ask (frozen singletons). ``node_perm`` is seeded per eval and ships
+#: always stacked.
+_NEUTRAL_SHAREABLE_FIELDS = (
+    "port_conflict", "dev_free", "dev_aff_score",
+    "step_penalty", "step_preferred",
+    "spread_active", "spread_even", "spread_weight",
+    "spread_bucket", "spread_counts", "spread_desired",
+)
+
+#: third group: the job-local [N] planes (a follow-up eval forks them)
+_JOB_SHAREABLE_FIELDS = (
+    "job_tg_count", "job_any_count", "penalty", "aff_score",
+    "base_mask",
+)
+
+
+def wave_field_is_shared(field: str, shared: bool,
+                         neutral_shared: bool,
+                         job_shared: bool = True) -> bool:
+    """Whether a KernelIn field ships UNBATCHED under the given wave
+    layout flags: the single source of truth for the three groups."""
+    return (shared and field in _SHAREABLE_FIELDS) or (
+        neutral_shared and field in _NEUTRAL_SHAREABLE_FIELDS) or (
+        job_shared and field in _JOB_SHAREABLE_FIELDS)
+
+
+def pad_wave(b: int) -> int:
+    for w in _WAVE_BUCKETS:
+        if b <= w:
+            return w
+    return ((b + 255) // 256) * 256
+
+
+def union_features(features: List[KernelFeatures]) -> KernelFeatures:
+    """Smallest feature set that serves every member, canonicalized."""
+    return canonical_features(KernelFeatures(
+        n_spreads=max(f.n_spreads for f in features),
+        with_topk=any(f.with_topk for f in features),
+        with_devices=any(f.with_devices for f in features),
+        with_ports=any(f.with_ports for f in features),
+        with_cores=any(f.with_cores for f in features),
+        with_network=any(f.with_network for f in features),
+        with_distinct=any(f.with_distinct for f in features),
+        with_step_penalties=any(f.with_step_penalties for f in features),
+        with_preferred=any(f.with_preferred for f in features),
+        with_shuffle=any(f.with_shuffle for f in features),
+    ))
+
+
+def _pad_kin_steps(kin: KernelIn, k_max: int) -> KernelIn:
+    """Pad the per-step planes to the wave's step count (neutral rows)."""
+    k = int(kin.step_penalty.shape[0])
+    if k == k_max:
+        return kin
+    n_pen, n_pref = neutral_step_planes(k)
+    if kin.step_penalty is n_pen and kin.step_preferred is n_pref:
+        # neutral singletons pad to the neutral singleton of the wave's
+        # step count: identity (and so wave sharing) survives padding
+        pen, pref = neutral_step_planes(k_max)
+        return kin._replace(step_penalty=pen, step_preferred=pref)
+    pen = np.full((k_max, kin.step_penalty.shape[1]), -1, np.int32)
+    pen[:k] = np.asarray(kin.step_penalty)
+    pref = np.full(k_max, -1, np.int32)
+    pref[:k] = np.asarray(kin.step_preferred)
+    return kin._replace(step_penalty=pen, step_preferred=pref)
+
+
+class WaveStats:
+    """Process-wide wave-shape observability: ``fill_ratio`` = real
+    members / padded wave slots; ``park_latency`` is the rendezvous cost
+    an eval thread pays waiting for its wave; ``wave_latency`` is
+    launch_wave's host time from dispatch to the end of the blocking
+    packed readback."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.requests = 0
+        self.launches = 0
+        self.full_launches = 0
+        self.deadline_launches = 0
+        self.members_sum = 0
+        self.slots_sum = 0
+        self._park_s: deque = deque(maxlen=4096)
+        self._wave_s: deque = deque(maxlen=4096)
+
+    def observe_wave(self, members: int, deadline_fired: bool) -> None:
+        with self._lock:
+            self.launches += 1
+            self.members_sum += members
+            self.slots_sum += pad_wave(members)
+            if deadline_fired:
+                self.deadline_launches += 1
+            else:
+                self.full_launches += 1
+
+    def observe_park(self, seconds: float) -> None:
+        with self._lock:
+            self.requests += 1
+            self._park_s.append(seconds)
+
+    def observe_wave_latency(self, seconds: float) -> None:
+        with self._lock:
+            self._wave_s.append(seconds)
+
+    def reset(self) -> None:
+        with self._lock:
+            self.requests = 0
+            self.launches = 0
+            self.full_launches = 0
+            self.deadline_launches = 0
+            self.members_sum = 0
+            self.slots_sum = 0
+            self._park_s.clear()
+            self._wave_s.clear()
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "requests": self.requests,
+                "launches": self.launches,
+                "full_launches": self.full_launches,
+                "deadline_launches": self.deadline_launches,
+                "fill_ratio": (self.members_sum / self.slots_sum
+                               if self.slots_sum else 0.0),
+                "park_latency_p50_ms": _percentile(self._park_s, 0.5) * 1e3,
+                "park_latency_p99_ms": _percentile(self._park_s, 0.99) * 1e3,
+                "wave_latency_p50_ms": _percentile(self._wave_s, 0.5) * 1e3,
+                "wave_latency_p99_ms": _percentile(self._wave_s, 0.99) * 1e3,
+            }
+
+
+wave_stats = WaveStats()
+
+
+class _LatencyEWMA:
+    """Exponentially-weighted wave latency: the adaptive coalescer's
+    deadline is a fraction of what a launch actually costs."""
+
+    def __init__(self, alpha: float = 0.2) -> None:
+        self._lock = threading.Lock()
+        self._alpha = alpha
+        self._value: Optional[float] = None
+
+    def update(self, seconds: float) -> None:
+        with self._lock:
+            if self._value is None:
+                self._value = seconds
+            else:
+                self._value += self._alpha * (seconds - self._value)
+
+    @property
+    def value(self) -> Optional[float]:
+        with self._lock:
+            return self._value
+
+
+#: EWMA of launch_wave wall seconds
+wave_latency_ewma = _LatencyEWMA()
+#: EWMA of "this launch was deadline-fired" (0/1): widens the window
+#: back toward the cap while deadline fires fragment waves
+wave_deadline_ewma = _LatencyEWMA(alpha=0.25)
+
+#: launches currently executing, token -> perf_counter start; a long
+#: in-flight launch (a cold kernel build) disarms the adaptive deadline
+_INFLIGHT_LOCK = threading.Lock()
+_INFLIGHT_STARTS: dict = {}
+
+
+def _oldest_inflight_age_s() -> float:
+    with _INFLIGHT_LOCK:
+        if not _INFLIGHT_STARTS:
+            return 0.0
+        oldest = min(_INFLIGHT_STARTS.values())
+    return time.perf_counter() - oldest
+
+
+class ResidentUsage:
+    """Used cpu/mem/disk planes resident on the device, which waves read
+    as their shared utilization and commit into (``fused_wave_apply``):
+    the device half of the plan applier, until the port's device-state
+    slice lands. Commits make NEW tensors; readers of an older
+    generation keep theirs."""
+
+    def __init__(self, used_cpu, used_mem, used_disk,
+                 device: DeviceLike = None) -> None:
+        dev = resolve_device(device)
+        self.device = dev
+        self.used_cpu = torch.tensor(np.asarray(used_cpu), device=dev)
+        self.used_mem = torch.tensor(np.asarray(used_mem), device=dev)
+        self.used_disk = torch.tensor(np.asarray(used_disk), device=dev)
+        #: held from a wave's read of the planes to its commit
+        self.lock = threading.Lock()
+        self.commits = 0
+
+
+class Wave(NamedTuple):
+    """One assembled wave, uploaded to its device."""
+
+    kin: KernelIn                # stacked: shared leaves unbatched
+    step_member: torch.Tensor    # i32[t_pad], -1 = padding
+    step_local: torch.Tensor     # i32[t_pad]
+    t_pad: int
+    b_pad: int
+    features: KernelFeatures     # the members' canonical union
+    offsets: List[int]           # first step of each real member
+
+
+def assemble_wave(kins: List[KernelIn], k_steps: List[int],
+                  features: List[KernelFeatures], dev: torch.device) -> Wave:
+    """Host stacking, the three sharing groups and the step layout; each
+    distinct plane is uploaded once."""
+    k_max = max(k_steps)
+    feats = union_features(features)
+    padded = [_pad_kin_steps(kin, k_max) for kin in kins]
+    b_pad = pad_wave(len(padded))
+    if b_pad > len(padded):
+        # inert filler rows: first member with zero active steps
+        filler = padded[0]._replace(n_steps=np.asarray(0, np.int32))
+        padded = padded + [filler] * (b_pad - len(padded))
+
+    def _group_shared(fields) -> bool:
+        return all(all(getattr(k, f) is getattr(padded[0], f)
+                       for k in padded[1:]) for f in fields)
+
+    shareable = _group_shared(_SHAREABLE_FIELDS)
+    neutral_shareable = _group_shared(_NEUTRAL_SHAREABLE_FIELDS)
+    job_shareable = _group_shared(_JOB_SHAREABLE_FIELDS)
+
+    def _stack_field(f, xs):
+        if wave_field_is_shared(f, shareable, neutral_shareable,
+                                job_shareable):
+            return _upload(xs[0], dev)      # ONE upload for every member
+        if any(isinstance(x, torch.Tensor) for x in xs):
+            return torch.stack([_upload(x, dev) for x in xs])
+        return _upload(np.stack([np.asarray(x) for x in xs]), dev)
+
+    stacked = KernelIn(*[
+        _stack_field(f, [getattr(k, f) for k in padded])
+        for f in KernelIn._fields])
+
+    # step layout: member 0's steps, then member 1's, ... The step axis
+    # is sized from the PADDED wave so the shape depends only on (wave
+    # bucket, step bucket).
+    t_pad = pad_steps(b_pad * k_max)
+    ks = np.asarray(k_steps, np.int64)
+    starts = np.concatenate(([0], np.cumsum(ks)[:-1]))
+    total = int(ks.sum())
+    step_member = np.full(t_pad, -1, np.int32)
+    step_local = np.zeros(t_pad, np.int32)
+    step_member[:total] = np.repeat(np.arange(len(ks)), ks)
+    step_local[:total] = np.arange(total) - np.repeat(starts, ks)
+    return Wave(stacked, _upload(step_member, dev),
+                _upload(step_local, dev), t_pad, b_pad, feats,
+                starts.tolist())
+
+
+def _dispatch(stacked, sm, sl, t_pad, feats, resident):
+    """Fused kernel when the union fits its envelope, else the composite
+    (counted as a fallback). With ``resident`` the wave reads its used
+    planes and commits ``used + a_*`` back into it."""
+    fused = fused_wave_supported(feats)
+    if resident is None:
+        if fused:
+            return fused, fused_wave_place(stacked, sm, sl, t_pad, feats)
+        return fused, fused_wave_place_reference(stacked, sm, sl, t_pad, feats)
+    with resident.lock:
+        r = resident
+        if fused:
+            fout, r.used_cpu, r.used_mem, r.used_disk = fused_wave_apply(
+                stacked, r.used_cpu, r.used_mem, r.used_disk, sm, sl,
+                t_pad, feats)
+        else:
+            fout = fused_wave_place_reference(stacked._replace(
+                used_cpu=r.used_cpu, used_mem=r.used_mem,
+                used_disk=r.used_disk), sm, sl, t_pad, feats)
+            r.used_cpu = r.used_cpu + fout.a_cpu
+            r.used_mem = r.used_mem + fout.a_mem
+            r.used_disk = r.used_disk + fout.a_disk
+        r.commits += 1
+    return fused, fout
+
+
+def launch_wave(kins: List[KernelIn], k_steps: List[int],
+                features: List[KernelFeatures],
+                device: DeviceLike = None,
+                resident: Optional[ResidentUsage] = None) -> List[KernelOut]:
+    """Fire B launch requests as ONE device call; split the results.
+
+    Members' placement steps run in arrival order over a shared capacity
+    carry, so members see each other's placements (the serialized plan
+    applier's semantics, on device). A leaf that every member shares by
+    identity is uploaded once per wave; the per-member result comes back
+    in one packed device-to-host copy. An error from the kernel
+    propagates to every member.
+    """
+    # (node-axis mesh/sharding and the chaos fault point "wave.launch":
+    # later slices)
+    dev = resolve_device(device)
+    if resident is not None and resident.device != dev:
+        raise ValueError("resident usage lives on another device")
+    stacked, sm, sl, t_pad, b_pad, feats, offsets = assemble_wave(
+        kins, k_steps, features, dev)
+    t_launch = time.perf_counter()
+    token = object()
+    with _INFLIGHT_LOCK:
+        _INFLIGHT_STARTS[token] = t_launch
+    try:
+        fused, fout = _dispatch(stacked, sm, sl, t_pad, feats, resident)
+        # the single wave-critical readback (synchronizes with the wave)
+        host = unpack_fused_wave(fout.packed.cpu().numpy(), t_pad, b_pad)
+    finally:
+        with _INFLIGHT_LOCK:
+            _INFLIGHT_STARTS.pop(token, None)
+    if fused:
+        fused_wave_stats.note_launch()
+    else:
+        fused_wave_stats.note_fallback()
+    elapsed = time.perf_counter() - t_launch
+    wave_latency_ewma.update(elapsed)
+    wave_stats.observe_wave_latency(elapsed)
+    wave_topk = _WaveTopK(fout.topk_idx, fout.topk_scores)
+    results = []
+    for i, k in enumerate(k_steps):
+        o = offsets[i]
+        results.append(KernelOut(
+            chosen=host["chosen"][o:o + k],
+            scores=host["scores"][o:o + k],
+            found=host["found"][o:o + k],
+            topk_idx=_TopKSlice(wave_topk, 0, o, o + k),
+            topk_scores=_TopKSlice(wave_topk, 1, o, o + k),
+            nodes_evaluated=host["nodes_evaluated"][i],
+            nodes_feasible=host["nodes_feasible"][i],
+            exhausted_cpu=host["exhausted_cpu"][i],
+            exhausted_mem=host["exhausted_mem"][i],
+            exhausted_disk=host["exhausted_disk"][i],
+            exhausted_ports=host["exhausted_ports"][i],
+            exhausted_devices=host["exhausted_devices"][i],
+            exhausted_cores=host["exhausted_cores"][i],
+        ))
+    return results
+
+
+class _Request:
+    __slots__ = ("kin", "k_steps", "features", "out", "error", "event")
+
+    def __init__(self, kin, k_steps, features):
+        self.kin = kin
+        self.k_steps = k_steps
+        self.features = features
+        self.out: Optional[KernelOut] = None
+        self.error: Optional[BaseException] = None
+        self.event = threading.Event()
+
+
+class LaunchCoalescer:
+    """Rendezvous point for one batch of concurrently-scheduled evals.
+
+    Every participant must end with ``done()`` (use try/finally). A wave
+    fires when every not-yet-done (and not suspended) participant is
+    parked in ``launch``, or when a parked request's adaptive deadline
+    expires (a fraction of the EWMA wave latency clamped to
+    ``[window_min_s, window_max_s]``). The thread that completes the
+    rendezvous runs the device call; there is no dispatcher thread.
+    """
+
+    #: deadline = EWMA wave latency x this fraction (clamped)
+    WINDOW_FRACTION = 0.5
+    #: deadlines disarm while EWMA x fraction exceeds this multiple of
+    #: window_max (cold builds in flight)
+    TRANSIENT_FACTOR = 4.0
+
+    def __init__(self, participants: int, device: DeviceLike = None,
+                 resident: Optional[ResidentUsage] = None,
+                 window_min_s: float = 0.001,
+                 window_max_s: float = 0.050,
+                 adaptive: bool = True) -> None:
+        self._cv = threading.Condition(threading.Lock())
+        self._active = participants
+        self.device = resolve_device(device)
+        self.resident = resident
+        self._pending: List[_Request] = []
+        self.window_min_s = window_min_s
+        self.window_max_s = window_max_s
+        self.adaptive = adaptive
+        # stats (asserted by tests, reported by the worker)
+        self.launches = 0
+        self.requests = 0
+        self.max_wave = 0
+        self.deadline_launches = 0
+
+    def _window_s(self) -> Optional[float]:
+        """Deadline for a parked request, or None to park until the
+        rendezvous completes."""
+        ewma = wave_latency_ewma.value
+        if ewma is None:
+            return None
+        target = ewma * self.WINDOW_FRACTION
+        if target > self.window_max_s * self.TRANSIENT_FACTOR:
+            return None
+        if _oldest_inflight_age_s() > \
+                self.window_max_s * self.TRANSIENT_FACTOR:
+            return None
+        frag = wave_deadline_ewma.value or 0.0
+        target *= 1.0 + 3.0 * frag
+        return min(max(target, self.window_min_s), self.window_max_s)
+
+    def launch(self, kin: KernelIn, k_steps: int,
+               features: KernelFeatures) -> KernelOut:
+        req = _Request(kin, k_steps, features)
+        wave: Optional[List[_Request]] = None
+        with self._cv:
+            self.requests += 1
+            self._pending.append(req)
+            if len(self._pending) >= self._active:
+                wave = self._pending
+                self._pending = []
+        if wave is not None:
+            self._fire(wave)
+        else:
+            t0 = time.perf_counter()
+            if self.adaptive:
+                fired = claimed = False
+                while not (fired or claimed):
+                    window = self._window_s()
+                    if window is None:
+                        fired = req.event.wait(0.05)
+                        continue
+                    fired = req.event.wait(window)
+                    if fired:
+                        break
+                    if self._window_s() is None:
+                        continue
+                    with self._cv:
+                        if req in self._pending:
+                            wave = self._pending
+                            self._pending = []
+                            self.deadline_launches += 1
+                    claimed = True
+                if wave is None and not fired:
+                    # claimed by another member mid-timeout
+                    req.event.wait()
+            else:
+                req.event.wait()
+            wave_stats.observe_park(time.perf_counter() - t0)
+            if wave is not None:
+                self._fire(wave, deadline_fired=True)
+        if req.error is not None:
+            raise req.error
+        return req.out
+
+    def done(self) -> None:
+        wave: Optional[List[_Request]] = None
+        with self._cv:
+            self._active -= 1
+            if self._pending and len(self._pending) >= self._active:
+                wave = self._pending
+                self._pending = []
+        if wave is not None:
+            self._fire(wave)
+
+    def suspend(self) -> None:
+        """Temporarily yield this participant's rendezvous slot."""
+        self.done()
+
+    def resume(self) -> None:
+        """Re-take the slot released by ``suspend``."""
+        with self._cv:
+            self._active += 1
+
+    def _fire(self, wave: List[_Request], deadline_fired: bool = False) -> None:
+        # members may sit on different node-axis pad buckets after a
+        # snapshot refresh; a joint launch needs one node axis
+        groups: dict = {}
+        for r in wave:
+            groups.setdefault(int(r.kin.cap_cpu.shape[0]), []).append(r)
+        wave_deadline_ewma.update(1.0 if deadline_fired else 0.0)
+        for grp in groups.values():
+            self.launches += 1
+            self.max_wave = max(self.max_wave, len(grp))
+            wave_stats.observe_wave(len(grp), deadline_fired)
+            # (wave cohorts, the plan-queue drain window: a later slice)
+            try:
+                outs = launch_wave(
+                    [r.kin for r in grp], [r.k_steps for r in grp],
+                    [r.features for r in grp], device=self.device,
+                    resident=self.resident)
+                for r, out in zip(grp, outs):
+                    r.out = out
+            except BaseException as e:   # noqa: BLE001 - re-raised per member
+                for r in grp:
+                    r.error = e
+            for r in grp:
+                r.event.set()

@@ -50,6 +50,10 @@ def pytest_configure(config):
         "markers",
         "stress: contention-repetition tier (pytest -m stress); "
         "always paired with slow")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA card (CUDA); skips inside its fixture "
+        "when none is present")
     # buffer-donation misalignment is silent perf debt (XLA ignores the
     # donation and warns); promote it to an error so a donate_argnums
     # edit that can't alias its outputs fails the suite instead of
