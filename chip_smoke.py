@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's placement wave on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's placement paths on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -7,7 +7,8 @@ The quickest proof that the port (``nomad_tpu_torch``) starts and is right
 on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
 
 1. card and build: the card's name and power limit (nvidia-smi), then the
-   fused-wave kernel built from csrc/ with ptxas's register/spill report;
+   three kernels built from csrc/ at once (one nvcc each) with ptxas's
+   register/spill report;
 2. kernel against its plain torch version at the live shape: a C2M
    cluster of 10k nodes (N=16384) with 100k resident allocs, waves of 32
    members x 10 placements (T=512), six variants of the fused envelope;
@@ -17,7 +18,17 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
 5. scale: two waves at 100k nodes (N=131072) with 1M allocs, kernel
    against plain;
 6. times: CUDA-event time of the kernel and of the plain version at the
-   live shape, and the bound.
+   live shape, and the bound;
+7. B3, the lean full-width batch kernel, against its plain version on the
+   bench's throughput problem (10k nodes, N=16384, B=512, K=10), then the
+   schedule-apply step with the kernel inside (the B3 path, 4 batches)
+   against the plain step: same committed planes;
+8. B2 and the batched loop at the bench shape (B=8192, 25 batches, K=10):
+   the candidate scan against its plain version on one batch, then the
+   ``kernel_topk`` loop (the B2 path) against the ``torch`` loop, with
+   evals/s of both and the split of a batch (full-width pass vs scan);
+9. the replay form: the same loop with ``reset_every=1`` on a C2M cluster
+   of 10k nodes with 100k resident allocs.
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -47,13 +58,15 @@ from nomad_tpu_torch.ops.kernel import (
     pad_steps,
     unpack_fused_wave,
 )
-from nomad_tpu_torch.parallel import coalesce
+from nomad_tpu_torch.parallel import batching, coalesce
 from nomad_tpu_torch.parallel.synthetic import (
     C2M_SHAPE_CPU,
     C2M_SHAPE_MEM,
     C2M_SHAPE_P,
     c2m_cluster,
     c2m_pack_usage,
+    synthetic_eval,
+    throughput_problem,
 )
 from nomad_tpu_torch.tensors.schema import (
     MAX_DEV_REQS,
@@ -292,18 +305,20 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
     t0 = time.perf_counter()
-    built = ck.load_library()
+    builds = ck.load_libraries()
     record["build_s"] = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in built.log.splitlines()
+    ptxas = [ln.strip() for b in builds.values() for ln in b.log.splitlines()
              if any(k in ln for k in ("registers", "spill", "smem",
                                       "Compiling entry"))]
     for ln in ptxas:
         log(f"ptxas: {ln}")
     record["ptxas"] = ptxas
-    log(f"build: {built.path} in {record['build_s']:.2f} s "
-        f"(cached={built.cached})")
+    for name, b in builds.items():
+        log(f"build: {b.path} (cached={b.cached})")
+    log(f"build: {len(builds)} libraries in {record['build_s']:.2f} s")
 
     kline = run_phases(dev, record)
+    kline["kernels"] += run_batch_phases(dev, record)
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -533,6 +548,266 @@ def run_phases(dev: torch.device, record: dict) -> dict:
                        "n": n, "b": wave.b_pad, "t": wave.t_pad}
     record["kernels"] = kline["kernels"]
     return kline
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-9: the batched schedule-apply path (B3 and B2).
+# ---------------------------------------------------------------------------
+
+BATCH_B3 = 512       # bench.py BATCH: the full-width kernel's batch
+STEPS_B3 = 4         # kernel-step batches on the B3 path
+BATCH_B2 = 8192      # bench.py _bench_batch on an accelerator
+BATCHES_B2 = 25      # 8192 x 25 evals, the bench's burst
+REPLAY_BATCHES = 4
+K_CAND = 64          # pallas_topk_place_batch's default candidate count
+#: f32 operations of the lean score per (active step, node or candidate):
+#: fit compares (6), utilization adds and free fractions (6), two pow,
+#: the fit sum, clamps, select and scale (7), anti-affinity (4), plane
+#: sums and the final divide (4), argmax compare (1)
+OPS_PER_LEAN_STEP = 30
+
+
+def compare_lean(got, want, n_steps, ctx: str) -> dict:
+    """A batch kernel against its plain version: chosen and found exact,
+    scores within ATOL. An eval whose choices differ is excused only as a
+    near-tie (at its first differing step both picks score within
+    NEAR_TIE); its later steps run on other carries and are not
+    compared."""
+    gc, wc = got[0].cpu().numpy(), want[0].cpu().numpy()
+    gs, ws = got[1].cpu().numpy(), want[1].cpu().numpy()
+    gf, wf = got[2].cpu().numpy(), want[2].cpu().numpy()
+    keep = np.ones(gc.shape, bool)
+    near_ties = 0
+    for r in np.nonzero(((gc != wc) | (gf != wf)).any(axis=1))[0]:
+        s = int(np.nonzero((gc[r] != wc[r]) | (gf[r] != wf[r]))[0][0])
+        check(gf[r, s] and wf[r, s] and abs(gs[r, s] - ws[r, s]) < NEAR_TIE,
+              f"{ctx}: eval {r} differs at step {s} and is no near-tie "
+              f"({gc[r, s]}: {gs[r, s]} vs {wc[r, s]}: {ws[r, s]})")
+        near_ties += 1
+        keep[r, s:] = False
+    err = float(np.abs(gs - ws)[keep].max(initial=0.0))
+    check(err <= ATOL, f"{ctx}: max abs error {err} > {ATOL}")
+    active = int(np.minimum(n_steps.cpu().numpy(), gc.shape[1]).sum())
+    return {"ctx": ctx, "near_ties": near_ties, "active_steps": active,
+            "max_abs_err": err, "placed": int(gf.sum())}
+
+
+def lean_bytes(v: dict, out) -> int:
+    """Bytes a batch kernel must move: each lean argument once (the
+    shared planes once, not once per eval) and each output once."""
+    return sum(x.nbytes for x in v.values()) + sum(x.nbytes for x in out)
+
+
+def bound(nbytes: int, ops: float) -> tuple:
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = ops / F32_OPS_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def over_capacity(kin, uc, um) -> int:
+    """Nodes whose committed cpu or mem exceeds their capacity."""
+    return int(np.sum((uc.cpu().numpy() > kin.cap_cpu + 1e-3)
+                      | (um.cpu().numpy() > kin.cap_mem + 1e-3)))
+
+
+def best_of_2(fn) -> tuple:
+    """(seconds, result): host clock ending in synchronize, best of 2."""
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times), res
+
+
+def run_batch_phases(dev: torch.device, record: dict) -> list:
+    """Phases 7-9 on ``dev``; returns the B3 and B2 kernel entries."""
+    # ---- 7. B3: place_batch against plain, then the kernel step ----
+    prob = throughput_problem(STEPS_B3, BATCH_B3, seed=7)
+    shared = batching.device_put_shared(prob.kin, dev)
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    uc0, um0, ns = on(prob.used_cpu), on(prob.used_mem), on(prob.n_steps)
+    asks = (on(prob.ask_cpu), on(prob.ask_mem))
+    check(shared.cap_cpu.shape[0] == 16384, "throughput N")
+    lean = batching._lean_args(shared, uc0, um0, asks[0][0], asks[1][0], ns)
+    got = ck.place_batch(*lean, k_steps=K_PLACE)
+    want = ck.place_batch_reference(*lean, k_steps=K_PLACE)
+    torch.cuda.synchronize()
+    b3 = compare_lean(got, want, ns, "b3/place_batch")
+    log(f"b3 kernel vs plain: {json.dumps(b3)}")
+    check(b3["placed"] > 0, "b3: nothing placed")
+    check(b3["near_ties"] <= 0.01 * b3["active_steps"],
+          f"b3 near-ties {b3['near_ties']} > 1% of {b3['active_steps']}")
+
+    kstep = batching.make_schedule_apply_step_kernel(K_PLACE)
+    pstep = batching.make_schedule_apply_step(K_PLACE, LEAN_FEATURES)
+    ku, km = pu, pm = uc0, um0
+    kstep(shared, ku, km, asks[0][0], asks[1][0], ns)   # first-call costs
+    ck.place_batch_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(STEPS_B3):
+        out, ku, km = kstep(shared, ku, km, asks[0][t], asks[1][t], ns)
+    torch.cuda.synchronize()
+    kstep_s = time.perf_counter() - t0
+    b3_launches = ck.place_batch_launches
+    check(b3_launches == STEPS_B3,
+          f"b3 path: {b3_launches} kernel launches for {STEPS_B3} steps")
+    for t in range(STEPS_B3):
+        _, pu, pm = pstep(shared, pu, pm, asks[0][t], asks[1][t], ns)
+    plane_err = max(float((ku - pu).abs().max()), float((km - pm).abs().max()))
+    check(plane_err <= 1e-2, f"b3 path: committed planes differ by "
+          f"{plane_err}")
+    check(torch.equal(uc0, on(prob.used_cpu)), "b3 path wrote its input")
+    b3.update(steps=STEPS_B3, launches=b3_launches, plane_err=plane_err,
+              step_s=kstep_s / STEPS_B3,
+              over_capacity=over_capacity(prob.kin, ku, km))
+    log(f"b3 path: {json.dumps(b3)}")
+    record["b3"] = b3
+
+    v3 = ck._lean_inputs(lean, K_PLACE)
+    for _ in range(3):
+        ck.place_batch(*lean, k_steps=K_PLACE)
+    b3_ms = cuda_ms(lambda: ck.place_batch(*lean, k_steps=K_PLACE), 20)
+    b3_plain_ms = cuda_ms(
+        lambda: ck.place_batch_reference(*lean, k_steps=K_PLACE), 3)
+    b3_bound, b3_by = bound(
+        lean_bytes(v3, got),
+        b3["active_steps"] * v3["cap_cpu"].shape[0] * OPS_PER_LEAN_STEP)
+
+    # ---- 8. B2 and the loop at the bench shape ----
+    prob = throughput_problem(BATCHES_B2, BATCH_B2, seed=7)
+    ns = on(prob.n_steps)
+    asks = (on(prob.ask_cpu), on(prob.ask_mem))
+    lean = batching._lean_args(shared, uc0, um0, asks[0][0], asks[1][0], ns)
+    got = ck.topk_place_batch(*lean, k_steps=K_PLACE)
+    want = ck.topk_place_batch_reference(*lean, k_steps=K_PLACE)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("chosen", "found", "valid"),
+                          (got[0], got[2], got[3]), (want[0], want[2], want[3])):
+        check(torch.equal(g, w), f"b2/topk_place_batch: {name} differs")
+    b2_err = float((got[1] - want[1]).abs().max())
+    check(b2_err <= ATOL, f"b2: max abs error {b2_err} > {ATOL}")
+    b2 = {"max_abs_err": b2_err, "invalid": int((~got[3]).sum()),
+          "placed": int(got[2].sum())}
+    log(f"b2 kernel vs plain: {json.dumps(b2)}")
+
+    kloop = batching.make_schedule_apply_loop(
+        K_PLACE, LEAN_FEATURES, topk=True, backend="kernel_topk")
+    tloop = batching.make_schedule_apply_loop(K_PLACE, LEAN_FEATURES,
+                                              topk=True)
+    ck.cand_scan_launches = 0
+    k_s, kres = best_of_2(lambda: kloop(shared, uc0, um0, *asks, ns))
+    b2_launches = ck.cand_scan_launches
+    check(b2_launches == 2 * BATCHES_B2,
+          f"b2 path: {b2_launches} scan launches for the 2 x {BATCHES_B2} "
+          "batches run")
+    t_s, tres = best_of_2(lambda: tloop(shared, uc0, um0, *asks, ns))
+    loop = compare_loops(kres, tres, prob.kin, "loop")
+    evals = BATCH_B2 * BATCHES_B2
+    loop.update(batches=BATCHES_B2, runs=2, evals=evals,
+                launches=b2_launches,
+                kernel_topk_s=k_s, torch_s=t_s,
+                kernel_topk_evals_per_s=evals / k_s,
+                torch_evals_per_s=evals / t_s)
+    log(f"loop: {json.dumps(loop)}")
+    record["b2"] = {**b2, "loop": loop}
+
+    v2 = ck._lean_inputs(lean, K_PLACE)
+    cand, rest = ck.candidate_pass(v2, K_CAND)
+    for _ in range(3):
+        ck._cand_scan(cand, rest, v2, K_PLACE)
+    b2_ms = cuda_ms(lambda: ck._cand_scan(cand, rest, v2, K_PLACE), 20)
+    b2_plain_ms = cuda_ms(
+        lambda: ck.cand_scan_reference(cand, rest, v2, K_PLACE), 3)
+    pass_ms = cuda_ms(lambda: ck.candidate_pass(v2, K_CAND), 5)
+    scan_out = ck._cand_scan(cand, rest, v2, K_PLACE)
+    active = int(np.minimum(prob.n_steps, K_PLACE).sum())
+    b2_bound, b2_by = bound(
+        lean_bytes(v2, scan_out) + cand.nbytes + rest.nbytes,
+        active * K_CAND * OPS_PER_LEAN_STEP)
+    split = {"full_width_pass_ms": pass_ms, "scan_ms": b2_ms,
+             "batch_ms": k_s / BATCHES_B2 * 1e3}
+    log(f"b2 batch split: {json.dumps(split)}")
+    record["b2"]["split"] = split
+
+    # ---- 9. the replay form: reset_every=1 on a C2M cluster ----
+    c2m = c2m_cluster(10_000, seed=SEED)
+    ucpu, umem, udisk, _ = c2m_pack_usage(c2m, 100_000, seed=SEED)
+    rkin = synthetic_kin_for(c2m, udisk)
+    rshared = batching.device_put_shared(rkin, dev)
+    rng = np.random.default_rng(SEED + 9)
+    shapes = rng.choice(len(C2M_SHAPE_CPU), (REPLAY_BATCHES, BATCH_B2),
+                        p=C2M_SHAPE_P / C2M_SHAPE_P.sum())
+    rasks = (on(C2M_SHAPE_CPU[shapes]), on(C2M_SHAPE_MEM[shapes]))
+    rloop = batching.make_schedule_apply_loop(
+        K_PLACE, LEAN_FEATURES, topk=True, backend="kernel_topk",
+        reset_every=1)
+    ck.cand_scan_launches = 0
+    r_s, rres = best_of_2(lambda: rloop(rshared, on(ucpu), on(umem), *rasks,
+                                        ns))
+    check(ck.cand_scan_launches == 2 * REPLAY_BATCHES,
+          f"replay: {ck.cand_scan_launches} scan launches")
+    tres = batching.make_schedule_apply_loop(
+        K_PLACE, LEAN_FEATURES, topk=True, reset_every=1)(
+        rshared, on(ucpu), on(umem), *rasks, ns)
+    replay = compare_loops(rres, tres, rkin, "replay")
+    check(replay["placed"] > 0, "replay placed nothing")
+    evals = BATCH_B2 * REPLAY_BATCHES
+    replay.update(batches=REPLAY_BATCHES, evals=evals,
+                  evals_per_s=evals / r_s)
+    log(f"replay: {json.dumps(replay)}")
+    record["replay"] = replay
+
+    return [
+        {"name": "place_batch", "route": "cuda",
+         "source": "nomad_tpu_torch/csrc/place_batch.cu",
+         "replaces": "nomad_tpu/ops/pallas_kernel.py:218",
+         "launches": b3_launches, "max_abs_err": b3["max_abs_err"],
+         "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound,
+         "bound_by": b3_by, "library_ms": None},
+        {"name": "topk_place_batch (cand_scan)", "route": "cuda",
+         "source": "nomad_tpu_torch/csrc/cand_scan.cu",
+         "replaces": "nomad_tpu/ops/pallas_kernel.py:478",
+         "launches": b2_launches, "max_abs_err": b2_err,
+         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
+         "bound_by": b2_by, "library_ms": None},
+    ]
+
+
+def synthetic_kin_for(cluster, used_disk):
+    """The replay's shared planes (bench.py ``run_replay``): one lean
+    eval over ``cluster`` with the resident disk usage and 150 MB disk
+    asks."""
+    ev = synthetic_eval(cluster, desired_count=K_PLACE)
+    kin = build_kernel_in(cluster, ev, K_PLACE)
+    return kin._replace(used_disk=used_disk,
+                        ask_disk=np.asarray(150.0, np.float32))
+
+
+def compare_loops(kres, tres, kin, ctx: str) -> dict:
+    """The kernel_topk loop against the torch loop: placed exact,
+    score_sum to rel 1e-5, final used planes within 1e-2. Both commit
+    every accepted placement of a batch (optimistic concurrency), so a
+    node may end over capacity in both; the counts must agree."""
+    ks, kp, kf, ku, km = kres
+    ts, tp_, tf, tu, tm = tres
+    check(int(kp) == int(tp_), f"{ctx}: placed {int(kp)} vs {int(tp_)}")
+    rel = abs(float(ks) - float(ts)) / max(abs(float(ts)), 1e-30)
+    check(rel <= 1e-5, f"{ctx}: score_sum rel error {rel}")
+    err = max(float((ku - tu).abs().max()), float((km - tm).abs().max()))
+    check(err <= 1e-2, f"{ctx}: final planes differ by {err}")
+    check(bool(torch.isfinite(ku).all() and torch.isfinite(km).all()),
+          f"{ctx}: non-finite planes")
+    over = (over_capacity(kin, ku, km), over_capacity(kin, tu, tm))
+    check(over[0] == over[1], f"{ctx}: over-capacity nodes {over}")
+    return {"placed": int(kp), "score_sum": float(ks),
+            "score_sum_rel_err": rel, "plane_err": err,
+            "fallback_kernel_topk": int(kf), "fallback_torch": int(tf),
+            "over_capacity_nodes": over[0]}
 
 
 if __name__ == "__main__":

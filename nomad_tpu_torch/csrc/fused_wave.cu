@@ -171,7 +171,9 @@ __device__ __forceinline__ float node_score(const FusedArgs& a,
   float total = powf(10.0f, fc) + powf(10.0f, fm);
   float binpack = fminf(fmaxf(20.0f - total, 0.0f), 18.0f);
   float spreadfit = fminf(fmaxf(total - 2.0f, 0.0f), 18.0f);
-  float sum = (v.alg_spread ? spreadfit : binpack) / 18.0f;
+  // torch divides a CUDA tensor by a Python scalar as a product with the
+  // scalar's f32 reciprocal (ATen div_true_kernel_cuda); so does this
+  float sum = (v.alg_spread ? spreadfit : binpack) * (1.0f / 18.0f);
   float nplanes = 1.0f;
   float collisions = (float)v.jtc[i];
   if (collisions > 0.0f) {

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/<hash>/lib<name>.so`` under the repository root, keyed by
-a hash of the source and the flags, at first use. No PyTorch headers are
+a hash of the source, every header it includes from ``csrc/`` and the
+flags, at first use. No PyTorch headers are
 involved (the library exports ``extern "C"`` entry points loaded with
 ``ctypes``), which keeps a cold build to seconds. Nothing here runs at
 import time.
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,11 +47,33 @@ def find_nvcc() -> str:
                        "build the port's kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_key(src: Path) -> str:
+    """Build key of ``src``: a hash of its bytes, of every file it
+    includes with ``#include "..."`` (relative to the including file,
+    followed recursively) and of the flags. A header edit is a new key,
+    so a stale library is never loaded."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen: set = set()
+    todo = [src.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        data = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + data + b"\0")
+        todo.extend(sorted(path.parent / m.decode()
+                           for m in _INCLUDE.findall(data)))
+    return h.hexdigest()[:16]
+
+
 def build_library(name: str) -> BuiltLibrary:
     """Compile ``csrc/<name>.cu`` (or reuse the build of the same key)."""
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = source_key(src)
     out_dir = BUILD_ROOT / key
     lib = out_dir / f"lib{name}.so"
     log_path = out_dir / f"{name}.log"

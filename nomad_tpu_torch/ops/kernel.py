@@ -311,8 +311,9 @@ def _feasible(kin: KernelIn, st, f: KernelFeatures) -> tuple:
     else:
         fit_ports = true_plane
     if f.with_devices:
-        ask = kin.ask_dev[None, :]
-        fit_dev = torch.all((ask <= 0) | (st["dev_free"] >= ask), dim=1)
+        # [.., 1, D] against [.., N, D]: one eval or a leading eval axis
+        ask = kin.ask_dev.unsqueeze(-2)
+        fit_dev = torch.all((ask <= 0) | (st["dev_free"] >= ask), dim=-1)
     else:
         fit_dev = true_plane
     if f.with_network:
@@ -654,6 +655,323 @@ def place_taskgroups_joint(
         *met.unbind(0),
         a_cpu=st["a_cpu"], a_mem=st["a_mem"], a_disk=st["a_disk"],
     )
+
+
+# ---------------------------------------------------------------------------
+# Per-eval placement: place_taskgroup and place_taskgroup_topk.
+#
+# One eval when ``n_steps`` is a scalar (the whole feature set), or a batch
+# of independent evals against one snapshot when ``n_steps`` is i32[B]:
+# JAX's ``vmap`` written out as a leading eval axis. Per-eval leaves
+# (asks, ``n_steps``, used planes) carry that axis; shared planes are [N]
+# and broadcast.
+# ---------------------------------------------------------------------------
+
+#: node-axis KernelIn leaves (the node axis first when unbatched)
+_NODE_PLANES = (
+    "cap_cpu", "cap_mem", "cap_disk", "free_cores", "shares_per_core",
+    "free_dyn", "base_mask", "used_cpu", "used_mem", "used_disk",
+    "used_cores", "used_mbits", "avail_mbits", "port_conflict", "dev_free",
+    "dev_aff_score", "job_tg_count", "penalty", "aff_score",
+    "job_any_count",
+)
+
+
+def batched_supported(f: KernelFeatures) -> bool:
+    """Whether the eval-batched form takes ``f``: the lean envelope plus
+    devices and top-k metadata. Spreads, ports, cores, network,
+    distinct_hosts, step penalties, preferred pins and shuffle read
+    per-eval step planes or counts and run one eval at a time."""
+    return f.n_spreads == 0 and not (
+        f.with_ports or f.with_cores or f.with_network or f.with_distinct
+        or f.with_step_penalties or f.with_preferred or f.with_shuffle)
+
+
+def _eval_axis(kin: KernelIn, f: KernelFeatures):
+    """``(kin, batch shape)``: ``()`` for one eval; for ``n_steps`` i32[B]
+    the per-eval scalar leaves become [B, 1] so that they broadcast
+    against [N] planes. Raises for a feature set the batched form does
+    not take."""
+    if kin.n_steps.dim() == 0:
+        return kin, ()
+    if not batched_supported(f):
+        raise ValueError(
+            f"features {f} need one eval at a time: the eval-batched form "
+            "takes the lean envelope plus devices and top-k only")
+    b = kin.n_steps.shape[0]
+    return KernelIn(*[
+        x.reshape(b, 1) if r == 0 and x.dim() == 1 else x
+        for x, r in zip(kin, KIN_UNBATCHED_RANKS)]), (b,)
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` along the last axis: ``x`` is [M] (shared) or
+    [B, M] with ``idx`` [B, ..]."""
+    if x.dim() == 1:
+        return x[idx]
+    return torch.gather(x, -1, idx.reshape(x.shape[0], -1)).reshape(
+        idx.shape)
+
+
+def _gather_nodes(x: torch.Tensor, idx: torch.Tensor, rank: int):
+    """Node rows ``idx`` of a node-axis leaf of unbatched ``rank``
+    (shared, or with a leading eval axis)."""
+    if x.dim() == rank:
+        return x[idx]
+    ix = idx.reshape(idx.shape + (1,) * (rank - 1)).expand(
+        idx.shape + x.shape[2:])
+    return torch.gather(x, 1, ix)
+
+
+def _argmax_first(x: torch.Tensor) -> torch.Tensor:
+    """Index of the maximum along the last axis, the lowest among ties
+    (``jnp.argmax``'s rule, stated rather than assumed)."""
+    n = x.shape[-1]
+    iota = torch.arange(n, device=x.device)
+    hit = x == x.amax(dim=-1, keepdim=True)
+    return torch.where(hit, iota, n).amin(dim=-1)
+
+
+def topk_ordered(x: torch.Tensor, k: int):
+    """``(values, indices)`` of the ``k`` largest along the last axis,
+    ordered by value descending then index ascending: ``lax.top_k``'s
+    order, and that of ``approx_max_k`` on the CPU, where it is exact.
+    ``torch.topk`` leaves the order of equal values unspecified, and the
+    candidate lane order decides which of two equal scores a scan takes,
+    so the boundary tie goes to the lowest indices explicitly."""
+    n = x.shape[-1]
+    thr = torch.topk(x, k, dim=-1).values[..., -1:]
+    above = x > thr
+    at = x == thr
+    need = k - above.sum(dim=-1, keepdim=True)
+    pick = above | (at & (torch.cumsum(at.to(torch.int32), dim=-1) <= need))
+    iota = torch.arange(n, device=x.device)
+    # the k picked indices, ascending: the largest keys n - index
+    idx = n - torch.topk(torch.where(pick, n - iota, -1), k, dim=-1).values
+    vals = torch.gather(x, -1, idx)
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices
+    return torch.gather(vals, -1, order), torch.gather(idx, -1, order)
+
+
+def _carry_init(kin: KernelIn, f: KernelFeatures) -> dict:
+    st = dict(used_cpu=kin.used_cpu, used_mem=kin.used_mem,
+              used_disk=kin.used_disk, job_tg_count=kin.job_tg_count)
+    if f.with_cores:
+        st["used_cores"] = kin.used_cores
+    if f.with_network:
+        st["used_mbits"] = kin.used_mbits
+    if f.with_ports:
+        st["free_dyn"] = kin.free_dyn
+        st["port_conflict"] = kin.port_conflict
+    if f.with_devices:
+        st["dev_free"] = kin.dev_free
+    if f.with_distinct:
+        st["job_any_count"] = kin.job_any_count
+    if f.n_spreads > 0:
+        st["spread_counts"] = kin.spread_counts
+    return st
+
+
+def _deduct(kin: KernelIn, st: dict, one, onei, ask_cpu_total,
+            f: KernelFeatures, spread_onehot) -> dict:
+    """The carry after the chosen node's rows (``one``/``onei``, zero
+    when nothing placed) take the ask. New tensors: nothing is written
+    in place."""
+    st2 = dict(
+        used_cpu=st["used_cpu"] + one * ask_cpu_total,
+        used_mem=st["used_mem"] + one * kin.ask_mem,
+        used_disk=st["used_disk"] + one * kin.ask_disk,
+        job_tg_count=st["job_tg_count"] + onei,
+    )
+    if f.with_cores:
+        st2["used_cores"] = st["used_cores"] + onei * kin.ask_cores
+    if f.with_network:
+        st2["used_mbits"] = st["used_mbits"] + onei * kin.ask_mbits
+    if f.with_ports:
+        st2["free_dyn"] = st["free_dyn"] - onei * kin.ask_dyn_ports
+        # the same reserved ports collide on the chosen node next step
+        st2["port_conflict"] = st["port_conflict"] | (
+            (one > 0) & kin.ask_has_reserved_ports)
+    if f.with_devices:
+        st2["dev_free"] = st["dev_free"] - (
+            one.unsqueeze(-1) * kin.ask_dev.unsqueeze(-2))
+    if f.with_distinct:
+        st2["job_any_count"] = st["job_any_count"] + onei
+    if f.n_spreads > 0:
+        st2["spread_counts"] = _bump_spread(
+            kin, st["spread_counts"], one, spread_onehot, f.n_spreads)
+    return st2
+
+
+def _first_step(kin: KernelIn, init: dict, f: KernelFeatures, bshape):
+    """Pre-placement feasibility and the AllocMetric counts of ``init``."""
+    feas0, ask_cpu_total0, dims0 = _feasible(kin, init, f)
+    n = kin.cap_cpu.shape[-1]
+    base = kin.base_mask
+
+    def count(plane):
+        return torch.broadcast_to(plane, bshape + (n,)).sum(
+            dim=-1).to(torch.int32)
+
+    metrics = dict(nodes_evaluated=count(base), nodes_feasible=count(feas0))
+    for name, dim in (("cpu", "fit_cpu"), ("mem", "fit_mem"),
+                      ("disk", "fit_disk"), ("ports", "fit_ports"),
+                      ("devices", "fit_dev"), ("cores", "fit_cores")):
+        metrics[f"exhausted_{name}"] = count(base & ~dims0[dim])
+    return feas0, ask_cpu_total0, metrics
+
+
+def _place_scan(kin: KernelIn, k_steps: int, f: KernelFeatures, bshape,
+                node_ids: torch.Tensor, spread_onehot=None, k_cand: int = 0,
+                rest_max: Optional[torch.Tensor] = None):
+    """The K placement steps over ``kin``'s node axis, whose rows are the
+    nodes ``node_ids`` (all nodes, or a candidate set): mask, score,
+    first argmax, deduct every row of the chosen node. With ``rest_max``
+    (the candidate form) preferred pins sit at rows ``k_cand + i`` and
+    ``ok`` tracks the bound: the best candidate must still reach what
+    the rest of the cluster offers. Returns (chosen, scores, found,
+    topk_idx, topk_scores, ok)."""
+    n = kin.cap_cpu.shape[-1]
+    dev = kin.cap_cpu.device
+    st = _carry_init(kin, f)
+    ok = torch.ones(bshape, dtype=torch.bool, device=dev)
+    outs = []
+    for i in range(k_steps):
+        feasible, ask_cpu_total, _ = _feasible(kin, st, f)
+        penalty = kin.penalty
+        if f.with_step_penalties:
+            pen_ids = kin.step_penalty[i].to(node_ids.dtype)
+            penalty = penalty | torch.any(
+                node_ids[..., None] == pen_ids, dim=-1)
+        final = _score(kin, st, ask_cpu_total, penalty, f, spread_onehot)
+        active = (kin.n_steps > i).reshape(bshape)
+        masked = torch.where(feasible & active[..., None], final, NEG_INF)
+        if f.with_shuffle:
+            # equal scores resolve in permutation order (util.go:464)
+            perm = kin.node_perm.to(torch.int64)
+            best = perm[_argmax_first(masked[perm])]
+        else:
+            best = _argmax_first(masked)
+        pref_ok = None
+        if f.with_preferred:
+            # preferred-node pin: taken when feasible (stack.go:120-139)
+            pref = kin.step_preferred[i].to(torch.int64)
+            row = (torch.clamp(pref, 0, n - 1) if rest_max is None
+                   else torch.tensor(k_cand + i, device=dev))
+            pref_ok = (pref >= 0) & feasible[row] & active
+            idx = torch.where(pref_ok, row, best)
+        else:
+            idx = best
+        val = _rows(masked, idx)
+        found = val > NEG_INF / 2
+        if rest_max is not None:
+            # preferred picks are taken regardless of score in the
+            # full-width form too, so the bound does not bind them
+            bound = ~active | ~found | (val >= rest_max)
+            ok = ok & (bound if pref_ok is None else bound | pref_ok)
+        if f.with_topk:
+            # stable descending sort == lax.top_k's lowest-index ties
+            topv, topi = torch.sort(masked, dim=-1, descending=True,
+                                    stable=True)
+            topv, topi = topv[..., :TOPK], _rows(node_ids, topi[..., :TOPK])
+        else:
+            topv = torch.full(bshape + (TOPK,), NEG_INF, device=dev)
+            topi = torch.zeros(bshape + (TOPK,), dtype=torch.int64,
+                               device=dev)
+        upd = found & active
+        node = _rows(node_ids, idx)
+        hit = (node_ids == node[..., None]) & upd[..., None]
+        st = _deduct(kin, st, hit.to(torch.float32), hit.to(torch.int32),
+                     ask_cpu_total, f, spread_onehot)
+        outs.append((torch.where(found, node, -1).to(torch.int32),
+                     torch.where(found, val, 0.0), upd,
+                     topi.to(torch.int32), topv))
+    chosen, scores, found = (torch.stack([o[j] for o in outs], dim=-1)
+                             for j in range(3))
+    topk_idx, topk_scores = (torch.stack([o[j] for o in outs], dim=-2)
+                             for j in (3, 4))
+    return chosen, scores, found, topk_idx, topk_scores, ok
+
+
+def place_taskgroup(kin: KernelIn, k_steps: int,
+                    features: KernelFeatures = FULL_FEATURES) -> KernelOut:
+    """Place up to ``k_steps`` allocations of one task group (or of B
+    evals, see the section note): each step masks, scores, takes the
+    first argmax and deducts the chosen node's planes before the next.
+    Steps past ``n_steps`` are inactive. ``features`` removes planes the
+    ask does not use."""
+    f = features
+    kin, bshape = _eval_axis(kin, f)
+    n = kin.cap_cpu.shape[-1]
+    dev = kin.cap_cpu.device
+    spread_onehot = (_spread_onehot(kin.spread_bucket, f.n_spreads)
+                     if f.n_spreads > 0 else None)
+    _, _, metrics = _first_step(kin, _carry_init(kin, f), f, bshape)
+    chosen, scores, found, topi, topv, _ = _place_scan(
+        kin, k_steps, f, bshape, torch.arange(n, device=dev),
+        spread_onehot)
+    return KernelOut(chosen, scores, found, topi, topv, **metrics)
+
+
+def place_taskgroup_topk(kin: KernelIn, k_steps: int,
+                         features: KernelFeatures = FULL_FEATURES,
+                         n_candidates: int = 0):
+    """Candidate-set placement: one full-width scoring pass, then the
+    K-step scan over the top ``k_cand`` candidates only.
+
+    The (k_cand+1)-th initial score bounds everything outside the set
+    while placements only move non-chosen scores down (utilization,
+    anti-affinity, penalties); the scan checks that bound against the
+    exact ``rest_max`` and returns ``valid=False`` where it breaks, or
+    where a placement is missing while the rest of the cluster could
+    still take it. The caller then re-runs ``place_taskgroup``. Spread
+    stanzas can raise non-candidate scores, so they are refused.
+
+    Returns ``(KernelOut, valid)``; ``valid`` is a bool scalar, or [B]."""
+    f = features
+    if f.n_spreads > 0:
+        raise ValueError("the top-K path requires no spread stanzas")
+    kin, bshape = _eval_axis(kin, f)
+    n = kin.cap_cpu.shape[-1]
+    dev = kin.cap_cpu.device
+    k_cand = n_candidates or min(n, max(2 * k_steps, k_steps + 8, TOPK))
+
+    init = _carry_init(kin, f)
+    feas0, ask_cpu_total0, metrics = _first_step(kin, init, f, bshape)
+    final0 = _score(kin, init, ask_cpu_total0, kin.penalty, f, None)
+    masked0 = torch.broadcast_to(torch.where(feas0, final0, NEG_INF),
+                                 bshape + (n,))
+    _, cand_idx = topk_ordered(masked0, k_cand)
+    rest_max = masked0.scatter(-1, cand_idx, NEG_INF).amax(dim=-1)
+
+    # preferred nodes stay selectable outside the top-K: appended rows
+    # (a duplicate of a top-K node shares its deductions in the scan)
+    pref_pad = torch.zeros(bshape + (k_cand,), dtype=torch.bool, device=dev)
+    if f.with_preferred:
+        prefs = kin.step_preferred[:k_steps].to(torch.int64)
+        cand_idx = torch.cat([cand_idx, torch.clamp(prefs, 0, n - 1)])
+        pref_pad = torch.cat([pref_pad, prefs < 0])
+    if f.with_shuffle:
+        # per-eval random candidate order from the node permutation
+        cand_perm = torch.argsort(
+            kin.node_perm.to(torch.int64)[cand_idx], stable=True)
+    else:
+        cand_perm = torch.arange(cand_idx.shape[-1], device=dev)
+    planes = {name: _gather_nodes(getattr(kin, name), cand_idx,
+                                  getattr(KIN_UNBATCHED_RANKS, name))
+              for name in _NODE_PLANES}
+    planes["base_mask"] = planes["base_mask"] & ~pref_pad
+    kin_c = kin._replace(node_perm=cand_perm, **planes)
+
+    chosen, scores, found, topi, topv, ok = _place_scan(
+        kin_c, k_steps, f, bshape, cand_idx, k_cand=k_cand,
+        rest_max=rest_max)
+    # a placement missing while the rest of the cluster could still
+    # take one also invalidates the candidate set
+    steps = torch.arange(k_steps, device=dev)
+    missing = torch.any((steps < kin.n_steps) & ~found, dim=-1)
+    ok = ok & (~missing | (rest_max <= NEG_INF / 2))
+    return KernelOut(chosen, scores, found, topi, topv, **metrics), ok
 
 
 # ---------------------------------------------------------------------------

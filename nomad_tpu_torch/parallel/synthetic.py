@@ -10,7 +10,7 @@ plus the C2M-shaped heterogeneous cluster and resident-alloc packing of
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
@@ -150,6 +150,43 @@ def synthetic_eval(
         desired_count=desired_count,
         algorithm="binpack",
     )
+
+
+class ThroughputProblem(NamedTuple):
+    """One throughput burst, numpy: the shared planes, the resident used
+    planes and ``n_batches`` x ``batch`` asks."""
+
+    kin: KernelIn
+    used_cpu: np.ndarray     # f32[N]
+    used_mem: np.ndarray     # f32[N]
+    ask_cpu: np.ndarray      # f32[T, B]
+    ask_mem: np.ndarray      # f32[T, B]
+    n_steps: np.ndarray      # i32[B]
+
+
+def throughput_problem(n_batches: int, batch: int, n_nodes: int = 10_000,
+                       placements: int = 10,
+                       seed: int = 7) -> ThroughputProblem:
+    """The setup of the JAX bench's throughput cell (``bench.py``
+    ``run_tpu``, :385-428): ``synthetic_cluster(n_nodes, cpu=3900,
+    mem=7936, disk=98304)``, used cpu/mem planes filled to a uniform
+    random 0-60% per node, asks drawn from {250, 500, 750} MHz x {128,
+    256, 512} MB, ``placements`` per eval."""
+    rng = np.random.default_rng(seed)
+    cluster = synthetic_cluster(n_nodes, cpu=3900.0, mem=7936.0,
+                                disk=98304.0, seed=seed)
+    ev0 = synthetic_eval(cluster, desired_count=placements)
+    kin = build_kernel_in(cluster, ev0, placements)
+    used_cpu = np.zeros(cluster.n_pad, np.float32)
+    used_mem = np.zeros(cluster.n_pad, np.float32)
+    used_cpu[:n_nodes] = 3900.0 * 0.6 * rng.random(n_nodes, dtype=np.float32)
+    used_mem[:n_nodes] = 7936.0 * 0.6 * rng.random(n_nodes, dtype=np.float32)
+    ask_cpu = rng.choice([250.0, 500.0, 750.0],
+                         (n_batches, batch)).astype(np.float32)
+    ask_mem = rng.choice([128.0, 256.0, 512.0],
+                         (n_batches, batch)).astype(np.float32)
+    return ThroughputProblem(kin, used_cpu, used_mem, ask_cpu, ask_mem,
+                             np.full(batch, placements, np.int32))
 
 
 def synthetic_kernel_in(

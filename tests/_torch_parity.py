@@ -178,3 +178,64 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: CUDA is not available")
     return torch.device("cuda")
+
+
+#: the batched-path inputs of tests/test_pallas_kernel.py: 200 nodes
+#: (N=256), batches of 8 evals, 5 placements each
+LEAN_NODES = 200
+LEAN_B = 8
+LEAN_K = 5
+
+#: lean-batch scenarios: ``random`` used planes (0-50%), ``tied`` zero
+#: usage (every node scores alike: pins the tie order), ``planes``
+#: penalty/affinity/job-count planes with the spread fit,
+#: ``one_per_node`` zero usage and 1200 MHz asks (a node takes one)
+LEAN_SCENARIOS = ("random", "tied", "planes", "one_per_node")
+
+
+def lean_case(seed, scenario, b=LEAN_B, k=LEAN_K, t=None, lib="ref"):
+    """``(kin, used_cpu, used_mem, ask_cpu, ask_mem, n_steps)``, numpy,
+    for one lean batch (asks [b], or [t, b] with ``t``)."""
+    kmod, smod = _lib(lib)
+    rng = np.random.default_rng(seed)
+    cluster = smod.synthetic_cluster(LEAN_NODES, cpu=2000.0, mem=4096.0,
+                                     disk=50000.0, seed=3)
+    kin = kmod.build_kernel_in(
+        cluster, smod.synthetic_eval(cluster, desired_count=k), k)
+    n, npad = LEAN_NODES, cluster.n_pad
+    uc = np.zeros(npad, np.float32)
+    um = np.zeros(npad, np.float32)
+    if scenario in ("random", "planes"):
+        uc[:n] = 2000.0 * 0.5 * rng.random(n, dtype=np.float32)
+        um[:n] = 4096.0 * 0.5 * rng.random(n, dtype=np.float32)
+    if scenario == "planes":
+        aff = np.where(rng.random(npad) < 0.2, rng.uniform(-0.5, 1.0, npad),
+                       0.0).astype(np.float32)
+        kin = kin._replace(
+            penalty=rng.random(npad) < 0.1, aff_score=aff,
+            job_tg_count=rng.integers(0, 3, npad).astype(np.int32),
+            algorithm_spread=np.asarray(True),
+            desired_count=np.asarray(3, np.int32))
+    shape = (b,) if t is None else (t, b)
+    if scenario == "one_per_node":
+        ac = np.full(shape, 1200.0, np.float32)
+        am = np.full(shape, 64.0, np.float32)
+    else:
+        ac = rng.choice([100.0, 250.0, 500.0], shape).astype(np.float32)
+        am = rng.choice([64.0, 128.0, 256.0], shape).astype(np.float32)
+    ns = np.full(b, k, np.int32)
+    ns[-1] = k // 2             # inactive steps past n_steps
+    return kin, uc, um, ac, am, ns
+
+
+def lean_args(kin, uc, um, ac, am, ns):
+    """The 16 lean arguments in ``pallas_place_batch`` order (numpy)."""
+    return [np.asarray(x) for x in (
+        kin.cap_cpu, kin.cap_mem, kin.cap_disk, uc, um, kin.used_disk,
+        kin.base_mask, kin.job_tg_count, kin.penalty, kin.aff_score,
+        ac, am, kin.ask_disk, ns, kin.desired_count,
+        kin.algorithm_spread)]
+
+
+def torch_args(args, device="cpu"):
+    return [torch.from_numpy(np.array(a)).to(device) for a in args]

@@ -1,4 +1,4 @@
-"""The CUDA fused-wave kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, on the card.
 
 Imports nothing of JAX or of ``nomad_tpu`` (members come from the port's
 own synthetic builders), so it runs where only the port is installed:
@@ -6,8 +6,8 @@ own synthetic builders), so it runs where only the port is installed:
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_gpu.py
 
 Every test takes the ``cuda_device`` fixture, which skips without a card.
-Choices, found, top-k indices and metrics must match exactly; scores,
-top-k scores and carries within 1e-5.
+Choices, found, ``valid``, top-k indices and metrics must match exactly;
+scores, top-k scores and carries within 1e-5.
 """
 
 import numpy as np
@@ -126,3 +126,89 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="envelope"):
         ck.fused_wave_place(kin, sm, sl, t_pad,
                             feats._replace(with_cores=True))
+
+
+def _lean_on(scenario, seed, device, k=tp.LEAN_K, b=tp.LEAN_B):
+    args = tp.lean_args(*tp.lean_case(seed, scenario, b=b, k=k, lib="port"))
+    return tp.torch_args(args, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scenario", tp.LEAN_SCENARIOS)
+def test_cuda_place_batch_matches_plain(scenario, cuda_device):
+    args = _lean_on(scenario, 30, cuda_device, k=10, b=64)
+    copies = [a.clone() for a in args]
+    before = ck.place_batch_launches
+    got = ck.place_batch(*args, k_steps=10)
+    assert ck.place_batch_launches == before + 1
+    want = ck.place_batch_reference(*args, k_steps=10)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(args, copies))
+    assert torch.equal(got.chosen, want.chosen)
+    assert torch.equal(got.found, want.found)
+    np.testing.assert_allclose(got.scores.cpu().numpy(),
+                               want.scores.cpu().numpy(), rtol=0, atol=ATOL)
+    assert got.found.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scenario", tp.LEAN_SCENARIOS)
+@pytest.mark.parametrize("k_steps,k_cand", ((tp.LEAN_K, 64), (10, 8)))
+def test_cuda_topk_place_batch_matches_plain(scenario, k_steps, k_cand,
+                                             cuda_device):
+    args = _lean_on(scenario, 31, cuda_device, k=k_steps, b=64)
+    copies = [a.clone() for a in args]
+    before = ck.cand_scan_launches
+    got = ck.topk_place_batch(*args, k_steps=k_steps, k_cand=k_cand)
+    assert ck.cand_scan_launches == before + 1
+    want = ck.topk_place_batch_reference(*args, k_steps=k_steps,
+                                         k_cand=k_cand)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(args, copies))
+    for name, g, w in zip(("chosen", "scores", "found", "valid"), got, want):
+        if name == "scores":
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=0, atol=ATOL)
+        else:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+def test_cuda_lean_wrappers_reject_bad_inputs(cuda_device):
+    args = _lean_on("random", 32, cuda_device)
+    for fn in (ck.place_batch, ck.topk_place_batch):
+        bad = list(args)
+        bad[4] = bad[4].double()
+        with pytest.raises(ValueError, match="dtype"):
+            fn(*bad, k_steps=tp.LEAN_K)
+        bad = list(args)
+        bad[10] = torch.stack([bad[10], bad[10]], dim=1)[:, 0]
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(*bad, k_steps=tp.LEAN_K)
+        with pytest.raises(ValueError, match="k_steps"):
+            fn(*args, k_steps=129)
+        mixed = list(args)
+        mixed[1] = mixed[1].cpu()
+        with pytest.raises(ValueError, match="is on"):
+            fn(*mixed, k_steps=tp.LEAN_K)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_loop_matches_torch_loop(cuda_device):
+    from nomad_tpu_torch.ops.kernel import LEAN_FEATURES
+    from nomad_tpu_torch.parallel import batching as tb
+
+    kin, uc, um, ac, am, ns = tp.lean_case(33, "random", t=3, lib="port")
+    shared = tb.device_put_shared(kin, cuda_device)
+    ins = [torch.from_numpy(x).to(cuda_device) for x in (uc, um, ac, am, ns)]
+    before = ck.cand_scan_launches
+    got = tb.make_schedule_apply_loop(tp.LEAN_K, LEAN_FEATURES, topk=True,
+                                      backend="kernel_topk")(shared, *ins)
+    assert ck.cand_scan_launches == before + 3
+    want = tb.make_schedule_apply_loop(tp.LEAN_K, LEAN_FEATURES,
+                                       topk=True)(shared, *ins)
+    assert int(got[1]) == int(want[1]) > 0
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-5)
+    for g, w in zip(got[3:], want[3:]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-5)

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of nomad_tpu, no silent CPU.
 
 A subprocess blocks ``jax`` and ``nomad_tpu`` in ``sys.modules`` and
-still imports the port and runs one small wave on the CPU; a static scan
+still imports the port and runs one small wave and one batched
+schedule-apply loop (``backend="kernel_topk"``) on the CPU; a static scan
 finds no such import in the package or in chip_smoke.py; a default
 device entry point raises on a machine without a card.
 """
@@ -37,6 +38,17 @@ kins = [build_kernel_in(cluster, synthetic_eval(cluster, used_frac=0.3,
         for s in range(2)]
 outs = launch_wave(kins, [3, 3], [LEAN_FEATURES] * 2, device="cpu")
 assert all(o.found.all() for o in outs), outs
+import torch
+from nomad_tpu_torch.parallel.batching import (device_put_shared,
+                                               make_schedule_apply_loop)
+from nomad_tpu_torch.parallel.synthetic import throughput_problem
+p = throughput_problem(2, 4, n_nodes=60, placements=3)
+loop = make_schedule_apply_loop(3, LEAN_FEATURES, topk=True,
+                                backend="kernel_topk")
+score, placed, fallback, uc, um = loop(
+    device_put_shared(p.kin, "cpu"), *[torch.from_numpy(x) for x in (
+        p.used_cpu, p.used_mem, p.ask_cpu, p.ask_mem, p.n_steps)])
+assert int(placed) == 2 * 4 * 3 and float(score) > 0, (placed, score)
 new = {m for m in sys.modules if sys.modules[m] is not None
        and (m == "jax" or m.startswith(("jax.", "nomad_tpu.")))} - before
 assert not new, sorted(new)
