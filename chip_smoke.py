@@ -93,6 +93,15 @@ OPS_PER_NODE_STEP = 28
 #: per (member, node) for the pre-wave metrics pass
 OPS_PER_NODE_METRIC = 10
 
+
+def bound(nbytes: int, ops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the byte time at HBM_BYTES_S
+    and the operation time at F32_OPS_S."""
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = ops / F32_OPS_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
 VARIANTS = ("lean", "shuffle", "penalty_preferred", "distinct", "ports",
             "kitchen_sink")
 
@@ -525,9 +534,7 @@ def run_phases(dev: torch.device, record: dict) -> dict:
     nbytes = wave_bytes(wave, out)
     ops = active * n * OPS_PER_NODE_STEP + wave.b_pad * n * \
         OPS_PER_NODE_METRIC
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    ops_ms = ops / F32_OPS_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by = bound(nbytes, ops)
     max_err = max(r["max_abs_err"] for r in live + scale)
     kline = {"kernels": [{
         "name": "fused_wave_place",
@@ -539,12 +546,10 @@ def run_phases(dev: torch.device, record: dict) -> dict:
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_us": bound_ms * 1e3,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_by": bound_by,
         "library_ms": None,
     }]}
-    record["times"] = {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
-                       "ops_ms": ops_ms, "active_steps": active,
+    record["times"] = {"bytes": nbytes, "ops": ops, "active_steps": active,
                        "n": n, "b": wave.b_pad, "t": wave.t_pad}
     record["kernels"] = kline["kernels"]
     return kline
@@ -560,11 +565,24 @@ BATCH_B2 = 8192      # bench.py _bench_batch on an accelerator
 BATCHES_B2 = 25      # 8192 x 25 evals, the bench's burst
 REPLAY_BATCHES = 4
 K_CAND = 64          # pallas_topk_place_batch's default candidate count
-#: f32 operations of the lean score per (active step, node or candidate):
-#: fit compares (6), utilization adds and free fractions (6), two pow,
-#: the fit sum, clamps, select and scale (7), anti-affinity (4), plane
-#: sums and the final divide (4), argmax compare (1)
-OPS_PER_LEAN_STEP = 30
+#: f32 operations of the lean score of one node: fit compares (6),
+#: utilization adds and free fractions (6), two pow, the fit sum, clamps,
+#: select and scale (7), anti-affinity (4), plane sums and the final
+#: divide (4)
+OPS_PER_LEAN_SCORE = 27
+
+
+def lean_ops(n_steps, k_steps: int, width: int) -> int:
+    """f32 operations a lean batch placement needs over ``width`` nodes
+    (or candidates): a step changes only the chosen node's carries, so
+    each eval scores every node once, then each active step takes one
+    argmax compare per node and rescores the chosen node. The kernels
+    rescore every node at every step; that is their design's redundancy,
+    not the function's floor."""
+    evals = int((n_steps > 0).sum())
+    active = int(np.minimum(n_steps, k_steps).sum())
+    return evals * width * OPS_PER_LEAN_SCORE + active * (
+        width + OPS_PER_LEAN_SCORE)
 
 
 def compare_lean(got, want, n_steps, ctx: str) -> dict:
@@ -596,13 +614,6 @@ def lean_bytes(v: dict, out) -> int:
     """Bytes a batch kernel must move: each lean argument once (the
     shared planes once, not once per eval) and each output once."""
     return sum(x.nbytes for x in v.values()) + sum(x.nbytes for x in out)
-
-
-def bound(nbytes: int, ops: float) -> tuple:
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    ops_ms = ops / F32_OPS_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
 
 
 def over_capacity(kin, uc, um) -> int:
@@ -676,7 +687,7 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
         lambda: ck.place_batch_reference(*lean, k_steps=K_PLACE), 3)
     b3_bound, b3_by = bound(
         lean_bytes(v3, got),
-        b3["active_steps"] * v3["cap_cpu"].shape[0] * OPS_PER_LEAN_STEP)
+        lean_ops(prob.n_steps, K_PLACE, v3["cap_cpu"].shape[0]))
 
     # ---- 8. B2 and the loop at the bench shape ----
     prob = throughput_problem(BATCHES_B2, BATCH_B2, seed=7)
@@ -725,10 +736,9 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
         lambda: ck.cand_scan_reference(cand, rest, v2, K_PLACE), 3)
     pass_ms = cuda_ms(lambda: ck.candidate_pass(v2, K_CAND), 5)
     scan_out = ck._cand_scan(cand, rest, v2, K_PLACE)
-    active = int(np.minimum(prob.n_steps, K_PLACE).sum())
     b2_bound, b2_by = bound(
         lean_bytes(v2, scan_out) + cand.nbytes + rest.nbytes,
-        active * K_CAND * OPS_PER_LEAN_STEP)
+        lean_ops(prob.n_steps, K_PLACE, K_CAND))
     split = {"full_width_pass_ms": pass_ms, "scan_ms": b2_ms,
              "batch_ms": k_s / BATCHES_B2 * 1e3}
     log(f"b2 batch split: {json.dumps(split)}")

@@ -14,10 +14,15 @@
 //
 // What bounds it. Per eval it reads KC i32 node ids and, through them,
 // rows of ten shared [N] planes (~0.6 MB at N=16384, read once, then from
-// L2); it writes [B, K] outputs. At B=8192, KC=64, K=10: ~3 MB, ~1 us at
-// 3.35 TB/s. The work is B*K*KC candidate scores, ~25 f32 operations each
-// with two powf: ~1.3e8, ~2 us at 67 TFLOP/s. Both bounds are small; the
-// scan is a sliver of the batch, whose time is the full-width pass.
+// L2); it writes [B, K] outputs. At B=8192, KC=64, K=10: ~3.5 MB, ~1 us
+// at 3.35 TB/s. A step changes only the chosen node's carries, so the
+// function needs B*KC candidate scores (~27 f32 operations each with two
+// powf), one argmax compare per (step, candidate) and one rescore per
+// step: ~2.2e7, ~0.3 us at 67 TFLOP/s, so it is bound by bytes. This
+// design rescores every candidate at every step (B*K*KC scores): that
+// redundancy is the design's, not the function's floor. Both bounds are
+// small; the scan is a sliver of the batch, whose time is the full-width
+// pass.
 //
 // Design (simple first). One warp per eval, eight evals per block of 256
 // threads. Candidate c lives in lane c % 32, slot c / 32 (up to four

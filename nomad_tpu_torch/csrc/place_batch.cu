@@ -10,10 +10,13 @@
 //
 // What bounds it. The inputs are ten shared [N] planes (read once: ~0.6 MB
 // at N=16384) and six [B] ask vectors; the outputs are [B, K]. Bytes give
-// well under a microsecond. The work is B*K*N node scores, each two powf,
-// three divides and ~20 other f32 operations: ~2.1e9 operations at B=512,
-// K=10, N=16384, ~31 us at 67 TFLOP/s. It is bound by operations, and the
-// powf calls dominate them.
+// well under a microsecond. A step changes only the chosen node's carries,
+// so the function needs B*N node scores (~27 f32 operations each with two
+// powf), one argmax compare per (step, node) and one rescore per
+// step: ~3.1e8 operations at B=512, K=10, N=16384, ~5 us at 67 TFLOP/s.
+// It is bound by operations. This design rescores every node at every
+// step (B*K*N scores, ~10x the function's floor): that redundancy is the
+// design's, kept because it needs no [B, N] score scratch.
 //
 // Design (simple first). One block of 512 threads per eval, a loop over the
 // K steps inside it; each thread strides over the node axis, scores its

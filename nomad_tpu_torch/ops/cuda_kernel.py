@@ -115,7 +115,7 @@ _LIBS: dict = {}          # name -> (entry point, BuiltLibrary)
 _LIB_LOCK = threading.Lock()
 
 
-def load_library(name: str = "fused_wave") -> BuiltLibrary:
+def load_library(name: str) -> BuiltLibrary:
     """Build (or reuse) and load ``lib<name>.so``; returns the build
     record, whose ``log`` carries ptxas's register/spill report."""
     with _LIB_LOCK:
@@ -132,11 +132,11 @@ def load_library(name: str = "fused_wave") -> BuiltLibrary:
         return _LIBS[name][1]
 
 
-def load_libraries(names=tuple(_ENTRY)) -> dict:
+def load_libraries() -> dict:
     """Build every library at once (one ``nvcc`` each, started
     together); returns ``{name: BuiltLibrary}``."""
-    with ThreadPoolExecutor(len(names)) as pool:
-        return dict(zip(names, pool.map(load_library, names)))
+    with ThreadPoolExecutor(len(_ENTRY)) as pool:
+        return dict(zip(_ENTRY, pool.map(load_library, _ENTRY)))
 
 
 def _call(name: str, args, dev: torch.device, what: str) -> None:

@@ -914,8 +914,7 @@ def place_taskgroup(kin: KernelIn, k_steps: int,
 
 
 def place_taskgroup_topk(kin: KernelIn, k_steps: int,
-                         features: KernelFeatures = FULL_FEATURES,
-                         n_candidates: int = 0):
+                         features: KernelFeatures = FULL_FEATURES):
     """Candidate-set placement: one full-width scoring pass, then the
     K-step scan over the top ``k_cand`` candidates only.
 
@@ -934,7 +933,7 @@ def place_taskgroup_topk(kin: KernelIn, k_steps: int,
     kin, bshape = _eval_axis(kin, f)
     n = kin.cap_cpu.shape[-1]
     dev = kin.cap_cpu.device
-    k_cand = n_candidates or min(n, max(2 * k_steps, k_steps + 8, TOPK))
+    k_cand = min(n, max(2 * k_steps, k_steps + 8, TOPK))
 
     init = _carry_init(kin, f)
     feas0, ask_cpu_total0, metrics = _first_step(kin, init, f, bshape)

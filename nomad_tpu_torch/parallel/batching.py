@@ -33,6 +33,7 @@ from nomad_tpu_torch.device import DeviceLike, resolve_device
 from nomad_tpu_torch.ops.cuda_kernel import place_batch, topk_place_batch
 from nomad_tpu_torch.ops.kernel import (
     FULL_FEATURES,
+    LEAN_FEATURES,
     MAX_DEV_REQS,
     NEG_INF,
     KernelFeatures,
@@ -162,6 +163,11 @@ def make_schedule_apply_loop(k_steps: int,
     0-d tensors and [N] planes on the device of the inputs."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: want one of {BACKENDS}")
+    if backend == "kernel_topk" and (features != LEAN_FEATURES or not topk):
+        # the kernel scores the lean envelope with candidates; its
+        # breached rows must fall back to the same score function
+        raise ValueError("backend 'kernel_topk' takes LEAN_FEATURES with "
+                         "topk=True only")
 
     def place(shared, uc, um, a_cpu, a_mem, n_steps):
         kin = shared._replace(used_cpu=uc, used_mem=um, ask_cpu=a_cpu,

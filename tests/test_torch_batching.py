@@ -19,7 +19,7 @@ from nomad_tpu.ops.kernel import LEAN_FEATURES as REF_LEAN
 from nomad_tpu.ops.pallas_kernel import make_schedule_apply_step_pallas
 from nomad_tpu.parallel import batching as rb
 from nomad_tpu_torch.ops import cuda_kernel as ck
-from nomad_tpu_torch.ops.kernel import LEAN_FEATURES
+from nomad_tpu_torch.ops.kernel import FULL_FEATURES, LEAN_FEATURES
 from nomad_tpu_torch.parallel import batching as tb
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -136,6 +136,18 @@ def test_loop_rejects_unknown_backend():
     with pytest.raises(ValueError, match="backend"):
         tb.make_schedule_apply_loop(tp.LEAN_K, LEAN_FEATURES,
                                     backend="pallas_topk")
+
+
+@pytest.mark.parametrize("features,topk", ((FULL_FEATURES, True),
+                                           (LEAN_FEATURES, False)),
+                         ids=("full-features", "no-topk"))
+def test_kernel_topk_loop_rejects_other_score_functions(features, topk):
+    """The kernel scores the lean envelope over candidates; its breached
+    rows fall back with the caller's features, so any other set would
+    score primary and fallback rows by different functions."""
+    with pytest.raises(ValueError, match="kernel_topk"):
+        tb.make_schedule_apply_loop(tp.LEAN_K, features, topk=topk,
+                                    backend="kernel_topk")
 
 
 @pytest.mark.parametrize("reset", (0, 1))
