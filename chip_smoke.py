@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's placement paths on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --b1-study   # B1's cluster sizes and step split
 
 The quickest proof that the port (``nomad_tpu_torch``) starts and is right
 on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
@@ -30,6 +31,11 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
 9. the replay form: the same loop with ``reset_every=1`` on a C2M cluster
    of 10k nodes with 100k resident allocs.
 
+``--b1-study`` runs instead B1 built at both cluster sizes (16 CTAs, the
+default, and the portable 8) on a live and a scale wave, each against the
+plain version, then both timed in turns; and a build with per-phase cycle
+stamps (``-DFW_PROFILE``) that splits a wave's time by phase.
+
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit, and before that the kernels' JSON line. A full record
@@ -38,17 +44,21 @@ goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from nomad_tpu_torch.ops import cuda_kernel as ck
+from nomad_tpu_torch.ops.build import build_library
 from nomad_tpu_torch.ops.kernel import (
     FUSED_METRIC_FIELDS,
     LEAN_FEATURES,
@@ -84,12 +94,14 @@ ATOL = 1e-5          # scores, top-k scores and carries: kernel vs plain
 NEAR_TIE = 1e-5      # a differing choice is excused only below this gap
 HBM_BYTES_S = 3.35e12            # H100 SXM device memory rate
 F32_OPS_S = 67e12                # H100 SXM f32 rate outside tensor cores
-#: f32 operations the fused wave needs per (active step, node): used +
-#: carry (3), fit subtractions and compares (6), utilization adds (2),
-#: two divides and two pow for the free fractions, the fit sum, clamps
-#: and select (6), normalisation (anti-affinity, penalty, affinity
-#: planes and the final divide: 6), argmax and top-8 compares (3)
-OPS_PER_NODE_STEP = 28
+#: f32 operations of one (member, node) score: used + carry (3), fit
+#: subtractions and compares (6), utilization adds (2), two divides and
+#: two pow for the free fractions, the fit sum, clamps and select (6),
+#: normalisation (anti-affinity, penalty, affinity planes and the final
+#: divide: 6), and the mask (2)
+OPS_PER_NODE_SCORE = 25
+#: per (active step, node): the argmax compare and the top-8 compares
+OPS_PER_NODE_SELECT = 3
 #: per (member, node) for the pre-wave metrics pass
 OPS_PER_NODE_METRIC = 10
 
@@ -277,6 +289,22 @@ def capacity_ok(cluster, resident, ctx: str) -> None:
         check(over == 0, f"{ctx}: {over} nodes over capacity in {plane}")
 
 
+def wave_ops(wave) -> int:
+    """f32 operations the fused wave needs: a step changes only the
+    chosen node's carries, so each member with a step scores every node
+    once; each active step then selects over every node (argmax and
+    top-8 compares) and rescores the chosen node and its penalty nodes;
+    plus the metrics pass over every (member, node)."""
+    n = wave.kin.cap_cpu.shape[-1]
+    sm = wave.step_member.cpu().numpy()
+    members = len(np.unique(sm[sm >= 0]))
+    active = active_steps(wave)
+    return (members * n * OPS_PER_NODE_SCORE
+            + active * (n * OPS_PER_NODE_SELECT
+                        + (1 + MAX_PENALTY_NODES) * OPS_PER_NODE_SCORE)
+            + wave.b_pad * n * OPS_PER_NODE_METRIC)
+
+
 def wave_bytes(wave, out) -> int:
     """Bytes the fused wave must move: each input leaf the kernel reads
     once (shared leaves once, stacked ones per member), the step maps,
@@ -299,6 +327,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--b1-study", action="store_true",
+                    help="B1 at both cluster sizes and its per-phase split, "
+                         "then stop")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke run needs an NVIDIA card", file=sys.stderr)
@@ -326,6 +359,14 @@ def main() -> int:
         log(f"build: {b.path} (cached={b.cached})")
     log(f"build: {len(builds)} libraries in {record['build_s']:.2f} s")
 
+    if args.b1_study:
+        sweep = b1_study(dev)
+        (Path(__file__).resolve().parent / "chiprun_out").mkdir(exist_ok=True)
+        (Path(__file__).resolve().parent / "chiprun_out"
+         / "b1_study.json").write_text(json.dumps(sweep, indent=1))
+        print(json.dumps(sweep))
+        print(smi)
+        return 0
     kline = run_phases(dev, record)
     kline["kernels"] += run_batch_phases(dev, record)
     record["card"] = smi
@@ -451,6 +492,7 @@ def run_phases(dev: torch.device, record: dict) -> dict:
             "fallbacks": fstats["fallbacks"], "evals": evals,
             "placements": n_placed, "wall_s": wall,
             "evals_per_s": evals / wall,
+            "round_ms": wall * 1e3 / MAIN_ROUNDS,
             "wave_latency_p50_ms": wstats["wave_latency_p50_ms"],
             "wave_latency_p99_ms": wstats["wave_latency_p99_ms"],
             "park_latency_p50_ms": wstats["park_latency_p50_ms"],
@@ -532,10 +574,15 @@ def run_phases(dev: torch.device, record: dict) -> dict:
     n = wave.kin.cap_cpu.shape[-1]
     active = active_steps(wave)
     nbytes = wave_bytes(wave, out)
-    ops = active * n * OPS_PER_NODE_STEP + wave.b_pad * n * \
-        OPS_PER_NODE_METRIC
+    ops = wave_ops(wave)
     bound_ms, bound_by = bound(nbytes, ops)
     max_err = max(r["max_abs_err"] for r in live + scale)
+    cluster_ctas = ck.fused_wave_cluster_size()
+    us_per_step = kernel_ms * 1e3 / active
+    log(f"b1: {kernel_ms:.4f} ms per live wave, {us_per_step:.3f} us per "
+        f"active step ({active} active of {wave.t_pad}), cluster of "
+        f"{cluster_ctas} CTAs; scale waves "
+        f"{[round(r['ms'], 4) for r in scale]} ms")
     kline = {"kernels": [{
         "name": "fused_wave_place",
         "route": "cuda",
@@ -548,11 +595,102 @@ def run_phases(dev: torch.device, record: dict) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "cluster": cluster_ctas,
     }]}
     record["times"] = {"bytes": nbytes, "ops": ops, "active_steps": active,
+                       "us_per_active_step": us_per_step,
+                       "cluster": cluster_ctas,
                        "n": n, "b": wave.b_pad, "t": wave.t_pad}
     record["kernels"] = kline["kernels"]
     return kline
+
+
+SWEEP_CLUSTERS = (16, 8)
+#: csrc/fused_wave.cu ``ProfSlot`` order
+PROF_SLOTS = ("prewave", "ballot", "row_pass", "special", "scan",
+              "cta_merge", "cluster_sync", "cluster_merge", "step_sync",
+              "tail", "row_rank", "row_list", "total")
+PER_STEP_SLOTS = ("special", "scan", "cta_merge", "cluster_sync",
+                  "cluster_merge", "step_sync")
+
+
+def b1_study(dev: torch.device) -> dict:
+    """B1 built with FW_CLUSTER=16 and =8 and with -DFW_PROFILE (one
+    nvcc each, together) on the live kitchen-sink wave and a kitchen-sink
+    wave at 100k nodes: each cluster size against the plain version, then
+    CUDA-event times of both in turns (16, 8, 8, 16), so both see the same
+    card and waves; then the profiled build's cycles per phase, as CTA
+    0's thread 0 sees them, scaled to that build's own wave time."""
+    rng = np.random.default_rng(SEED)
+    waves = {}
+    for name, nodes, allocs in (("live", 10_000, 100_000),
+                                ("scale", 100_000, 1_000_000)):
+        seed = SEED if name == "live" else SEED + 1
+        cluster = c2m_cluster(nodes, seed=seed)
+        usage = c2m_pack_usage(cluster, allocs, seed=seed)[:3]
+        waves[name] = wave_of(base_kin(cluster, usage), cluster,
+                              "kitchen_sink", rng, dev)
+    default = ck.load_library("fused_wave")
+    variants = [(f"FW_CLUSTER={c}",) for c in SWEEP_CLUSTERS] + [
+        ("FW_PROFILE=1",)]
+    with ThreadPoolExecutor(len(variants)) as pool:
+        built = list(pool.map(lambda d: build_library("fused_wave", d),
+                              variants))
+    builds = dict(zip(SWEEP_CLUSTERS, built))
+    out = {c: {"checks": [], "live_ms": [], "scale_ms": []}
+           for c in SWEEP_CLUSTERS}
+    for c in SWEEP_CLUSTERS:
+        ck.use_build("fused_wave", builds[c])
+        check(ck.fused_wave_cluster_size() == c, f"build for {c} CTAs")
+        for name, wave in waves.items():
+            args = (wave.kin, wave.step_member, wave.step_local, wave.t_pad,
+                    wave.features)
+            got = ck.fused_wave_place(*args)
+            want = ck.fused_wave_place_reference(*args)
+            torch.cuda.synchronize()
+            out[c]["checks"].append(compare(got, want, wave,
+                                            f"sweep/{c}/{name}"))
+    for c in SWEEP_CLUSTERS + SWEEP_CLUSTERS[::-1]:
+        ck.use_build("fused_wave", builds[c])
+        for name, reps in (("live", 20), ("scale", 5)):
+            wave = waves[name]
+            args = (wave.kin, wave.step_member, wave.step_local, wave.t_pad,
+                    wave.features)
+            ck.fused_wave_place(*args)
+            out[c][f"{name}_ms"].append(
+                cuda_ms(lambda: ck.fused_wave_place(*args), reps))
+    active = {name: active_steps(w) for name, w in waves.items()}
+    for c, r in out.items():
+        r["us_per_active_step"] = {
+            name: float(np.mean(r[f"{name}_ms"])) * 1e3 / active[name]
+            for name in waves}
+        log(f"sweep: cluster {c}: {json.dumps(r)}")
+
+    ck.use_build("fused_wave", built[-1])
+    read_prof = ctypes.CDLL(str(built[-1].path)).fused_wave_profile
+    split = {}
+    for name, wave in waves.items():
+        args = (wave.kin, wave.step_member, wave.step_local, wave.t_pad,
+                wave.features)
+        ck.fused_wave_place(*args)
+        wave_ms = cuda_ms(lambda: ck.fused_wave_place(*args), 5)
+        both = (ctypes.c_ulonglong * (2 * len(PROF_SLOTS)))()
+        check(read_prof(both) == 0, "fused_wave_profile failed")
+        split[name] = {"wave_ms": wave_ms}
+        for who, off in (("chain", 0), ("topk_warp", len(PROF_SLOTS))):
+            cycles = both[off:off + len(PROF_SLOTS)]
+            us_per_cycle = wave_ms * 1e3 / cycles[-1]
+            split[name][who] = {
+                "cycles": dict(zip(PROF_SLOTS, cycles)),
+                "us": {k: c * us_per_cycle
+                       for k, c in zip(PROF_SLOTS, cycles)},
+                "us_per_active_step": {
+                    k: cycles[PROF_SLOTS.index(k)] * us_per_cycle
+                    / active[name] for k in PER_STEP_SLOTS}}
+        log(f"split {name}: {json.dumps(split[name])}")
+    ck.use_build("fused_wave", default)
+    return {"cluster_sweep": {str(c): r for c, r in out.items()},
+            "active_steps": active, "split": split}
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-// Fused placement wave for NVIDIA Hopper (sm_90a).
+// Fused placement wave for NVIDIA Hopper (sm_90a): a thread-block cluster.
 //
 // Replaces: nomad_tpu/ops/pallas_kernel.py `fused_wave_place` (:553-603,
 // the pl.pallas_call at :600), reached through `_fused_wave_run` (:606),
@@ -10,49 +10,120 @@
 //
 // What bounds it. Counting each input byte once, the live shape (B=32
 // members, N=16384 nodes, T=512 steps) reads about B*N*~19 B of member
-// planes plus N*~44 B of shared planes, ~10 MB: ~3 us at 3.35 TB/s. That
-// is not the floor that matters. The wave is T sequential steps, and step
-// t+1's feasibility depends on step t's choice, so the real floor is a
-// chain of T dependent N-wide reductions (one argmax plus the top-8), each
-// a full pass over the node planes followed by a block-wide reduction.
+// planes plus N*~44 B of shared planes, ~10 MB: ~3 us at 3.35 TB/s. The
+// function needs each (member, node) scored once and, per active step, one
+// argmax and one top-8 compare per node: ~3e7 f32 operations, under 1 us.
+// Neither is the floor that matters. The wave is T sequential steps, and
+// step t+1's feasibility depends on step t's choice, so the real floor is
+// a chain of T dependent N-wide argmaxes: each link is a reduction over
+// the nodes followed by a broadcast of its winner. No design removes the
+// chain; a design can only make each link short and keep everything else
+// off it.
 //
-// Design (simple first). ONE thread block of 1024 threads runs the whole
-// wave: a loop over the T steps inside the kernel, each thread striding
-// over the node axis. Per step every thread scores its nodes, keeps its
-// own best (value desc, permutation rank asc) and its own sorted top-8
-// (value desc, index asc); a warp-shuffle + shared-memory reduction gives
-// the block argmax, and eight reduction rounds over the threads' list
-// heads merge the top-8. Thread 0 then applies the preferred-node pin and
-// commits the chosen node into the carries, and __syncthreads() publishes
-// them. Shared carries a_cpu/a_mem/a_disk/a_dyn are output or scratch
-// buffers in global memory (at N=16384 they need 256 KB, more than a
-// block's 227 KB of shared memory) and stay resident in L2; per-member
-// carries (job_tg_count, job_any_count, port_conflict [B,N]) are scratch
-// copies this kernel fills from the inputs, so no input is ever written.
-// Member metrics come from the pre-wave state before the step loop, in
-// the same launch: one launch per wave.
+// Starting point: the first design (one block of 1024 threads looping over
+// the steps, every node rescored at every step, the top-8 merged in eight
+// block-wide rounds) took 16.7-17.0 ms per live wave and 94-129 ms at
+// N=131072 on an NVIDIA H100 80GB HBM3 at 700 W, ~33 us per step on one SM.
 //
-// What the one-block design gives up: it uses one of the card's 132 SMs,
-// so each step's node pass runs at one SM's rate. A persistent multi-block
-// grid (cluster/DSMEM or grid sync per step) would spread the pass; that
-// is later work.
+// Design. One launch per wave: a cluster of FW_CLUSTER CTAs of THREADS
+// threads, CTA c owning the contiguous node range [c*chunk, (c+1)*chunk).
+// - A node's carries (a_cpu/a_mem/a_disk/a_dyn, and the per-member scratch
+//   job_tg_count/job_any_count/port_conflict) are read and written only by
+//   the CTA that owns the node. They live in global memory (L2); no CTA
+//   reads another's, so carries need no cross-CTA ordering.
+// - At a member's first step each CTA scores its own nodes for that member
+//   with the current carries and the member's static penalty plane, and
+//   keeps the masked scores in a row in shared memory (plus the nodes'
+//   shuffle ranks). At the member's first appearance the same pass copies
+//   its per-member scratch from the inputs and counts its metrics from the
+//   pre-wave state, so nothing walks all B x N before the steps. Between
+//   two steps of one member only the chosen node's carries change, so the
+//   row stays exact: the owner rescores only that node. A step's penalty
+//   nodes are scored fresh with the step penalty and swapped into the row
+//   for that step only; the preferred pin reads its step value from the
+//   row. At most 1 + P + 1 scores per step instead of N.
+// - Scores travel as order-preserving u32 keys, so a warp's argmax on
+//   (value desc, rank asc) is two redux.sync reductions, and its top-8 on
+//   (value desc, index asc) is eight rounds of two, over sorted per-thread
+//   lists.
+// - The chain carries the argmax only: warp argmaxes, one barrier, then
+//   warp 0 reduces the CTA's argmax and pushes it with st.async into an
+//   inbox in every CTA (double-buffered by step parity), counted in bytes
+//   on that CTA's mbarrier. Each CTA waits on its own mbarrier and reduces
+//   the FW_CLUSTER argmaxes itself, so every CTA learns the winner with no
+//   cluster-wide barrier and no release fence on the sender; the pin rule
+//   is applied as the plain version does.
+// - The top-8, which the next step does not need, stays off the chain: the
+//   CTA's last warp rebuilds the warp lists that the step's special nodes
+//   made stale and merges them while the chain merges; that list rides to
+//   CTA 0 with the next step's push, and CTA 0's warp 2 merges the CTAs'
+//   lists and writes step s's top-k during step s+2's special-node phase.
+// - The winner's commit is deferred to the next step's special-node pass
+//   (or to the member change, or to the end of the wave).
+// - Padding and inactive steps skip the scan: found from one ballot per
+//   32 steps, their neutral outputs written by CTA 0.
+// - Score arithmetic is shared between the row pass and the rescoring and
+//   rounds op for op like the torch version on the card (-fmad=false, the
+//   fit scaled by the f32 reciprocal of 18), so a cached score and a fresh
+//   one are the same bits.
 //
 // Built by nomad_tpu_torch/ops/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v
 //        -fmad=false -shared -Xcompiler -fPIC
 // (-fmad=false so the score arithmetic rounds op for op like the plain
-// torch version on the card; no fast-math).
+// torch version on the card; no fast-math). -DFW_CLUSTER=8 builds the
+// portable cluster size instead of the default 16, which is faster on an
+// NVIDIA H100 80GB HBM3 at 700 W: 0.99 against 1.20 ms per live wave and
+// 2.84 against 4.10 ms at N=131072 (`chip_smoke.py --b1-study`).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define THREADS 1024
+namespace cg = cooperative_groups;
+
+#ifndef FW_CLUSTER
+#define FW_CLUSTER 16
+#endif
+#define THREADS 512
 #define NWARPS (THREADS / 32)
 #define TOPK 8
+#define MAX_P 4                    // MAX_PENALTY_NODES
+#define N_SPECIAL (MAX_P + 2)      // pending commit, penalty nodes, pin
+#define ROW_UNROLL 2               // nodes a thread loads at once (row pass)
+#define RANK_UNROLL 8              // 16-byte permutation loads in flight
 #define FULL_MASK 0xffffffffu
+#define NO_NODE 0x7fffffff
+#define NO_RANK 0xffffffffu
 
 #define NEG_INF_F (-1.0e30f)
+
+// -DFW_PROFILE builds a variant that sums clock64() cycles per phase of
+// the wave as CTA 0's thread 0 (a chain thread) and its top-k warp's first
+// thread see them (fused_wave_profile reads both rows); the default build
+// compiles the stamps away.
+enum ProfSlot {
+  P_PREWAVE, P_BALLOT, P_ROW, P_SPECIAL, P_SCAN, P_CTA_MERGE, P_CLUSTER_SYNC,
+  P_CLUSTER_MERGE, P_STEP_SYNC, P_TAIL, P_ROW_RANK, P_ROW_LIST, P_TOTAL,
+  N_PROF
+};
+#ifdef FW_PROFILE
+__device__ unsigned long long g_prof[2 * N_PROF];
+#define PROF(slot)                                  \
+  if (cta == 0 && (tid == 0 || tid == THREADS - 32)) { \
+    const unsigned long long now = clock64();       \
+    prof[slot] += now - prof_t;                     \
+    prof_t = now;                                   \
+  }
+#else
+#define PROF(slot)
+#endif
+
+static_assert(FW_CLUSTER >= 2 && FW_CLUSTER <= 16 &&
+                  (FW_CLUSTER & (FW_CLUSTER - 1)) == 0,
+              "cluster size is a power of two in 2..16");
+static_assert(NWARPS >= 3 && NWARPS <= 32, "warps 0-2 have roles");
 
 // Leaf order: mirrored by nomad_tpu_torch/ops/cuda_kernel._LEAVES.
 enum Leaf {
@@ -84,7 +155,6 @@ struct FusedArgs {
   int* jtc;                    // i32 [B, N] scratch
   int* jac;                    // i32 [B, N] scratch (with_distinct)
   unsigned char* pc;           // bool [B, N] scratch (with_ports)
-  int* inv_perm;               // i32 [BP, N] scratch (with_shuffle)
   int n, b, t, k, p, bp;
   int with_topk, with_ports, with_distinct, with_step_pen, with_pref,
       with_shuffle;
@@ -96,37 +166,15 @@ __device__ __forceinline__ const T* leaf_of(const FusedArgs& a, int leaf,
   return reinterpret_cast<const T*>(a.leaf[leaf]) + m * a.stride[leaf];
 }
 
-// One member's view for one step (pointers already offset to member m).
-struct View {
-  const float *cap_cpu, *cap_mem, *cap_disk, *used_cpu, *used_mem,
-      *used_disk, *aff;
-  const int *free_dyn, *step_pen;
-  const unsigned char *base, *penalty;
-  const int* jtc;
-  const int* jac;
-  const unsigned char* pc;
+// A member's scalars (ops/kernel._feasible / _score read them per member).
+struct Member {
   float ask_cpu, ask_mem, ask_disk;
   int ask_dyn, desired;
-  bool has_res, alg_spread, dhj, dht;
+  int has_res, alg_spread, dhj, dht;
 };
 
-__device__ __forceinline__ View member_view(const FusedArgs& a, int m,
-                                            int j) {
-  View v;
-  v.cap_cpu = leaf_of<float>(a, L_CAP_CPU, m);
-  v.cap_mem = leaf_of<float>(a, L_CAP_MEM, m);
-  v.cap_disk = leaf_of<float>(a, L_CAP_DISK, m);
-  v.used_cpu = leaf_of<float>(a, L_USED_CPU, m);
-  v.used_mem = leaf_of<float>(a, L_USED_MEM, m);
-  v.used_disk = leaf_of<float>(a, L_USED_DISK, m);
-  v.aff = leaf_of<float>(a, L_AFF, m);
-  v.free_dyn = leaf_of<int>(a, L_FREE_DYN, m);
-  v.step_pen = leaf_of<int>(a, L_STEP_PEN, m) + (long long)j * a.p;
-  v.base = leaf_of<unsigned char>(a, L_BASE, m);
-  v.penalty = leaf_of<unsigned char>(a, L_PENALTY, m);
-  v.jtc = a.jtc + (long long)m * a.n;
-  v.jac = a.with_distinct ? a.jac + (long long)m * a.n : nullptr;
-  v.pc = a.with_ports ? a.pc + (long long)m * a.n : nullptr;
+__device__ __forceinline__ Member load_member(const FusedArgs& a, int m) {
+  Member v;
   v.ask_cpu = *leaf_of<float>(a, L_ASK_CPU, m);
   v.ask_mem = *leaf_of<float>(a, L_ASK_MEM, m);
   v.ask_disk = *leaf_of<float>(a, L_ASK_DISK, m);
@@ -139,35 +187,78 @@ __device__ __forceinline__ View member_view(const FusedArgs& a, int m,
   return v;
 }
 
-// Feasibility of node i in the member's view with the current carries
-// (ops/kernel._feasible restricted to the fused envelope).
+// One node as member m sees it: its planes, its carries, its counts.
+struct Node {
+  float cap_cpu, cap_mem, cap_disk, used_cpu, used_mem, used_disk, aff;
+  float a_cpu, a_mem, a_disk;
+  int free_dyn, a_dyn, jtc, jac;
+  bool base, pc, pen;
+};
+
+// Member m's view of node i: its planes, the wave's carries, and the
+// member's counts from the inputs (`input_counts`: its first appearance,
+// and the metrics) or from the scratch copies. All loads independent.
+__device__ __forceinline__ Node load_node(const FusedArgs& a, int m, int i,
+                                          bool input_counts) {
+  Node d;
+  const long long mi = (long long)m * a.n + i;
+  d.cap_cpu = __ldg(leaf_of<float>(a, L_CAP_CPU, m) + i);
+  d.cap_mem = __ldg(leaf_of<float>(a, L_CAP_MEM, m) + i);
+  d.cap_disk = __ldg(leaf_of<float>(a, L_CAP_DISK, m) + i);
+  d.used_cpu = __ldg(leaf_of<float>(a, L_USED_CPU, m) + i);
+  d.used_mem = __ldg(leaf_of<float>(a, L_USED_MEM, m) + i);
+  d.used_disk = __ldg(leaf_of<float>(a, L_USED_DISK, m) + i);
+  d.aff = __ldg(leaf_of<float>(a, L_AFF, m) + i);
+  d.base = __ldg(leaf_of<unsigned char>(a, L_BASE, m) + i) != 0;
+  d.pen = __ldg(leaf_of<unsigned char>(a, L_PENALTY, m) + i) != 0;
+  d.a_cpu = a.a_cpu[i];
+  d.a_mem = a.a_mem[i];
+  d.a_disk = a.a_disk[i];
+  d.free_dyn = a.with_ports ? __ldg(leaf_of<int>(a, L_FREE_DYN, m) + i) : 0;
+  d.a_dyn = a.with_ports ? a.a_dyn[i] : 0;
+  if (input_counts) {
+    d.jtc = __ldg(leaf_of<int>(a, L_JTC, m) + i);
+    d.jac = a.with_distinct ? __ldg(leaf_of<int>(a, L_JAC, m) + i) : 0;
+    d.pc = a.with_ports &&
+           __ldg(leaf_of<unsigned char>(a, L_PC, m) + i) != 0;
+  } else {
+    d.jtc = a.jtc[mi];
+    d.jac = a.with_distinct ? a.jac[mi] : 0;
+    d.pc = a.with_ports && a.pc[mi] != 0;
+  }
+  return d;
+}
+
+// Feasibility with the current carries (ops/kernel._feasible restricted to
+// the fused envelope).
 __device__ __forceinline__ bool node_feasible(const FusedArgs& a,
-                                              const View& v, int i) {
-  float ucpu = v.used_cpu[i] + a.a_cpu[i];
-  float umem = v.used_mem[i] + a.a_mem[i];
-  float udisk = v.used_disk[i] + a.a_disk[i];
-  bool ok = v.base[i] != 0 && (v.cap_cpu[i] - ucpu) >= v.ask_cpu &&
-            (v.cap_mem[i] - umem) >= v.ask_mem &&
-            (v.cap_disk[i] - udisk) >= v.ask_disk;
+                                              const Member& v,
+                                              const Node& d) {
+  float ucpu = d.used_cpu + d.a_cpu;
+  float umem = d.used_mem + d.a_mem;
+  float udisk = d.used_disk + d.a_disk;
+  bool ok = d.base && (d.cap_cpu - ucpu) >= v.ask_cpu &&
+            (d.cap_mem - umem) >= v.ask_mem &&
+            (d.cap_disk - udisk) >= v.ask_disk;
   if (a.with_ports) {
-    bool fit_dyn = v.ask_dyn <= 0 || (v.free_dyn[i] - a.a_dyn[i]) >= v.ask_dyn;
-    ok = ok && !(v.pc[i] != 0 && v.has_res) && fit_dyn;
+    bool fit_dyn = v.ask_dyn <= 0 || (d.free_dyn - d.a_dyn) >= v.ask_dyn;
+    ok = ok && !(d.pc && v.has_res) && fit_dyn;
   }
   if (a.with_distinct) {
-    ok = ok && !((v.dhj && v.jac[i] > 0) || (v.dht && v.jtc[i] > 0));
+    ok = ok && !((v.dhj && d.jac > 0) || (v.dht && d.jtc > 0));
   }
   return ok;
 }
 
-// Normalized score of node i (ops/kernel._score restricted to the fused
-// envelope), same operation order as the torch version.
-__device__ __forceinline__ float node_score(const FusedArgs& a,
-                                            const View& v, int i) {
-  float util_cpu = (v.used_cpu[i] + a.a_cpu[i]) + v.ask_cpu;
-  float util_mem = (v.used_mem[i] + a.a_mem[i]) + v.ask_mem;
-  float cap_cpu = v.cap_cpu[i], cap_mem = v.cap_mem[i];
-  float fc = cap_cpu > 0.0f ? 1.0f - util_cpu / cap_cpu : 0.0f;
-  float fm = cap_mem > 0.0f ? 1.0f - util_mem / cap_mem : 0.0f;
+// Normalized score (ops/kernel._score restricted to the fused envelope),
+// same operation order as the torch version. `pen`: the static penalty
+// plane, or'ed with the step's penalty list where the caller says so.
+__device__ __forceinline__ float node_score(const Member& v, const Node& d,
+                                            bool pen) {
+  float util_cpu = (d.used_cpu + d.a_cpu) + v.ask_cpu;
+  float util_mem = (d.used_mem + d.a_mem) + v.ask_mem;
+  float fc = d.cap_cpu > 0.0f ? 1.0f - util_cpu / d.cap_cpu : 0.0f;
+  float fm = d.cap_mem > 0.0f ? 1.0f - util_mem / d.cap_mem : 0.0f;
   float total = powf(10.0f, fc) + powf(10.0f, fm);
   float binpack = fminf(fmaxf(20.0f - total, 0.0f), 18.0f);
   float spreadfit = fminf(fmaxf(total - 2.0f, 0.0f), 18.0f);
@@ -175,263 +266,833 @@ __device__ __forceinline__ float node_score(const FusedArgs& a,
   // scalar's f32 reciprocal (ATen div_true_kernel_cuda); so does this
   float sum = (v.alg_spread ? spreadfit : binpack) * (1.0f / 18.0f);
   float nplanes = 1.0f;
-  float collisions = (float)v.jtc[i];
+  float collisions = (float)d.jtc;
   if (collisions > 0.0f) {
     float denom = fmaxf((float)v.desired, 1.0f);
     sum = sum + (-(collisions + 1.0f) / denom);
     nplanes = nplanes + 1.0f;
   }
-  bool pen = v.penalty[i] != 0;
-  if (a.with_step_pen) {
-    for (int q = 0; q < a.p; ++q) pen = pen || (v.step_pen[q] == i);
-  }
   if (pen) {
     sum = sum + -1.0f;
     nplanes = nplanes + 1.0f;
   }
-  float aff = v.aff[i];
-  if (aff != 0.0f) {
-    sum = sum + aff;
+  if (d.aff != 0.0f) {
+    sum = sum + d.aff;
     nplanes = nplanes + 1.0f;
   }
   return sum / nplanes;
 }
 
-struct Cand {
-  float v;
-  int r;  // ordering key among equal values (rank or index), asc
-  int i;  // node index
-};
-
-__device__ __forceinline__ bool better(float v1, int r1, float v2, int r2) {
-  return v1 > v2 || (v1 == v2 && r1 < r2);
+__device__ __forceinline__ float masked_score(const FusedArgs& a,
+                                              const Member& v,
+                                              const Node& d, bool pen) {
+  return node_feasible(a, v, d) ? node_score(v, d, pen) : NEG_INF_F;
 }
 
-// Block-wide best candidate; `sh` holds NWARPS + 1 slots. Two barriers:
-// the result slot is read after the second, and is next written only
-// after the next call's first barrier.
-__device__ Cand block_best(Cand c, Cand* sh) {
-  for (int off = 16; off > 0; off >>= 1) {
-    float v = __shfl_down_sync(FULL_MASK, c.v, off);
-    int r = __shfl_down_sync(FULL_MASK, c.r, off);
-    int i = __shfl_down_sync(FULL_MASK, c.i, off);
-    if (better(v, r, c.v, c.r)) {
-      c.v = v; c.r = r; c.i = i;
+// Pre-wave metric counts of one node (input planes and counts; carries
+// unread):
+// evaluated, feasible, and exhausted on cpu, mem, disk and ports.
+__device__ __forceinline__ void count_metrics(const FusedArgs& a,
+                                              const Member& v, const Node& d,
+                                              int* c) {
+  bool fit_cpu = (d.cap_cpu - d.used_cpu) >= v.ask_cpu;
+  bool fit_mem = (d.cap_mem - d.used_mem) >= v.ask_mem;
+  bool fit_disk = (d.cap_disk - d.used_disk) >= v.ask_disk;
+  bool fit_ports = true;
+  if (a.with_ports) {
+    bool fit_dyn = v.ask_dyn <= 0 || d.free_dyn >= v.ask_dyn;
+    fit_ports = !(d.pc && v.has_res) && fit_dyn;
+  }
+  bool distinct_ok = true;
+  if (a.with_distinct)
+    distinct_ok = !((v.dhj && d.jac > 0) || (v.dht && d.jtc > 0));
+  c[0] += d.base;
+  c[1] += d.base && fit_cpu && fit_mem && fit_disk && fit_ports && distinct_ok;
+  c[2] += d.base && !fit_cpu;
+  c[3] += d.base && !fit_mem;
+  c[4] += d.base && !fit_disk;
+  c[5] += d.base && !fit_ports;
+}
+
+// Commit one placement of member m on node i (the plain version's one-hot
+// update at that node), in memory and in `d`.
+__device__ __forceinline__ void commit_node(const FusedArgs& a,
+                                            const Member& v, int m, int i,
+                                            Node& d) {
+  const long long mi = (long long)m * a.n + i;
+  d.a_cpu = d.a_cpu + v.ask_cpu;
+  d.a_mem = d.a_mem + v.ask_mem;
+  d.a_disk = d.a_disk + v.ask_disk;
+  a.a_cpu[i] = d.a_cpu;
+  a.a_mem[i] = d.a_mem;
+  a.a_disk[i] = d.a_disk;
+  d.jtc += 1;
+  a.jtc[mi] = d.jtc;
+  if (a.with_ports) {
+    d.a_dyn += v.ask_dyn;
+    a.a_dyn[i] = d.a_dyn;
+    if (v.has_res) {
+      d.pc = true;
+      a.pc[mi] = 1;
     }
   }
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) sh[warp] = c;
-  __syncthreads();
-  if (warp == 0) {
-    c = sh[lane];  // NWARPS == 32: every lane has a slot
-    for (int off = 16; off > 0; off >>= 1) {
-      float v = __shfl_down_sync(FULL_MASK, c.v, off);
-      int r = __shfl_down_sync(FULL_MASK, c.r, off);
-      int i = __shfl_down_sync(FULL_MASK, c.i, off);
-      if (better(v, r, c.v, c.r)) {
-        c.v = v; c.r = r; c.i = i;
+  if (a.with_distinct) {
+    d.jac += 1;
+    a.jac[mi] = d.jac;
+  }
+}
+
+// Order-preserving key of a score: a larger key is a larger value; -0 and
+// +0 share a key, as they compare equal.
+__device__ __forceinline__ unsigned score_key(float v) {
+  const unsigned b = __float_as_uint(v + 0.0f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_score(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+#define PAD_KEY 0x007fffffu        // score_key(-INFINITY): below any score
+
+// Warp argmax on (key desc, rank asc); every lane gets the winner.
+__device__ __forceinline__ void warp_best(unsigned& k, unsigned& r, int& i) {
+  const unsigned m = __reduce_max_sync(FULL_MASK, k);
+  const unsigned rr = __reduce_min_sync(FULL_MASK, k == m ? r : NO_RANK);
+  const unsigned hit = __ballot_sync(FULL_MASK, k == m && r == rr);
+  i = __shfl_sync(FULL_MASK, i, __ffs(hit) - 1);
+  k = m;
+  r = rr;
+}
+
+__device__ __forceinline__ void list_clear(unsigned* lk, int* li) {
+#pragma unroll
+  for (int q = 0; q < TOPK; ++q) {
+    lk[q] = PAD_KEY;
+    li[q] = NO_NODE;
+  }
+}
+
+// Insert into this thread's sorted top-8 (best first); its nodes come in
+// increasing index order, so an equal key ranks after the ones held.
+__device__ __forceinline__ void list_insert(unsigned* lk, int* li,
+                                            unsigned k, int i) {
+  if (k <= lk[TOPK - 1]) return;
+  bool placed = false;
+#pragma unroll
+  for (int q = TOPK - 1; q > 0; --q) {
+    if (!placed) {
+      if (k > lk[q - 1]) {
+        lk[q] = lk[q - 1];
+        li[q] = li[q - 1];
+      } else {
+        lk[q] = k;
+        li[q] = i;
+        placed = true;
       }
     }
-    if (lane == 0) sh[NWARPS] = c;
   }
-  __syncthreads();
-  return sh[NWARPS];
+  if (!placed) {
+    lk[0] = k;
+    li[0] = i;
+  }
 }
 
-// Block-wide sums of six counters; `sh` holds NWARPS*6 + 6 ints.
-__device__ void block_sum6(int* c, int* sh) {
-  for (int q = 0; q < 6; ++q)
-    for (int off = 16; off > 0; off >>= 1)
-      c[q] += __shfl_down_sync(FULL_MASK, c[q], off);
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0)
-    for (int q = 0; q < 6; ++q) sh[warp * 6 + q] = c[q];
-  __syncthreads();
-  if (warp == 0) {
-    for (int q = 0; q < 6; ++q) {
-      int x = sh[lane * 6 + q];
-      for (int off = 16; off > 0; off >>= 1)
-        x += __shfl_down_sync(FULL_MASK, x, off);
-      if (lane == 0) sh[NWARPS * 6 + q] = x;
+// Top-8 on (key desc, index asc) of the union of the lanes' sorted lists:
+// eight rounds, each taking the best head (two reductions) and popping it
+// from its lane. Every lane gets the result in (ok, oi); lk/li are spent.
+__device__ __forceinline__ void warp_top(unsigned* lk, int* li,
+                                         unsigned* ok, int* oi) {
+#pragma unroll
+  for (int q = 0; q < TOPK; ++q) {
+    const unsigned m = __reduce_max_sync(FULL_MASK, lk[0]);
+    const unsigned mi = __reduce_min_sync(
+        FULL_MASK, lk[0] == m ? (unsigned)li[0] : NO_RANK);
+    ok[q] = m;
+    oi[q] = (int)mi;
+    if (lk[0] == m && (unsigned)li[0] == mi) {
+#pragma unroll
+      for (int s = 0; s < TOPK - 1; ++s) {
+        lk[s] = lk[s + 1];
+        li[s] = li[s + 1];
+      }
+      lk[TOPK - 1] = PAD_KEY;
+      li[TOPK - 1] = NO_NODE;
     }
   }
-  __syncthreads();
-  for (int q = 0; q < 6; ++q) c[q] = sh[NWARPS * 6 + q];
-  __syncthreads();
 }
+
+struct Best {
+  unsigned k, r;  // score key, and the order among equal keys (rank)
+  int i;          // node index
+};
+
+// One CTA's argmax for one step, pushed into every CTA's inbox.
+struct __align__(16) Slot {
+  unsigned k, r;
+  int i;
+  float pin_v;  // the pin's masked step value (meaningful from its owner)
+};
+
+// One CTA's top-8 for one step, pushed into CTA 0's inbox a step later.
+struct __align__(16) TopList {
+  unsigned k[TOPK];
+  int i[TOPK];
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// The address of the same shared variable in CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_remote(unsigned addr, unsigned x,
+                                          unsigned y, unsigned z,
+                                          unsigned w) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};"
+               :: "r"(addr), "r"(x), "r"(y), "r"(z), "r"(w) : "memory");
+}
+
+// 16 bytes into another CTA's shared memory, counted in bytes on that
+// CTA's mbarrier `bar` when they land; the sender waits for nothing.
+__device__ __forceinline__ void st_async(unsigned addr, unsigned x,
+                                         unsigned y, unsigned z, unsigned w,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(addr), "r"(x), "r"(y), "r"(z), "r"(w), "r"(bar) : "memory");
+}
+
+// This CTA's one arrival on its own mbarrier, announcing the bytes that
+// the phase waits for.
+__device__ __forceinline__ void arrive_expect(unsigned bar, unsigned bytes) {
+  unsigned long long state;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;"
+               : "=l"(state) : "r"(bar), "r"(bytes) : "memory");
+}
+
+// Spin until the phase of `bar` with this parity completes. A wave waits
+// microseconds here; ten seconds means a lost arrival, so trap rather
+// than hang the card.
+__device__ __forceinline__ void wait_parity(unsigned bar, unsigned parity) {
+  const long long t0 = clock64();
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+// Named barrier 1 of the whole CTA, reached from the chain's and the top-k
+// warp's own branches: the step's argmax scan is done.
+__device__ __forceinline__ void scan_sync() {
+  asm volatile("bar.sync 1, %0;" :: "r"(THREADS) : "memory");
+}
+
+// A step's penalty nodes (-1 where none) and its preferred node (-1: none).
+__device__ __forceinline__ void load_step_nodes(const FusedArgs& a, int m,
+                                                int j, int* out) {
+  const int* sp = leaf_of<int>(a, L_STEP_PEN, m) + (long long)j * a.p;
+#pragma unroll
+  for (int q = 0; q < MAX_P; ++q)
+    out[q] = (a.with_step_pen && q < a.p) ? __ldg(sp + q) : -1;
+  out[MAX_P] = a.with_pref ? __ldg(leaf_of<int>(a, L_STEP_PREF, m) + j) : -1;
+}
+
+// Shared memory beyond the static part: the member's score-key row and
+// shuffle ranks over the CTA's range, the metric partial sums, and a flag
+// per member (first appearance seen).
+__host__ __device__ inline size_t fused_smem_bytes(int n, int b,
+                                                   int with_shuffle) {
+  size_t chunk = (size_t)((n + FW_CLUSTER - 1) / FW_CLUSTER);
+  return chunk * sizeof(unsigned) * (with_shuffle ? 2 : 1) +
+         (size_t)b * 7 * sizeof(int);
+}
+
+#define TOPK_WARP (NWARPS - 1)     // keeps the CTA's top-8 off the chain
+#define CHAIN (THREADS - 32)       // chain threads: all warps but TOPK_WARP
+#define FRESH 0x80000000u          // sh_dirty: every warp list was rebuilt
 
 __global__ void __launch_bounds__(THREADS, 1)
     fused_wave_kernel(const FusedArgs a) {
-  __shared__ Cand sh_best[NWARPS + 1];
-  __shared__ int sh_sum[NWARPS * 6 + 6];
-  const int n = a.n, tid = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  __shared__ Slot inbox[2][FW_CLUSTER];         // by step parity, by CTA
+  __shared__ TopList inbox_top[2][FW_CLUSTER];  // CTA 0 only
+  __shared__ TopList top_list[2];               // this CTA's, by parity
+  __shared__ __align__(8) unsigned long long mbar[2];
+  __shared__ Best sh_best[NWARPS];
+  __shared__ unsigned sh_tk[NWARPS][TOPK];      // chain warps' top-8 lists
+  __shared__ int sh_ti[NWARPS][TOPK];
+  __shared__ unsigned sh_dirty;  // chain warps whose nodes this step changed
+  __shared__ Member sh_member;
+  __shared__ float sh_pin_v;
+  __shared__ int sh_pend;
 
-  // ---- scratch init: zero the shared carries, copy per-member ones ----
-  for (int i = tid; i < n; i += THREADS) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cta = (int)cluster.block_rank();
+  const int n = a.n, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = (n + FW_CLUSTER - 1) / FW_CLUSTER;
+  const int lo = min(cta * chunk, n), hi = min(lo + chunk, n);
+  const int cnt = hi - lo;
+  unsigned* row = reinterpret_cast<unsigned*>(dyn_smem);
+  unsigned* rank = row + chunk;
+  int* part = reinterpret_cast<int*>(rank + (a.with_shuffle ? chunk : 0));
+  int* seen = part + a.b * 6;
+#ifdef FW_PROFILE
+  unsigned long long prof[N_PROF] = {};
+  const unsigned long long prof_t0 = clock64();
+  unsigned long long prof_t = prof_t0;
+#endif
+
+  // ---- pre-wave: zero the carries, arm the inbox barriers ----
+  for (int i = lo + tid; i < hi; i += THREADS) {
     a.a_cpu[i] = 0.0f;
     a.a_mem[i] = 0.0f;
     a.a_disk[i] = 0.0f;
     if (a.with_ports) a.a_dyn[i] = 0;
   }
-  for (long long x = tid; x < (long long)a.b * n; x += THREADS) {
-    int m = (int)(x / n), i = (int)(x % n);
-    a.jtc[x] = leaf_of<int>(a, L_JTC, m)[i];
-    if (a.with_distinct) a.jac[x] = leaf_of<int>(a, L_JAC, m)[i];
-    if (a.with_ports) a.pc[x] = leaf_of<unsigned char>(a, L_PC, m)[i];
+  for (int x = tid; x < a.b * 7; x += THREADS) part[x] = 0;  // and seen
+  // a step's phase of mbar[parity] completes when every CTA's argmax has
+  // landed here, and in CTA 0 also every CTA's top-8 of the step before
+  // (pushed from the second step on); each phase is armed before any CTA
+  // can push into it: the first two here, each next one by the wait of
+  // the phase before it
+  const unsigned step_bytes =
+      FW_CLUSTER * (unsigned)sizeof(Slot) +
+      (cta == 0 && a.with_topk ? FW_CLUSTER * (unsigned)sizeof(TopList) : 0);
+  if (tid == 0) {
+    for (int q = 0; q < 2; ++q)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(&mbar[q])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    arrive_expect(smem_addr(&mbar[0]), FW_CLUSTER * (unsigned)sizeof(Slot));
+    arrive_expect(smem_addr(&mbar[1]), step_bytes);
   }
-  if (a.with_shuffle) {
-    for (long long x = tid; x < (long long)a.bp * n; x += THREADS) {
-      int m = (int)(x / n), i = (int)(x % n);
-      int pos = leaf_of<int>(a, L_PERM, m)[i];
-      a.inv_perm[(long long)m * n + pos] = i;
-    }
-  }
-  __syncthreads();
+  cluster.sync();  // every CTA's barriers armed before the first push
+  PROF(P_PREWAVE);
 
-  // ---- per-member metrics from the pre-wave state ----
-  float* metrics = a.packed + 2 * a.t;
-  for (int m = 0; m < a.b; ++m) {
-    View v = member_view(a, m, 0);
-    const int* jtc_in = leaf_of<int>(a, L_JTC, m);
-    const int* jac_in = leaf_of<int>(a, L_JAC, m);
-    const unsigned char* pc_in = leaf_of<unsigned char>(a, L_PC, m);
-    int c[6] = {0, 0, 0, 0, 0, 0};
-    for (int i = tid; i < n; i += THREADS) {
-      bool base = v.base[i] != 0;
-      bool fit_cpu = (v.cap_cpu[i] - v.used_cpu[i]) >= v.ask_cpu;
-      bool fit_mem = (v.cap_mem[i] - v.used_mem[i]) >= v.ask_mem;
-      bool fit_disk = (v.cap_disk[i] - v.used_disk[i]) >= v.ask_disk;
-      bool fit_ports = true;
-      if (a.with_ports) {
-        bool fit_dyn = v.ask_dyn <= 0 || v.free_dyn[i] >= v.ask_dyn;
-        fit_ports = !(pc_in[i] != 0 && v.has_res) && fit_dyn;
+  // CTA 0's warp 2: the cluster's top-8 of the step whose CTA lists sit
+  // in inbox_top[pp], written out as step t's top-k
+  auto emit_topk = [&](int pp, int t) {
+    unsigned lk[TOPK], ok[TOPK];
+    int li[TOPK], oi[TOPK];
+    list_clear(lk, li);
+    list_clear(ok, oi);
+    if (a.with_topk) {
+      if (lane < FW_CLUSTER) {
+#pragma unroll
+        for (int q = 0; q < TOPK; ++q) {
+          lk[q] = inbox_top[pp][lane].k[q];
+          li[q] = inbox_top[pp][lane].i[q];
+        }
       }
-      bool distinct_ok = true;
-      if (a.with_distinct)
-        distinct_ok = !((v.dhj && jac_in[i] > 0) || (v.dht && jtc_in[i] > 0));
-      bool feas = base && fit_cpu && fit_mem && fit_disk && fit_ports &&
-                  distinct_ok;
-      c[0] += base;
-      c[1] += feas;
-      c[2] += base && !fit_cpu;
-      c[3] += base && !fit_mem;
-      c[4] += base && !fit_disk;
-      c[5] += base && !fit_ports;
+      warp_top(lk, li, ok, oi);
     }
-    block_sum6(c, sh_sum);
-    if (tid == 0) {
-      for (int q = 0; q < 6; ++q) metrics[q * a.b + m] = (float)c[q];
+    if (lane < TOPK) {
+      unsigned k = PAD_KEY;
+      int i = 0;
+#pragma unroll
+      for (int q = 0; q < TOPK; ++q)
+        if (q == lane) {
+          k = ok[q];
+          i = oi[q];
+        }
+      a.topk_idx[t * TOPK + lane] = a.with_topk ? i : 0;
+      a.topk_scores[t * TOPK + lane] = a.with_topk ? key_score(k) : NEG_INF_F;
+    }
+  };
+  // this CTA's top-8 list of step `pp` into CTA 0's inbox (one thread),
+  // counted on CTA 0's mbar[bar_par]; bar_par < 0: plain stores, ordered
+  // by a cluster barrier after them
+  auto push_top = [&](int pp, int bar_par) {
+    const unsigned dst = map_rank(smem_addr(&inbox_top[pp][cta]), 0);
+    const unsigned* k = top_list[pp].k;
+    const unsigned* i = reinterpret_cast<const unsigned*>(top_list[pp].i);
+    const unsigned v[4][4] = {{k[0], k[1], k[2], k[3]},
+                              {k[4], k[5], k[6], k[7]},
+                              {i[0], i[1], i[2], i[3]},
+                              {i[4], i[5], i[6], i[7]}};
+    if (bar_par < 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        st_remote(dst + 16 * q, v[q][0], v[q][1], v[q][2], v[q][3]);
+    } else {
+      const unsigned bar = map_rank(smem_addr(&mbar[bar_par]), 0);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        st_async(dst + 16 * q, v[q][0], v[q][1], v[q][2], v[q][3], bar);
+    }
+  };
+
+  // the sorted top-8 of chain warp w's nodes (x = w*32 + lane + k*CHAIN),
+  // computed by the calling warp into sh_tk/sh_ti[w]
+  auto warp_list = [&](int w) {
+    unsigned lk[TOPK], ok[TOPK];
+    int li[TOPK], oi[TOPK];
+    list_clear(lk, li);
+    for (int x = w * 32 + lane; x < cnt; x += CHAIN)
+      list_insert(lk, li, row[x], lo + x);
+    warp_top(lk, li, ok, oi);
+#pragma unroll
+    for (int q = 0; q < TOPK; ++q)
+      if (q == lane) {
+        sh_tk[w][q] = ok[q];
+        sh_ti[w][q] = oi[q];
+      }
+  };
+  // a row entry changed: its chain warp's list is stale
+  auto mark = [&](int x) {
+    atomicOr(&sh_dirty, 1u << ((x % CHAIN) / 32));
+  };
+
+  // ---- the step loop ----
+  int row_m = -1;   // member whose score row is cached
+  int rank_m = -1;  // permutation row whose ranks are cached
+  int pend = -1;    // chosen node of the last active step, not committed
+  int par = 0;      // parity of the active step (buffers, barriers)
+  int n_act = 0;    // active steps so far
+  int t_prev = -1, t_prev2 = -1;  // step index of the last two active steps
+  int restore_x = -1;  // row entry a special thread puts back next step
+  unsigned restore_k = 0;
+  int pf_t = -1;       // warp 0: step whose penalty list and pin are loaded
+  int pf_s[MAX_P + 1];  // warp 0: that step's penalty nodes, then its pin
+  for (int t0 = 0; t0 < a.t; t0 += 32) {
+    // which of the next 32 steps place (every warp finds the same mask)
+    const int ts = t0 + lane;
+    int mem_raw = -1, j_raw = 0;
+    bool act = false;
+    if (ts < a.t) {
+      mem_raw = a.step_member[ts];
+      j_raw = a.step_local[ts];
+      const int mc = min(max(mem_raw, 0), a.b - 1);
+      act = mem_raw >= 0 && j_raw < *leaf_of<int>(a, L_NSTEPS, mc);
+    }
+    unsigned mask = __ballot_sync(FULL_MASK, act);
+    if (cta == 0 && warp == 1 && ts < a.t && !act) {
+      // an inactive step scores an all-NEG_INF plane: nothing found, the
+      // top-k of the plain version's stable sort
+      a.packed[ts] = -1.0f;
+      a.packed[a.t + ts] = 0.0f;
+      for (int q = 0; q < TOPK; ++q) {
+        a.topk_idx[ts * TOPK + q] = a.with_topk ? q : 0;
+        a.topk_scores[ts * TOPK + q] = NEG_INF_F;
+      }
+    }
+    PROF(P_BALLOT);
+
+    while (mask) {
+      const int l = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const int t = t0 + l;
+      const int m = min(max(__shfl_sync(FULL_MASK, mem_raw, l), 0), a.b - 1);
+      const int j = min(max(__shfl_sync(FULL_MASK, j_raw, l), 0), a.k - 1);
+
+      // a new member: commit the last one's pending placement, then score
+      // the member's row over this CTA's range (at its first appearance
+      // also copying its scratch and counting its metrics)
+      if (m != row_m) {
+        const bool first = seen[m] == 0;
+        if (tid == 0) {
+          if (pend >= lo && pend < hi) {
+            Node d = load_node(a, row_m, pend, false);
+            commit_node(a, sh_member, row_m, pend, d);
+          }
+          sh_member = load_member(a, m);
+        }
+        pend = -1;
+        restore_x = -1;  // the row is rebuilt
+        __syncthreads();
+        const Member v = sh_member;
+        const long long row0 = (long long)m * n;
+        int c[6] = {0, 0, 0, 0, 0, 0};
+        for (int x0 = tid; x0 < cnt; x0 += ROW_UNROLL * THREADS) {
+          Node d[ROW_UNROLL];
+#pragma unroll
+          for (int u = 0; u < ROW_UNROLL; ++u) {
+            const int x = x0 + u * THREADS;
+            if (x < cnt) d[u] = load_node(a, m, lo + x, first);
+          }
+#pragma unroll
+          for (int u = 0; u < ROW_UNROLL; ++u) {
+            const int x = x0 + u * THREADS, i = lo + x;
+            if (x >= cnt) continue;
+            if (first) {
+              count_metrics(a, v, d[u], c);
+              a.jtc[row0 + i] = d[u].jtc;
+              if (a.with_distinct) a.jac[row0 + i] = d[u].jac;
+              if (a.with_ports) a.pc[row0 + i] = d[u].pc;
+            }
+            row[x] = score_key(masked_score(a, v, d[u], d[u].pen));
+          }
+        }
+        if (first) {
+#pragma unroll
+          for (int q = 0; q < 6; ++q) {
+            const int s = __reduce_add_sync(FULL_MASK, c[q]);
+            if (lane == 0 && s != 0) atomicAdd(&part[m * 6 + q], s);
+          }
+        }
+        PROF(P_ROW);
+        const int pm = a.bp > 1 ? m : 0;
+        if (a.with_shuffle && pm != rank_m) {
+          // rank of a node = its position in the permutation
+          const int* perm = leaf_of<int>(a, L_PERM, pm);
+          if ((n & 3) == 0) {  // 16-byte loads: rows start 16-byte aligned
+            const int4* p4 = reinterpret_cast<const int4*>(perm);
+            for (int g0 = tid; g0 < n / 4; g0 += RANK_UNROLL * THREADS) {
+              int4 v[RANK_UNROLL];
+#pragma unroll
+              for (int u = 0; u < RANK_UNROLL; ++u) {
+                const int g = g0 + u * THREADS;
+                v[u] = g < n / 4 ? __ldg(p4 + g) : make_int4(-1, -1, -1, -1);
+              }
+#pragma unroll
+              for (int u = 0; u < RANK_UNROLL; ++u) {
+                const int pos = 4 * (g0 + u * THREADS);
+                const int node[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                  if (node[c] >= lo && node[c] < hi)
+                    rank[node[c] - lo] = (unsigned)(pos + c);
+              }
+            }
+          } else {
+            for (int pos = tid; pos < n; pos += THREADS) {
+              const int node = __ldg(perm + pos);
+              if (node >= lo && node < hi) rank[node - lo] = (unsigned)pos;
+            }
+          }
+          rank_m = pm;
+        }
+        PROF(P_ROW_RANK);
+        row_m = m;
+        if (tid == 0) {
+          seen[m] = 1;
+          sh_dirty = FRESH;
+        }
+        __syncthreads();
+        if (a.with_topk && warp != TOPK_WARP) warp_list(warp);
+        __syncthreads();
+        PROF(P_ROW_LIST);
+      }
+
+      // special nodes, one thread each in the owner CTA: put back the last
+      // step's penalty values, commit the pending placement and rescore it
+      // in the row, swap this step's penalty values into the row, note the
+      // pin's step value. Meanwhile CTA 0's warp 2 writes out the top-k of
+      // the step before the last.
+      int pcl = -1;  // the step's pin (clamped), or -1
+      if (warp == 0) {
+        if (restore_x >= 0) {
+          row[restore_x] = restore_k;
+          mark(restore_x);
+        }
+        restore_x = -1;
+        __syncwarp();
+        if (pf_t != t) load_step_nodes(a, m, j, pf_s);
+        int s[N_SPECIAL];
+        s[0] = pend;
+#pragma unroll
+        for (int q = 0; q <= MAX_P; ++q) s[1 + q] = pf_s[q];
+        const int pref = s[N_SPECIAL - 1];
+        pcl = pref >= 0 ? min(pref, n - 1) : -1;
+        s[N_SPECIAL - 1] = pcl;
+        if (mask) {  // the next active step of these 32: load ahead
+          const int nl = __ffs(mask) - 1;
+          pf_t = t0 + nl;
+          load_step_nodes(
+              a, min(max(__shfl_sync(FULL_MASK, mem_raw, nl), 0), a.b - 1),
+              min(max(__shfl_sync(FULL_MASK, j_raw, nl), 0), a.k - 1), pf_s);
+        }
+        int q = -1;
+#pragma unroll
+        for (int k = 0; k < N_SPECIAL; ++k)
+          if (k == tid) q = s[k];
+        bool mine = q >= lo && q < hi;
+#pragma unroll
+        for (int k = 0; k < N_SPECIAL; ++k)
+          if (k < tid && s[k] == q) mine = false;  // handled by lane k
+        if (mine) {
+          bool is_pen = false;
+#pragma unroll
+          for (int k = 1; k <= MAX_P; ++k) is_pen = is_pen || s[k] == q;
+          const int x = q - lo;
+          unsigned key = row[x];
+          if (q == pend || is_pen) {
+            const Member v = sh_member;
+            Node d = load_node(a, m, q, false);
+            if (q == pend) {
+              commit_node(a, v, m, q, d);
+              key = score_key(masked_score(a, v, d, d.pen));
+              row[x] = key;
+            }
+            if (is_pen) {
+              restore_x = x;
+              restore_k = key;
+              key = score_key(masked_score(a, v, d, true));
+              row[x] = key;
+            }
+            mark(x);
+          }
+          if (q == pcl) sh_pin_v = key_score(key);
+        }
+      } else if (warp == 2 && cta == 0 && n_act >= 2) {
+        emit_topk(par, t_prev2);
+      }
+      __syncthreads();
+      PROF(P_SPECIAL);
+
+      if (warp == TOPK_WARP) {
+        // off the chain: rebuild the stale warp lists, merge them into
+        // this CTA's top-8 of the step's row (after the argmax scan, so as
+        // not to take its issue slots)
+        scan_sync();
+        if (a.with_topk) {
+          const unsigned dirty = sh_dirty;
+          unsigned stale = dirty & ~FRESH;
+          while (stale) {
+            const int w = __ffs(stale) - 1;
+            stale &= stale - 1;
+            warp_list(w);
+          }
+          __syncwarp();
+          if (dirty) {
+            unsigned lk[TOPK], ok[TOPK];
+            int li[TOPK], oi[TOPK];
+            list_clear(lk, li);
+            if (lane < NWARPS - 1) {
+#pragma unroll
+              for (int q = 0; q < TOPK; ++q) {
+                lk[q] = sh_tk[lane][q];
+                li[q] = sh_ti[lane][q];
+              }
+            }
+            warp_top(lk, li, ok, oi);
+#pragma unroll
+            for (int q = 0; q < TOPK; ++q)
+              if (q == lane) {
+                top_list[par].k[q] = ok[q];
+                top_list[par].i[q] = oi[q];
+              }
+          } else if (lane < TOPK) {
+            top_list[par].k[lane] = top_list[par ^ 1].k[lane];
+            top_list[par].i[lane] = top_list[par ^ 1].i[lane];
+          }
+          if (lane == 0) sh_dirty = 0;
+        }
+        PROF(P_SCAN);
+      } else {
+        // the chain: this CTA's argmax, pushed to every CTA
+        const int ct = tid;  // chain threads are 0 .. THREADS - 33
+        unsigned bk = PAD_KEY, br = NO_RANK;
+        int bi = NO_NODE;
+        for (int x = ct; x < cnt; x += CHAIN) {
+          const unsigned k = row[x];
+          const unsigned r = a.with_shuffle ? rank[x] : (unsigned)(lo + x);
+          if (k > bk || (k == bk && r < br)) {
+            bk = k; br = r; bi = lo + x;
+          }
+        }
+        warp_best(bk, br, bi);
+        if (lane == 0) sh_best[warp] = Best{bk, br, bi};
+        scan_sync();
+        PROF(P_SCAN);
+        if (warp == 0) {
+          Best b = {PAD_KEY, NO_RANK, NO_NODE};
+          if (lane < NWARPS - 1) b = sh_best[lane];
+          warp_best(b.k, b.r, b.i);
+          // lanes 16 + r push to CTA r
+          const int to = lane - 16;
+          if (to == 0 && a.with_topk && n_act >= 1) push_top(par ^ 1, par);
+          if (to >= 0 && to < FW_CLUSTER) {
+            const float pin_v =
+                (pcl >= 0 && pcl / chunk == cta) ? sh_pin_v : NEG_INF_F;
+            st_async(map_rank(smem_addr(&inbox[par][cta]), to), b.k, b.r,
+                     (unsigned)b.i, __float_as_uint(pin_v),
+                     map_rank(smem_addr(&mbar[par]), to));
+          }
+          PROF(P_CTA_MERGE);
+          wait_parity(smem_addr(&mbar[par]), (n_act >> 1) & 1);
+          __syncwarp();
+          // arm the phase of the step after next: no CTA pushes into it
+          // before this CTA has pushed the next step's argmax
+          if (lane == 0) arrive_expect(smem_addr(&mbar[par]), step_bytes);
+          PROF(P_CLUSTER_SYNC);
+
+          // every CTA reduces the cluster's argmaxes from its own inbox
+          b = Best{PAD_KEY, NO_RANK, NO_NODE};
+          float pin_v = NEG_INF_F;
+          if (lane < FW_CLUSTER) {
+            const Slot sl = inbox[par][lane];
+            b = Best{sl.k, sl.r, sl.i};
+            pin_v = sl.pin_v;
+          }
+          warp_best(b.k, b.r, b.i);
+          int idx = b.i;
+          float val = key_score(b.k);
+          if (pcl >= 0) {
+            // pin rule (ops/kernel.place_taskgroups_joint): a feasible pin
+            // wins; its masked step value is > NEG_INF / 2 exactly then
+            const float pv = __shfl_sync(FULL_MASK, pin_v, pcl / chunk);
+            if (pv > NEG_INF_F / 2.0f) {
+              idx = pcl;
+              val = pv;
+            }
+          }
+          const bool found = val > NEG_INF_F / 2.0f;
+          if (cta == 0 && lane == 0) {
+            a.packed[t] = found ? (float)idx : -1.0f;
+            a.packed[a.t + t] = found ? val : 0.0f;
+          }
+          if (lane == 0) sh_pend = found ? idx : -1;
+          PROF(P_CLUSTER_MERGE);
+        }
+      }
+      __syncthreads();
+      PROF(P_STEP_SYNC);
+      pend = sh_pend;
+      par ^= 1;
+      ++n_act;
+      t_prev2 = t_prev;
+      t_prev = t;
+    }
+  }
+
+  // ---- tail: the last placement, the last top-k, the metrics ----
+  if (tid == 0) {
+    if (pend >= lo && pend < hi) {
+      Node d = load_node(a, row_m, pend, false);
+      commit_node(a, sh_member, row_m, pend, d);
+    }
+    if (a.with_topk && n_act >= 1) push_top(par ^ 1, -1);
+  }
+  if (warp == 2 && cta == 0 && n_act >= 2) emit_topk(par, t_prev2);
+  for (int m = 0; m < a.b; ++m) {
+    if (seen[m]) continue;  // counted at its first row pass
+    const Member v = load_member(a, m);
+    int c[6] = {0, 0, 0, 0, 0, 0};
+    for (int i = lo + tid; i < hi; i += THREADS)
+      count_metrics(a, v, load_node(a, m, i, true), c);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      const int s = __reduce_add_sync(FULL_MASK, c[q]);
+      if (lane == 0 && s != 0) atomicAdd(&part[m * 6 + q], s);
+    }
+  }
+  cluster.sync();  // partial sums and the last CTA top-8 lists ready
+  if (cta == 0) {
+    if (warp == 2 && n_act >= 1) emit_topk(par ^ 1, t_prev);
+    float* metrics = a.packed + 2 * a.t;
+    for (int x = tid; x < a.b * 6; x += THREADS) {
+      int s = 0;
+      for (int c = 0; c < FW_CLUSTER; ++c)
+        s += cluster.map_shared_rank(part, c)[x];
+      metrics[(x % 6) * a.b + x / 6] = (float)s;
+    }
+    for (int m = tid; m < a.b; m += THREADS) {
       metrics[6 * a.b + m] = 0.0f;  // exhausted_devices: outside envelope
       metrics[7 * a.b + m] = 0.0f;  // exhausted_cores: outside envelope
     }
   }
-
-  // ---- the step loop ----
-  for (int t = 0; t < a.t; ++t) {
-    const int member = a.step_member[t];
-    const int m = min(max(member, 0), a.b - 1);
-    const int j_raw = a.step_local[t];
-    const int j = min(max(j_raw, 0), a.k - 1);
-    const View v = member_view(a, m, j);
-    const int n_steps = *leaf_of<int>(a, L_NSTEPS, m);
-    const bool active = member >= 0 && j_raw < n_steps;
-    const int* inv = a.with_shuffle ? a.inv_perm + (long long)(a.bp > 1 ? m : 0) * n
-                                    : nullptr;
-
-    Cand best = {-INFINITY, 0x7fffffff, 0};
-    float lv[TOPK];
-    int li[TOPK];
-#pragma unroll
-    for (int q = 0; q < TOPK; ++q) {
-      lv[q] = -INFINITY;
-      li[q] = 0x7fffffff;
-    }
-    for (int i = tid; i < n; i += THREADS) {
-      float masked = NEG_INF_F;
-      if (active && node_feasible(a, v, i)) masked = node_score(a, v, i);
-      int r = a.with_shuffle ? inv[i] : i;
-      if (better(masked, r, best.v, best.r)) {
-        best.v = masked; best.r = r; best.i = i;
-      }
-      if (a.with_topk && masked > lv[TOPK - 1]) {
-        bool placed = false;
-#pragma unroll
-        for (int q = TOPK - 1; q > 0; --q) {
-          if (!placed) {
-            if (masked > lv[q - 1]) {
-              lv[q] = lv[q - 1];
-              li[q] = li[q - 1];
-            } else {
-              lv[q] = masked;
-              li[q] = i;
-              placed = true;
-            }
-          }
-        }
-        if (!placed) {
-          lv[0] = masked;
-          li[0] = i;
-        }
-      }
-    }
-    best = block_best(best, sh_best);
-
-    if (a.with_topk) {
-      for (int q = 0; q < TOPK; ++q) {
-        Cand head = {lv[0], li[0], li[0]};
-        Cand win = block_best(head, sh_best);
-        if (li[0] == win.i && win.i != 0x7fffffff) {
-#pragma unroll
-          for (int s = 0; s < TOPK - 1; ++s) {
-            lv[s] = lv[s + 1];
-            li[s] = li[s + 1];
-          }
-          lv[TOPK - 1] = -INFINITY;
-          li[TOPK - 1] = 0x7fffffff;
-        }
-        if (tid == 0) {
-          a.topk_idx[t * TOPK + q] = win.i;
-          a.topk_scores[t * TOPK + q] = win.v;
-        }
-      }
-    } else if (tid == 0) {
-      for (int q = 0; q < TOPK; ++q) {
-        a.topk_idx[t * TOPK + q] = 0;
-        a.topk_scores[t * TOPK + q] = NEG_INF_F;
-      }
-    }
-
-    if (tid == 0) {
-      int idx = best.i;
-      float val = best.v;
-      if (a.with_pref) {
-        int pref = leaf_of<int>(a, L_STEP_PREF, m)[j];
-        int pcl = min(max(pref, 0), n - 1);
-        if (pref >= 0 && active && node_feasible(a, v, pcl)) {
-          idx = pcl;
-          val = node_score(a, v, pcl);
-        }
-      }
-      bool found = val > NEG_INF_F / 2.0f;
-      a.packed[t] = found ? (float)idx : -1.0f;
-      a.packed[a.t + t] = found ? val : 0.0f;
-      if (found && active) {
-        a.a_cpu[idx] = a.a_cpu[idx] + v.ask_cpu;
-        a.a_mem[idx] = a.a_mem[idx] + v.ask_mem;
-        a.a_disk[idx] = a.a_disk[idx] + v.ask_disk;
-        a.jtc[(long long)m * n + idx] += 1;
-        if (a.with_ports) {
-          a.a_dyn[idx] += v.ask_dyn;
-          if (v.has_res) a.pc[(long long)m * n + idx] = 1;
-        }
-        if (a.with_distinct) a.jac[(long long)m * n + idx] += 1;
-      }
-    }
-    __syncthreads();
+  cluster.sync();  // no CTA leaves while another may read its shared memory
+  PROF(P_TAIL);
+#ifdef FW_PROFILE
+  if (cta == 0 && (tid == 0 || tid == THREADS - 32)) {
+    prof[P_TOTAL] = clock64() - prof_t0;
+    for (int q = 0; q < N_PROF; ++q) g_prof[(tid ? N_PROF : 0) + q] = prof[q];
   }
+#endif
+}
+
+static cudaError_t set_attributes(int* limit) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, fused_wave_kernel);
+  if (e != cudaSuccess) return e;
+  *limit = optin - (int)fa.sharedSizeBytes;
+  e = cudaFuncSetAttribute(fused_wave_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           *limit);
+  if (e != cudaSuccess) return e;
+  if (FW_CLUSTER > 8)
+    e = cudaFuncSetAttribute(fused_wave_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+static cudaLaunchConfig_t launch_config(size_t smem, cudaStream_t stream,
+                                        cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(FW_CLUSTER, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = FW_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+extern "C" int fused_wave_cluster(void) { return FW_CLUSTER; }
+
+#ifdef FW_PROFILE
+// The last wave's cycles per ProfSlot, CTA 0's thread 0 then its top-k
+// warp's first thread; synchronizes.
+extern "C" int fused_wave_profile(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+}
+#endif
+
+// out[0] cluster size, out[1] dynamic shared memory the wave needs,
+// out[2] the most a block may take, out[3] clusters of that shape the card
+// can hold at once (0: the launch would be refused).
+extern "C" int fused_wave_plan(int n, int b, int with_shuffle, int* out) {
+  int limit = 0;
+  cudaError_t e = set_attributes(&limit);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = fused_smem_bytes(n, b, with_shuffle);
+  out[0] = FW_CLUSTER;
+  out[1] = (int)smem;
+  out[2] = limit;
+  out[3] = 0;
+  if (smem > (size_t)limit) return 0;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = launch_config(smem, 0, attr);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, fused_wave_kernel, &cfg);
+  out[3] = clusters;
+  return (int)e;
 }
 
 extern "C" int fused_wave_launch(const FusedArgs* args, void* stream) {
-  fused_wave_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(*args);
+  if (args->p > MAX_P) return (int)cudaErrorInvalidValue;
+  int limit = 0;
+  cudaError_t e = set_attributes(&limit);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = fused_smem_bytes(args->n, args->b, args->with_shuffle);
+  if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = launch_config(smem, (cudaStream_t)stream, attr);
+  e = cudaLaunchKernelEx(&cfg, fused_wave_kernel, *args);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

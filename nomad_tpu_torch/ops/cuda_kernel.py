@@ -98,7 +98,6 @@ class _FusedArgs(ctypes.Structure):
         ("jtc", ctypes.c_void_p),
         ("jac", ctypes.c_void_p),
         ("pc", ctypes.c_void_p),
-        ("inv_perm", ctypes.c_void_p),
         ("n", ctypes.c_int), ("b", ctypes.c_int), ("t", ctypes.c_int),
         ("k", ctypes.c_int), ("p", ctypes.c_int), ("bp", ctypes.c_int),
         ("with_topk", ctypes.c_int), ("with_ports", ctypes.c_int),
@@ -111,7 +110,7 @@ class _FusedArgs(ctypes.Structure):
 _ENTRY = {"fused_wave": "fused_wave_launch",
           "place_batch": "place_batch_launch",
           "cand_scan": "cand_scan_launch"}
-_LIBS: dict = {}          # name -> (entry point, BuiltLibrary)
+_LIBS: dict = {}          # name -> (entry point, BuiltLibrary, CDLL)
 _LIB_LOCK = threading.Lock()
 
 
@@ -125,11 +124,25 @@ def load_library(name: str) -> BuiltLibrary:
     built = build_library(name)       # concurrent builds are safe
     with _LIB_LOCK:
         if name not in _LIBS:
-            fn = getattr(ctypes.CDLL(str(built.path)), _ENTRY[name])
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _LIBS[name] = (fn, built)
+            _LIBS[name] = _open(name, built)
         return _LIBS[name][1]
+
+
+def _open(name: str, built: BuiltLibrary) -> tuple:
+    lib = ctypes.CDLL(str(built.path))
+    fn = getattr(lib, _ENTRY[name])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, built, lib
+
+
+def use_build(name: str, built: BuiltLibrary) -> None:
+    """Serve ``name``'s launches from ``built``, a build-time variant
+    from ``build_library(name, defines)``: for measurements that hold
+    two variants against each other in one process."""
+    with _LIB_LOCK:
+        _LIBS[name] = _open(name, built)
+        _PLANS.clear()
 
 
 def load_libraries() -> dict:
@@ -184,6 +197,44 @@ def fused_wave_place(kin: KernelIn, step_member, step_local, t_steps: int,
     return _launch(kin, step_member, step_local, t_steps, features)
 
 
+def fused_wave_cluster_size() -> int:
+    """CTAs in the thread-block cluster that runs one fused wave (fixed
+    when csrc/fused_wave.cu is built)."""
+    load_library("fused_wave")
+    return int(_LIBS["fused_wave"][2].fused_wave_cluster())
+
+
+_PLANS: dict = {}         # (device, n, b, shuffle) -> fused_wave_plan's out
+
+
+def _check_cluster_fits(dev: torch.device, n: int, b: int,
+                        shuffle: bool) -> None:
+    """Raise unless one cluster can hold the wave: each CTA keeps its
+    node range's score row (and shuffle ranks) in shared memory."""
+    key = (dev.index, n, b, bool(shuffle))
+    plan = _PLANS.get(key)
+    if plan is None:
+        load_library("fused_wave")
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            err = _LIBS["fused_wave"][2].fused_wave_plan(
+                ctypes.c_int(n), ctypes.c_int(b), ctypes.c_int(int(shuffle)),
+                out)
+        if err != 0:
+            raise RuntimeError(f"fused_wave_plan failed: cudaError {err}")
+        plan = _PLANS[key] = tuple(out)
+    cluster, smem, limit, clusters = plan
+    if smem > limit:
+        raise ValueError(
+            f"N={n} does not fit the fused wave: each of the {cluster} CTAs "
+            f"keeps {-(-n // cluster)} nodes' scores in shared memory, "
+            f"{smem} B with B={b}, over the limit of {limit} B a block may "
+            "take on this card")
+    if clusters == 0:
+        raise RuntimeError(f"the card runs no cluster of {cluster} CTAs with "
+                           f"{smem} B of shared memory each")
+
+
 def _member_stride(name: str, x: torch.Tensor, b: int, dev) -> int:
     """0 for a leaf shared by every member, its per-member element count
     for a stacked one. Checks device, dtype, contiguity and rank."""
@@ -215,6 +266,7 @@ def _launch(kin: KernelIn, step_member, step_local, t_steps: int,
         raise ValueError("step_member/step_local must be i32[t_steps]")
     if kin.step_penalty.shape[-1] != MAX_PENALTY_NODES:
         raise ValueError("step_penalty must be [.., K, MAX_PENALTY_NODES]")
+    _check_cluster_fits(dev, n, b, f.with_shuffle)
 
     args = _FusedArgs()
     for slot, (name, dtype) in enumerate(_LEAVES):
@@ -244,7 +296,6 @@ def _launch(kin: KernelIn, step_member, step_local, t_steps: int,
         jac=i32(b, n) if f.with_distinct else i32(1),
         pc=(torch.empty((b, n), dtype=torch.bool, device=dev)
             if f.with_ports else i32(1)),
-        inv_perm=i32(bp, n) if f.with_shuffle else i32(1),
     )
     args.step_member = sm.data_ptr()
     args.step_local = sl.data_ptr()

@@ -81,14 +81,15 @@ def port_features(f) -> tk.KernelFeatures:
     return tk.KernelFeatures(**f._asdict())
 
 
-def wave_members(seed, variant, n_nodes, b=B, k=K, lib="ref"):
+def wave_members(seed, variant, n_nodes, b=B, k=K, lib="ref", n_pad=None):
     """``b`` randomized member kins (numpy leaves) and the variant's
-    features, built with ``lib``'s modules."""
+    features, built with ``lib``'s modules; ``n_pad`` overrides the
+    power-of-two node axis."""
     kmod, smod = _lib(lib)
     rng = np.random.default_rng(seed * 1000 + n_nodes)
     cluster = smod.synthetic_cluster(
         n_nodes, cpu=3900.0, mem=7936.0, disk=98304.0,
-        seed=int(rng.integers(0, 99)))
+        seed=int(rng.integers(0, 99)), n_pad=n_pad)
     n_pad = cluster.n_pad
     kp = kmod.pad_steps(k)
     kins = []
@@ -164,6 +165,106 @@ def stack_wave(kins, k=K):
         step_member[i * k:(i + 1) * k] = i
         step_local[i * k:(i + 1) * k] = np.arange(k)
     return stacked, step_member, step_local, t_pad
+
+
+#: waves built around what the fused kernel's incremental design leans
+#: on: a member's cached score row must see the members before it, a step
+#: penalty or a pin must override the cached value, tied scores must keep
+#: their order across the cluster's node ranges
+FUSED_CASES = ("filled_by_previous", "penalty_on_best", "pin_on_loaded",
+               "ties_across_ranges", "no_feasible_member")
+
+_CASE_VARIANT = {"filled_by_previous": "shuffle",
+                 "penalty_on_best": "penalty_preferred",
+                 "pin_on_loaded": "penalty_preferred",
+                 "ties_across_ranges": "shuffle",
+                 "no_feasible_member": "kitchen_sink"}
+
+ASK_CPU, ASK_MEM = 250.0, 128.0
+
+
+def _room(kin, nodes, slots):
+    """Load ``nodes`` in the member's used planes so that exactly
+    ``slots`` more allocations of the case's ask fit there."""
+    uc, um = np.array(kin.used_cpu), np.array(kin.used_mem)
+    uc[nodes] = kin.cap_cpu[nodes] - slots * ASK_CPU
+    um[nodes] = kin.cap_mem[nodes] - slots * ASK_MEM
+    return kin._replace(used_cpu=uc, used_mem=um)
+
+
+def fused_case(case, lib="ref", n_nodes=200, n_pad=None):
+    """``(kins, features, x)``: a wave of ``B`` members x ``K`` steps
+    (member i at steps i*K..i*K+K-1) built for ``case``; ``x`` is the
+    node the case turns on. Every member asks ASK_CPU/ASK_MEM, and step
+    penalties and pins are cleared except where the case sets them."""
+    kins, feats = wave_members(11, _CASE_VARIANT[case], n_nodes, lib=lib,
+                               n_pad=n_pad)
+    kp = kins[0].step_preferred.shape[0]
+    x = n_nodes // 3
+    kins = [k._replace(ask_cpu=np.float32(ASK_CPU),
+                       ask_mem=np.float32(ASK_MEM),
+                       step_penalty=np.full_like(k.step_penalty, -1),
+                       step_preferred=np.full(kp, -1, np.int32))
+            for k in kins]
+    if case == "filled_by_previous":
+        # x scores 1.0 for every member and takes one allocation
+        kins = [_room(k, [x], 1) for k in kins]
+    elif case == "penalty_on_best":
+        # member 1's best is x; its steps 0 and 1 penalise x. Member 2's
+        # best is x + 7; its step 1 penalises the node step 0 chose
+        pen1 = np.array(kins[1].step_penalty)
+        pen1[0, 0] = pen1[1, 0] = x
+        pen2 = np.array(kins[2].step_penalty)
+        pen2[1, 0] = x + 7
+        kins[1] = _room(kins[1], [x], 2)._replace(step_penalty=pen1)
+        kins[2] = _room(kins[2], [x + 7], 3)._replace(step_penalty=pen2)
+    elif case == "pin_on_loaded":
+        # x is the best of members 0 and 1 and takes three allocations:
+        # member 0 places there at step 0 and is pinned there at step 2,
+        # member 1 fills it at step 0 and is pinned onto it, full, at 2
+        kins = [_room(k, [x], 3) for k in kins]
+        for i in (0, 1):
+            pref = np.full(kp, -1, np.int32)
+            pref[2] = x
+            kins[i] = kins[i]._replace(step_preferred=pref)
+    elif case == "ties_across_ranges":
+        # equal top scores on both sides of every N/16 boundary
+        n = kins[0].cap_cpu.shape[-1]
+        edge = np.arange(n // 16, n, n // 16)
+        tied = np.concatenate([edge - 1, edge])
+        kins = [_room(k, tied, 3) for k in kins]
+        x = int(n // 16)
+    elif case == "no_feasible_member":
+        kins[1] = kins[1]._replace(ask_cpu=np.float32(1e6))
+    return kins, feats, x
+
+
+def check_case(case, x, chosen, found, topk_idx, nodes_feasible, k=K):
+    """Assert that a wave's outputs (numpy, from either implementation)
+    show the situation ``case`` was built for."""
+    step = lambda m, j: m * k + j                       # noqa: E731
+    if case == "filled_by_previous":
+        assert chosen[step(0, 0)] == x
+        assert x not in chosen[step(0, 1):step(B, 0)]
+        assert x not in topk_idx[step(1, 0)]
+    elif case == "penalty_on_best":
+        assert chosen[step(1, 0)] != x and chosen[step(1, 1)] != x
+        assert chosen[step(1, 2)] == x
+        assert chosen[step(2, 0)] == x + 7 != chosen[step(2, 1)]
+    elif case == "pin_on_loaded":
+        assert chosen[step(0, 0)] == x and chosen[step(0, 2)] == x
+        assert chosen[step(0, 1)] != x
+        assert chosen[step(1, 0)] == x and chosen[step(1, 2)] != x
+    elif case == "ties_across_ranges":
+        n16 = x
+        want = [n16 - 1, n16, 2 * n16 - 1, 2 * n16, 3 * n16 - 1, 3 * n16,
+                4 * n16 - 1, 4 * n16]
+        np.testing.assert_array_equal(topk_idx[step(0, 0)], want)
+        assert found[:step(B, 0)].all()
+    elif case == "no_feasible_member":
+        assert not found[step(1, 0):step(2, 0)].any()
+        assert nodes_feasible[1] == 0
+        assert found[step(0, 0):step(1, 0)].all()
 
 
 #: score tolerance: XLA-CPU and torch round ``pow`` and division in

@@ -128,6 +128,57 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
                             feats._replace(with_cores=True))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", tp.FUSED_CASES)
+def test_cuda_fused_case_matches_plain(case, cuda_device):
+    """The waves of tests/test_torch_fused_cases.py through the cluster
+    kernel: cached rows across members, penalties and pins over cached
+    values, ties across the CTAs' node ranges."""
+    kins, feats, x = tp.fused_case(case, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    got = ck.fused_wave_place(kin, sm, sl, t_pad, feats)
+    want = ck.fused_wave_place_reference(kin, sm, sl, t_pad, feats)
+    torch.cuda.synchronize()
+    g = _assert_fused(got, want, t_pad, tp.B)
+    tp.check_case(case, x, g["chosen"], g["found"],
+                  got.topk_idx.cpu().numpy(), g["nodes_feasible"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_nodes,n_pad", ((200, 256), (995, 1000),
+                                           (100_000, 131072)),
+                         ids=("n256", "n1000", "n131072"))
+def test_cuda_kernel_widths(n_nodes, n_pad, cuda_device):
+    """A node range smaller than a CTA's threads, a ragged N, and the
+    scale width."""
+    kins, feats = tp.wave_members(24, "kitchen_sink", n_nodes, lib="port",
+                                  n_pad=n_pad)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    assert kin.cap_cpu.shape[-1] == n_pad
+    got = ck.fused_wave_place(kin, sm, sl, t_pad, feats)
+    want = ck.fused_wave_place_reference(kin, sm, sl, t_pad, feats)
+    torch.cuda.synchronize()
+    assert _assert_fused(got, want, t_pad, tp.B)["found"].any()
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_raises_when_row_does_not_fit(cuda_device):
+    """Each CTA keeps its node range's scores and ranks in shared memory:
+    2**19 nodes over one cluster do not fit, and the wrapper says so
+    before launching."""
+    assert ck.fused_wave_cluster_size() in (8, 16)
+    kins, feats = tp.wave_members(25, "shuffle", 1000, b=1, lib="port",
+                                  n_pad=1 << 19)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    before = ck.launches
+    with pytest.raises(ValueError, match="limit of [0-9]+ B"):
+        ck.fused_wave_place(kin, sm, sl, t_pad, feats)
+    assert ck.launches == before
+
+
 def _lean_on(scenario, seed, device, k=tp.LEAN_K, b=tp.LEAN_B):
     args = tp.lean_args(*tp.lean_case(seed, scenario, b=b, k=k, lib="port"))
     return tp.torch_args(args, device)
