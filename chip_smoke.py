@@ -2,7 +2,6 @@
 """Drive the PyTorch/CUDA port's placement paths on one NVIDIA card.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
-    python3 chip_smoke.py --b1-study   # B1's cluster sizes and step split
 
 The quickest proof that the port (``nomad_tpu_torch``) starts and is right
 on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
@@ -14,7 +13,10 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
    cluster of 10k nodes (N=16384) with 100k resident allocs, waves of 32
    members x 10 placements (T=512), six variants of the fused envelope;
 3. the main path: 32 threads submit evals through ``LaunchCoalescer`` for
-   16 rounds; every wave commits into device-resident used planes;
+   64 rounds; every wave commits into device-resident used planes; each
+   thread's round is split by the host clock into building its member and
+   waiting in the launch (park and wave), beside 32 member builds on one
+   thread with no other running;
 4. one wave with a spread member runs the torch composite on the card;
 5. scale: two waves at 100k nodes (N=131072) with 1M allocs, kernel
    against plain;
@@ -31,11 +33,6 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
 9. the replay form: the same loop with ``reset_every=1`` on a C2M cluster
    of 10k nodes with 100k resident allocs.
 
-``--b1-study`` runs instead B1 built at both cluster sizes (16 CTAs, the
-default, and the portable 8) on a live and a scale wave, each against the
-plain version, then both timed in turns; and a build with per-phase cycle
-stamps (``-DFW_PROFILE``) that splits a wave's time by phase.
-
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit, and before that the kernels' JSON line. A full record
@@ -44,21 +41,17 @@ goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
-import argparse
-import ctypes
 import json
 import subprocess
 import sys
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from nomad_tpu_torch.ops import cuda_kernel as ck
-from nomad_tpu_torch.ops.build import build_library
 from nomad_tpu_torch.ops.kernel import (
     FUSED_METRIC_FIELDS,
     LEAN_FEATURES,
@@ -89,7 +82,7 @@ SEED = 20261016
 B_WAVE = 32          # members per wave (the default worker batch size)
 K_PLACE = 10         # placements per eval (n_steps)
 K_STEPS = 16         # the eval's step bucket, pad_steps(K_PLACE): T = 512
-MAIN_ROUNDS = 16     # waves the main path must run at least
+MAIN_ROUNDS = 64     # rounds of each eval thread; waves at least as many
 ATOL = 1e-5          # scores, top-k scores and carries: kernel vs plain
 NEAR_TIE = 1e-5      # a differing choice is excused only below this gap
 HBM_BYTES_S = 3.35e12            # H100 SXM device memory rate
@@ -327,11 +320,6 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--b1-study", action="store_true",
-                    help="B1 at both cluster sizes and its per-phase split, "
-                         "then stop")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke run needs an NVIDIA card", file=sys.stderr)
@@ -359,14 +347,6 @@ def main() -> int:
         log(f"build: {b.path} (cached={b.cached})")
     log(f"build: {len(builds)} libraries in {record['build_s']:.2f} s")
 
-    if args.b1_study:
-        sweep = b1_study(dev)
-        (Path(__file__).resolve().parent / "chiprun_out").mkdir(exist_ok=True)
-        (Path(__file__).resolve().parent / "chiprun_out"
-         / "b1_study.json").write_text(json.dumps(sweep, indent=1))
-        print(json.dumps(sweep))
-        print(smi)
-        return 0
     kline = run_phases(dev, record)
     kline["kernels"] += run_batch_phases(dev, record)
     record["card"] = smi
@@ -421,17 +401,32 @@ def run_phases(dev: torch.device, record: dict) -> dict:
     init = [x.copy() for x in (ucpu, umem, udisk)]
     co = coalesce.LaunchCoalescer(B_WAVE, device=dev, resident=resident)
     placed = [[] for _ in range(B_WAVE)]
+    prep_s = [0.0] * B_WAVE       # host seconds building members, per thread
+    launch_s = [0.0] * B_WAVE     # host seconds inside co.launch, per thread
     errors: list = []
     mix = ("shuffle",) * 6 + ("ports", "ports", "penalty_preferred",
                               "distinct")
+
+    # 32 member builds on this thread alone: what one round's preparation
+    # costs when the builds cannot overlap
+    srng = np.random.default_rng(SEED + 999)
+    t0 = time.perf_counter()
+    for r in range(B_WAVE):
+        make_member(base, cluster, mix[r % len(mix)], srng)
+    serial_prep_s = time.perf_counter() - t0
 
     def evaluator(tid: int) -> None:
         trng = np.random.default_rng(SEED + 1000 + tid)
         try:
             for r in range(MAIN_ROUNDS):
                 variant = mix[(tid + r) % len(mix)]
+                t_a = time.perf_counter()
                 kin, f = make_member(base, cluster, variant, trng)
+                t_b = time.perf_counter()
                 out = co.launch(kin, K_STEPS, f)
+                t_c = time.perf_counter()
+                prep_s[tid] += t_b - t_a
+                launch_s[tid] += t_c - t_b
                 if len(out.chosen) != K_STEPS:
                     errors.append(f"thread {tid}: slice of "
                                   f"{len(out.chosen)} steps")
@@ -493,9 +488,16 @@ def run_phases(dev: torch.device, record: dict) -> dict:
             "placements": n_placed, "wall_s": wall,
             "evals_per_s": evals / wall,
             "round_ms": wall * 1e3 / MAIN_ROUNDS,
+            "member_prep_ms_per_round": float(np.mean(prep_s)) * 1e3
+            / MAIN_ROUNDS,
+            "launch_ms_per_round": float(np.mean(launch_s)) * 1e3
+            / MAIN_ROUNDS,
+            "serial_32_member_builds_ms": serial_prep_s * 1e3,
             "wave_latency_p50_ms": wstats["wave_latency_p50_ms"],
             "wave_latency_p99_ms": wstats["wave_latency_p99_ms"],
             "park_latency_p50_ms": wstats["park_latency_p50_ms"],
+            "assemble_latency_p50_ms": wstats["assemble_latency_p50_ms"],
+            "assemble_latency_p99_ms": wstats["assemble_latency_p99_ms"],
             "fill_ratio": wstats["fill_ratio"],
             "deadline_launches": wstats["deadline_launches"]}
     log(f"main path: {json.dumps(main)}")
@@ -603,94 +605,6 @@ def run_phases(dev: torch.device, record: dict) -> dict:
                        "n": n, "b": wave.b_pad, "t": wave.t_pad}
     record["kernels"] = kline["kernels"]
     return kline
-
-
-SWEEP_CLUSTERS = (16, 8)
-#: csrc/fused_wave.cu ``ProfSlot`` order
-PROF_SLOTS = ("prewave", "ballot", "row_pass", "special", "scan",
-              "cta_merge", "cluster_sync", "cluster_merge", "step_sync",
-              "tail", "row_rank", "row_list", "total")
-PER_STEP_SLOTS = ("special", "scan", "cta_merge", "cluster_sync",
-                  "cluster_merge", "step_sync")
-
-
-def b1_study(dev: torch.device) -> dict:
-    """B1 built with FW_CLUSTER=16 and =8 and with -DFW_PROFILE (one
-    nvcc each, together) on the live kitchen-sink wave and a kitchen-sink
-    wave at 100k nodes: each cluster size against the plain version, then
-    CUDA-event times of both in turns (16, 8, 8, 16), so both see the same
-    card and waves; then the profiled build's cycles per phase, as CTA
-    0's thread 0 sees them, scaled to that build's own wave time."""
-    rng = np.random.default_rng(SEED)
-    waves = {}
-    for name, nodes, allocs in (("live", 10_000, 100_000),
-                                ("scale", 100_000, 1_000_000)):
-        seed = SEED if name == "live" else SEED + 1
-        cluster = c2m_cluster(nodes, seed=seed)
-        usage = c2m_pack_usage(cluster, allocs, seed=seed)[:3]
-        waves[name] = wave_of(base_kin(cluster, usage), cluster,
-                              "kitchen_sink", rng, dev)
-    default = ck.load_library("fused_wave")
-    variants = [(f"FW_CLUSTER={c}",) for c in SWEEP_CLUSTERS] + [
-        ("FW_PROFILE=1",)]
-    with ThreadPoolExecutor(len(variants)) as pool:
-        built = list(pool.map(lambda d: build_library("fused_wave", d),
-                              variants))
-    builds = dict(zip(SWEEP_CLUSTERS, built))
-    out = {c: {"checks": [], "live_ms": [], "scale_ms": []}
-           for c in SWEEP_CLUSTERS}
-    for c in SWEEP_CLUSTERS:
-        ck.use_build("fused_wave", builds[c])
-        check(ck.fused_wave_cluster_size() == c, f"build for {c} CTAs")
-        for name, wave in waves.items():
-            args = (wave.kin, wave.step_member, wave.step_local, wave.t_pad,
-                    wave.features)
-            got = ck.fused_wave_place(*args)
-            want = ck.fused_wave_place_reference(*args)
-            torch.cuda.synchronize()
-            out[c]["checks"].append(compare(got, want, wave,
-                                            f"sweep/{c}/{name}"))
-    for c in SWEEP_CLUSTERS + SWEEP_CLUSTERS[::-1]:
-        ck.use_build("fused_wave", builds[c])
-        for name, reps in (("live", 20), ("scale", 5)):
-            wave = waves[name]
-            args = (wave.kin, wave.step_member, wave.step_local, wave.t_pad,
-                    wave.features)
-            ck.fused_wave_place(*args)
-            out[c][f"{name}_ms"].append(
-                cuda_ms(lambda: ck.fused_wave_place(*args), reps))
-    active = {name: active_steps(w) for name, w in waves.items()}
-    for c, r in out.items():
-        r["us_per_active_step"] = {
-            name: float(np.mean(r[f"{name}_ms"])) * 1e3 / active[name]
-            for name in waves}
-        log(f"sweep: cluster {c}: {json.dumps(r)}")
-
-    ck.use_build("fused_wave", built[-1])
-    read_prof = ctypes.CDLL(str(built[-1].path)).fused_wave_profile
-    split = {}
-    for name, wave in waves.items():
-        args = (wave.kin, wave.step_member, wave.step_local, wave.t_pad,
-                wave.features)
-        ck.fused_wave_place(*args)
-        wave_ms = cuda_ms(lambda: ck.fused_wave_place(*args), 5)
-        both = (ctypes.c_ulonglong * (2 * len(PROF_SLOTS)))()
-        check(read_prof(both) == 0, "fused_wave_profile failed")
-        split[name] = {"wave_ms": wave_ms}
-        for who, off in (("chain", 0), ("topk_warp", len(PROF_SLOTS))):
-            cycles = both[off:off + len(PROF_SLOTS)]
-            us_per_cycle = wave_ms * 1e3 / cycles[-1]
-            split[name][who] = {
-                "cycles": dict(zip(PROF_SLOTS, cycles)),
-                "us": {k: c * us_per_cycle
-                       for k, c in zip(PROF_SLOTS, cycles)},
-                "us_per_active_step": {
-                    k: cycles[PROF_SLOTS.index(k)] * us_per_cycle
-                    / active[name] for k in PER_STEP_SLOTS}}
-        log(f"split {name}: {json.dumps(split[name])}")
-    ck.use_build("fused_wave", default)
-    return {"cluster_sweep": {str(c): r for c, r in out.items()},
-            "active_steps": active, "split": split}
 
 
 # ---------------------------------------------------------------------------

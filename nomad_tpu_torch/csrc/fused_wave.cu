@@ -25,7 +25,7 @@
 // block-wide rounds) took 16.7-17.0 ms per live wave and 94-129 ms at
 // N=131072 on an NVIDIA H100 80GB HBM3 at 700 W, ~33 us per step on one SM.
 //
-// Design. One launch per wave: a cluster of FW_CLUSTER CTAs of THREADS
+// Design. One launch per wave: a cluster of CLUSTER CTAs of THREADS
 // threads, CTA c owning the contiguous node range [c*chunk, (c+1)*chunk).
 // - A node's carries (a_cpu/a_mem/a_disk/a_dyn, and the per-member scratch
 //   job_tg_count/job_any_count/port_conflict) are read and written only by
@@ -45,19 +45,17 @@
 // - Scores travel as order-preserving u32 keys, so a warp's argmax on
 //   (value desc, rank asc) is two redux.sync reductions, and its top-8 on
 //   (value desc, index asc) is eight rounds of two, over sorted per-thread
-//   lists.
-// - The chain carries the argmax only: warp argmaxes, one barrier, then
-//   warp 0 reduces the CTA's argmax and pushes it with st.async into an
-//   inbox in every CTA (double-buffered by step parity), counted in bytes
-//   on that CTA's mbarrier. Each CTA waits on its own mbarrier and reduces
-//   the FW_CLUSTER argmaxes itself, so every CTA learns the winner with no
-//   cluster-wide barrier and no release fence on the sender; the pin rule
-//   is applied as the plain version does.
-// - The top-8, which the next step does not need, stays off the chain: the
-//   CTA's last warp rebuilds the warp lists that the step's special nodes
-//   made stale and merges them while the chain merges; that list rides to
-//   CTA 0 with the next step's push, and CTA 0's warp 2 merges the CTAs'
-//   lists and writes step s's top-k during step s+2's special-node phase.
+//   lists. A warp rebuilds its top-8 list only when the step changed one of
+//   its row entries.
+// - A step: the special nodes (the last step's commit, the penalty nodes,
+//   the pin), one barrier; every warp's argmax (and stale top-8 lists), one
+//   barrier; warp 0 writes the CTA's argmax and warp 1 the CTA's top-8 into
+//   this CTA's slot for the step's parity; one cluster.sync(); then every
+//   CTA reads the CLUSTER argmax slots through DSMEM and reduces them
+//   itself, so no second cluster barrier is needed, and applies the pin
+//   rule as the plain version does. CTA 0 merges the CTAs' top-8 lists
+//   during the next step's special-node phase. A slot is rewritten two
+//   steps later, after a cluster barrier that every reader has passed.
 // - The winner's commit is deferred to the next step's special-node pass
 //   (or to the member change, or to the end of the wave).
 // - Padding and inactive steps skip the scan: found from one ballot per
@@ -71,10 +69,17 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v
 //        -fmad=false -shared -Xcompiler -fPIC
 // (-fmad=false so the score arithmetic rounds op for op like the plain
-// torch version on the card; no fast-math). -DFW_CLUSTER=8 builds the
-// portable cluster size instead of the default 16, which is faster on an
-// NVIDIA H100 80GB HBM3 at 700 W: 0.99 against 1.20 ms per live wave and
-// 2.84 against 4.10 ms at N=131072 (`chip_smoke.py --b1-study`).
+// torch version on the card; no fast-math). The cluster size is 16, the
+// largest an H100 runs (a non-portable size): on an NVIDIA H100 80GB HBM3
+// at 700 W a cluster of 8 took 1.20 against 0.99 ms per live wave and 4.10
+// against 2.84 ms at N=131072 in an earlier version of this kernel.
+//
+// Measured on that card: 1.47 ms per live wave (4.6 us per active step),
+// 2.8-3.1 ms at N=131072. An earlier version exchanged the argmaxes with
+// st.async pushes into every CTA's inbox, counted on mbarriers, with a
+// dedicated top-k warp whose lists reached CTA 0 a step later: 0.99 ms per
+// live wave, but no change in the main path's round, so the one cluster
+// barrier per step was kept for its smaller hazard surface.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -83,9 +88,7 @@
 
 namespace cg = cooperative_groups;
 
-#ifndef FW_CLUSTER
-#define FW_CLUSTER 16
-#endif
+#define CLUSTER 16
 #define THREADS 512
 #define NWARPS (THREADS / 32)
 #define TOPK 8
@@ -96,34 +99,13 @@ namespace cg = cooperative_groups;
 #define FULL_MASK 0xffffffffu
 #define NO_NODE 0x7fffffff
 #define NO_RANK 0xffffffffu
+#define ALL_WARPS (FULL_MASK >> (32 - NWARPS))
+#define MAX_DEVICES 64
 
 #define NEG_INF_F (-1.0e30f)
 
-// -DFW_PROFILE builds a variant that sums clock64() cycles per phase of
-// the wave as CTA 0's thread 0 (a chain thread) and its top-k warp's first
-// thread see them (fused_wave_profile reads both rows); the default build
-// compiles the stamps away.
-enum ProfSlot {
-  P_PREWAVE, P_BALLOT, P_ROW, P_SPECIAL, P_SCAN, P_CTA_MERGE, P_CLUSTER_SYNC,
-  P_CLUSTER_MERGE, P_STEP_SYNC, P_TAIL, P_ROW_RANK, P_ROW_LIST, P_TOTAL,
-  N_PROF
-};
-#ifdef FW_PROFILE
-__device__ unsigned long long g_prof[2 * N_PROF];
-#define PROF(slot)                                  \
-  if (cta == 0 && (tid == 0 || tid == THREADS - 32)) { \
-    const unsigned long long now = clock64();       \
-    prof[slot] += now - prof_t;                     \
-    prof_t = now;                                   \
-  }
-#else
-#define PROF(slot)
-#endif
-
-static_assert(FW_CLUSTER >= 2 && FW_CLUSTER <= 16 &&
-                  (FW_CLUSTER & (FW_CLUSTER - 1)) == 0,
-              "cluster size is a power of two in 2..16");
-static_assert(NWARPS >= 3 && NWARPS <= 32, "warps 0-2 have roles");
+static_assert(NWARPS >= 2 && NWARPS <= 32, "warps 0 and 1 have roles");
+static_assert(CLUSTER <= 32, "a warp reduces the CTAs' slots");
 
 // Leaf order: mirrored by nomad_tpu_torch/ops/cuda_kernel._LEAVES.
 enum Leaf {
@@ -427,78 +409,19 @@ struct Best {
   int i;          // node index
 };
 
-// One CTA's argmax for one step, pushed into every CTA's inbox.
+// One CTA's argmax for one step, read by every CTA after the step's
+// cluster barrier.
 struct __align__(16) Slot {
   unsigned k, r;
   int i;
   float pin_v;  // the pin's masked step value (meaningful from its owner)
 };
 
-// One CTA's top-8 for one step, pushed into CTA 0's inbox a step later.
+// One CTA's top-8 for one step, read by CTA 0 during the next step.
 struct __align__(16) TopList {
   unsigned k[TOPK];
   int i[TOPK];
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// The address of the same shared variable in CTA `rank` of the cluster.
-__device__ __forceinline__ unsigned map_rank(unsigned addr, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void st_remote(unsigned addr, unsigned x,
-                                          unsigned y, unsigned z,
-                                          unsigned w) {
-  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};"
-               :: "r"(addr), "r"(x), "r"(y), "r"(z), "r"(w) : "memory");
-}
-
-// 16 bytes into another CTA's shared memory, counted in bytes on that
-// CTA's mbarrier `bar` when they land; the sender waits for nothing.
-__device__ __forceinline__ void st_async(unsigned addr, unsigned x,
-                                         unsigned y, unsigned z, unsigned w,
-                                         unsigned bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
-      "[%0], {%1, %2, %3, %4}, [%5];"
-      :: "r"(addr), "r"(x), "r"(y), "r"(z), "r"(w), "r"(bar) : "memory");
-}
-
-// This CTA's one arrival on its own mbarrier, announcing the bytes that
-// the phase waits for.
-__device__ __forceinline__ void arrive_expect(unsigned bar, unsigned bytes) {
-  unsigned long long state;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;"
-               : "=l"(state) : "r"(bar), "r"(bytes) : "memory");
-}
-
-// Spin until the phase of `bar` with this parity completes. A wave waits
-// microseconds here; ten seconds means a lost arrival, so trap rather
-// than hang the card.
-__device__ __forceinline__ void wait_parity(unsigned bar, unsigned parity) {
-  const long long t0 = clock64();
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-
-// Named barrier 1 of the whole CTA, reached from the chain's and the top-k
-// warp's own branches: the step's argmax scan is done.
-__device__ __forceinline__ void scan_sync() {
-  asm volatile("bar.sync 1, %0;" :: "r"(THREADS) : "memory");
-}
 
 // A step's penalty nodes (-1 where none) and its preferred node (-1: none).
 __device__ __forceinline__ void load_step_nodes(const FusedArgs& a, int m,
@@ -515,47 +438,35 @@ __device__ __forceinline__ void load_step_nodes(const FusedArgs& a, int m,
 // per member (first appearance seen).
 __host__ __device__ inline size_t fused_smem_bytes(int n, int b,
                                                    int with_shuffle) {
-  size_t chunk = (size_t)((n + FW_CLUSTER - 1) / FW_CLUSTER);
+  size_t chunk = (size_t)((n + CLUSTER - 1) / CLUSTER);
   return chunk * sizeof(unsigned) * (with_shuffle ? 2 : 1) +
          (size_t)b * 7 * sizeof(int);
 }
 
-#define TOPK_WARP (NWARPS - 1)     // keeps the CTA's top-8 off the chain
-#define CHAIN (THREADS - 32)       // chain threads: all warps but TOPK_WARP
-#define FRESH 0x80000000u          // sh_dirty: every warp list was rebuilt
-
 __global__ void __launch_bounds__(THREADS, 1)
     fused_wave_kernel(const FusedArgs a) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  __shared__ Slot inbox[2][FW_CLUSTER];         // by step parity, by CTA
-  __shared__ TopList inbox_top[2][FW_CLUSTER];  // CTA 0 only
-  __shared__ TopList top_list[2];               // this CTA's, by parity
-  __shared__ __align__(8) unsigned long long mbar[2];
+  __shared__ Slot slot[2];             // this CTA's argmax, by step parity
+  __shared__ TopList top_list[2];      // this CTA's top-8, by step parity
   __shared__ Best sh_best[NWARPS];
-  __shared__ unsigned sh_tk[NWARPS][TOPK];      // chain warps' top-8 lists
+  __shared__ unsigned sh_tk[NWARPS][TOPK];  // each warp's top-8 list
   __shared__ int sh_ti[NWARPS][TOPK];
-  __shared__ unsigned sh_dirty;  // chain warps whose nodes this step changed
+  __shared__ unsigned sh_dirty;  // warps whose row entries the step changed
   __shared__ Member sh_member;
   __shared__ float sh_pin_v;
-  __shared__ int sh_pend;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int cta = (int)cluster.block_rank();
   const int n = a.n, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int chunk = (n + FW_CLUSTER - 1) / FW_CLUSTER;
+  const int chunk = (n + CLUSTER - 1) / CLUSTER;
   const int lo = min(cta * chunk, n), hi = min(lo + chunk, n);
   const int cnt = hi - lo;
   unsigned* row = reinterpret_cast<unsigned*>(dyn_smem);
   unsigned* rank = row + chunk;
   int* part = reinterpret_cast<int*>(rank + (a.with_shuffle ? chunk : 0));
   int* seen = part + a.b * 6;
-#ifdef FW_PROFILE
-  unsigned long long prof[N_PROF] = {};
-  const unsigned long long prof_t0 = clock64();
-  unsigned long long prof_t = prof_t0;
-#endif
 
-  // ---- pre-wave: zero the carries, arm the inbox barriers ----
+  // ---- pre-wave: zero the carries, the partial sums and the flags ----
   for (int i = lo + tid; i < hi; i += THREADS) {
     a.a_cpu[i] = 0.0f;
     a.a_mem[i] = 0.0f;
@@ -563,38 +474,22 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (a.with_ports) a.a_dyn[i] = 0;
   }
   for (int x = tid; x < a.b * 7; x += THREADS) part[x] = 0;  // and seen
-  // a step's phase of mbar[parity] completes when every CTA's argmax has
-  // landed here, and in CTA 0 also every CTA's top-8 of the step before
-  // (pushed from the second step on); each phase is armed before any CTA
-  // can push into it: the first two here, each next one by the wait of
-  // the phase before it
-  const unsigned step_bytes =
-      FW_CLUSTER * (unsigned)sizeof(Slot) +
-      (cta == 0 && a.with_topk ? FW_CLUSTER * (unsigned)sizeof(TopList) : 0);
-  if (tid == 0) {
-    for (int q = 0; q < 2; ++q)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                   :: "r"(smem_addr(&mbar[q])) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    arrive_expect(smem_addr(&mbar[0]), FW_CLUSTER * (unsigned)sizeof(Slot));
-    arrive_expect(smem_addr(&mbar[1]), step_bytes);
-  }
-  cluster.sync();  // every CTA's barriers armed before the first push
-  PROF(P_PREWAVE);
+  __syncthreads();
 
-  // CTA 0's warp 2: the cluster's top-8 of the step whose CTA lists sit
-  // in inbox_top[pp], written out as step t's top-k
+  // CTA 0's warp 1: the cluster's top-8 of active step t, from the CTAs'
+  // lists of parity pp (written before a cluster barrier already passed)
   auto emit_topk = [&](int pp, int t) {
     unsigned lk[TOPK], ok[TOPK];
     int li[TOPK], oi[TOPK];
     list_clear(lk, li);
     list_clear(ok, oi);
     if (a.with_topk) {
-      if (lane < FW_CLUSTER) {
+      if (lane < CLUSTER) {
+        const TopList* tl = cluster.map_shared_rank(&top_list[pp], lane);
 #pragma unroll
         for (int q = 0; q < TOPK; ++q) {
-          lk[q] = inbox_top[pp][lane].k[q];
-          li[q] = inbox_top[pp][lane].i[q];
+          lk[q] = tl->k[q];
+          li[q] = tl->i[q];
         }
       }
       warp_top(lk, li, ok, oi);
@@ -612,57 +507,35 @@ __global__ void __launch_bounds__(THREADS, 1)
       a.topk_scores[t * TOPK + lane] = a.with_topk ? key_score(k) : NEG_INF_F;
     }
   };
-  // this CTA's top-8 list of step `pp` into CTA 0's inbox (one thread),
-  // counted on CTA 0's mbar[bar_par]; bar_par < 0: plain stores, ordered
-  // by a cluster barrier after them
-  auto push_top = [&](int pp, int bar_par) {
-    const unsigned dst = map_rank(smem_addr(&inbox_top[pp][cta]), 0);
-    const unsigned* k = top_list[pp].k;
-    const unsigned* i = reinterpret_cast<const unsigned*>(top_list[pp].i);
-    const unsigned v[4][4] = {{k[0], k[1], k[2], k[3]},
-                              {k[4], k[5], k[6], k[7]},
-                              {i[0], i[1], i[2], i[3]},
-                              {i[4], i[5], i[6], i[7]}};
-    if (bar_par < 0) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        st_remote(dst + 16 * q, v[q][0], v[q][1], v[q][2], v[q][3]);
-    } else {
-      const unsigned bar = map_rank(smem_addr(&mbar[bar_par]), 0);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        st_async(dst + 16 * q, v[q][0], v[q][1], v[q][2], v[q][3], bar);
-    }
-  };
-
-  // the sorted top-8 of chain warp w's nodes (x = w*32 + lane + k*CHAIN),
-  // computed by the calling warp into sh_tk/sh_ti[w]
-  auto warp_list = [&](int w) {
+  // the calling warp's sorted top-8 of its nodes (x = warp*32 + lane +
+  // k*THREADS) into sh_tk/sh_ti[warp]
+  auto warp_list = [&]() {
     unsigned lk[TOPK], ok[TOPK];
     int li[TOPK], oi[TOPK];
     list_clear(lk, li);
-    for (int x = w * 32 + lane; x < cnt; x += CHAIN)
+    for (int x = warp * 32 + lane; x < cnt; x += THREADS)
       list_insert(lk, li, row[x], lo + x);
     warp_top(lk, li, ok, oi);
 #pragma unroll
     for (int q = 0; q < TOPK; ++q)
       if (q == lane) {
-        sh_tk[w][q] = ok[q];
-        sh_ti[w][q] = oi[q];
+        sh_tk[warp][q] = ok[q];
+        sh_ti[warp][q] = oi[q];
       }
   };
-  // a row entry changed: its chain warp's list is stale
+  // a row entry changed: its warp's list is stale
   auto mark = [&](int x) {
-    atomicOr(&sh_dirty, 1u << ((x % CHAIN) / 32));
+    atomicOr(&sh_dirty, 1u << ((x % THREADS) / 32));
   };
 
   // ---- the step loop ----
   int row_m = -1;   // member whose score row is cached
   int rank_m = -1;  // permutation row whose ranks are cached
-  int pend = -1;    // chosen node of the last active step, not committed
-  int par = 0;      // parity of the active step (buffers, barriers)
+  int pend = -1;    // warp 0: chosen node of the last active step, not
+                    // committed
+  int par = 0;      // parity of the active step (slots)
   int n_act = 0;    // active steps so far
-  int t_prev = -1, t_prev2 = -1;  // step index of the last two active steps
+  int t_prev = -1;  // step index of the last active step
   int restore_x = -1;  // row entry a special thread puts back next step
   unsigned restore_k = 0;
   int pf_t = -1;       // warp 0: step whose penalty list and pin are loaded
@@ -689,7 +562,6 @@ __global__ void __launch_bounds__(THREADS, 1)
         a.topk_scores[ts * TOPK + q] = NEG_INF_F;
       }
     }
-    PROF(P_BALLOT);
 
     while (mask) {
       const int l = __ffs(mask) - 1;
@@ -743,12 +615,12 @@ __global__ void __launch_bounds__(THREADS, 1)
             if (lane == 0 && s != 0) atomicAdd(&part[m * 6 + q], s);
           }
         }
-        PROF(P_ROW);
         const int pm = a.bp > 1 ? m : 0;
         if (a.with_shuffle && pm != rank_m) {
           // rank of a node = its position in the permutation
           const int* perm = leaf_of<int>(a, L_PERM, pm);
-          if ((n & 3) == 0) {  // 16-byte loads: rows start 16-byte aligned
+          if ((n & 3) == 0 && ((uintptr_t)perm & 15) == 0) {
+            // 16-byte loads where the row starts 16-byte aligned
             const int4* p4 = reinterpret_cast<const int4*>(perm);
             for (int g0 = tid; g0 < n / 4; g0 += RANK_UNROLL * THREADS) {
               int4 v[RANK_UNROLL];
@@ -775,23 +647,19 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
           rank_m = pm;
         }
-        PROF(P_ROW_RANK);
         row_m = m;
         if (tid == 0) {
           seen[m] = 1;
-          sh_dirty = FRESH;
+          sh_dirty = ALL_WARPS;
         }
         __syncthreads();
-        if (a.with_topk && warp != TOPK_WARP) warp_list(warp);
-        __syncthreads();
-        PROF(P_ROW_LIST);
       }
 
       // special nodes, one thread each in the owner CTA: put back the last
       // step's penalty values, commit the pending placement and rescore it
       // in the row, swap this step's penalty values into the row, note the
-      // pin's step value. Meanwhile CTA 0's warp 2 writes out the top-k of
-      // the step before the last.
+      // pin's step value. Meanwhile CTA 0's warp 1 writes out the top-k of
+      // the last active step.
       int pcl = -1;  // the step's pin (clamped), or -1
       if (warp == 0) {
         if (restore_x >= 0) {
@@ -847,31 +715,45 @@ __global__ void __launch_bounds__(THREADS, 1)
           }
           if (q == pcl) sh_pin_v = key_score(key);
         }
-      } else if (warp == 2 && cta == 0 && n_act >= 2) {
-        emit_topk(par, t_prev2);
+      } else if (warp == 1 && cta == 0 && n_act >= 1) {
+        emit_topk(par ^ 1, t_prev);
       }
       __syncthreads();
-      PROF(P_SPECIAL);
 
-      if (warp == TOPK_WARP) {
-        // off the chain: rebuild the stale warp lists, merge them into
-        // this CTA's top-8 of the step's row (after the argmax scan, so as
-        // not to take its issue slots)
-        scan_sync();
-        if (a.with_topk) {
-          const unsigned dirty = sh_dirty;
-          unsigned stale = dirty & ~FRESH;
-          while (stale) {
-            const int w = __ffs(stale) - 1;
-            stale &= stale - 1;
-            warp_list(w);
+      // every warp: its argmax over its row entries, and its top-8 list
+      // when the step made it stale
+      {
+        unsigned bk = PAD_KEY, br = NO_RANK;
+        int bi = NO_NODE;
+        for (int x = tid; x < cnt; x += THREADS) {
+          const unsigned k = row[x];
+          const unsigned r = a.with_shuffle ? rank[x] : (unsigned)(lo + x);
+          if (k > bk || (k == bk && r < br)) {
+            bk = k; br = r; bi = lo + x;
           }
-          __syncwarp();
-          if (dirty) {
+        }
+        warp_best(bk, br, bi);
+        if (lane == 0) sh_best[warp] = Best{bk, br, bi};
+        if (a.with_topk && ((sh_dirty >> warp) & 1u)) warp_list();
+      }
+      __syncthreads();
+
+      // this CTA's argmax (warp 0) and top-8 (warp 1) into its slots
+      if (warp == 0) {
+        Best b = {PAD_KEY, NO_RANK, NO_NODE};
+        if (lane < NWARPS) b = sh_best[lane];
+        warp_best(b.k, b.r, b.i);
+        if (lane == 0)
+          slot[par] = Slot{b.k, b.r, b.i,
+                           (pcl >= 0 && pcl / chunk == cta) ? sh_pin_v
+                                                            : NEG_INF_F};
+      } else if (warp == 1) {
+        if (a.with_topk) {
+          if (sh_dirty) {
             unsigned lk[TOPK], ok[TOPK];
             int li[TOPK], oi[TOPK];
             list_clear(lk, li);
-            if (lane < NWARPS - 1) {
+            if (lane < NWARPS) {
 #pragma unroll
               for (int q = 0; q < TOPK; ++q) {
                 lk[q] = sh_tk[lane][q];
@@ -885,99 +767,55 @@ __global__ void __launch_bounds__(THREADS, 1)
                 top_list[par].k[q] = ok[q];
                 top_list[par].i[q] = oi[q];
               }
-          } else if (lane < TOPK) {
+          } else if (lane < TOPK) {  // the row is as it was a step ago
             top_list[par].k[lane] = top_list[par ^ 1].k[lane];
             top_list[par].i[lane] = top_list[par ^ 1].i[lane];
           }
-          if (lane == 0) sh_dirty = 0;
         }
-        PROF(P_SCAN);
-      } else {
-        // the chain: this CTA's argmax, pushed to every CTA
-        const int ct = tid;  // chain threads are 0 .. THREADS - 33
-        unsigned bk = PAD_KEY, br = NO_RANK;
-        int bi = NO_NODE;
-        for (int x = ct; x < cnt; x += CHAIN) {
-          const unsigned k = row[x];
-          const unsigned r = a.with_shuffle ? rank[x] : (unsigned)(lo + x);
-          if (k > bk || (k == bk && r < br)) {
-            bk = k; br = r; bi = lo + x;
-          }
-        }
-        warp_best(bk, br, bi);
-        if (lane == 0) sh_best[warp] = Best{bk, br, bi};
-        scan_sync();
-        PROF(P_SCAN);
-        if (warp == 0) {
-          Best b = {PAD_KEY, NO_RANK, NO_NODE};
-          if (lane < NWARPS - 1) b = sh_best[lane];
-          warp_best(b.k, b.r, b.i);
-          // lanes 16 + r push to CTA r
-          const int to = lane - 16;
-          if (to == 0 && a.with_topk && n_act >= 1) push_top(par ^ 1, par);
-          if (to >= 0 && to < FW_CLUSTER) {
-            const float pin_v =
-                (pcl >= 0 && pcl / chunk == cta) ? sh_pin_v : NEG_INF_F;
-            st_async(map_rank(smem_addr(&inbox[par][cta]), to), b.k, b.r,
-                     (unsigned)b.i, __float_as_uint(pin_v),
-                     map_rank(smem_addr(&mbar[par]), to));
-          }
-          PROF(P_CTA_MERGE);
-          wait_parity(smem_addr(&mbar[par]), (n_act >> 1) & 1);
-          __syncwarp();
-          // arm the phase of the step after next: no CTA pushes into it
-          // before this CTA has pushed the next step's argmax
-          if (lane == 0) arrive_expect(smem_addr(&mbar[par]), step_bytes);
-          PROF(P_CLUSTER_SYNC);
-
-          // every CTA reduces the cluster's argmaxes from its own inbox
-          b = Best{PAD_KEY, NO_RANK, NO_NODE};
-          float pin_v = NEG_INF_F;
-          if (lane < FW_CLUSTER) {
-            const Slot sl = inbox[par][lane];
-            b = Best{sl.k, sl.r, sl.i};
-            pin_v = sl.pin_v;
-          }
-          warp_best(b.k, b.r, b.i);
-          int idx = b.i;
-          float val = key_score(b.k);
-          if (pcl >= 0) {
-            // pin rule (ops/kernel.place_taskgroups_joint): a feasible pin
-            // wins; its masked step value is > NEG_INF / 2 exactly then
-            const float pv = __shfl_sync(FULL_MASK, pin_v, pcl / chunk);
-            if (pv > NEG_INF_F / 2.0f) {
-              idx = pcl;
-              val = pv;
-            }
-          }
-          const bool found = val > NEG_INF_F / 2.0f;
-          if (cta == 0 && lane == 0) {
-            a.packed[t] = found ? (float)idx : -1.0f;
-            a.packed[a.t + t] = found ? val : 0.0f;
-          }
-          if (lane == 0) sh_pend = found ? idx : -1;
-          PROF(P_CLUSTER_MERGE);
-        }
+        __syncwarp();
+        if (lane == 0) sh_dirty = 0;
       }
-      __syncthreads();
-      PROF(P_STEP_SYNC);
-      pend = sh_pend;
+      cluster.sync();  // every CTA's slots of this parity written
+
+      // warp 0 of every CTA: the cluster's argmax from the CTAs' slots
+      if (warp == 0) {
+        Best b = {PAD_KEY, NO_RANK, NO_NODE};
+        float pin_v = NEG_INF_F;
+        if (lane < CLUSTER) {
+          const Slot sl = *cluster.map_shared_rank(&slot[par], lane);
+          b = Best{sl.k, sl.r, sl.i};
+          pin_v = sl.pin_v;
+        }
+        warp_best(b.k, b.r, b.i);
+        int idx = b.i;
+        float val = key_score(b.k);
+        if (pcl >= 0) {
+          // pin rule (ops/kernel.place_taskgroups_joint): a feasible pin
+          // wins; its masked step value is > NEG_INF / 2 exactly then
+          const float pv = __shfl_sync(FULL_MASK, pin_v, pcl / chunk);
+          if (pv > NEG_INF_F / 2.0f) {
+            idx = pcl;
+            val = pv;
+          }
+        }
+        const bool found = val > NEG_INF_F / 2.0f;
+        if (cta == 0 && lane == 0) {
+          a.packed[t] = found ? (float)idx : -1.0f;
+          a.packed[a.t + t] = found ? val : 0.0f;
+        }
+        pend = found ? idx : -1;
+      }
       par ^= 1;
       ++n_act;
-      t_prev2 = t_prev;
       t_prev = t;
     }
   }
 
   // ---- tail: the last placement, the last top-k, the metrics ----
-  if (tid == 0) {
-    if (pend >= lo && pend < hi) {
-      Node d = load_node(a, row_m, pend, false);
-      commit_node(a, sh_member, row_m, pend, d);
-    }
-    if (a.with_topk && n_act >= 1) push_top(par ^ 1, -1);
+  if (tid == 0 && pend >= lo && pend < hi) {
+    Node d = load_node(a, row_m, pend, false);
+    commit_node(a, sh_member, row_m, pend, d);
   }
-  if (warp == 2 && cta == 0 && n_act >= 2) emit_topk(par, t_prev2);
   for (int m = 0; m < a.b; ++m) {
     if (seen[m]) continue;  // counted at its first row pass
     const Member v = load_member(a, m);
@@ -990,13 +828,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (lane == 0 && s != 0) atomicAdd(&part[m * 6 + q], s);
     }
   }
-  cluster.sync();  // partial sums and the last CTA top-8 lists ready
+  cluster.sync();  // every CTA's partial sums ready
   if (cta == 0) {
-    if (warp == 2 && n_act >= 1) emit_topk(par ^ 1, t_prev);
+    if (warp == 1 && n_act >= 1) emit_topk(par ^ 1, t_prev);
     float* metrics = a.packed + 2 * a.t;
     for (int x = tid; x < a.b * 6; x += THREADS) {
       int s = 0;
-      for (int c = 0; c < FW_CLUSTER; ++c)
+      for (int c = 0; c < CLUSTER; ++c)
         s += cluster.map_shared_rank(part, c)[x];
       metrics[(x % 6) * a.b + x / 6] = (float)s;
     }
@@ -1006,19 +844,20 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
   cluster.sync();  // no CTA leaves while another may read its shared memory
-  PROF(P_TAIL);
-#ifdef FW_PROFILE
-  if (cta == 0 && (tid == 0 || tid == THREADS - 32)) {
-    prof[P_TOTAL] = clock64() - prof_t0;
-    for (int q = 0; q < N_PROF; ++q) g_prof[(tid ? N_PROF : 0) + q] = prof[q];
-  }
-#endif
 }
 
-static cudaError_t set_attributes(int* limit) {
+// The dynamic shared memory a block may take on the current device, after
+// setting the kernel's attributes there (once per device).
+static int g_limit[MAX_DEVICES];  // 0: attributes not set yet
+
+static cudaError_t smem_limit(int* limit) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && g_limit[dev] > 0) {
+    *limit = g_limit[dev];
+    return cudaSuccess;
+  }
   e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev);
   if (e != cudaSuccess) return e;
@@ -1030,21 +869,21 @@ static cudaError_t set_attributes(int* limit) {
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            *limit);
   if (e != cudaSuccess) return e;
-  if (FW_CLUSTER > 8)
-    e = cudaFuncSetAttribute(fused_wave_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  e = cudaFuncSetAttribute(fused_wave_kernel,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess && dev < MAX_DEVICES) g_limit[dev] = *limit;
   return e;
 }
 
 static cudaLaunchConfig_t launch_config(size_t smem, cudaStream_t stream,
                                         cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(FW_CLUSTER, 1, 1);
+  cfg.gridDim = dim3(CLUSTER, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = FW_CLUSTER;
+  attr[0].val.clusterDim.x = CLUSTER;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1052,25 +891,17 @@ static cudaLaunchConfig_t launch_config(size_t smem, cudaStream_t stream,
   return cfg;
 }
 
-extern "C" int fused_wave_cluster(void) { return FW_CLUSTER; }
-
-#ifdef FW_PROFILE
-// The last wave's cycles per ProfSlot, CTA 0's thread 0 then its top-k
-// warp's first thread; synchronizes.
-extern "C" int fused_wave_profile(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
-}
-#endif
+extern "C" int fused_wave_cluster(void) { return CLUSTER; }
 
 // out[0] cluster size, out[1] dynamic shared memory the wave needs,
 // out[2] the most a block may take, out[3] clusters of that shape the card
 // can hold at once (0: the launch would be refused).
 extern "C" int fused_wave_plan(int n, int b, int with_shuffle, int* out) {
   int limit = 0;
-  cudaError_t e = set_attributes(&limit);
+  cudaError_t e = smem_limit(&limit);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = fused_smem_bytes(n, b, with_shuffle);
-  out[0] = FW_CLUSTER;
+  out[0] = CLUSTER;
   out[1] = (int)smem;
   out[2] = limit;
   out[3] = 0;
@@ -1086,7 +917,7 @@ extern "C" int fused_wave_plan(int n, int b, int with_shuffle, int* out) {
 extern "C" int fused_wave_launch(const FusedArgs* args, void* stream) {
   if (args->p > MAX_P) return (int)cudaErrorInvalidValue;
   int limit = 0;
-  cudaError_t e = set_attributes(&limit);
+  cudaError_t e = smem_limit(&limit);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = fused_smem_bytes(args->n, args->b, args->with_shuffle);
   if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;

@@ -124,25 +124,12 @@ def load_library(name: str) -> BuiltLibrary:
     built = build_library(name)       # concurrent builds are safe
     with _LIB_LOCK:
         if name not in _LIBS:
-            _LIBS[name] = _open(name, built)
+            lib = ctypes.CDLL(str(built.path))
+            fn = getattr(lib, _ENTRY[name])
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _LIBS[name] = (fn, built, lib)
         return _LIBS[name][1]
-
-
-def _open(name: str, built: BuiltLibrary) -> tuple:
-    lib = ctypes.CDLL(str(built.path))
-    fn = getattr(lib, _ENTRY[name])
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn, built, lib
-
-
-def use_build(name: str, built: BuiltLibrary) -> None:
-    """Serve ``name``'s launches from ``built``, a build-time variant
-    from ``build_library(name, defines)``: for measurements that hold
-    two variants against each other in one process."""
-    with _LIB_LOCK:
-        _LIBS[name] = _open(name, built)
-        _PLANS.clear()
 
 
 def load_libraries() -> dict:
@@ -198,8 +185,8 @@ def fused_wave_place(kin: KernelIn, step_member, step_local, t_steps: int,
 
 
 def fused_wave_cluster_size() -> int:
-    """CTAs in the thread-block cluster that runs one fused wave (fixed
-    when csrc/fused_wave.cu is built)."""
+    """CTAs in the thread-block cluster that runs one fused wave (a
+    constant of csrc/fused_wave.cu)."""
     load_library("fused_wave")
     return int(_LIBS["fused_wave"][2].fused_wave_cluster())
 

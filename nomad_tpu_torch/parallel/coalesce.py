@@ -279,9 +279,10 @@ def _pad_kin_steps(kin: KernelIn, k_max: int) -> KernelIn:
 class WaveStats:
     """Process-wide wave-shape observability: ``fill_ratio`` = real
     members / padded wave slots; ``park_latency`` is the rendezvous cost
-    an eval thread pays waiting for its wave; ``wave_latency`` is
-    launch_wave's host time from dispatch to the end of the blocking
-    packed readback."""
+    an eval thread pays waiting for its wave; ``assemble_latency`` is
+    launch_wave's host time stacking and uploading the wave before its
+    dispatch; ``wave_latency`` is launch_wave's host time from dispatch
+    to the end of the blocking packed readback."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -292,6 +293,7 @@ class WaveStats:
         self.members_sum = 0
         self.slots_sum = 0
         self._park_s: deque = deque(maxlen=4096)
+        self._assemble_s: deque = deque(maxlen=4096)
         self._wave_s: deque = deque(maxlen=4096)
 
     def observe_wave(self, members: int, deadline_fired: bool) -> None:
@@ -309,6 +311,10 @@ class WaveStats:
             self.requests += 1
             self._park_s.append(seconds)
 
+    def observe_assemble(self, seconds: float) -> None:
+        with self._lock:
+            self._assemble_s.append(seconds)
+
     def observe_wave_latency(self, seconds: float) -> None:
         with self._lock:
             self._wave_s.append(seconds)
@@ -322,6 +328,7 @@ class WaveStats:
             self.members_sum = 0
             self.slots_sum = 0
             self._park_s.clear()
+            self._assemble_s.clear()
             self._wave_s.clear()
 
     def snapshot(self) -> dict:
@@ -335,6 +342,10 @@ class WaveStats:
                                if self.slots_sum else 0.0),
                 "park_latency_p50_ms": _percentile(self._park_s, 0.5) * 1e3,
                 "park_latency_p99_ms": _percentile(self._park_s, 0.99) * 1e3,
+                "assemble_latency_p50_ms":
+                    _percentile(self._assemble_s, 0.5) * 1e3,
+                "assemble_latency_p99_ms":
+                    _percentile(self._assemble_s, 0.99) * 1e3,
                 "wave_latency_p50_ms": _percentile(self._wave_s, 0.5) * 1e3,
                 "wave_latency_p99_ms": _percentile(self._wave_s, 0.99) * 1e3,
             }
@@ -509,9 +520,11 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     dev = resolve_device(device)
     if resident is not None and resident.device != dev:
         raise ValueError("resident usage lives on another device")
+    t_assemble = time.perf_counter()
     stacked, sm, sl, t_pad, b_pad, feats, offsets = assemble_wave(
         kins, k_steps, features, dev)
     t_launch = time.perf_counter()
+    wave_stats.observe_assemble(t_launch - t_assemble)
     token = object()
     with _INFLIGHT_LOCK:
         _INFLIGHT_STARTS[token] = t_launch

@@ -242,10 +242,14 @@ def test_wave_stats_and_union_features():
     st.observe_wave(32, True)
     for s in (0.001, 0.002, 0.003):
         st.observe_park(s)
+        st.observe_assemble(2 * s)
     snap = st.snapshot()
     assert snap["launches"] == 2 and snap["deadline_launches"] == 1
     assert snap["fill_ratio"] == pytest.approx(35 / 36)
     assert snap["park_latency_p50_ms"] == pytest.approx(2.0)
+    assert snap["assemble_latency_p50_ms"] == pytest.approx(4.0)
+    st.reset()
+    assert st.snapshot()["assemble_latency_p99_ms"] == 0.0
 
 
 def test_wave_field_groups_match_reference():

@@ -164,11 +164,31 @@ def test_cuda_kernel_widths(n_nodes, n_pad, cuda_device):
 
 
 @pytest.mark.gpu
+def test_cuda_kernel_reads_perm_at_any_offset(cuda_device):
+    """A contiguous permutation view that starts 4 bytes into its storage
+    (N a multiple of 4) is read element by element, not with 16-byte
+    loads."""
+    kins, feats = tp.wave_members(26, "shuffle", 250, lib="port", n_pad=256)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    perm = kin.node_perm
+    buf = torch.empty(perm.numel() + 1, dtype=perm.dtype, device=cuda_device)
+    buf[1:] = perm.reshape(-1)
+    shifted = buf[1:].view(perm.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    kin = kin._replace(node_perm=shifted)
+    got = ck.fused_wave_place(kin, sm, sl, t_pad, feats)
+    want = ck.fused_wave_place_reference(kin, sm, sl, t_pad, feats)
+    torch.cuda.synchronize()
+    assert _assert_fused(got, want, t_pad, tp.B)["found"].any()
+
+
+@pytest.mark.gpu
 def test_cuda_wrapper_raises_when_row_does_not_fit(cuda_device):
     """Each CTA keeps its node range's scores and ranks in shared memory:
     2**19 nodes over one cluster do not fit, and the wrapper says so
     before launching."""
-    assert ck.fused_wave_cluster_size() in (8, 16)
+    assert ck.fused_wave_cluster_size() == 16
     kins, feats = tp.wave_members(25, "shuffle", 1000, b=1, lib="port",
                                   n_pad=1 << 19)
     stacked, sm, sl, t_pad = tp.stack_wave(kins)
