@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's placement paths on one NVIDIA card.
 
-    python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py                 # from the repository root, one card
+    python3 chip_smoke.py --batch-study   # B2's and B3's block shapes
 
 The quickest proof that the port (``nomad_tpu_torch``) starts and is right
 on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
@@ -23,15 +24,23 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
 6. times: CUDA-event time of the kernel and of the plain version at the
    live shape, and the bound;
 7. B3, the lean full-width batch kernel, against its plain version on the
-   bench's throughput problem (10k nodes, N=16384, B=512, K=10), then the
-   schedule-apply step with the kernel inside (the B3 path, 4 batches)
-   against the plain step: same committed planes;
-8. B2 and the batched loop at the bench shape (B=8192, 25 batches, K=10):
-   the candidate scan against its plain version on one batch, then the
-   ``kernel_topk`` loop (the B2 path) against the ``torch`` loop, with
-   evals/s of both and the split of a batch (full-width pass vs scan);
+   bench's throughput problem (10k nodes, N=16384, B=512, K=10) and at
+   100k nodes (N=131072), then the schedule-apply step with the kernel
+   inside (the B3 path, 4 batches) against the plain step: same committed
+   planes;
+8. B2, the candidate-set placement kernel (pass, top-k, rest max and
+   scan in one launch), and the batched loop at the bench shape (B=8192,
+   25 batches, K=10): the kernel against its plain version on one batch,
+   its peak allocation over that batch, then the ``kernel_topk`` loop (the
+   B2 path) against the ``torch`` loop, with evals/s of both and the split
+   of a batch (kernel, commit, the rest; fallback rows);
 9. the replay form: the same loop with ``reset_every=1`` on a C2M cluster
    of 10k nodes with 100k resident allocs.
+
+``--batch-study`` runs instead B2 and B3 built at several block shapes
+(``-DEPW``/``-DWARPS``, ``-DTHREADS``), each held against its plain
+version at the bench shapes and timed in turns, and writes
+chiprun_out/batch_study.json.
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -41,17 +50,20 @@ goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from nomad_tpu_torch.ops import cuda_kernel as ck
+from nomad_tpu_torch.ops.build import build_library
 from nomad_tpu_torch.ops.kernel import (
     FUSED_METRIC_FIELDS,
     LEAN_FEATURES,
@@ -320,6 +332,10 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch-study", action="store_true",
+                    help="time B2's and B3's block shapes instead")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke run needs an NVIDIA card", file=sys.stderr)
@@ -346,13 +362,18 @@ def main() -> int:
     for name, b in builds.items():
         log(f"build: {b.path} (cached={b.cached})")
     log(f"build: {len(builds)} libraries in {record['build_s']:.2f} s")
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    if args.batch_study:
+        study = {"card": smi, **batch_study(dev)}
+        (out_dir / "batch_study.json").write_text(json.dumps(study, indent=1))
+        print(json.dumps(study["times_ms"]))
+        return 0
 
     kline = run_phases(dev, record)
     kline["kernels"] += run_batch_phases(dev, record)
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
-    out_dir = Path(__file__).resolve().parent / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     log(f"total: {record['total_s']:.1f} s")
 
@@ -613,10 +634,12 @@ def run_phases(dev: torch.device, record: dict) -> dict:
 
 BATCH_B3 = 512       # bench.py BATCH: the full-width kernel's batch
 STEPS_B3 = 4         # kernel-step batches on the B3 path
+SCALE_NODES = 100_000   # B3's second width: N=131072
 BATCH_B2 = 8192      # bench.py _bench_batch on an accelerator
 BATCHES_B2 = 25      # 8192 x 25 evals, the bench's burst
 REPLAY_BATCHES = 4
 K_CAND = 64          # pallas_topk_place_batch's default candidate count
+B2_MEMORY_LIMIT = 64 << 20   # B2's peak allocation over one batch, bytes
 #: f32 operations of the lean score of one node: fit compares (6),
 #: utilization adds and free fractions (6), two pow, the fit sum, clamps,
 #: select and scale (7), anti-affinity (4), plane sums and the final
@@ -635,6 +658,15 @@ def lean_ops(n_steps, k_steps: int, width: int) -> int:
     active = int(np.minimum(n_steps, k_steps).sum())
     return evals * width * OPS_PER_LEAN_SCORE + active * (
         width + OPS_PER_LEAN_SCORE)
+
+
+def topk_ops(b: int, n: int, n_steps, k_steps: int, kc: int) -> int:
+    """f32 operations B2 needs: every (eval, node) scored once and
+    compared once for the selection, then each active step one argmax
+    compare per candidate and one rescore of the chosen node."""
+    active = int(np.minimum(n_steps, k_steps).sum())
+    return b * n * (OPS_PER_LEAN_SCORE + 1) + active * (
+        kc + OPS_PER_LEAN_SCORE)
 
 
 def compare_lean(got, want, n_steps, ctx: str) -> dict:
@@ -704,6 +736,23 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
     check(b3["placed"] > 0, "b3: nothing placed")
     check(b3["near_ties"] <= 0.01 * b3["active_steps"],
           f"b3 near-ties {b3['near_ties']} > 1% of {b3['active_steps']}")
+    big = throughput_problem(1, BATCH_B3, n_nodes=SCALE_NODES, seed=8)
+    bshared = batching.device_put_shared(big.kin, dev)
+    check(bshared.cap_cpu.shape[0] == 131072, "B3 scale N")
+    blean = batching._lean_args(bshared, on(big.used_cpu), on(big.used_mem),
+                                on(big.ask_cpu[0]), on(big.ask_mem[0]),
+                                on(big.n_steps))
+    bgot = ck.place_batch(*blean, k_steps=K_PLACE)
+    bwant = ck.place_batch_reference(*blean, k_steps=K_PLACE)
+    torch.cuda.synchronize()
+    b3_big = compare_lean(bgot, bwant, on(big.n_steps), "b3/n131072")
+    check(b3_big["placed"] > 0, "b3 scale: nothing placed")
+    check(b3_big["near_ties"] <= 0.01 * b3_big["active_steps"],
+          f"b3 scale near-ties {b3_big['near_ties']}")
+    b3_big["ms"] = cuda_ms(lambda: ck.place_batch(*blean, k_steps=K_PLACE),
+                           5)
+    log(f"b3 at N=131072: {json.dumps(b3_big)}")
+    del bshared, blean, bgot, bwant
 
     kstep = batching.make_schedule_apply_step_kernel(K_PLACE)
     pstep = batching.make_schedule_apply_step(K_PLACE, LEAN_FEATURES)
@@ -727,7 +776,8 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
     check(torch.equal(uc0, on(prob.used_cpu)), "b3 path wrote its input")
     b3.update(steps=STEPS_B3, launches=b3_launches, plane_err=plane_err,
               step_s=kstep_s / STEPS_B3,
-              over_capacity=over_capacity(prob.kin, ku, km))
+              over_capacity=over_capacity(prob.kin, ku, km),
+              n131072=b3_big)
     log(f"b3 path: {json.dumps(b3)}")
     record["b3"] = b3
 
@@ -746,7 +796,16 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
     ns = on(prob.n_steps)
     asks = (on(prob.ask_cpu), on(prob.ask_mem))
     lean = batching._lean_args(shared, uc0, um0, asks[0][0], asks[1][0], ns)
+    ck.topk_place_batch(*lean, k_steps=K_PLACE)      # first-call costs
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     got = ck.topk_place_batch(*lean, k_steps=K_PLACE)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base_mem
+    log(f"b2 peak allocation over one batch: {peak} B above {base_mem} B")
+    check(peak <= B2_MEMORY_LIMIT,
+          f"b2: {peak} B allocated over one batch > {B2_MEMORY_LIMIT}")
     want = ck.topk_place_batch_reference(*lean, k_steps=K_PLACE)
     torch.cuda.synchronize()
     for name, g, w in zip(("chosen", "found", "valid"),
@@ -755,18 +814,18 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
     b2_err = float((got[1] - want[1]).abs().max())
     check(b2_err <= ATOL, f"b2: max abs error {b2_err} > {ATOL}")
     b2 = {"max_abs_err": b2_err, "invalid": int((~got[3]).sum()),
-          "placed": int(got[2].sum())}
+          "placed": int(got[2].sum()), "peak_alloc_bytes": peak}
     log(f"b2 kernel vs plain: {json.dumps(b2)}")
 
     kloop = batching.make_schedule_apply_loop(
         K_PLACE, LEAN_FEATURES, topk=True, backend="kernel_topk")
     tloop = batching.make_schedule_apply_loop(K_PLACE, LEAN_FEATURES,
                                               topk=True)
-    ck.cand_scan_launches = 0
+    ck.topk_place_batch_launches = 0
     k_s, kres = best_of_2(lambda: kloop(shared, uc0, um0, *asks, ns))
-    b2_launches = ck.cand_scan_launches
+    b2_launches = ck.topk_place_batch_launches
     check(b2_launches == 2 * BATCHES_B2,
-          f"b2 path: {b2_launches} scan launches for the 2 x {BATCHES_B2} "
+          f"b2 path: {b2_launches} kernel launches for the 2 x {BATCHES_B2} "
           "batches run")
     t_s, tres = best_of_2(lambda: tloop(shared, uc0, um0, *asks, ns))
     loop = compare_loops(kres, tres, prob.kin, "loop")
@@ -780,19 +839,22 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
     record["b2"] = {**b2, "loop": loop}
 
     v2 = ck._lean_inputs(lean, K_PLACE)
-    cand, rest = ck.candidate_pass(v2, K_CAND)
     for _ in range(3):
-        ck._cand_scan(cand, rest, v2, K_PLACE)
-    b2_ms = cuda_ms(lambda: ck._cand_scan(cand, rest, v2, K_PLACE), 20)
+        out = ck.topk_place_batch(*lean, k_steps=K_PLACE)
+    b2_ms = cuda_ms(lambda: ck.topk_place_batch(*lean, k_steps=K_PLACE), 20)
     b2_plain_ms = cuda_ms(
-        lambda: ck.cand_scan_reference(cand, rest, v2, K_PLACE), 3)
-    pass_ms = cuda_ms(lambda: ck.candidate_pass(v2, K_CAND), 5)
-    scan_out = ck._cand_scan(cand, rest, v2, K_PLACE)
+        lambda: ck.topk_place_batch_reference(*lean, k_steps=K_PLACE), 3)
+    commit_ms = cuda_ms(lambda: batching.commit_placements(
+        uc0, um0, out[0], out[2], asks[0][0], asks[1][0]), 20)
+    n = v2["cap_cpu"].shape[0]
     b2_bound, b2_by = bound(
-        lean_bytes(v2, scan_out) + cand.nbytes + rest.nbytes,
-        lean_ops(prob.n_steps, K_PLACE, K_CAND))
-    split = {"full_width_pass_ms": pass_ms, "scan_ms": b2_ms,
-             "batch_ms": k_s / BATCHES_B2 * 1e3}
+        lean_bytes(v2, out),
+        topk_ops(BATCH_B2, n, prob.n_steps, K_PLACE, K_CAND))
+    batch_ms = k_s / BATCHES_B2 * 1e3
+    split = {"kernel_ms": b2_ms, "commit_ms": commit_ms,
+             "batch_ms": batch_ms,
+             "rest_of_batch_ms": batch_ms - b2_ms - commit_ms,
+             "fallback_rows": loop["fallback_kernel_topk"]}
     log(f"b2 batch split: {json.dumps(split)}")
     record["b2"]["split"] = split
 
@@ -808,11 +870,11 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
     rloop = batching.make_schedule_apply_loop(
         K_PLACE, LEAN_FEATURES, topk=True, backend="kernel_topk",
         reset_every=1)
-    ck.cand_scan_launches = 0
+    ck.topk_place_batch_launches = 0
     r_s, rres = best_of_2(lambda: rloop(rshared, on(ucpu), on(umem), *rasks,
                                         ns))
-    check(ck.cand_scan_launches == 2 * REPLAY_BATCHES,
-          f"replay: {ck.cand_scan_launches} scan launches")
+    check(ck.topk_place_batch_launches == 2 * REPLAY_BATCHES,
+          f"replay: {ck.topk_place_batch_launches} kernel launches")
     tres = batching.make_schedule_apply_loop(
         K_PLACE, LEAN_FEATURES, topk=True, reset_every=1)(
         rshared, on(ucpu), on(umem), *rasks, ns)
@@ -831,13 +893,73 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
          "launches": b3_launches, "max_abs_err": b3["max_abs_err"],
          "ms": b3_ms, "plain_ms": b3_plain_ms, "bound_ms": b3_bound,
          "bound_by": b3_by, "library_ms": None},
-        {"name": "topk_place_batch (cand_scan)", "route": "cuda",
-         "source": "nomad_tpu_torch/csrc/cand_scan.cu",
-         "replaces": "nomad_tpu/ops/pallas_kernel.py:478",
+        {"name": "topk_place_batch", "route": "cuda",
+         "source": "nomad_tpu_torch/csrc/topk_place_batch.cu",
+         "replaces": "nomad_tpu/ops/pallas_kernel.py:377",
          "launches": b2_launches, "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
          "bound_by": b2_by, "library_ms": None},
     ]
+
+
+#: block shapes of the study: B2's evals per warp and warps per block,
+#: B3's threads per block (the first of each is the shipped one)
+B2_SHAPES = (("EPW=4", "WARPS=8"), ("EPW=4", "WARPS=4"), ("EPW=2", "WARPS=8"),
+             ("EPW=1", "WARPS=8"), ("EPW=8", "WARPS=4"))
+B3_SHAPES = (("THREADS=512",), ("THREADS=256",), ("THREADS=1024",))
+
+
+def batch_study(dev: torch.device) -> dict:
+    """B2 and B3 built at each shape of B2_SHAPES and B3_SHAPES (one nvcc
+    each, together): each build against its plain version at the bench
+    shapes (B2: B=8192, N=16384, K=10, KC=64; B3: B=512), then CUDA-event
+    times of all in turns (the list, then the list reversed), and the
+    shipped B2 at 8 and 128 candidates."""
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    leans = {}
+    for name, b in (("place_batch", BATCH_B3), ("topk_place_batch", BATCH_B2)):
+        prob = throughput_problem(1, b, seed=7)
+        shared = batching.device_put_shared(prob.kin, dev)
+        leans[name] = batching._lean_args(
+            shared, on(prob.used_cpu), on(prob.used_mem),
+            on(prob.ask_cpu[0]), on(prob.ask_mem[0]), on(prob.n_steps))
+    run = {"place_batch": lambda: ck.place_batch(
+               *leans["place_batch"], k_steps=K_PLACE),
+           "topk_place_batch": lambda k_cand=K_CAND: ck.topk_place_batch(
+               *leans["topk_place_batch"], k_steps=K_PLACE, k_cand=k_cand)}
+    want = {"place_batch": ck.place_batch_reference(
+                *leans["place_batch"], k_steps=K_PLACE),
+            "topk_place_batch": ck.topk_place_batch_reference(
+                *leans["topk_place_batch"], k_steps=K_PLACE)}
+    variants = ([("topk_place_batch", d) for d in B2_SHAPES]
+                + [("place_batch", d) for d in B3_SHAPES])
+    with ThreadPoolExecutor(len(variants)) as pool:
+        built = list(pool.map(lambda v: build_library(*v), variants))
+    label = lambda v: f"{v[0]}:{','.join(v[1])}"       # noqa: E731
+    out = {label(v): {"registers": [ln.strip() for ln in b.log.splitlines()
+                                    if "registers" in ln], "ms": []}
+           for v, b in zip(variants, built)}
+    for v, b in zip(variants, built):
+        ck.use_build(v[0], b)
+        got = run[v[0]]()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want[v[0]]):
+            check(torch.equal(g, w), f"study {label(v)} differs from plain")
+    order = list(zip(variants, built))
+    for v, b in order + order[::-1]:
+        ck.use_build(v[0], b)
+        run[v[0]]()
+        out[label(v)]["ms"].append(cuda_ms(run[v[0]], 20))
+    ck.use_build("topk_place_batch", built[0])
+    kc = {str(k): cuda_ms(lambda: run["topk_place_batch"](k), 20)
+          for k in (8, K_CAND, 128)}
+    for name in run:
+        ck.use_build(name, build_library(name))
+    for k, r in out.items():
+        log(f"study {k}: {json.dumps(r)}")
+    log(f"study topk_place_batch by k_cand: {json.dumps(kc)}")
+    return {"variants": out, "topk_by_k_cand_ms": kc,
+            "times_ms": {k: r["ms"] for k, r in out.items()}}
 
 
 def synthetic_kin_for(cluster, used_disk):

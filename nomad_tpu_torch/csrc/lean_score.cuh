@@ -2,12 +2,16 @@
 //
 // One arithmetic for csrc/place_batch.cu (replacing
 // nomad_tpu/ops/pallas_kernel.py `_place_kernel`, :106-126) and
-// csrc/cand_scan.cu (replacing `_cand_scan_kernel`, :294-313): binpack or
+// csrc/topk_place_batch.cu (replacing `pallas_topk_place_batch`: its
+// full-width pass, :410-433, and `_cand_scan_kernel`, :294-313): binpack or
 // spread fit over the cpu/mem free fractions (funcs.go:259 / :286, /18),
 // then the anti-affinity, penalty and affinity planes averaged over the
-// planes that apply (rank.go:588, :655, :730, :764). The operation order
-// is that of the plain torch version (ops/cuda_kernel._lean_score), and
-// the build passes -fmad=false, so both round alike on the card.
+// planes that apply (rank.go:588, :655, :730, :764). Two operation orders,
+// one per plain torch version: ``lean_score`` adds a precomputed
+// ``aff + pen`` (ops/cuda_kernel._lean_score, the scans), ``lean_pass_score``
+// adds the affinity, then the penalty (ops/cuda_kernel.candidate_pass, the
+// full-width pass). They round differently on a node with both. The build
+// passes -fmad=false, so each rounds like its plain version on the card.
 
 #pragma once
 
@@ -45,23 +49,52 @@ __device__ __forceinline__ bool lean_feasible(const LeanNode& s, float uc,
          (s.cd - ud) >= a_disk;
 }
 
-// ``coll`` is the node's job/task-group count, ``denom`` max(desired, 1).
-__device__ __forceinline__ float lean_score(const LeanNode& s, float uc,
-                                            float um, float coll,
-                                            float a_cpu, float a_mem,
-                                            bool spread, float denom) {
-  float fc = s.cc > 0.0f ? 1.0f - (uc + a_cpu) / s.cc : 0.0f;
-  float fm = s.cm > 0.0f ? 1.0f - (um + a_mem) / s.cm : 0.0f;
+// The binpack or spread fit, scaled to [0, 1]. Both quotients are taken,
+// then selected, like torch.where's operands: no branch per quotient.
+__device__ __forceinline__ float lean_fit(float cc, float cm, float uc,
+                                          float um, float a_cpu, float a_mem,
+                                          bool spread) {
+  const float qc = (uc + a_cpu) / cc, qm = (um + a_mem) / cm;
+  float fc = cc > 0.0f ? 1.0f - qc : 0.0f;
+  float fm = cm > 0.0f ? 1.0f - qm : 0.0f;
   float total = powf(10.0f, fc) + powf(10.0f, fm);
   float binpack = fminf(fmaxf(20.0f - total, 0.0f), 18.0f);
   float spreadfit = fminf(fmaxf(total - 2.0f, 0.0f), 18.0f);
   // torch divides a CUDA tensor by a Python scalar as a product with the
   // scalar's f32 reciprocal (ATen div_true_kernel_cuda); so does this
-  float fit = (spread ? spreadfit : binpack) * (1.0f / 18.0f);
+  return (spread ? spreadfit : binpack) * (1.0f / 18.0f);
+}
+
+// ``coll`` is the node's job/task-group count, ``denom`` max(desired, 1).
+__device__ __forceinline__ float lean_score(const LeanNode& s, float uc,
+                                            float um, float coll,
+                                            float a_cpu, float a_mem,
+                                            bool spread, float denom) {
+  float fit = lean_fit(s.cc, s.cm, uc, um, a_cpu, a_mem, spread);
   bool anti_on = coll > 0.0f;
   float ssum = fit + (anti_on ? -(coll + 1.0f) / denom : 0.0f) + s.aff_sum;
   float nplanes = 1.0f + (anti_on ? 1.0f : 0.0f) + s.extra;
   return ssum / nplanes;
+}
+
+// The full-width pass's order: ((fit + anti) + aff) + pen, over
+// ((1 + anti_on) + aff_on) + pen planes. A quotient by one plane is the
+// sum itself, so that division is skipped (same bits).
+__device__ __forceinline__ float lean_pass_score(float cc, float cm,
+                                                 float uc, float um,
+                                                 float coll, bool pen,
+                                                 float aff, float a_cpu,
+                                                 float a_mem, bool spread,
+                                                 float denom) {
+  float fit = lean_fit(cc, cm, uc, um, a_cpu, a_mem, spread);
+  bool anti_on = coll > 0.0f;
+  bool aff_on = aff != 0.0f;
+  float ssum = fit + (anti_on ? -(coll + 1.0f) / denom : 0.0f);
+  ssum = ssum + (aff_on ? aff : 0.0f);
+  ssum = ssum + (pen ? -1.0f : 0.0f);
+  float nplanes = 1.0f + (anti_on ? 1.0f : 0.0f) + (aff_on ? 1.0f : 0.0f) +
+                  (pen ? 1.0f : 0.0f);
+  return nplanes == 1.0f ? ssum : ssum / nplanes;
 }
 
 // (value desc, index asc): the first-index argmax of the Pallas kernels.

@@ -14,21 +14,24 @@
 // so the function needs B*N node scores (~27 f32 operations each with two
 // powf), one argmax compare per (step, node) and one rescore per
 // step: ~3.1e8 operations at B=512, K=10, N=16384, ~5 us at 67 TFLOP/s.
-// It is bound by operations. This design rescores every node at every
-// step (B*K*N scores, ~10x the function's floor): that redundancy is the
-// design's, kept because it needs no [B, N] score scratch.
+// It is bound by operations.
 //
-// Design (simple first). One block of 512 threads per eval, a loop over the
-// K steps inside it; each thread strides over the node axis, scores its
-// nodes and keeps its best on (value desc, index asc); a warp-shuffle and
-// shared-memory reduction gives the block argmax. The Pallas kernel keeps
-// four [N] carries per program in VMEM; here they would not fit in shared
-// memory (256 KB at N=16384), so the block keeps only what changes: a
-// bitmap of touched nodes (N bits) and a list of at most K touched nodes
-// with their carried used cpu/mem/disk and counts, in shared memory.
-// Untouched nodes read the shared planes, which every block reads and
-// which stay in L2. Thread 0 commits the chosen node into the list; the
-// block barrier publishes it. No [B, N] scratch, no input is written, and
+// Design. One block of 512 threads per eval. Thread t owns the nodes
+// t, t + 512, t + 1024, ...: it scores each of them once at the start and
+// keeps their best in registers on (value desc, index asc). A step is one
+// block argmax over the 512 owners' bests (warp shuffles, then the 16 warp
+// values, read by every thread after one barrier). Only the chosen node's
+// carries change, so only its owner's best can: at the next step the block
+// rescores that owner's nodes, one per thread (32 nodes at N=16384, 256 at
+// N=131072), and the same reduction also gives the owner's new best. Each
+// node is scored once per eval plus once per step for one owner's nodes;
+// no score row is kept, so one layout serves every N. The carries of the
+// at most K touched nodes live in shared memory: an N-bit bitmap says
+// whether a node is touched (a 16 KB bitmap at N=131072), and a hash table
+// of 2 * 128 entries gives its slot, so a lookup does not grow with K. The
+// thread that rescores the node chosen at the step before commits its
+// deduction; no other thread reads that node's slot in that step, and the
+// step's barrier publishes it. No [B, N] scratch, no input is written, and
 // the outputs are [B, K] with no padding.
 //
 // Built by nomad_tpu_torch/ops/build.py (nvcc -gencode
@@ -40,10 +43,14 @@
 
 #include "lean_score.cuh"
 
+#ifndef THREADS
 #define THREADS 512
+#endif
 #define NWARPS (THREADS / 32)
 #define MAX_K 128
+#define HASH (2 * MAX_K)  // open addressing, load at most 1/2
 #define FULL_MASK 0xffffffffu
+#define NO_INDEX 0x7fffffff
 
 // Mirrored by nomad_tpu_torch/ops/cuda_kernel._PlaceArgs.
 struct PlaceArgs {
@@ -62,106 +69,189 @@ struct PlaceArgs {
   int n, b, k;
 };
 
-__device__ __forceinline__ bool is_touched(const unsigned int* bits, int j) {
-  return (bits[j >> 5] >> (j & 31)) & 1u;
+struct Touched {
+  unsigned int* bits;  // one bit per node
+  int* h_node;         // [HASH] node id, -1 empty
+  int* h_slot;         // [HASH] its slot
+  float *uc, *um, *ud;
+  int* tg;
+  int* count;
+};
+
+__device__ __forceinline__ int hash_of(int j) {
+  return (int)(((unsigned int)j * 2654435761u) >> 24) & (HASH - 1);
+}
+
+// Slot of touched node j (its bit is set).
+__device__ __forceinline__ int find_slot(const Touched& t, int j) {
+  int h = hash_of(j);
+  while (t.h_node[h] != j) h = (h + 1) & (HASH - 1);
+  return t.h_slot[h];
+}
+
+struct Eval {
+  float a_cpu, a_mem, a_disk, denom;
+  bool spread;
+};
+
+__device__ __forceinline__ float masked_score(const PlaceArgs& a,
+                                              const Eval& ev, int j, float uc,
+                                              float um, float ud, int tg) {
+  LeanNode s = lean_node(a.cap_cpu[j], a.cap_mem[j], a.cap_disk[j],
+                         a.base[j] != 0, a.penalty[j] != 0, a.aff[j]);
+  if (!lean_feasible(s, uc, um, ud, ev.a_cpu, ev.a_mem, ev.a_disk))
+    return LEAN_NEG_INF;
+  return lean_score(s, uc, um, (float)tg, ev.a_cpu, ev.a_mem, ev.spread,
+                    ev.denom);
+}
+
+// Score node j on its current carries; if j is ``commit`` (the node chosen
+// at the step before), deduct the eval's ask from its carries first.
+__device__ __forceinline__ float rescore(const PlaceArgs& a,
+                                         const Eval& ev, Touched& t, int j,
+                                         int commit) {
+  float uc, um, ud;
+  int tg, q = -1;
+  const bool hit = (t.bits[j >> 5] >> (j & 31)) & 1u;
+  if (hit) {
+    q = find_slot(t, j);
+    uc = t.uc[q];
+    um = t.um[q];
+    ud = t.ud[q];
+    tg = t.tg[q];
+  } else {
+    uc = a.used_cpu[j];
+    um = a.used_mem[j];
+    ud = a.used_disk[j];
+    tg = a.jobtg[j];
+  }
+  if (j == commit) {
+    uc = uc + ev.a_cpu;
+    um = um + ev.a_mem;
+    ud = ud + ev.a_disk;
+    tg = tg + 1;
+    if (!hit) {
+      q = (*t.count)++;
+      int h = hash_of(j);
+      while (t.h_node[h] != -1) h = (h + 1) & (HASH - 1);
+      t.h_slot[h] = q;
+      t.h_node[h] = j;
+      atomicOr(&t.bits[j >> 5], 1u << (j & 31));
+    }
+    t.uc[q] = uc;
+    t.um[q] = um;
+    t.ud[q] = ud;
+    t.tg[q] = tg;
+  }
+  return masked_score(a, ev, j, uc, um, ud, tg);
+}
+
+__device__ __forceinline__ void better_of(float& v, int& i, float v2,
+                                          int i2) {
+  if (lean_better(v2, i2, v, i)) {
+    v = v2;
+    i = i2;
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
     place_batch_kernel(const PlaceArgs a) {
-  extern __shared__ unsigned int touched[];  // one bit per node
-  __shared__ int t_node[MAX_K];
+  extern __shared__ unsigned int touched_bits[];  // one bit per node
+  __shared__ int h_node[HASH], h_slot[HASH];
   __shared__ float t_uc[MAX_K], t_um[MAX_K], t_ud[MAX_K];
   __shared__ int t_tg[MAX_K];
-  __shared__ float red_v[NWARPS];
-  __shared__ int red_i[NWARPS];
   __shared__ int n_touched;
+  // [step parity][slice, all][warp]
+  __shared__ float red_v[2][2][NWARPS];
+  __shared__ int red_i[2][2][NWARPS];
 
-  const int e = blockIdx.x, tid = threadIdx.x, n = a.n;
-  for (int w = tid; w < (n + 31) / 32; w += THREADS) touched[w] = 0u;
+  const int e = blockIdx.x, tid = threadIdx.x, lane = tid & 31,
+            warp = tid >> 5, n = a.n;
+  for (int w = tid; w < (n + 31) / 32; w += THREADS) touched_bits[w] = 0u;
+  for (int h = tid; h < HASH; h += THREADS) h_node[h] = -1;
   if (tid == 0) n_touched = 0;
   __syncthreads();
+  Touched t{touched_bits, h_node, h_slot, t_uc, t_um, t_ud, t_tg, &n_touched};
 
-  const float a_cpu = a.ask_cpu[e], a_mem = a.ask_mem[e],
-              a_disk = a.ask_disk[e];
-  const int n_steps = a.n_steps[e];
-  const bool spread = a.spread[e] != 0;
-  const float denom = fmaxf((float)a.desired[e], 1.0f);
+  Eval ev;
+  ev.a_cpu = a.ask_cpu[e];
+  ev.a_mem = a.ask_mem[e];
+  ev.a_disk = a.ask_disk[e];
+  ev.spread = a.spread[e] != 0;
+  ev.denom = fmaxf((float)a.desired[e], 1.0f);
+  const int n_steps = min(a.n_steps[e], a.k);
 
-  for (int i = 0; i < a.k; ++i) {
-    float bv = -INFINITY;
-    int bi = 0x7fffffff;
-    // an inactive step masks every node: nothing is found
-    if (i < n_steps) {
-      for (int j = tid; j < n; j += THREADS) {
-        float uc = a.used_cpu[j], um = a.used_mem[j], ud = a.used_disk[j];
-        int tg = a.jobtg[j];
-        if (is_touched(touched, j)) {
-          for (int q = 0; q < n_touched; ++q) {
-            if (t_node[q] == j) {
-              uc = t_uc[q];
-              um = t_um[q];
-              ud = t_ud[q];
-              tg = t_tg[q];
-              break;
-            }
-          }
-        }
-        LeanNode s = lean_node(a.cap_cpu[j], a.cap_mem[j], a.cap_disk[j],
-                               a.base[j] != 0, a.penalty[j] != 0, a.aff[j]);
-        float v = LEAN_NEG_INF;
-        if (lean_feasible(s, uc, um, ud, a_cpu, a_mem, a_disk))
-          v = lean_score(s, uc, um, (float)tg, a_cpu, a_mem, spread, denom);
-        if (lean_better(v, j, bv, bi)) {
-          bv = v;
-          bi = j;
-        }
+  // this thread's best over the nodes it owns
+  float my_v = -INFINITY;
+  int my_i = NO_INDEX;
+  if (n_steps > 0) {
+    for (int j = tid; j < n; j += THREADS)
+      better_of(my_v, my_i,
+                masked_score(a, ev, j, a.used_cpu[j], a.used_mem[j],
+                             a.used_disk[j], a.jobtg[j]),
+                j);
+  }
+
+  int i = 0, prev = -1;  // prev: the node chosen at step i - 1
+  for (; i < n_steps; ++i) {
+    // (sv, si): the best of prev's owner's nodes, rescored;
+    // (gv, gi): the best over every node, this step's choice
+    float sv = -INFINITY, gv = my_v;
+    int si = NO_INDEX, gi = my_i;
+    const int owner = prev % THREADS;
+    if (i > 0) {
+      if (tid == owner) {
+        gv = -INFINITY;
+        gi = NO_INDEX;
       }
+      for (int j = owner + tid * THREADS; j < n; j += THREADS * THREADS)
+        better_of(sv, si, rescore(a, ev, t, j, prev), j);
+      better_of(gv, gi, sv, si);
     }
     for (int off = 16; off > 0; off >>= 1) {
-      float v = __shfl_down_sync(FULL_MASK, bv, off);
-      int j = __shfl_down_sync(FULL_MASK, bi, off);
-      if (lean_better(v, j, bv, bi)) {
-        bv = v;
-        bi = j;
-      }
+      better_of(sv, si, __shfl_xor_sync(FULL_MASK, sv, off),
+                __shfl_xor_sync(FULL_MASK, si, off));
+      better_of(gv, gi, __shfl_xor_sync(FULL_MASK, gv, off),
+                __shfl_xor_sync(FULL_MASK, gi, off));
     }
-    if ((tid & 31) == 0) {
-      red_v[tid >> 5] = bv;
-      red_i[tid >> 5] = bi;
+    const int par = i & 1;
+    if (lane == 0) {
+      red_v[par][0][warp] = sv;
+      red_i[par][0][warp] = si;
+      red_v[par][1][warp] = gv;
+      red_i[par][1][warp] = gi;
     }
+    // one barrier per step: the parity buffers keep a thread that runs
+    // ahead from overwriting values another is still reading
     __syncthreads();
+    for (int w = 0; w < NWARPS; ++w) {
+      better_of(sv, si, red_v[par][0][w], red_i[par][0][w]);
+      better_of(gv, gi, red_v[par][1][w], red_i[par][1][w]);
+    }
+    if (i > 0 && tid == owner) {
+      my_v = sv;
+      my_i = si;
+    }
+    const bool fnd = gv > LEAN_NEG_INF / 2.0f;
     if (tid == 0) {
-      for (int w = 1; w < NWARPS; ++w) {
-        if (lean_better(red_v[w], red_i[w], bv, bi)) {
-          bv = red_v[w];
-          bi = red_i[w];
-        }
-      }
-      const bool fnd = bv > LEAN_NEG_INF / 2.0f;
       const long long o = (long long)e * a.k + i;
-      a.chosen[o] = fnd ? bi : -1;
-      a.scores[o] = fnd ? bv : 0.0f;
+      a.chosen[o] = fnd ? gi : -1;
+      a.scores[o] = fnd ? gv : 0.0f;
       a.found[o] = fnd ? 1 : 0;
-      if (fnd) {
-        int q = 0;
-        if (is_touched(touched, bi)) {
-          while (t_node[q] != bi) ++q;
-        } else {
-          q = n_touched++;
-          t_node[q] = bi;
-          t_uc[q] = a.used_cpu[bi];
-          t_um[q] = a.used_mem[bi];
-          t_ud[q] = a.used_disk[bi];
-          t_tg[q] = a.jobtg[bi];
-          touched[bi >> 5] |= 1u << (bi & 31);
-        }
-        t_uc[q] = t_uc[q] + a_cpu;
-        t_um[q] = t_um[q] + a_mem;
-        t_ud[q] = t_ud[q] + a_disk;
-        t_tg[q] = t_tg[q] + 1;
-      }
     }
-    __syncthreads();
+    // nothing feasible: the carries stay, so no later step finds either
+    if (!fnd) {
+      ++i;
+      break;
+    }
+    prev = gi;
+  }
+  // inactive steps, and the steps after one that found nothing
+  for (int r = i + tid; r < a.k; r += THREADS) {
+    const long long o = (long long)e * a.k + r;
+    a.chosen[o] = -1;
+    a.scores[o] = 0.0f;
+    a.found[o] = 0;
   }
 }
 

@@ -11,15 +11,15 @@ a plain C entry point loaded with ctypes:
 - B3 ``place_batch`` (``csrc/place_batch.cu``; ``pallas_place_batch``
   :165-238): lean full-width placement of B evals against one snapshot.
   Plain version: ``place_batch_reference``.
-- B2 ``topk_place_batch`` (``csrc/cand_scan.cu``; ``pallas_topk_place_batch``
-  :377-496): a torch full-width pass and candidate top-k
-  (``candidate_pass``), then the K-step candidate scan, the kernel.
-  Plain version: ``topk_place_batch_reference``, whose scan is
-  ``cand_scan_reference``.
+- B2 ``topk_place_batch`` (``csrc/topk_place_batch.cu``;
+  ``pallas_topk_place_batch`` :377-496 whole): one kernel for the
+  full-width pass, the exact candidate top-k and rest max, and the K-step
+  candidate scan. Plain version: ``topk_place_batch_reference``, the torch
+  ``candidate_pass`` then ``cand_scan_reference``.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version only for CPU tensors. ``launches``,
-``place_batch_launches`` and ``cand_scan_launches`` count kernel
+``place_batch_launches`` and ``topk_place_batch_launches`` count kernel
 launches and nothing else.
 """
 
@@ -109,9 +109,17 @@ class _FusedArgs(ctypes.Structure):
 #: C entry point of each library under csrc/
 _ENTRY = {"fused_wave": "fused_wave_launch",
           "place_batch": "place_batch_launch",
-          "cand_scan": "cand_scan_launch"}
+          "topk_place_batch": "topk_place_batch_launch"}
 _LIBS: dict = {}          # name -> (entry point, BuiltLibrary, CDLL)
 _LIB_LOCK = threading.Lock()
+
+
+def _bind(name: str, built: BuiltLibrary) -> tuple:
+    lib = ctypes.CDLL(str(built.path))
+    fn = getattr(lib, _ENTRY[name])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, built, lib
 
 
 def load_library(name: str) -> BuiltLibrary:
@@ -124,12 +132,15 @@ def load_library(name: str) -> BuiltLibrary:
     built = build_library(name)       # concurrent builds are safe
     with _LIB_LOCK:
         if name not in _LIBS:
-            lib = ctypes.CDLL(str(built.path))
-            fn = getattr(lib, _ENTRY[name])
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _LIBS[name] = (fn, built, lib)
+            _LIBS[name] = _bind(name, built)
         return _LIBS[name][1]
+
+
+def use_build(name: str, built: BuiltLibrary) -> None:
+    """Launch ``name`` from ``built`` from now on: a variant made by
+    ``build_library(name, defines)``, for a measurement."""
+    with _LIB_LOCK:
+        _LIBS[name] = _bind(name, built)
 
 
 def load_libraries() -> dict:
@@ -328,10 +339,10 @@ def fused_wave_apply(kin: KernelIn, used_cpu: torch.Tensor,
 # B3 and B2: lean batch placement against one shared snapshot.
 # ---------------------------------------------------------------------------
 
-#: CUDA kernel launches made by ``place_batch`` (B3) and by the candidate
-#: scan of ``topk_place_batch`` (B2)
+#: CUDA kernel launches made by ``place_batch`` (B3) and
+#: ``topk_place_batch`` (B2)
 place_batch_launches = 0
-cand_scan_launches = 0
+topk_place_batch_launches = 0
 
 MAX_K = 128           # placement steps per eval, and candidates per eval
 
@@ -500,12 +511,11 @@ def place_batch(*lean, k_steps: int) -> PlaceOut:
     return out
 
 
-def candidate_pass(v: dict, k_cand: int):
-    """The full-width pass of ``pallas_topk_place_batch`` (:410-437), in
-    torch ops for both routes: masked scores [B, N] in that pass's
-    operation order, the ``k_cand`` best nodes per eval ordered by
-    (score desc, node asc) as i32 [B, k_cand], and the exact best score
-    outside them, f32[B]."""
+def pass_scores(v: dict) -> torch.Tensor:
+    """The masked score of every (eval, node), f32[B, N], in the
+    full-width pass's operation order (pallas_kernel.py :410-433;
+    csrc/lean_score.cuh ``lean_pass_score``): the affinity and the
+    penalty are added one at a time, where the scans add their sum."""
     cc, cm, cd = v["cap_cpu"], v["cap_mem"], v["cap_disk"]
     uc, um, ud = v["used_cpu"], v["used_mem"], v["used_disk"]
     a_cpu, a_mem, a_disk, spread, denom, _ = _per_eval(v)
@@ -520,7 +530,16 @@ def candidate_pass(v: dict, k_cand: int):
             + torch.where(aff_on, aff, 0.0) + torch.where(pen, -1.0, 0.0))
     nplanes = (1.0 + anti_on.to(torch.float32) + aff_on.to(torch.float32)
                + pen.to(torch.float32))
-    masked0 = torch.where(feas, ssum / nplanes, NEG_INF)
+    return torch.where(feas, ssum / nplanes, NEG_INF)
+
+
+def candidate_pass(v: dict, k_cand: int):
+    """The full-width pass of ``pallas_topk_place_batch`` (:410-437) in
+    torch ops, the plain version of the kernel's first half: the
+    ``k_cand`` best nodes per eval by ``pass_scores``, ordered by (score
+    desc, node asc) as i32 [B, k_cand], and the exact best score outside
+    them, f32[B] (NEG_INF when no node is outside)."""
+    masked0 = pass_scores(v)
     _, cand = topk_ordered(masked0, k_cand)
     rest_max = masked0.scatter(-1, cand, NEG_INF).amax(dim=-1)
     return cand.to(torch.int32), rest_max
@@ -569,57 +588,48 @@ def cand_scan_reference(cand: torch.Tensor, rest_max: torch.Tensor,
     return chosen, scores, found, valid
 
 
-def _cand_scan(cand, rest_max, v: dict, k_steps: int):
-    global cand_scan_launches
-    dev = cand.device
+def _candidates(lean: tuple, k_steps: int, k_cand: int):
+    v = _lean_inputs(lean, k_steps)
+    return v, min(k_cand, int(v["cap_cpu"].shape[0]), MAX_K)
+
+
+def topk_place_batch(*lean, k_steps: int, k_cand: int = 64):
+    """Candidate-set placement for B lean evals
+    (``pallas_topk_place_batch`` without ``interpret``): the full-width
+    pass to min(k_cand, N, 128) candidates and the exact rest max, then
+    the K-step scan; on the card one launch of csrc/topk_place_batch.cu
+    (or raise), on the CPU its plain version. Returns ``(chosen i32[B,K]
+    node rows, scores f32[B,K], found bool[B,K], valid bool[B])``;
+    ``valid=False`` rows must re-run through the full-width path."""
+    global topk_place_batch_launches
+    v, kc = _candidates(lean, k_steps, k_cand)
+    dev = v["cap_cpu"].device
     if dev.type == "cpu":
-        return cand_scan_reference(cand, rest_max, v, k_steps)
-    b, kc = cand.shape
-    if not (cand.dtype == torch.int32 and cand.is_contiguous()
-            and rest_max.dtype == torch.float32 and rest_max.shape == (b,)
-            and rest_max.is_contiguous() and 0 < kc <= MAX_K):
-        raise ValueError("candidates must be contiguous i32[B, <=128] with "
-                         "a contiguous f32[B] rest max")
+        return cand_scan_reference(*candidate_pass(v, kc), v, k_steps)
+    n = int(v["cap_cpu"].shape[0])
+    b = int(v["ask_cpu"].shape[0])
     out = (torch.empty((b, k_steps), dtype=torch.int32, device=dev),
            torch.empty((b, k_steps), dtype=torch.float32, device=dev),
            torch.empty((b, k_steps), dtype=torch.bool, device=dev),
            torch.empty((b,), dtype=torch.bool, device=dev))
     if b == 0:
         return out
-    args = _ScanArgs()
+    args = _TopkArgs()
     _fill_lean(args, v)
-    args.cand, args.rest_max = cand.data_ptr(), rest_max.data_ptr()
     for name, x in zip(("chosen", "scores", "found", "valid"), out):
         setattr(args, name, x.data_ptr())
-    args.n, args.b, args.k, args.kc = (int(v["cap_cpu"].shape[0]), b,
-                                       k_steps, kc)
-    _call("cand_scan", args, dev, "cand_scan_kernel")
+    args.n, args.b, args.k, args.kc = n, b, k_steps, kc
+    _call("topk_place_batch", args, dev, "topk_place_batch_kernel")
     with _LAUNCH_LOCK:
-        cand_scan_launches += 1
+        topk_place_batch_launches += 1
     return out
 
 
-def _candidates(lean: tuple, k_steps: int, k_cand: int):
-    v = _lean_inputs(lean, k_steps)
-    k_cand = min(k_cand, int(v["cap_cpu"].shape[0]), MAX_K)
-    return (*candidate_pass(v, k_cand), v)
-
-
-def topk_place_batch(*lean, k_steps: int, k_cand: int = 64):
-    """Candidate-set placement for B lean evals
-    (``pallas_topk_place_batch`` without ``interpret``): the torch
-    ``candidate_pass`` to min(k_cand, N, 128) candidates, then the K-step
-    scan, on the card csrc/cand_scan.cu (or raise), on the CPU its plain
-    version. Returns ``(chosen i32[B,K] node rows, scores f32[B,K],
-    found bool[B,K], valid bool[B])``; ``valid=False`` rows must re-run
-    through the full-width path."""
-    return _cand_scan(*_candidates(lean, k_steps, k_cand), k_steps)
-
-
 def topk_place_batch_reference(*lean, k_steps: int, k_cand: int = 64):
-    """The plain torch version of ``topk_place_batch``: the same pass,
-    then ``cand_scan_reference``."""
-    return cand_scan_reference(*_candidates(lean, k_steps, k_cand), k_steps)
+    """The plain torch version of ``topk_place_batch``: the full-width
+    ``candidate_pass``, then ``cand_scan_reference``."""
+    v, kc = _candidates(lean, k_steps, k_cand)
+    return cand_scan_reference(*candidate_pass(v, kc), v, k_steps)
 
 
 _LEAN_FIELDS = [(name, ctypes.c_void_p) for name, _ in LEAN_ARGS]
@@ -635,11 +645,10 @@ class _PlaceArgs(ctypes.Structure):
     ]
 
 
-class _ScanArgs(ctypes.Structure):
-    """Mirror of ``struct ScanArgs`` in csrc/cand_scan.cu."""
+class _TopkArgs(ctypes.Structure):
+    """Mirror of ``struct TopkArgs`` in csrc/topk_place_batch.cu."""
 
-    _fields_ = [("cand", ctypes.c_void_p), ("rest_max", ctypes.c_void_p)] \
-        + _LEAN_FIELDS + [
+    _fields_ = _LEAN_FIELDS + [
         ("chosen", ctypes.c_void_p), ("scores", ctypes.c_void_p),
         ("found", ctypes.c_void_p), ("valid", ctypes.c_void_p),
         ("n", ctypes.c_int), ("b", ctypes.c_int), ("k", ctypes.c_int),

@@ -290,25 +290,34 @@ LEAN_K = 5
 #: lean-batch scenarios: ``random`` used planes (0-50%), ``tied`` zero
 #: usage (every node scores alike: pins the tie order), ``planes``
 #: penalty/affinity/job-count planes with the spread fit,
-#: ``one_per_node`` zero usage and 1200 MHz asks (a node takes one)
-LEAN_SCENARIOS = ("random", "tied", "planes", "one_per_node")
+#: ``one_per_node`` zero usage and 1200 MHz asks (a node takes one),
+#: ``pen_aff`` random usage with a penalty and a non-zero affinity on
+#: every node (the full-width pass adds them one at a time, the scans as
+#: one precomputed sum: the two orders round apart)
+LEAN_SCENARIOS = ("random", "tied", "planes", "one_per_node", "pen_aff")
 
 
-def lean_case(seed, scenario, b=LEAN_B, k=LEAN_K, t=None, lib="ref"):
+def lean_case(seed, scenario, b=LEAN_B, k=LEAN_K, t=None, lib="ref",
+              nodes=LEAN_NODES):
     """``(kin, used_cpu, used_mem, ask_cpu, ask_mem, n_steps)``, numpy,
-    for one lean batch (asks [b], or [t, b] with ``t``)."""
+    for one lean batch (asks [b], or [t, b] with ``t``) over ``nodes``
+    nodes."""
     kmod, smod = _lib(lib)
     rng = np.random.default_rng(seed)
-    cluster = smod.synthetic_cluster(LEAN_NODES, cpu=2000.0, mem=4096.0,
+    cluster = smod.synthetic_cluster(nodes, cpu=2000.0, mem=4096.0,
                                      disk=50000.0, seed=3)
     kin = kmod.build_kernel_in(
         cluster, smod.synthetic_eval(cluster, desired_count=k), k)
-    n, npad = LEAN_NODES, cluster.n_pad
+    n, npad = nodes, cluster.n_pad
     uc = np.zeros(npad, np.float32)
     um = np.zeros(npad, np.float32)
-    if scenario in ("random", "planes"):
+    if scenario in ("random", "planes", "pen_aff"):
         uc[:n] = 2000.0 * 0.5 * rng.random(n, dtype=np.float32)
         um[:n] = 4096.0 * 0.5 * rng.random(n, dtype=np.float32)
+    if scenario == "pen_aff":
+        aff = rng.uniform(0.05, 1.0, npad) * rng.choice([-1.0, 1.0], npad)
+        kin = kin._replace(penalty=np.ones(npad, bool),
+                           aff_score=aff.astype(np.float32))
     if scenario == "planes":
         aff = np.where(rng.random(npad) < 0.2, rng.uniform(-0.5, 1.0, npad),
                        0.0).astype(np.float32)
@@ -326,6 +335,21 @@ def lean_case(seed, scenario, b=LEAN_B, k=LEAN_K, t=None, lib="ref"):
         am = rng.choice([64.0, 128.0, 256.0], shape).astype(np.float32)
     ns = np.full(b, k, np.int32)
     ns[-1] = k // 2             # inactive steps past n_steps
+    return kin, uc, um, ac, am, ns
+
+
+#: the tie-straddle case: three nodes score best, then a run of twelve
+#: scores alike, so 8 candidates end inside the run
+TIE_BEST = [3, 50, 77]
+TIE_RUN = [5, 9, 20, 21, 40, 60, 61, 90, 100, 130, 150, 199]
+
+
+def tie_straddle_case(seed, k=10, lib="ref"):
+    """``lean_case``'s random batch with TIE_BEST at 70% usage and TIE_RUN
+    at 60% (binpack prefers the fuller nodes)."""
+    kin, uc, um, ac, am, ns = lean_case(seed, "random", k=k, lib=lib)
+    uc[TIE_BEST], um[TIE_BEST] = 0.7 * 2000.0, 0.7 * 4096.0
+    uc[TIE_RUN], um[TIE_RUN] = 0.6 * 2000.0, 0.6 * 4096.0
     return kin, uc, um, ac, am, ns
 
 

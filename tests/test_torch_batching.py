@@ -110,9 +110,9 @@ def _assert_loop(ref, got, ctx):
 def test_schedule_apply_loop_matches_reference(scenario, backend, topk,
                                                reset):
     case = tp.lean_case(6, scenario, t=T)
-    before = ck.cand_scan_launches
+    before = ck.topk_place_batch_launches
     ref, got = _loops(*case, tp.LEAN_K, backend, topk, reset)
-    assert ck.cand_scan_launches == before, "CPU tensors never launch"
+    assert ck.topk_place_batch_launches == before, "CPU tensors never launch"
     assert int(got[1]) > 0
     _assert_loop(ref, got, f"{scenario} {backend} topk={topk} reset={reset}")
 

@@ -199,20 +199,34 @@ def test_cuda_wrapper_raises_when_row_does_not_fit(cuda_device):
     assert ck.launches == before
 
 
-def _lean_on(scenario, seed, device, k=tp.LEAN_K, b=tp.LEAN_B):
-    args = tp.lean_args(*tp.lean_case(seed, scenario, b=b, k=k, lib="port"))
+def _lean_on(scenario, seed, device, k=tp.LEAN_K, b=tp.LEAN_B,
+             nodes=tp.LEAN_NODES):
+    args = tp.lean_args(*tp.lean_case(seed, scenario, b=b, k=k, lib="port",
+                                      nodes=nodes))
     return tp.torch_args(args, device)
 
 
+#: the batch kernels' widths on the card: N = 256, 16384 and 131072
+LEAN_WIDTHS = (200, 10_000, 100_000)
+LEAN_WIDTH_IDS = ("n256", "n16384", "n131072")
+#: evals per card test: a multiple neither of B2's 16-eval block nor of
+#: its 4-eval warp
+CARD_B = 37
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("k_steps", (5, 10))
+@pytest.mark.parametrize("nodes", LEAN_WIDTHS, ids=LEAN_WIDTH_IDS)
 @pytest.mark.parametrize("scenario", tp.LEAN_SCENARIOS)
-def test_cuda_place_batch_matches_plain(scenario, cuda_device):
-    args = _lean_on(scenario, 30, cuda_device, k=10, b=64)
+def test_cuda_place_batch_matches_plain(scenario, nodes, k_steps,
+                                        cuda_device):
+    args = _lean_on(scenario, 30, cuda_device, k=k_steps, b=CARD_B,
+                    nodes=nodes)
     copies = [a.clone() for a in args]
     before = ck.place_batch_launches
-    got = ck.place_batch(*args, k_steps=10)
+    got = ck.place_batch(*args, k_steps=k_steps)
     assert ck.place_batch_launches == before + 1
-    want = ck.place_batch_reference(*args, k_steps=10)
+    want = ck.place_batch_reference(*args, k_steps=k_steps)
     torch.cuda.synchronize()
     assert all(torch.equal(a, c) for a, c in zip(args, copies))
     assert torch.equal(got.chosen, want.chosen)
@@ -223,15 +237,18 @@ def test_cuda_place_batch_matches_plain(scenario, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k_steps,k_cand", ((5, 8), (10, 8), (5, 64),
+                                            (10, 64), (5, 128), (10, 128)))
+@pytest.mark.parametrize("nodes", LEAN_WIDTHS, ids=LEAN_WIDTH_IDS)
 @pytest.mark.parametrize("scenario", tp.LEAN_SCENARIOS)
-@pytest.mark.parametrize("k_steps,k_cand", ((tp.LEAN_K, 64), (10, 8)))
-def test_cuda_topk_place_batch_matches_plain(scenario, k_steps, k_cand,
-                                             cuda_device):
-    args = _lean_on(scenario, 31, cuda_device, k=k_steps, b=64)
+def test_cuda_topk_place_batch_matches_plain(scenario, nodes, k_steps,
+                                             k_cand, cuda_device):
+    args = _lean_on(scenario, 31, cuda_device, k=k_steps, b=CARD_B,
+                    nodes=nodes)
     copies = [a.clone() for a in args]
-    before = ck.cand_scan_launches
+    before = ck.topk_place_batch_launches
     got = ck.topk_place_batch(*args, k_steps=k_steps, k_cand=k_cand)
-    assert ck.cand_scan_launches == before + 1
+    assert ck.topk_place_batch_launches == before + 1
     want = ck.topk_place_batch_reference(*args, k_steps=k_steps,
                                          k_cand=k_cand)
     torch.cuda.synchronize()
@@ -242,6 +259,50 @@ def test_cuda_topk_place_batch_matches_plain(scenario, k_steps, k_cand,
                                        rtol=0, atol=ATOL)
         else:
             assert torch.equal(g, w), name
+    assert got[2].any()
+
+
+@pytest.mark.gpu
+def test_cuda_topk_tie_run_straddles_the_candidate_edge(cuda_device):
+    """Eight candidates end inside a run of equal scores: the kernel keeps
+    the run's lowest-indexed nodes and the run's score as rest max, as the
+    plain version does."""
+    args = tp.torch_args(tp.lean_args(*tp.tie_straddle_case(41, lib="port")),
+                         cuda_device)
+    got = ck.topk_place_batch(*args, k_steps=10, k_cand=8)
+    want = ck.topk_place_batch_reference(*args, k_steps=10, k_cand=8)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_cuda_topk_every_node_a_candidate(cuda_device):
+    """N == k_cand == 128: the rest max is NEG_INF on the card too."""
+    args = _lean_on("random", 34, cuda_device, k=10, b=CARD_B, nodes=100)
+    got = ck.topk_place_batch(*args, k_steps=10, k_cand=128)
+    want = ck.topk_place_batch_reference(*args, k_steps=10, k_cand=128)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[3].all())
+
+
+@pytest.mark.gpu
+def test_cuda_topk_place_batch_allocates_no_score_row(cuda_device):
+    """One B2 batch at B=1024, N=16384 allocates its [B, K] outputs, [B]
+    ``valid`` and the [B] copies of the scalar asks only: a [B, N] buffer
+    of even one byte a pair would be 16 MB."""
+    b, k = 1024, 10
+    args = _lean_on("random", 35, cuda_device, k=k, b=b, nodes=10_000)
+    ck.topk_place_batch(*args, k_steps=k)          # build and load first
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    out = ck.topk_place_batch(*args, k_steps=k)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    n = args[0].shape[0]
+    assert peak <= sum(x.nbytes for x in out) + 65536, peak
+    assert peak < b * n // 8
 
 
 @pytest.mark.gpu
@@ -272,10 +333,10 @@ def test_cuda_kernel_loop_matches_torch_loop(cuda_device):
     kin, uc, um, ac, am, ns = tp.lean_case(33, "random", t=3, lib="port")
     shared = tb.device_put_shared(kin, cuda_device)
     ins = [torch.from_numpy(x).to(cuda_device) for x in (uc, um, ac, am, ns)]
-    before = ck.cand_scan_launches
+    before = ck.topk_place_batch_launches
     got = tb.make_schedule_apply_loop(tp.LEAN_K, LEAN_FEATURES, topk=True,
                                       backend="kernel_topk")(shared, *ins)
-    assert ck.cand_scan_launches == before + 3
+    assert ck.topk_place_batch_launches == before + 3
     want = tb.make_schedule_apply_loop(tp.LEAN_K, LEAN_FEATURES,
                                        topk=True)(shared, *ins)
     assert int(got[1]) == int(want[1]) > 0

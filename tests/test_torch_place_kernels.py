@@ -105,16 +105,15 @@ def test_place_batch_matches_pallas(scenario, k_steps):
             assert len(set(row[fnd].tolist())) == fnd.sum()
 
 
-@pytest.mark.parametrize("scenario", tp.LEAN_SCENARIOS)
-@pytest.mark.parametrize("k_steps,k_cand", ((tp.LEAN_K, 64), (10, 8)))
-def test_topk_place_batch_matches_pallas(scenario, k_steps, k_cand):
-    args = tp.lean_args(*tp.lean_case(2, scenario, k=k_steps))
+def _topk_matches_pallas(args, k_steps, k_cand):
+    """B2 on the CPU against ``pallas_topk_place_batch(interpret=True)``
+    and against its own plain version; returns the port's outputs."""
     ref = pallas_topk_place_batch(*map(jnp.asarray, args), k_steps=k_steps,
                                   k_cand=k_cand, interpret=True)
-    before = ck.cand_scan_launches
+    before = ck.topk_place_batch_launches
     got = ck.topk_place_batch(*tp.torch_args(args), k_steps=k_steps,
                               k_cand=k_cand)
-    assert ck.cand_scan_launches == before, "CPU tensors never launch"
+    assert ck.topk_place_batch_launches == before, "CPU tensors never launch"
     for name, g, r in zip(("chosen", "scores", "found", "valid"), got, ref):
         if name == "scores":
             np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=RTOL,
@@ -122,14 +121,83 @@ def test_topk_place_batch_matches_pallas(scenario, k_steps, k_cand):
         else:
             np.testing.assert_array_equal(g.numpy(), np.asarray(r),
                                           err_msg=name)
-    if scenario == "one_per_node" and k_cand < k_steps:
-        # 8 candidates cannot hold 10 one-per-node placements while the
-        # rest of the cluster could: the bound breaks
-        assert not got[3][:-1].any()
     want = ck.topk_place_batch_reference(*tp.torch_args(args),
                                          k_steps=k_steps, k_cand=k_cand)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("scenario", tp.LEAN_SCENARIOS)
+@pytest.mark.parametrize("k_steps,k_cand", ((tp.LEAN_K, 64), (10, 8)))
+def test_topk_place_batch_matches_pallas(scenario, k_steps, k_cand):
+    args = tp.lean_args(*tp.lean_case(2, scenario, k=k_steps))
+    got = _topk_matches_pallas(args, k_steps, k_cand)
+    if scenario == "one_per_node" and k_cand < k_steps:
+        # 8 candidates cannot hold 10 one-per-node placements while the
+        # rest of the cluster could: the bound breaks
+        assert not got[3][:-1].any()
+
+
+def _scan_order_scores(v):
+    """Every (eval, node) scored in the scans' operation order."""
+    a_cpu, a_mem, _, spread, denom, _ = ck._per_eval(v)
+    aff_sum, extra = ck._lean_static(v["penalty"], v["aff_score"])
+    return ck._lean_score(v["used_cpu"], v["used_mem"],
+                          v["job_tg_count"].to(torch.float32),
+                          v["cap_cpu"], v["cap_mem"], a_cpu, a_mem, spread,
+                          denom, aff_sum, extra)
+
+
+@pytest.mark.parametrize("k_cand", (8, 64))
+def test_topk_pen_aff_pins_the_pass_order(k_cand):
+    """A penalty and a non-zero affinity on every node: the pass's order
+    and the scans' round apart on some nodes, and the candidates and rest
+    max still give JAX's choices and ``valid`` exactly."""
+    args = tp.lean_args(*tp.lean_case(40, "pen_aff", k=10))
+    v = ck._lean_inputs(tp.torch_args(args), 10)
+    passed = ck.pass_scores(v)
+    feas = passed > tk.NEG_INF / 2
+    assert feas.any()
+    assert (passed != _scan_order_scores(v))[feas].any()
+    got = _topk_matches_pallas(args, 10, k_cand)
+    assert got[2].any()
+
+
+def test_topk_tie_run_straddles_the_candidate_edge():
+    """Three nodes score best, then twelve score alike: 8 candidates take
+    the three and the five lowest-indexed of the run, and the rest max is
+    the run's score (the 9th key, a tie with the 8th)."""
+    best, run = tp.TIE_BEST, tp.TIE_RUN
+    args = tp.lean_args(*tp.tie_straddle_case(41))
+    v = ck._lean_inputs(tp.torch_args(args), 10)
+    cand, rest = ck.candidate_pass(v, 8)
+    passed = ck.pass_scores(v)
+    for e in range(cand.shape[0]):
+        assert sorted(cand[e, :3].tolist()) == best
+        assert cand[e, 3:].tolist() == run[:5]
+        assert rest[e] == passed[e, run[5]] == passed[e, run[4]]
+    _topk_matches_pallas(args, 10, 8)
+
+
+@pytest.mark.parametrize("scenario", ("random", "pen_aff"))
+def test_topk_every_node_a_candidate(scenario):
+    """N == k_cand == 128: every node is a candidate and the rest max is
+    NEG_INF, so a breached bound never sends an eval back."""
+    args = tp.lean_args(*tp.lean_case(42, scenario, k=10, nodes=100))
+    v = ck._lean_inputs(tp.torch_args(args), 10)
+    assert v["cap_cpu"].shape[0] == 128
+    _, rest = ck.candidate_pass(v, 128)
+    assert bool((rest == tk.NEG_INF).all())
+    got = _topk_matches_pallas(args, 10, 128)
+    assert got[3].all()
+
+
+@pytest.mark.parametrize("scenario", tp.LEAN_SCENARIOS)
+def test_topk_place_batch_128_candidates(scenario):
+    args = tp.lean_args(*tp.lean_case(43, scenario, k=10))
+    assert args[0].shape[0] > 128
+    _topk_matches_pallas(args, 10, 128)
 
 
 def test_topk_ordered_breaks_ties_by_index():
@@ -176,5 +244,5 @@ def test_build_key_covers_included_headers(tmp_path):
     assert keys[0] != keys[1] and keys[0] == keys[2]
     src.write_text('#include "shared.cuh"\n// edited\n')
     assert build.source_key(src) != keys[0]
-    for name in ("fused_wave", "place_batch", "cand_scan"):
+    for name in ("fused_wave", "place_batch", "topk_place_batch"):
         assert len(build.source_key(build.CSRC / f"{name}.cu")) == 16
