@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's placement paths on one NVIDIA card.
 
-    python3 chip_smoke.py                 # from the repository root, one card
-    python3 chip_smoke.py --batch-study   # B2's and B3's block shapes
+    python3 chip_smoke.py          # from the repository root, one CUDA card
 
 The quickest proof that the port (``nomad_tpu_torch``) starts and is right
 on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
@@ -37,11 +36,6 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
 9. the replay form: the same loop with ``reset_every=1`` on a C2M cluster
    of 10k nodes with 100k resident allocs.
 
-``--batch-study`` runs instead B2 and B3 built at several block shapes
-(``-DEPW``/``-DWARPS``, ``-DTHREADS``), each held against its plain
-version at the bench shapes and timed in turns, and writes
-chiprun_out/batch_study.json.
-
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit, and before that the kernels' JSON line. A full record
@@ -50,20 +44,17 @@ goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from nomad_tpu_torch.ops import cuda_kernel as ck
-from nomad_tpu_torch.ops.build import build_library
 from nomad_tpu_torch.ops.kernel import (
     FUSED_METRIC_FIELDS,
     LEAN_FEATURES,
@@ -332,10 +323,6 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch-study", action="store_true",
-                    help="time B2's and B3's block shapes instead")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke run needs an NVIDIA card", file=sys.stderr)
@@ -362,18 +349,13 @@ def main() -> int:
     for name, b in builds.items():
         log(f"build: {b.path} (cached={b.cached})")
     log(f"build: {len(builds)} libraries in {record['build_s']:.2f} s")
-    out_dir = Path(__file__).resolve().parent / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    if args.batch_study:
-        study = {"card": smi, **batch_study(dev)}
-        (out_dir / "batch_study.json").write_text(json.dumps(study, indent=1))
-        print(json.dumps(study["times_ms"]))
-        return 0
 
     kline = run_phases(dev, record)
     kline["kernels"] += run_batch_phases(dev, record)
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     log(f"total: {record['total_s']:.1f} s")
 
@@ -900,66 +882,6 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
          "bound_by": b2_by, "library_ms": None},
     ]
-
-
-#: block shapes of the study: B2's evals per warp and warps per block,
-#: B3's threads per block (the first of each is the shipped one)
-B2_SHAPES = (("EPW=4", "WARPS=8"), ("EPW=4", "WARPS=4"), ("EPW=2", "WARPS=8"),
-             ("EPW=1", "WARPS=8"), ("EPW=8", "WARPS=4"))
-B3_SHAPES = (("THREADS=512",), ("THREADS=256",), ("THREADS=1024",))
-
-
-def batch_study(dev: torch.device) -> dict:
-    """B2 and B3 built at each shape of B2_SHAPES and B3_SHAPES (one nvcc
-    each, together): each build against its plain version at the bench
-    shapes (B2: B=8192, N=16384, K=10, KC=64; B3: B=512), then CUDA-event
-    times of all in turns (the list, then the list reversed), and the
-    shipped B2 at 8 and 128 candidates."""
-    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
-    leans = {}
-    for name, b in (("place_batch", BATCH_B3), ("topk_place_batch", BATCH_B2)):
-        prob = throughput_problem(1, b, seed=7)
-        shared = batching.device_put_shared(prob.kin, dev)
-        leans[name] = batching._lean_args(
-            shared, on(prob.used_cpu), on(prob.used_mem),
-            on(prob.ask_cpu[0]), on(prob.ask_mem[0]), on(prob.n_steps))
-    run = {"place_batch": lambda: ck.place_batch(
-               *leans["place_batch"], k_steps=K_PLACE),
-           "topk_place_batch": lambda k_cand=K_CAND: ck.topk_place_batch(
-               *leans["topk_place_batch"], k_steps=K_PLACE, k_cand=k_cand)}
-    want = {"place_batch": ck.place_batch_reference(
-                *leans["place_batch"], k_steps=K_PLACE),
-            "topk_place_batch": ck.topk_place_batch_reference(
-                *leans["topk_place_batch"], k_steps=K_PLACE)}
-    variants = ([("topk_place_batch", d) for d in B2_SHAPES]
-                + [("place_batch", d) for d in B3_SHAPES])
-    with ThreadPoolExecutor(len(variants)) as pool:
-        built = list(pool.map(lambda v: build_library(*v), variants))
-    label = lambda v: f"{v[0]}:{','.join(v[1])}"       # noqa: E731
-    out = {label(v): {"registers": [ln.strip() for ln in b.log.splitlines()
-                                    if "registers" in ln], "ms": []}
-           for v, b in zip(variants, built)}
-    for v, b in zip(variants, built):
-        ck.use_build(v[0], b)
-        got = run[v[0]]()
-        torch.cuda.synchronize()
-        for g, w in zip(got, want[v[0]]):
-            check(torch.equal(g, w), f"study {label(v)} differs from plain")
-    order = list(zip(variants, built))
-    for v, b in order + order[::-1]:
-        ck.use_build(v[0], b)
-        run[v[0]]()
-        out[label(v)]["ms"].append(cuda_ms(run[v[0]], 20))
-    ck.use_build("topk_place_batch", built[0])
-    kc = {str(k): cuda_ms(lambda: run["topk_place_batch"](k), 20)
-          for k in (8, K_CAND, 128)}
-    for name in run:
-        ck.use_build(name, build_library(name))
-    for k, r in out.items():
-        log(f"study {k}: {json.dumps(r)}")
-    log(f"study topk_place_batch by k_cand: {json.dumps(kc)}")
-    return {"variants": out, "topk_by_k_cand_ms": kc,
-            "times_ms": {k: r["ms"] for k, r in out.items()}}
 
 
 def synthetic_kin_for(cluster, used_disk):

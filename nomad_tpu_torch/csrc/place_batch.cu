@@ -43,9 +43,7 @@
 
 #include "lean_score.cuh"
 
-#ifndef THREADS
 #define THREADS 512
-#endif
 #define NWARPS (THREADS / 32)
 #define MAX_K 128
 #define HASH (2 * MAX_K)  // open addressing, load at most 1/2

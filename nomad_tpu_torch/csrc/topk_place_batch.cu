@@ -60,12 +60,8 @@
 
 #include "lean_score.cuh"
 
-#ifndef WARPS
 #define WARPS 8  // warps per block
-#endif
-#ifndef EPW
 #define EPW 4    // evals per warp
-#endif
 #define THREADS (WARPS * 32)
 #define SLOTS 4  // 128 candidates over 32 lanes
 #define MAX_KC (SLOTS * 32)

@@ -50,12 +50,12 @@ def find_nvcc() -> str:
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
-def source_key(src: Path, flags: tuple = NVCC_FLAGS) -> str:
+def source_key(src: Path) -> str:
     """Build key of ``src``: a hash of its bytes, of every file it
     includes with ``#include "..."`` (relative to the including file,
     followed recursively) and of the flags. A header edit is a new key,
     so a stale library is never loaded."""
-    h = hashlib.sha256(" ".join(flags).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     seen: set = set()
     todo = [src.resolve()]
     while todo:
@@ -70,12 +70,10 @@ def source_key(src: Path, flags: tuple = NVCC_FLAGS) -> str:
     return h.hexdigest()[:16]
 
 
-def build_library(name: str, defines: tuple = ()) -> BuiltLibrary:
-    """Compile ``csrc/<name>.cu`` (or reuse the build of the same key);
-    ``defines`` (``"NAME=VALUE"``) select a build-time variant."""
+def build_library(name: str) -> BuiltLibrary:
+    """Compile ``csrc/<name>.cu`` (or reuse the build of the same key)."""
     src = CSRC / f"{name}.cu"
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    key = source_key(src, flags)
+    key = source_key(src)
     out_dir = BUILD_ROOT / key
     lib = out_dir / f"lib{name}.so"
     log_path = out_dir / f"{name}.log"
@@ -88,7 +86,7 @@ def build_library(name: str, defines: tuple = ()) -> BuiltLibrary:
     # an interrupted build never leaves a half-written library behind
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [nvcc, *flags, "-o", tmp, str(src)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:

@@ -114,14 +114,6 @@ _LIBS: dict = {}          # name -> (entry point, BuiltLibrary, CDLL)
 _LIB_LOCK = threading.Lock()
 
 
-def _bind(name: str, built: BuiltLibrary) -> tuple:
-    lib = ctypes.CDLL(str(built.path))
-    fn = getattr(lib, _ENTRY[name])
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn, built, lib
-
-
 def load_library(name: str) -> BuiltLibrary:
     """Build (or reuse) and load ``lib<name>.so``; returns the build
     record, whose ``log`` carries ptxas's register/spill report."""
@@ -132,15 +124,12 @@ def load_library(name: str) -> BuiltLibrary:
     built = build_library(name)       # concurrent builds are safe
     with _LIB_LOCK:
         if name not in _LIBS:
-            _LIBS[name] = _bind(name, built)
+            lib = ctypes.CDLL(str(built.path))
+            fn = getattr(lib, _ENTRY[name])
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _LIBS[name] = (fn, built, lib)
         return _LIBS[name][1]
-
-
-def use_build(name: str, built: BuiltLibrary) -> None:
-    """Launch ``name`` from ``built`` from now on: a variant made by
-    ``build_library(name, defines)``, for a measurement."""
-    with _LIB_LOCK:
-        _LIBS[name] = _bind(name, built)
 
 
 def load_libraries() -> dict:
