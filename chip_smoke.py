@@ -629,26 +629,29 @@ B2_MEMORY_LIMIT = 64 << 20   # B2's peak allocation over one batch, bytes
 OPS_PER_LEAN_SCORE = 27
 
 
-def lean_ops(n_steps, k_steps: int, width: int) -> int:
-    """f32 operations a lean batch placement needs over ``width`` nodes
-    (or candidates): a step changes only the chosen node's carries, so
-    each eval scores every node once, then each active step takes one
-    argmax compare per node and rescores the chosen node. The kernels
-    rescore every node at every step; that is their design's redundancy,
-    not the function's floor."""
+def lean_ops(n_steps, k_steps: int, scored: int, width: int) -> int:
+    """f32 operations a lean batch placement needs over ``width`` nodes,
+    ``scored`` of them in the base mask: a step changes only the chosen
+    node's carries, so each eval scores every base node once and tests
+    the mask of the rest, then each active step takes one argmax compare
+    per base node and rescores the chosen node. A node outside the base
+    mask (the padding, or a node no eval may use) needs its mask test
+    and nothing more."""
     evals = int((n_steps > 0).sum())
     active = int(np.minimum(n_steps, k_steps).sum())
-    return evals * width * OPS_PER_LEAN_SCORE + active * (
-        width + OPS_PER_LEAN_SCORE)
+    return evals * (scored * OPS_PER_LEAN_SCORE + width - scored) + active * (
+        scored + OPS_PER_LEAN_SCORE)
 
 
-def topk_ops(b: int, n: int, n_steps, k_steps: int, kc: int) -> int:
-    """f32 operations B2 needs: every (eval, node) scored once and
-    compared once for the selection, then each active step one argmax
-    compare per candidate and one rescore of the chosen node."""
+def topk_ops(n_steps, k_steps: int, kc: int, scored: int, width: int) -> int:
+    """f32 operations B2 needs: per eval every base node scored once and
+    compared once for the selection, the mask of every other node tested,
+    then each active step one argmax compare per candidate and one
+    rescore of the chosen node."""
+    evals = int((n_steps > 0).sum())
     active = int(np.minimum(n_steps, k_steps).sum())
-    return b * n * (OPS_PER_LEAN_SCORE + 1) + active * (
-        kc + OPS_PER_LEAN_SCORE)
+    return evals * (scored * (OPS_PER_LEAN_SCORE + 1) + width - scored) + (
+        active * (kc + OPS_PER_LEAN_SCORE))
 
 
 def compare_lean(got, want, n_steps, ctx: str) -> dict:
@@ -771,7 +774,8 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
         lambda: ck.place_batch_reference(*lean, k_steps=K_PLACE), 3)
     b3_bound, b3_by = bound(
         lean_bytes(v3, got),
-        lean_ops(prob.n_steps, K_PLACE, v3["cap_cpu"].shape[0]))
+        lean_ops(prob.n_steps, K_PLACE, int(v3["base_mask"].sum()),
+                 v3["cap_cpu"].shape[0]))
 
     # ---- 8. B2 and the loop at the bench shape ----
     prob = throughput_problem(BATCHES_B2, BATCH_B2, seed=7)
@@ -828,10 +832,10 @@ def run_batch_phases(dev: torch.device, record: dict) -> list:
         lambda: ck.topk_place_batch_reference(*lean, k_steps=K_PLACE), 3)
     commit_ms = cuda_ms(lambda: batching.commit_placements(
         uc0, um0, out[0], out[2], asks[0][0], asks[1][0]), 20)
-    n = v2["cap_cpu"].shape[0]
     b2_bound, b2_by = bound(
         lean_bytes(v2, out),
-        topk_ops(BATCH_B2, n, prob.n_steps, K_PLACE, K_CAND))
+        topk_ops(prob.n_steps, K_PLACE, K_CAND, int(v2["base_mask"].sum()),
+                 v2["cap_cpu"].shape[0]))
     batch_ms = k_s / BATCHES_B2 * 1e3
     split = {"kernel_ms": b2_ms, "commit_ms": commit_ms,
              "batch_ms": batch_ms,

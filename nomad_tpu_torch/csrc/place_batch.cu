@@ -11,10 +11,11 @@
 // What bounds it. The inputs are ten shared [N] planes (read once: ~0.6 MB
 // at N=16384) and six [B] ask vectors; the outputs are [B, K]. Bytes give
 // well under a microsecond. A step changes only the chosen node's carries,
-// so the function needs B*N node scores (~27 f32 operations each with two
-// powf), one argmax compare per (step, node) and one rescore per
-// step: ~3.1e8 operations at B=512, K=10, N=16384, ~5 us at 67 TFLOP/s.
-// It is bound by operations.
+// so the function needs one score per (eval, node in the base mask) (~27
+// f32 operations each with two powf), a mask test for every other node,
+// one argmax compare per (step, base node) and one rescore per step:
+// ~1.9e8 operations at B=512, K=10 over 10000 base nodes of N=16384, ~3 us
+// at 67 TFLOP/s. It is bound by operations.
 //
 // Design. One block of 512 threads per eval. Thread t owns the nodes
 // t, t + 512, t + 1024, ...: it scores each of them once at the start and
@@ -253,14 +254,29 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+// The dynamic shared memory (the touched bitmap) the kernel is allowed on
+// each device: the attribute is raised only when a launch needs more than
+// the last setting (above 48 KB, N > 393216), not at every launch.
+#define MAX_DEVICES 64
+static size_t g_smem[MAX_DEVICES];
+
+static cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && g_smem[dev] >= smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(place_batch_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess && dev < MAX_DEVICES) g_smem[dev] = smem;
+  return e;
+}
+
 extern "C" int place_batch_launch(const PlaceArgs* args, void* stream) {
   size_t smem = (size_t)((args->n + 31) / 32) * sizeof(unsigned int);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        place_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = allow_smem(smem);
+  if (err != cudaSuccess) return (int)err;
   place_batch_kernel<<<args->b, THREADS, smem, (cudaStream_t)stream>>>(
       *args);
   return (int)cudaGetLastError();

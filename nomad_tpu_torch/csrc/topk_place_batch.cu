@@ -23,9 +23,10 @@
 //
 // What bounds it. Bytes: ~0.6 MB of planes at N=16384 plus B*K*9 B of
 // outputs, ~0.8 MB at B=8192, K=10: ~0.25 us at 3.35 TB/s. Operations:
-// each (eval, node) scored once, 27 f32 operations and one selection
-// compare (3.8e9 at B=8192, N=16384: ~56 us at 67 TFLOP/s), then per
-// active step one argmax compare per candidate and one rescore. It is
+// each (eval, node) in the base mask scored once, 27 f32 operations and
+// one selection compare, a mask test for every other node, then per
+// active step one argmax compare per candidate and one rescore (2.35e9 at
+// B=8192 over 10000 base nodes of N=16384: ~35 us at 67 TFLOP/s). It is
 // bound by operations, and by the two powf and two or three IEEE
 // divisions inside each of those 27, which the count does not weigh.
 //
@@ -374,17 +375,33 @@ static int key_cap(int kc) {
   return cap;
 }
 
+// The dynamic shared memory the kernel is allowed on each device: the
+// attribute is raised only when a launch needs more than the last setting,
+// so it is set at most once per device (cap 256 is the only size above
+// the 48 KB default).
+#define MAX_DEVICES 64
+static size_t g_smem[MAX_DEVICES];
+
+static cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && g_smem[dev] >= smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(topk_place_batch_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess && dev < MAX_DEVICES) g_smem[dev] = smem;
+  return e;
+}
+
 extern "C" int topk_place_batch_launch(const TopkArgs* args, void* stream) {
   if (args->kc < 1 || args->kc > MAX_KC || args->kc > args->n)
     return (int)cudaErrorInvalidValue;
   const int cap = key_cap(args->kc);
   const size_t smem = (size_t)WARPS * EPW * cap * sizeof(u64);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        topk_place_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = allow_smem(smem);
+  if (err != cudaSuccess) return (int)err;
   const int per_block = WARPS * EPW;
   const int blocks = (args->b + per_block - 1) / per_block;
   topk_place_batch_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(

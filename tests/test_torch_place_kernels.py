@@ -129,9 +129,11 @@ def _topk_matches_pallas(args, k_steps, k_cand):
 
 
 @pytest.mark.parametrize("scenario", tp.LEAN_SCENARIOS)
-@pytest.mark.parametrize("k_steps,k_cand", ((tp.LEAN_K, 64), (10, 8)))
+@pytest.mark.parametrize("k_steps,k_cand",
+                         ((tp.LEAN_K, 64), (10, 8), (10, 128)))
 def test_topk_place_batch_matches_pallas(scenario, k_steps, k_cand):
     args = tp.lean_args(*tp.lean_case(2, scenario, k=k_steps))
+    assert args[0].shape[0] > k_cand     # a rest max beyond the candidates
     got = _topk_matches_pallas(args, k_steps, k_cand)
     if scenario == "one_per_node" and k_cand < k_steps:
         # 8 candidates cannot hold 10 one-per-node placements while the
@@ -191,13 +193,6 @@ def test_topk_every_node_a_candidate(scenario):
     assert bool((rest == tk.NEG_INF).all())
     got = _topk_matches_pallas(args, 10, 128)
     assert got[3].all()
-
-
-@pytest.mark.parametrize("scenario", tp.LEAN_SCENARIOS)
-def test_topk_place_batch_128_candidates(scenario):
-    args = tp.lean_args(*tp.lean_case(43, scenario, k=10))
-    assert args[0].shape[0] > 128
-    _topk_matches_pallas(args, 10, 128)
 
 
 def test_topk_ordered_breaks_ties_by_index():
