@@ -34,16 +34,31 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
    B2 path) against the ``torch`` loop, with evals/s of both and the split
    of a batch (kernel, commit, the rest; fallback rows);
 9. the replay form: the same loop with ``reset_every=1`` on a C2M cluster
-   of 10k nodes with 100k resident allocs.
+   of 10k nodes with 100k resident allocs;
+10. the scheduler path: the C2M replay state (10k nodes, 100k allocs)
+    built into the port's ``StateStore`` (``parallel/c2m.generate``), its
+    first and incremental ``ClusterTensors`` builds timed; 8 rounds of 32
+    new C2M lean jobs, each round's evals run by 32 threads through
+    ``new_scheduler`` with ``LaunchCoalescer.launch`` as the launcher and
+    plans committed through the ``Harness`` (every wave one B1 launch, 0
+    fallbacks, every eval complete with its 10 placements, no node over
+    capacity); B1 against its plain version on one wave of round 1's
+    recorded members, in a fixed order; then 8 evals one at a time
+    through ``default_kernel_launch``. Each thread's round is split by the
+    host clock into the scheduler before its launch, the launch (park and
+    wave) and plan assembly and submit; one ``sched: {...}`` line.
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
-and power limit, and before that the kernels' JSON line. A full record
+and power limit, and before that the kernels' JSON line (B1's entry
+counts its launches on the main path of phase 3 under ``launches`` and
+on the scheduler path of phase 10 under ``sched_launches``). A full record
 goes to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -54,6 +69,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from nomad_tpu_torch import mock
 from nomad_tpu_torch.ops import cuda_kernel as ck
 from nomad_tpu_torch.ops.kernel import (
     FUSED_METRIC_FIELDS,
@@ -62,9 +78,10 @@ from nomad_tpu_torch.ops.kernel import (
     build_kernel_in,
     neutral_planes,
     pad_steps,
+    single_eval_stats,
     unpack_fused_wave,
 )
-from nomad_tpu_torch.parallel import batching, coalesce
+from nomad_tpu_torch.parallel import batching, c2m, coalesce
 from nomad_tpu_torch.parallel.synthetic import (
     C2M_SHAPE_CPU,
     C2M_SHAPE_MEM,
@@ -74,11 +91,15 @@ from nomad_tpu_torch.parallel.synthetic import (
     synthetic_eval,
     throughput_problem,
 )
+from nomad_tpu_torch.scheduler import new_scheduler
+from nomad_tpu_torch.scheduler.testing import Harness
+from nomad_tpu_torch.structs import consts
 from nomad_tpu_torch.tensors.schema import (
     MAX_DEV_REQS,
     SPREAD_BUCKETS,
     AskTensor,
     EvalTensors,
+    default_incremental_cluster_cache,
 )
 
 SEED = 20261016
@@ -352,6 +373,8 @@ def main() -> int:
 
     kline = run_phases(dev, record)
     kline["kernels"] += run_batch_phases(dev, record)
+    sched = run_sched_phase(dev, record)
+    kline["kernels"][0]["sched_launches"] = sched["b1_launches"]
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -918,6 +941,267 @@ def compare_loops(kres, tres, kin, ctx: str) -> dict:
             "score_sum_rel_err": rel, "plane_err": err,
             "fallback_kernel_topk": int(kf), "fallback_torch": int(tf),
             "over_capacity_nodes": over[0]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the scheduler path, from evaluations to committed plans.
+# ---------------------------------------------------------------------------
+
+SCHED_NODES = c2m.N_NODES     # the C2M replay cluster: 10,000 nodes
+SCHED_ALLOCS = c2m.N_ALLOCS   # and 100,000 live allocations
+SCHED_ROUNDS = 8
+SCHED_EVALS = 32     # evals per round, one thread each (the worker batch)
+SCHED_SINGLE = 8     # evals through the single-eval launcher
+
+
+def store_over_capacity(state, clusters) -> int:
+    """Nodes whose committed cpu, memory or disk in the store's usage
+    planes exceeds their capacity net of the agent's reserve."""
+    snap = state.snapshot()
+    c = clusters.get(snap)
+    used = c.gathered_usage(snap.usage)
+    over = np.zeros(c.n_pad, bool)
+    for plane, cap in zip(used[:3], (c.cap_cpu, c.cap_mem, c.cap_disk)):
+        over |= plane > cap + 1e-3
+    return int(over.sum())
+
+
+class TimedHarness(Harness):
+    """The ``Harness`` with its plan commit timed in two parts: the plan's
+    deferred work (allocation metrics, read from the wave's top-k) and
+    the store's commit, the wait for the harness lock included."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.deferred_s: list = []
+        self.commit_s: list = []
+
+    def submit_plan(self, plan):
+        t0 = time.perf_counter()
+        plan.run_deferred()
+        t1 = time.perf_counter()
+        out = super().submit_plan(plan)
+        self.deferred_s.append(t1 - t0)
+        self.commit_s.append(time.perf_counter() - t1)
+        return out
+
+
+class GcPauses:
+    """A ``gc.callbacks`` entry: collections of the oldest generation and
+    the seconds spent in all collections while it is registered."""
+
+    def __init__(self) -> None:
+        self.seconds = 0.0
+        self.full = 0
+        self._t0 = 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._t0
+            self.full += int(info["generation"] == 2)
+
+
+def check_evals(harness, jobs, evals, ctx: str) -> None:
+    """Every eval complete, no blocked eval, each job with its
+    placements live in the store."""
+    status = {e.id: e.status for e in harness.evals}
+    bad = [e.id for e in evals
+           if status.get(e.id) != consts.EVAL_STATUS_COMPLETE]
+    check(not bad, f"{ctx}: {len(bad)} evals not complete, e.g. "
+          f"{[status.get(b) for b in bad[:3]]}")
+    check(not harness.create_evals,
+          f"{ctx}: {len(harness.create_evals)} blocked or follow-up evals")
+    snap = harness.state.snapshot()
+    for job in jobs:
+        live = [a for a in snap.allocs_by_job(job.namespace, job.id)
+                if not a.terminal_status()]
+        check(len(live) == c2m.BURST_COUNT,
+              f"{ctx}: job {job.id} has {len(live)} live allocs")
+
+
+def new_evals(harness, rng, first: int, n: int):
+    """``n`` burst jobs registered in the store, one eval each."""
+    jobs = [c2m.burst_job(rng, first + i, prefix="smoke") for i in range(n)]
+    for job in jobs:
+        harness.state.upsert_job(job)
+    evals = [mock.eval(job_id=j.id, namespace=j.namespace, type=j.type,
+                       priority=j.priority) for j in jobs]
+    harness.state.upsert_evals(evals)
+    return jobs, evals
+
+
+def run_sched_phase(dev: torch.device, record: dict) -> dict:
+    """Phase 10: the C2M replay state in the port's store, then rounds of
+    evals through ``new_scheduler`` with ``LaunchCoalescer.launch`` as the
+    launcher (``Worker._process_batch`` without the broker), plans
+    committed through the ``Harness``; B1 against its plain version on a
+    wave of the members round 1 built; then evals one at a time through
+    the default single-eval launcher."""
+    t0 = time.perf_counter()
+    store = c2m.generate(SCHED_NODES, SCHED_ALLOCS)
+    state_s = time.perf_counter() - t0
+    snap = store.snapshot()
+    n_allocs = sum(1 for _ in snap.allocs_iter())
+    t0 = time.perf_counter()
+    cluster = default_incremental_cluster_cache.get(snap)
+    first_build_s = time.perf_counter() - t0
+    # one node's attributes change: the next snapshot's cluster planes
+    # come from a dirty-row delta build
+    node = store.snapshot().node_by_id(cluster.node_ids[17]).copy()
+    node.attributes = dict(node.attributes, **{"smoke.touched": "1"})
+    node.compute_class()
+    store.upsert_node(node)
+    deltas = default_incremental_cluster_cache.delta_builds
+    t0 = time.perf_counter()
+    cluster = default_incremental_cluster_cache.get(store.snapshot())
+    incremental_build_s = time.perf_counter() - t0
+    check(default_incremental_cluster_cache.delta_builds == deltas + 1,
+          "the node update did not take the delta build")
+    log(f"sched state: {SCHED_NODES} nodes, {n_allocs} allocs, "
+        f"N={cluster.n_pad}; generate {state_s:.2f} s, first build "
+        f"{first_build_s:.3f} s, incremental build "
+        f"{incremental_build_s:.4f} s")
+
+    harness = TimedHarness(state=store, device=dev)
+    rng = np.random.default_rng(SEED + 10)
+    members: list = []          # round 1's (thread, seq, kin, k, f)
+    split = {"before_launch": [], "in_launch": [], "after_launch": []}
+    round_s, waves, errors = [], 0, []
+    ck.launches = 0
+    coalesce.fused_wave_stats.reset()
+    coalesce.wave_stats.reset()
+    pauses = GcPauses()
+    gc.callbacks.append(pauses)
+    for r in range(SCHED_ROUNDS):
+        jobs, evals = new_evals(harness, rng, r * SCHED_EVALS, SCHED_EVALS)
+        snap = harness.state.snapshot()
+        clusters = coalesce.ClusterCache()
+        co = coalesce.LaunchCoalescer(SCHED_EVALS, device=dev,
+                                      adaptive=False)
+
+        def evaluator(i: int, job, ev) -> None:
+            spans = []
+
+            def launch(kin, k_steps, features):
+                if r == 0:
+                    members.append((i, len(spans), kin, k_steps, features))
+                t_a = time.perf_counter()
+                try:
+                    return co.launch(kin, k_steps, features)
+                finally:
+                    spans.append((t_a, time.perf_counter()))
+
+            t_start = time.perf_counter()
+            try:
+                new_scheduler(job.type, snap, harness, device=dev,
+                              kernel_launch=launch,
+                              cluster_provider=clusters.get).process(ev)
+            except Exception as e:      # noqa: BLE001 - checked after join
+                errors.append(f"round {r} eval {i}: {e!r}")
+            finally:
+                co.done()
+            total = time.perf_counter() - t_start
+            before = spans[0][0] - t_start if spans else total
+            inside = sum(b - a for a, b in spans)
+            split["before_launch"].append(before)
+            split["in_launch"].append(inside)
+            split["after_launch"].append(total - before - inside)
+
+        threads = [threading.Thread(target=evaluator, args=(i, j, e))
+                   for i, (j, e) in enumerate(zip(jobs, evals))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        round_s.append(time.perf_counter() - t0)
+        check(not any(th.is_alive() for th in threads), f"round {r} hung")
+        check(not errors, f"scheduler path errors: {errors[:3]}")
+        waves += co.launches
+        check_evals(harness, jobs, evals, f"round {r}")
+        over = store_over_capacity(harness.state, clusters)
+        check(over == 0, f"round {r}: {over} nodes over capacity")
+    b1_launches = ck.launches
+    gc.callbacks.remove(pauses)
+    deferred_s, commit_s = sum(harness.deferred_s), sum(harness.commit_s)
+    fstats = coalesce.fused_wave_stats.snapshot()
+    wstats = coalesce.wave_stats.snapshot()
+    check(fstats["fallbacks"] == 0, f"scheduler waves fell back: {fstats}")
+    check(b1_launches == fstats["launches"] == waves,
+          f"B1 launches {b1_launches} != fused waves {fstats} / "
+          f"coalescer waves {waves}")
+    check(b1_launches > 0, "the scheduler path never launched B1")
+    evals_total = SCHED_ROUNDS * SCHED_EVALS
+    log(f"sched burst: {evals_total} evals in {waves} waves, "
+        f"{b1_launches} B1 launches, 0 fallbacks")
+
+    # B1 against its plain version on round 1's members, in a fixed order
+    members.sort(key=lambda m: (m[0], m[1]))
+    check(all(m[4].with_shuffle for m in members),
+          "a scheduler member without its shuffle plane")
+    wave = coalesce.assemble_wave([m[2] for m in members],
+                                  [m[3] for m in members],
+                                  [m[4] for m in members], dev)
+    got = ck.fused_wave_place(wave.kin, wave.step_member, wave.step_local,
+                              wave.t_pad, wave.features)
+    want = ck.fused_wave_place_reference(
+        wave.kin, wave.step_member, wave.step_local, wave.t_pad,
+        wave.features)
+    torch.cuda.synchronize()
+    vs_plain = compare(got, want, wave, "sched/round1")
+    check(vs_plain["placed"] == len(members) * c2m.BURST_COUNT,
+          f"sched/round1 wave placed {vs_plain['placed']}")
+    log(f"sched b1 vs plain: {json.dumps(vs_plain)}")
+
+    # the single-eval route: one eval at a time, default launcher on dev
+    single_eval_stats.reset()
+    single_s = []
+    for i in range(SCHED_SINGLE):
+        jobs, evals = new_evals(harness, rng, 10_000 + i, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        harness.process(jobs[0].type, evals[0])
+        single_s.append(time.perf_counter() - t0)
+        check_evals(harness, jobs, evals, f"single eval {i}")
+    single = single_eval_stats.snapshot()
+    check(single["topk"] + single["full"] - single["breaches"]
+          == SCHED_SINGLE, f"single-eval launches {single}")
+    over = store_over_capacity(harness.state, coalesce.ClusterCache())
+    check(over == 0, f"single evals: {over} nodes over capacity")
+
+    sched = {
+        "nodes": SCHED_NODES, "allocs": n_allocs, "n_pad": cluster.n_pad,
+        "state_s": state_s, "first_build_s": first_build_s,
+        "incremental_build_s": incremental_build_s,
+        "rounds": SCHED_ROUNDS, "evals": evals_total,
+        "placements": evals_total * c2m.BURST_COUNT,
+        "waves": waves, "b1_launches": b1_launches,
+        "fallbacks": fstats["fallbacks"],
+        "evals_per_s": evals_total / sum(round_s),
+        "round_ms": float(np.mean(round_s)) * 1e3,
+        "round_ms_each": [x * 1e3 for x in round_s],
+        "round_ms_median": float(np.median(round_s)) * 1e3,
+        "thread_ms": {k: float(np.mean(v)) * 1e3 for k, v in split.items()},
+        # inside the threads' after-launch part, per eval: the plan's
+        # deferred work and the store's commit (the harness lock's wait
+        # included)
+        "plan_deferred_ms": deferred_s / evals_total * 1e3,
+        "plan_commit_ms": commit_s / evals_total * 1e3,
+        "gc_s": pauses.seconds, "gc_full": pauses.full,
+        "wave_latency_p50_ms": wstats["wave_latency_p50_ms"],
+        "assemble_latency_p50_ms": wstats["assemble_latency_p50_ms"],
+        "park_latency_p50_ms": wstats["park_latency_p50_ms"],
+        "single_eval_ms": float(np.mean(single_s)) * 1e3,
+        "single_eval_ms_each": [x * 1e3 for x in single_s],
+        "single_eval_stats": single,
+        "b1_vs_plain": vs_plain,
+    }
+    log(f"sched: {json.dumps(sched)}")
+    record["sched"] = sched
+    return sched
 
 
 if __name__ == "__main__":

@@ -23,11 +23,13 @@ selection with first-index ties (lowest permutation rank under shuffle).
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from nomad_tpu_torch.device import DeviceLike, resolve_device
 from nomad_tpu_torch.tensors.schema import (
     MAX_DEV_REQS,
     MAX_SPREADS,
@@ -108,6 +110,18 @@ def neutral_planes(n: int) -> NeutralPlanes:
             arange_i32=_frozen(np.arange(n, dtype=np.int32)),
         )
         _NEUTRAL_CACHE[n] = got
+    return got
+
+
+_NEUTRAL_WORDS_CACHE: dict = {}
+
+
+def neutral_port_words(n: int, w: int) -> np.ndarray:
+    """Frozen all-zero [N, W] u32 port-conflict words."""
+    got = _NEUTRAL_WORDS_CACHE.get((n, w))
+    if got is None:
+        got = _frozen(np.zeros((n, w), np.uint32))
+        _NEUTRAL_WORDS_CACHE[(n, w)] = got
     return got
 
 
@@ -1177,3 +1191,109 @@ def build_kernel_in(
         algorithm_spread=np.asarray(ev.algorithm == "spread", bool),
         n_steps=np.asarray(n_steps, np.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# Single-eval dispatch: the stack's direct (non-coalesced) launcher.
+# ---------------------------------------------------------------------------
+
+class _SingleEvalStats:
+    """``default_kernel_launch`` accounting: ``topk`` candidate-set runs,
+    ``breaches`` among them whose bound broke (each re-run full width),
+    ``full`` full-width runs (breaches included)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.topk = 0
+        self.breaches = 0
+        self.full = 0
+
+    def note(self, topk: bool = False, breach: bool = False,
+             full: bool = False) -> None:
+        with self._lock:
+            self.topk += int(topk)
+            self.breaches += int(breach)
+            self.full += int(full)
+
+    def reset(self) -> None:
+        with self._lock:
+            self.topk = self.breaches = self.full = 0
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"topk": self.topk, "breaches": self.breaches,
+                    "full": self.full}
+
+
+single_eval_stats = _SingleEvalStats()
+
+
+def _upload_kin(kin: KernelIn, dev: torch.device) -> KernelIn:
+    """Every leaf of one eval's planes on ``dev``; a plane the eval holds
+    under several fields by identity (the neutral singletons) goes once."""
+    done: dict = {}
+    leaves = []
+    for x in kin:
+        t = done.get(id(x))
+        if t is None:
+            t = done[id(x)] = torch.tensor(np.asarray(x), device=dev)
+        leaves.append(t)
+    return KernelIn(*leaves)
+
+
+def _read_single(out: KernelOut, ok: Optional[torch.Tensor], k: int):
+    """``(KernelOut of host numpy and ints, ok)`` through one device-to-host
+    copy of a flat f32 buffer ``[ok, chosen[K], scores[K], found[K],
+    topk_idx[K*TOPK], topk_scores[K*TOPK], the 8 metrics]``; ``ok`` None
+    reads as True. Indices are exact in f32 below 2**24."""
+    f32 = torch.float32
+    dev = out.chosen.device
+    head = (torch.ones(1, dtype=f32, device=dev) if ok is None
+            else ok.to(f32).reshape(1))
+    parts = [head, out.chosen.to(f32), out.scores.to(f32), out.found.to(f32),
+             out.topk_idx.to(f32).reshape(-1),
+             out.topk_scores.to(f32).reshape(-1)]
+    parts += [getattr(out, name).to(f32).reshape(1)
+              for name in FUSED_METRIC_FIELDS]
+    flat = torch.cat(parts).cpu().numpy()
+    chosen = flat[1:1 + k].astype(np.int32)
+    scores = flat[1 + k:1 + 2 * k].astype(np.float32)
+    found = flat[1 + 2 * k:1 + 3 * k] > 0.5
+    off = 1 + 3 * k
+    topk_idx = flat[off:off + k * TOPK].astype(np.int32).reshape(k, TOPK)
+    off += k * TOPK
+    topk_scores = flat[off:off + k * TOPK].astype(np.float32).reshape(
+        k, TOPK)
+    off += k * TOPK
+    metrics = {name: int(flat[off + i])
+               for i, name in enumerate(FUSED_METRIC_FIELDS)}
+    return KernelOut(chosen, scores, found, topk_idx, topk_scores,
+                     **metrics), bool(flat[0] > 0.5)
+
+
+def default_kernel_launch(kin: KernelIn, k_steps: int,
+                          features: KernelFeatures,
+                          device: DeviceLike = None) -> KernelOut:
+    """The stack's direct (non-coalesced) dispatch on ``device`` (the card
+    unless the caller asks for the CPU): the eval's planes go up once,
+    the candidate-set placement runs when its preconditions hold (no
+    spread stanzas, binpack scoring), and the full-width placement runs
+    otherwise or where the candidate set's bound broke (``valid`` False),
+    the reference's rule, counted in ``single_eval_stats``. The result
+    comes back as host numpy in one packed readback, top-k planes
+    included."""
+    dev = resolve_device(device)
+    features = canonical_features(features)
+    kin_d = _upload_kin(kin, dev)
+    if features.n_spreads == 0 and not bool(np.asarray(kin.algorithm_spread)):
+        out, ok = place_taskgroup_topk(kin_d, k_steps, features)
+        host, valid = _read_single(out, ok, k_steps)
+        single_eval_stats.note(topk=True, breach=not valid, full=not valid)
+        if valid:
+            return host
+    else:
+        single_eval_stats.note(full=True)
+    host, _ = _read_single(place_taskgroup(kin_d, k_steps, features), None,
+                           k_steps)
+    return host
+

@@ -12,6 +12,9 @@ Batching is exact: ``KernelIn`` always carries every plane and
 wave runs the union of its members' features; members that did not ask
 for a feature carry neutral planes, which the kernel defines as no-ops.
 
+``ClusterCache`` hands the evals of a batch one ``ClusterTensors`` per
+snapshot structure (an identity hit, or a dirty-row delta build).
+
 Waiting for later slices of the port (each named where the JAX launcher
 has it): the node-axis mesh and sharded dispatch, the chaos fault
 points, wave cohorts (plan-queue batching), tracer spans and the kernel
@@ -715,3 +718,47 @@ class LaunchCoalescer:
                     r.error = e
             for r in grp:
                 r.event.set()
+
+
+_CLUSTER_LRU_MAX = 8
+
+
+class ClusterCache:
+    """ClusterTensors memo shared by a batch's evals.
+
+    When the store publishes usage planes, the process-wide incremental
+    cache serves the build: an unchanged ``structure_version`` is an
+    identity hit, a bumped one applies dirty-node deltas from the
+    store's change log instead of a full O(nodes) rebuild
+    (tensors/schema.IncrementalClusterCache). Snapshot-identity keying
+    is the fallback for states without usage planes."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._cache = {}
+
+    def get(self, state):
+        from nomad_tpu_torch.tensors.schema import (
+            ClusterTensors,
+            default_incremental_cluster_cache,
+        )
+
+        u = getattr(state, "usage", None)
+        if u is not None and u.uid:
+            return default_incremental_cluster_cache.get(state)
+        key = id(state)
+        with self._lock:
+            hit = self._cache.get(key)
+            if hit is not None and hit[0] is state:
+                return hit[1]
+        built = ClusterTensors.build(state.nodes())
+        with self._lock:
+            self._cache[key] = (state, built)
+            while len(self._cache) > _CLUSTER_LRU_MAX:
+                self._cache.pop(next(iter(self._cache)))
+        return built
+
+
+#: process-wide cache used by schedulers outside batch mode too
+default_cluster_cache = ClusterCache()
+

@@ -364,3 +364,61 @@ def lean_args(kin, uc, um, ac, am, ns):
 
 def torch_args(args, device="cpu"):
     return [torch.from_numpy(np.array(a)).to(device) for a in args]
+
+
+def sched_round(harness, jobs, device, seed=0):
+    """One coalesced scheduling round on the port alone: ``jobs`` are
+    registered, one eval each is created, and one thread per eval runs
+    ``new_scheduler`` against one snapshot with a
+    ``LaunchCoalescer(len(jobs), adaptive=False)`` as its launcher and one
+    ``ClusterCache``; plans commit through ``harness``. Returns
+    ``(evals, coalescer, errors)``."""
+    import threading
+
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.parallel.coalesce import ClusterCache, LaunchCoalescer
+    from nomad_tpu_torch.scheduler import new_scheduler
+
+    evals = []
+    for job in jobs:
+        harness.state.upsert_job(job)
+        evals.append(mock.eval(job_id=job.id, namespace=job.namespace,
+                               type=job.type, priority=job.priority))
+    harness.state.upsert_evals(evals)
+    snap = harness.state.snapshot()
+    clusters = ClusterCache()
+    co = LaunchCoalescer(len(jobs), device=device, adaptive=False)
+    errors = []
+
+    def run(job, ev):
+        try:
+            new_scheduler(job.type, snap, harness, device=device,
+                          kernel_launch=co.launch,
+                          cluster_provider=clusters.get).process(ev)
+        except Exception as e:      # noqa: BLE001 - asserted by the caller
+            errors.append(repr(e))
+        finally:
+            co.done()
+
+    threads = [threading.Thread(target=run, args=(j, e))
+               for j, e in zip(jobs, evals)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads), "round hung"
+    return evals, co, errors
+
+
+def over_capacity_nodes(state) -> int:
+    """Nodes whose committed cpu, memory or disk exceeds their capacity
+    net of the agent's reserve, read from the store's usage planes."""
+    from nomad_tpu_torch.tensors.schema import ClusterTensors
+
+    snap = state.snapshot()
+    c = ClusterTensors.build(snap.nodes())
+    used = c.gathered_usage(snap.usage)
+    over = np.zeros(c.n_pad, bool)
+    for plane, cap in zip(used[:3], (c.cap_cpu, c.cap_mem, c.cap_disk)):
+        over |= plane > cap + 1e-3
+    return int(over.sum())

@@ -344,3 +344,41 @@ def test_cuda_kernel_loop_matches_torch_loop(cuda_device):
     for g, w in zip(got[3:], want[3:]):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_scheduler_burst_through_fused_waves(cuda_device):
+    """A small scheduling burst on the card: 16 evals of C2M lean jobs
+    through ``LaunchCoalescer`` make one fused B1 launch; every eval
+    completes with its placements and no node ends over capacity. Then
+    one eval through the default single-eval launcher."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops.kernel import single_eval_stats
+    from nomad_tpu_torch.parallel import c2m
+    from nomad_tpu_torch.scheduler.testing import Harness
+
+    rng = np.random.default_rng(3)
+    h = Harness(device=cuda_device)
+    for i in range(120):
+        h.state.upsert_node(mock.node(datacenter=f"dc{1 + i % 10}"))
+    jobs = [c2m.burst_job(rng, i) for i in range(16)]
+    before = ck.launches
+    pc.fused_wave_stats.reset()
+    evals, co, errors = tp.sched_round(h, jobs, cuda_device)
+    assert not errors, errors
+    assert co.launches == 1 and ck.launches == before + 1
+    assert pc.fused_wave_stats.snapshot() == {"launches": 1, "fallbacks": 0}
+    status = {e.id: e.status for e in h.evals}
+    assert all(status[e.id] == "complete" for e in evals), status
+    assert len(h.placed_allocs()) == 16 * c2m.BURST_COUNT
+    assert tp.over_capacity_nodes(h.state) == 0
+
+    job = c2m.burst_job(rng, 99)
+    h.state.upsert_job(job)
+    ev = mock.eval(job_id=job.id, type=job.type, priority=job.priority)
+    single_eval_stats.reset()
+    h.process(job.type, ev)
+    assert h.evals[-1].status == "complete"
+    assert single_eval_stats.snapshot()["topk"] == 1
+    assert len(h.placed_allocs()) == 17 * c2m.BURST_COUNT
+    assert tp.over_capacity_nodes(h.state) == 0

@@ -1,10 +1,11 @@
 """The port stands alone: no JAX, nothing of nomad_tpu, no silent CPU.
 
 A subprocess blocks ``jax`` and ``nomad_tpu`` in ``sys.modules`` and
-still imports the port and runs one small wave and one batched
-schedule-apply loop (``backend="kernel_topk"``) on the CPU; a static scan
-finds no such import in the package or in chip_smoke.py; a default
-device entry point raises on a machine without a card.
+still imports the port and runs one small wave, one batched
+schedule-apply loop (``backend="kernel_topk"``) and one scheduler eval
+through ``Harness(device="cpu")`` on the CPU; a static scan finds no such
+import in the package or in chip_smoke.py; a default device entry point
+raises on a machine without a card.
 """
 
 import ast
@@ -49,6 +50,17 @@ score, placed, fallback, uc, um = loop(
     device_put_shared(p.kin, "cpu"), *[torch.from_numpy(x) for x in (
         p.used_cpu, p.used_mem, p.ask_cpu, p.ask_mem, p.n_steps)])
 assert int(placed) == 2 * 4 * 3 and float(score) > 0, (placed, score)
+from nomad_tpu_torch import mock
+from nomad_tpu_torch.scheduler import new_scheduler
+from nomad_tpu_torch.scheduler.testing import Harness
+h = Harness(device="cpu")
+for _ in range(5):
+    h.state.upsert_node(mock.node())
+job = mock.simple_job()
+h.state.upsert_job(job)
+ev = mock.eval(job_id=job.id, type=job.type)
+h.process("service", ev)
+assert len(h.placed_allocs()) == 10 and h.evals[-1].status == "complete"
 new = {m for m in sys.modules if sys.modules[m] is not None
        and (m == "jax" or m.startswith(("jax.", "nomad_tpu.")))} - before
 assert not new, sorted(new)
@@ -100,3 +112,21 @@ def test_default_device_raises_without_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         LaunchCoalescer(1)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_scheduler_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from nomad_tpu_torch.ops.kernel import LEAN_FEATURES, default_kernel_launch
+    from nomad_tpu_torch.parallel.synthetic import synthetic_kernel_in
+    from nomad_tpu_torch.scheduler import new_scheduler
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.state.store import StateStore
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Harness()
+    h = Harness(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        new_scheduler("service", StateStore().snapshot(), h)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        default_kernel_launch(synthetic_kernel_in(60, 2), 2, LEAN_FEATURES)
