@@ -46,13 +46,30 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     recorded members, in a fixed order; then 8 evals one at a time
     through ``default_kernel_launch``. Each thread's round is split by the
     host clock into the scheduler before its launch, the launch (park and
-    wave) and plan assembly and submit; one ``sched: {...}`` line.
+    wave) and plan assembly and submit; one ``sched: {...}`` line;
+11. the server: phase 10's store, taken as bytes with
+    ``to_snapshot_bytes()``, restored into the store of a ``Server`` on
+    the card (one worker, batch 32, the JAX bench's e2e shape); 40
+    warm-up jobs, then a timed burst of 200 C2M lean jobs registered with
+    ``job_register``: the eval broker hands them out in batches, the
+    worker's coalescer fires each wave as one B1 launch, and plans commit
+    through the plan queue and the applier's group commit. Run three
+    times: ``gc_tuning`` off, then on (``gc.freeze()`` runs once per
+    process, so the order is fixed), then on with the coalescer's
+    adaptive window off; one ``server: {...}`` line per arm (evals/s,
+    e2e and plan latency p50/p99, B1 launches, waves and their mean fill,
+    fallbacks, plans and rejected node plans, full collections and their
+    pause, group commits, the restore's time). Every timed job must have
+    its 10 allocations, no node may be over capacity, the broker must end
+    empty with no failed eval, and B1 must have launched fewer times than
+    there were evals.
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit, and before that the kernels' JSON line (B1's entry
-counts its launches on the main path of phase 3 under ``launches`` and
-on the scheduler path of phase 10 under ``sched_launches``). A full record
+counts its launches on the main path of phase 3 under ``launches``, on
+the scheduler path of phase 10 under ``sched_launches`` and on phase 11's
+timed server bursts under ``server_launches``). A full record
 goes to chiprun_out/chip_smoke.json.
 """
 
@@ -60,6 +77,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -93,7 +111,10 @@ from nomad_tpu_torch.parallel.synthetic import (
 )
 from nomad_tpu_torch.scheduler import new_scheduler
 from nomad_tpu_torch.scheduler.testing import Harness
+from nomad_tpu_torch.server.plan_apply import plan_group_stats
+from nomad_tpu_torch.server.server import Server, ServerConfig
 from nomad_tpu_torch.structs import consts
+from nomad_tpu_torch.telemetry.histogram import histograms, percentile
 from nomad_tpu_torch.tensors.schema import (
     MAX_DEV_REQS,
     SPREAD_BUCKETS,
@@ -373,8 +394,12 @@ def main() -> int:
 
     kline = run_phases(dev, record)
     kline["kernels"] += run_batch_phases(dev, record)
-    sched = run_sched_phase(dev, record)
+    sched, state_bytes = run_sched_phase(dev, record)
     kline["kernels"][0]["sched_launches"] = sched["b1_launches"]
+    server = run_server_phase(dev, record, state_bytes)
+    del state_bytes
+    kline["kernels"][0]["server_launches"] = sum(
+        arm["b1_launches"] for arm in server)
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -483,7 +508,8 @@ def run_phases(dev: torch.device, record: dict) -> dict:
     check(not errors, f"main path errors: {errors[:3]}")
     fstats = coalesce.fused_wave_stats.snapshot()
     wstats = coalesce.wave_stats.snapshot()
-    check(fstats["fallbacks"] == 0, f"composite fallbacks: {fstats}")
+    check(fstats["fallbacks"] == 0 and fstats["failures"] == 0,
+          f"composite fallbacks or failed waves: {fstats}")
     check(main_launches == fstats["launches"] == co.launches,
           f"kernel launches {main_launches} != fused waves {fstats} / "
           f"coalescer waves {co.launches}")
@@ -542,7 +568,7 @@ def run_phases(dev: torch.device, record: dict) -> dict:
                                 resident=resident)
     comp_s = time.perf_counter() - t0
     fstats = coalesce.fused_wave_stats.snapshot()
-    check(fstats == {"launches": 0, "fallbacks": 1},
+    check(fstats == {"launches": 0, "fallbacks": 1, "failures": 0},
           f"composite wave stats {fstats}")
     check(ck.launches == before, "the composite wave launched the kernel")
     check(all(len(o.chosen) == K_STEPS for o in outs), "composite slices")
@@ -1129,7 +1155,8 @@ def run_sched_phase(dev: torch.device, record: dict) -> dict:
     deferred_s, commit_s = sum(harness.deferred_s), sum(harness.commit_s)
     fstats = coalesce.fused_wave_stats.snapshot()
     wstats = coalesce.wave_stats.snapshot()
-    check(fstats["fallbacks"] == 0, f"scheduler waves fell back: {fstats}")
+    check(fstats["fallbacks"] == 0 and fstats["failures"] == 0,
+          f"scheduler waves fell back or failed: {fstats}")
     check(b1_launches == fstats["launches"] == waves,
           f"B1 launches {b1_launches} != fused waves {fstats} / "
           f"coalescer waves {waves}")
@@ -1201,7 +1228,200 @@ def run_sched_phase(dev: torch.device, record: dict) -> dict:
     }
     log(f"sched: {json.dumps(sched)}")
     record["sched"] = sched
-    return sched
+    t0 = time.perf_counter()
+    state_bytes = harness.state.to_snapshot_bytes()
+    sched["snapshot_bytes_s"] = time.perf_counter() - t0
+    return sched, state_bytes
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the server, from job registration to the group commit.
+# ---------------------------------------------------------------------------
+
+SERVER_WARMUP_JOBS = 40     # the JAX bench's E2E_WARMUP_JOBS
+SERVER_JOBS = 200           # the timed burst (E2E_JOBS)
+SERVER_BATCH = 32           # worker_batch_size (E2E_BATCH_SIZE)
+SERVER_DEADLINE_S = 300.0   # per burst; a burst that takes longer fails
+#: (gc_tuning, coalesce_adaptive) of each arm, in this order
+SERVER_ARMS = ((False, True), (True, True), (True, False))
+
+
+def rss_gb() -> float:
+    """This process's resident memory (``VmRSS``), in GB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return 0.0
+
+
+def server_converged(srv, jobs, deadline: float) -> float:
+    """Wait until the broker is empty, no worker holds an eval and every
+    job has its allocations in the store (``bench/trace_report.py``'s
+    steady burst waits on the broker the same way); returns the host
+    clock at that moment. An eval leaves the worker's live set after its
+    e2e sample is recorded."""
+    want = len(jobs) * c2m.BURST_COUNT
+    while time.time() < deadline:
+        bs = srv.eval_broker.stats()
+        if (bs["total_ready"] == 0 and bs["total_unacked"] == 0
+                and bs["total_waiting"] == 0
+                and not any(w._live for w in srv.workers)):
+            t_done = time.perf_counter()
+            snap = srv.state.snapshot()
+            placed = sum(len(snap.allocs_by_job(j.namespace, j.id))
+                         for j in jobs)
+            if placed >= want:
+                return t_done
+        time.sleep(0.005)
+    fail(f"server burst of {len(jobs)} jobs did not converge: "
+         f"{srv.eval_broker.stats()}, blocked {srv.blocked_evals.stats()}")
+
+
+def check_server_burst(srv, jobs, ctx: str) -> None:
+    """Every job has its placements live, no eval failed, none is left in
+    the broker (its failed queue included), no node is over capacity."""
+    snap = srv.state.snapshot()
+    for job in jobs:
+        live = [a for a in snap.allocs_by_job(job.namespace, job.id)
+                if not a.terminal_status()]
+        check(len(live) == c2m.BURST_COUNT,
+              f"{ctx}: job {job.id} has {len(live)} live allocs")
+    failed = [e.id for e in snap.evals_iter()
+              if e.status == consts.EVAL_STATUS_FAILED]
+    check(not failed, f"{ctx}: {len(failed)} failed evals")
+    bs = srv.eval_broker.stats()
+    check(bs["total_ready"] == bs["total_unacked"] == bs["total_waiting"]
+          == 0, f"{ctx}: broker not empty: {bs}")
+    errors = [w.last_error for w in srv.workers if w.last_error]
+    check(not errors, f"{ctx}: worker errors: {errors[:1]}")
+    over = store_over_capacity(srv.state, coalesce.ClusterCache())
+    check(over == 0, f"{ctx}: {over} nodes over capacity")
+
+
+def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
+               adaptive: bool, rng) -> dict:
+    """One ``Server`` on ``dev`` over the restored state: warm-up, then the
+    timed burst, with every count set to 0 just before it."""
+    ctx = f"server gc_tuning={gc_tuning} coalesce_adaptive={adaptive}"
+    srv = Server(ServerConfig(num_workers=1, worker_batch_size=SERVER_BATCH,
+                              heartbeat_ttl=3600.0, gc_tuning=gc_tuning,
+                              coalesce_adaptive=adaptive),
+                 device=dev)
+    t0 = time.perf_counter()
+    srv.state.restore_from_bytes(state_bytes)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv.start()
+    start_s = time.perf_counter() - t0
+    threads = threading.active_count()
+    w = srv.workers[0]
+    try:
+        tag = ("gcon" if gc_tuning else "gcoff") + (
+            "" if adaptive else "-full")
+        warm = [c2m.burst_job(rng, i, prefix=f"{tag}-warm")
+                for i in range(SERVER_WARMUP_JOBS)]
+        t0 = time.perf_counter()
+        for job in warm:
+            srv.job_register(job)
+        warmup_s = server_converged(
+            srv, warm, time.time() + SERVER_DEADLINE_S) - t0
+        check_server_burst(srv, warm, f"{ctx} warm-up")
+
+        jobs = [c2m.burst_job(rng, i, prefix=f"{tag}-burst")
+                for i in range(SERVER_JOBS)]
+        histograms.get("e2e").reset()
+        srv.plan_latencies.clear()
+        plan_group_stats.reset()
+        coalesce.fused_wave_stats.reset()
+        coalesce.wave_stats.reset()
+        waves0, requests0 = w.batch_launches, w.batch_requests
+        pauses = GcPauses()
+        ck.launches = 0
+        gc.callbacks.append(pauses)
+        t0 = time.perf_counter()
+        for job in jobs:
+            srv.job_register(job)
+        t_done = server_converged(srv, jobs,
+                                  time.time() + SERVER_DEADLINE_S)
+        gc.callbacks.remove(pauses)
+        b1_launches = ck.launches
+        burst_s = t_done - t0
+        fstats = coalesce.fused_wave_stats.snapshot()
+        e2e = histograms.get("e2e")
+        e2e_n = e2e.count
+        e2e_p50, e2e_p99 = e2e.quantiles((0.5, 0.99))
+        plan_lat = list(srv.plan_latencies)
+        group = plan_group_stats.snapshot()
+        wstats = coalesce.wave_stats.snapshot()
+        rss = rss_gb()
+        ineligible = sum(
+            1 for n in srv.state.snapshot().nodes()
+            if n.scheduling_eligibility == consts.NODE_SCHEDULING_INELIGIBLE)
+        check_server_burst(srv, jobs, ctx)
+    finally:
+        t0 = time.perf_counter()
+        srv.shutdown()
+        shutdown_s = time.perf_counter() - t0
+    # the worker's run loop has ended, so its last chunk is reaped
+    waves = w.batch_launches - waves0
+    requests = w.batch_requests - requests0
+    check(fstats["fallbacks"] == 0 and fstats["failures"] == 0,
+          f"{ctx}: waves fell back or failed: {fstats}")
+    check(b1_launches == fstats["launches"],
+          f"{ctx}: B1 launches {b1_launches} != fused waves {fstats}")
+    check(1 <= b1_launches < SERVER_JOBS,
+          f"{ctx}: {b1_launches} B1 launches for {SERVER_JOBS} evals")
+    # an eval processed again (a blocked eval released) adds a sample
+    check(e2e_n >= SERVER_JOBS, f"{ctx}: {e2e_n} e2e samples")
+    return {
+        "gc_tuning": gc_tuning, "coalesce_adaptive": adaptive,
+        "restore_s": restore_s, "start_s": start_s,
+        "threads_after_start": threads, "rss_gb": rss,
+        "warmup_s": warmup_s, "shutdown_s": shutdown_s,
+        "evals": SERVER_JOBS, "e2e_samples": e2e_n, "burst_s": burst_s,
+        "evals_per_s": SERVER_JOBS / burst_s,
+        "e2e_p50_ms": e2e_p50 * 1e3, "e2e_p99_ms": e2e_p99 * 1e3,
+        "plan_p50_ms": percentile(plan_lat, 0.5) * 1e3,
+        "plan_p99_ms": percentile(plan_lat, 0.99) * 1e3,
+        "plans": len(plan_lat),
+        "b1_launches": b1_launches, "waves": waves,
+        "wave_fill": requests / waves if waves else 0.0,
+        "deadline_waves": wstats["deadline_launches"],
+        "wave_latency_p50_ms": wstats["wave_latency_p50_ms"],
+        "assemble_latency_p50_ms": wstats["assemble_latency_p50_ms"],
+        "fallbacks": fstats["fallbacks"],
+        "gc_full": pauses.full, "gc_s": pauses.seconds,
+        "group_commits": group["commit_batches"],
+        "group_size_avg": group["group_size_avg"],
+        "vector_plans": group["vector_plans"],
+        "fallback_plans": group["fallback_plans"],
+        "rejected_node_plans": group["rejected_node_plans"],
+        "ineligible_nodes": ineligible,
+    }
+
+
+def run_server_phase(dev: torch.device, record: dict,
+                     state_bytes: bytes) -> list:
+    """Phase 11: ``gc_tuning`` off, then on, then on with the coalescer's
+    adaptive window off (a wave waits for every member of its batch).
+    The server's GC treatment freezes what is alive once per process, so
+    the "off" arm must come first, and each arm's server is dropped and
+    collected before the next one starts (the third arm's heap is not
+    frozen: a server started again in a process is not frozen either)."""
+    if os.environ.pop("NOMAD_TPU_GC_TUNING", None) is not None:
+        log("server: NOMAD_TPU_GC_TUNING was set; unset for phase 11")
+    log(f"server state: {len(state_bytes) / 1e6:.1f} MB of snapshot bytes")
+    rng = np.random.default_rng(SEED + 11)
+    arms = []
+    for gc_tuning, adaptive in SERVER_ARMS:
+        arm = server_arm(dev, state_bytes, gc_tuning, adaptive, rng)
+        t0 = time.perf_counter()
+        gc.collect()
+        arm["collect_after_s"] = time.perf_counter() - t0
+        log(f"server: {json.dumps(arm)}")
+        arms.append(arm)
+    record["server"] = arms
+    return arms
 
 
 if __name__ == "__main__":

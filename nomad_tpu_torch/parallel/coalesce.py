@@ -15,11 +15,19 @@ for a feature carry neutral planes, which the kernel defines as no-ops.
 ``ClusterCache`` hands the evals of a batch one ``ClusterTensors`` per
 snapshot structure (an identity hit, or a dirty-row delta build).
 
+A batching worker wraps each eval's plan submission in the coalescer's
+``plan_window()``: the eval yields its rendezvous slot while it waits on
+the plan applier, so the next wave fires without it. A fired wave arms
+the plan queue's drain window (``wave_cohorts.note_wave``) before its
+members resume, so the wave's plans commit as one entry. The fault
+points ``wave.launch`` and ``wave.d2h.drain`` and the tracer spans
+``wave.assemble``, ``wave.park``, ``wave.launch`` and ``kernel.d2h`` sit
+where the JAX launcher has them.
+
 Waiting for later slices of the port (each named where the JAX launcher
-has it): the node-axis mesh and sharded dispatch, the chaos fault
-points, wave cohorts (plan-queue batching), tracer spans and the kernel
-profiler, and the device-state registry of resident shared planes (a
-leaf that is already a device tensor is used as it is instead).
+has it): the node-axis mesh and sharded dispatch, the kernel profiler,
+and the device-state registry of resident shared planes (a leaf that is
+already a device tensor is used as it is instead).
 """
 
 from __future__ import annotations
@@ -49,6 +57,10 @@ from nomad_tpu_torch.ops.kernel import (
     pad_steps,
     unpack_fused_wave,
 )
+from nomad_tpu_torch.telemetry.trace import tracer
+from nomad_tpu_torch.utils.faultpoints import fault
+from nomad_tpu_torch.utils.wavecohort import wave_cohorts
+from nomad_tpu_torch.utils.witness import witness_lock
 
 #: B is bucketed to bound the number of wave shapes; 32 is the default
 #: worker batch size
@@ -70,12 +82,16 @@ class _FusedWaveStats:
     """Fused-dispatch accounting. ``launches`` counts waves that ran the
     fused kernel; ``fallbacks`` counts waves that ran the composite
     because their feature union left the envelope (spreads, devices,
-    cores, network). Steady live traffic fits the envelope."""
+    cores, network). Steady live traffic fits the envelope. ``failures``
+    counts waves whose launch raised: the error reaches every member
+    (a worker nacks their evals), and no other version runs in its
+    place."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.launches = 0
         self.fallbacks = 0
+        self.failures = 0
 
     def note_launch(self) -> None:
         with self._lock:
@@ -85,14 +101,20 @@ class _FusedWaveStats:
         with self._lock:
             self.fallbacks += 1
 
+    def note_failure(self) -> None:
+        with self._lock:
+            self.failures += 1
+
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
             self.fallbacks = 0
+            self.failures = 0
 
     def snapshot(self) -> dict:
         with self._lock:
-            return {"launches": self.launches, "fallbacks": self.fallbacks}
+            return {"launches": self.launches, "fallbacks": self.fallbacks,
+                    "failures": self.failures}
 
 
 #: process-wide fused-wave stats (coalescers are per batch and too
@@ -165,6 +187,10 @@ class _WaveTopK:
                 done = self._done
             done.wait()
         try:
+            # deferred-drain seam (chaos plane): the shared fetch runs in
+            # the plan window; a failure hits the member that claimed it
+            # and the others retry the claim
+            fault("wave.d2h.drain")
             host = (self._idx.cpu().numpy(), self._scores.cpu().numpy())
             with self._lock:
                 self._host = host
@@ -518,23 +544,33 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     in one packed device-to-host copy. An error from the kernel
     propagates to every member.
     """
-    # (node-axis mesh/sharding and the chaos fault point "wave.launch":
-    # later slices)
+    # (node-axis mesh/sharding: a later slice)
     dev = resolve_device(device)
     if resident is not None and resident.device != dev:
         raise ValueError("resident usage lives on another device")
+    # wave-launch seam (chaos plane): an injected failure lands on every
+    # member of the wave
+    fault("wave.launch")
     t_assemble = time.perf_counter()
-    stacked, sm, sl, t_pad, b_pad, feats, offsets = assemble_wave(
-        kins, k_steps, features, dev)
+    with tracer.span("wave.assemble"):
+        stacked, sm, sl, t_pad, b_pad, feats, offsets = assemble_wave(
+            kins, k_steps, features, dev)
     t_launch = time.perf_counter()
     wave_stats.observe_assemble(t_launch - t_assemble)
     token = object()
     with _INFLIGHT_LOCK:
         _INFLIGHT_STARTS[token] = t_launch
     try:
-        fused, fout = _dispatch(stacked, sm, sl, t_pad, feats, resident)
-        # the single wave-critical readback (synchronizes with the wave)
-        host = unpack_fused_wave(fout.packed.cpu().numpy(), t_pad, b_pad)
+        try:
+            fused, fout = _dispatch(stacked, sm, sl, t_pad, feats, resident)
+            # the single wave-critical readback (synchronizes with the
+            # wave, so an error of the kernel surfaces here)
+            with tracer.span("kernel.d2h"):
+                packed = fout.packed.cpu().numpy()
+        except BaseException:
+            fused_wave_stats.note_failure()
+            raise
+        host = unpack_fused_wave(packed, t_pad, b_pad)
     finally:
         with _INFLIGHT_LOCK:
             _INFLIGHT_STARTS.pop(token, None)
@@ -579,6 +615,26 @@ class _Request:
         self.event = threading.Event()
 
 
+class _PlanWindow:
+    """Context manager a batching worker wraps around plan submission:
+    the participant yields its rendezvous slot while it blocks on the
+    serialized applier, so the next wave fires without waiting for it
+    (plan submission pipelines behind wave N instead of serializing
+    wave N+1)."""
+
+    __slots__ = ("_coalescer",)
+
+    def __init__(self, coalescer: "LaunchCoalescer") -> None:
+        self._coalescer = coalescer
+
+    def __enter__(self) -> "_PlanWindow":
+        self._coalescer.suspend()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._coalescer.resume()
+
+
 class LaunchCoalescer:
     """Rendezvous point for one batch of concurrently-scheduled evals.
 
@@ -601,7 +657,8 @@ class LaunchCoalescer:
                  window_min_s: float = 0.001,
                  window_max_s: float = 0.050,
                  adaptive: bool = True) -> None:
-        self._cv = threading.Condition(threading.Lock())
+        self._cv = threading.Condition(
+            witness_lock("LaunchCoalescer._lock"))
         self._active = participants
         self.device = resolve_device(device)
         self.resident = resident
@@ -645,29 +702,30 @@ class LaunchCoalescer:
             self._fire(wave)
         else:
             t0 = time.perf_counter()
-            if self.adaptive:
-                fired = claimed = False
-                while not (fired or claimed):
-                    window = self._window_s()
-                    if window is None:
-                        fired = req.event.wait(0.05)
-                        continue
-                    fired = req.event.wait(window)
-                    if fired:
-                        break
-                    if self._window_s() is None:
-                        continue
-                    with self._cv:
-                        if req in self._pending:
-                            wave = self._pending
-                            self._pending = []
-                            self.deadline_launches += 1
-                    claimed = True
-                if wave is None and not fired:
-                    # claimed by another member mid-timeout
+            with tracer.span("wave.park"):
+                if self.adaptive:
+                    fired = claimed = False
+                    while not (fired or claimed):
+                        window = self._window_s()
+                        if window is None:
+                            fired = req.event.wait(0.05)
+                            continue
+                        fired = req.event.wait(window)
+                        if fired:
+                            break
+                        if self._window_s() is None:
+                            continue
+                        with self._cv:
+                            if req in self._pending:
+                                wave = self._pending
+                                self._pending = []
+                                self.deadline_launches += 1
+                        claimed = True
+                    if wave is None and not fired:
+                        # claimed by another member mid-timeout
+                        req.event.wait()
+                else:
                     req.event.wait()
-            else:
-                req.event.wait()
             wave_stats.observe_park(time.perf_counter() - t0)
             if wave is not None:
                 self._fire(wave, deadline_fired=True)
@@ -694,6 +752,9 @@ class LaunchCoalescer:
         with self._cv:
             self._active += 1
 
+    def plan_window(self) -> _PlanWindow:
+        return _PlanWindow(self)
+
     def _fire(self, wave: List[_Request], deadline_fired: bool = False) -> None:
         # members may sit on different node-axis pad buckets after a
         # snapshot refresh; a joint launch needs one node axis
@@ -705,14 +766,20 @@ class LaunchCoalescer:
             self.launches += 1
             self.max_wave = max(self.max_wave, len(grp))
             wave_stats.observe_wave(len(grp), deadline_fired)
-            # (wave cohorts, the plan-queue drain window: a later slice)
             try:
-                outs = launch_wave(
-                    [r.kin for r in grp], [r.k_steps for r in grp],
-                    [r.features for r in grp], device=self.device,
-                    resident=self.resident)
+                with tracer.span("wave.launch"):
+                    outs = launch_wave(
+                        [r.kin for r in grp], [r.k_steps for r in grp],
+                        [r.features for r in grp], device=self.device,
+                        resident=self.resident)
                 for r, out in zip(grp, outs):
                     r.out = out
+                # wave-boundary plan batching: the members are about to
+                # resume and submit ~len(grp) plans; arm the plan queue's
+                # drain window before releasing them, so the whole wave
+                # commits as one entry (utils/wavecohort and
+                # PlanQueue.dequeue_batch)
+                wave_cohorts.note_wave(len(grp))
             except BaseException as e:   # noqa: BLE001 - re-raised per member
                 for r in grp:
                     r.error = e

@@ -455,7 +455,12 @@ class IncrementalClusterCache:
     trimmed log, a pad-bucket change, or majority churn falls back to
     the full build. Delta results are bit-identical to a fresh build
     and keyed per (uid, structure_version), so wave members keep
-    sharing one object by identity."""
+    sharing one object by identity.
+
+    Unlike the JAX package's cache, a key is built once: the evals of a
+    batch that miss one version together wait for the first one's build
+    instead of each running it (up to 32 full builds of the cluster under
+    the GIL for a server's first batch after a restore)."""
 
     def __init__(self, max_entries: int = 8) -> None:
         self._lock = _threading.Lock()
@@ -467,6 +472,8 @@ class IncrementalClusterCache:
         self._entries: Dict[Tuple[str, int], ClusterTensors] = {}
         #: uid -> newest cached structure_version (the delta base)
         self._latest: Dict[str, int] = {}
+        #: key -> set once the build of that key in flight has ended
+        self._building: Dict[Tuple[str, int], _threading.Event] = {}
         self.max_entries = max_entries
         # observability (asserted by tests, handy under a profiler)
         self.hits = 0
@@ -484,9 +491,24 @@ class IncrementalClusterCache:
             if hit is not None:
                 self.hits += 1
                 return hit
+            pending = self._building.get(key)
+            if pending is None:
+                self._building[key] = _threading.Event()
             base_sv = self._latest.get(u.uid)
             base = (self._entries.get((u.uid, base_sv))
                     if base_sv is not None else None)
+        if pending is not None:
+            # another thread is building this version: take its result
+            # (or, if its build failed or was evicted, try again)
+            pending.wait()
+            return self.get(state)
+        try:
+            return self._build(state, u, key, base, base_sv)
+        finally:
+            with self._lock:
+                self._building.pop(key).set()
+
+    def _build(self, state, u, key, base, base_sv) -> ClusterTensors:
         nodes = state.nodes()
         built: Optional[ClusterTensors] = None
         if base is not None and base_sv < u.structure_version:

@@ -1,1 +1,3 @@
-"""Small self-contained libraries (own copies): the lock witness."""
+"""Small self-contained libraries (own copies): the lock witness, the
+delay and score heaps, metrics, fault points, the wave cohort tracker,
+the time table and cron expressions."""

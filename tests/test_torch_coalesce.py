@@ -66,7 +66,8 @@ def test_launch_wave_matches_reference(variant, n_nodes, layout):
                           [tp.port_features(feats)] * len(kins),
                           device="cpu")
     _assert_outs(port, ref, f"variant={variant} layout={layout}")
-    assert pc.fused_wave_stats.snapshot() == {"launches": 1, "fallbacks": 0}
+    assert pc.fused_wave_stats.snapshot() == {"launches": 1, "fallbacks": 0,
+                                              "failures": 0}
 
 
 def test_launch_wave_composite_fallback_counted():
@@ -77,7 +78,8 @@ def test_launch_wave_composite_fallback_counted():
     port = pc.launch_wave(_port_kins(kins), steps,
                           [tp.port_features(feats)] * 2, device="cpu")
     _assert_outs(port, ref, "spread")
-    assert pc.fused_wave_stats.snapshot() == {"launches": 0, "fallbacks": 1}
+    assert pc.fused_wave_stats.snapshot() == {"launches": 0, "fallbacks": 1,
+                                              "failures": 0}
 
 
 def test_shared_leaf_uploads_once_per_wave():

@@ -10,8 +10,9 @@ included. Comments and docstrings are not part of the comparison; the
 copies drop the reference's notes on its own change history from a few
 of them. Files the port changed where the device starts
 (``tensors/schema``, ``ops/kernel``, ``parallel/coalesce``, the
-scheduler's context, stack, generic, testing and package init) are held
-by the parity tests instead.
+scheduler's context, stack, generic, testing and package init, the
+server's worker, server and heartbeat timers) are held by the parity
+tests instead.
 """
 
 import ast
@@ -33,6 +34,14 @@ COPIES = (
     "scheduler/scheduler", "scheduler/util", "scheduler/device",
     "scheduler/feasible", "scheduler/preemption", "scheduler/reconcile",
     "scheduler/scaffold",
+    "utils/delayheap", "utils/kheap", "utils/metrics", "utils/faultpoints",
+    "utils/wavecohort", "utils/timetable", "utils/cron",
+    "server/plan_rejection", "server/blocked_evals",
+    "server/eval_broker", "server/plan_queue", "server/fsm",
+    "server/plan_apply", "server/stream", "server/readplane",
+    "server/core_sched", "server/periodic", "server/deployment_watcher",
+    "server/drainer", "server/volume_watcher", "server/autopilot",
+    "server/secrets", "server/__init__",
 )
 
 _PACKAGE = re.compile(r"\bnomad_tpu\b")

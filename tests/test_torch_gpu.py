@@ -367,7 +367,8 @@ def test_cuda_scheduler_burst_through_fused_waves(cuda_device):
     evals, co, errors = tp.sched_round(h, jobs, cuda_device)
     assert not errors, errors
     assert co.launches == 1 and ck.launches == before + 1
-    assert pc.fused_wave_stats.snapshot() == {"launches": 1, "fallbacks": 0}
+    assert pc.fused_wave_stats.snapshot() == {"launches": 1, "fallbacks": 0,
+                                              "failures": 0}
     status = {e.id: e.status for e in h.evals}
     assert all(status[e.id] == "complete" for e in evals), status
     assert len(h.placed_allocs()) == 16 * c2m.BURST_COUNT
@@ -382,3 +383,52 @@ def test_cuda_scheduler_burst_through_fused_waves(cuda_device):
     assert single_eval_stats.snapshot()["topk"] == 1
     assert len(h.placed_allocs()) == 17 * c2m.BURST_COUNT
     assert tp.over_capacity_nodes(h.state) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_server_burst_through_b1(cuda_device):
+    """The port's ``Server`` on the card: 200 C2M nodes, one worker with
+    batches of 8, 8 jobs x 4 registered together. Every job is placed, no
+    node ends over capacity, the waves launch B1, and none falls back."""
+    import time
+
+    from nomad_tpu_torch.parallel import c2m
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+
+    srv = Server(ServerConfig(num_workers=1, worker_batch_size=8,
+                              heartbeat_ttl=60.0, gc_tuning=False),
+                 device=cuda_device)
+    srv.state.restore_from_bytes(c2m.generate(200, 400).to_snapshot_bytes())
+    pc.fused_wave_stats.reset()
+    before = ck.launches
+    srv.start()
+    try:
+        rng = np.random.default_rng(8)
+        jobs = []
+        for i in range(8):
+            job = c2m.burst_job(rng, i, prefix="card")
+            job.task_groups[0].count = 4
+            jobs.append(job)
+        w = srv.workers[0]
+        w.stop()                        # the jobs go out in full batches
+        for job in jobs:
+            srv.job_register(job)
+        w.start()
+
+        def placed():
+            snap = srv.state.snapshot()
+            return all(len(snap.allocs_by_job(j.namespace, j.id)) == 4
+                       for j in jobs)
+
+        deadline = time.time() + 120
+        while time.time() < deadline and not placed():
+            time.sleep(0.02)
+        assert placed(), w.last_error
+        assert w.last_error is None
+        stats = pc.fused_wave_stats.snapshot()
+        assert stats["fallbacks"] == 0 and stats["failures"] == 0
+        assert ck.launches - before >= 1
+        assert stats["launches"] == ck.launches - before
+        assert tp.over_capacity_nodes(srv.state) == 0
+    finally:
+        srv.shutdown()

@@ -2,8 +2,9 @@
 
 A subprocess blocks ``jax`` and ``nomad_tpu`` in ``sys.modules`` and
 still imports the port and runs one small wave, one batched
-schedule-apply loop (``backend="kernel_topk"``) and one scheduler eval
-through ``Harness(device="cpu")`` on the CPU; a static scan finds no such
+schedule-apply loop (``backend="kernel_topk"``), one scheduler eval
+through ``Harness(device="cpu")`` and one job through a started
+``Server(device="cpu")`` on the CPU; a static scan finds no such
 import in the package or in chip_smoke.py; a default device entry point
 raises on a machine without a card.
 """
@@ -61,6 +62,24 @@ h.state.upsert_job(job)
 ev = mock.eval(job_id=job.id, type=job.type)
 h.process("service", ev)
 assert len(h.placed_allocs()) == 10 and h.evals[-1].status == "complete"
+import time
+import nomad_tpu_torch.server
+from nomad_tpu_torch.server.server import Server, ServerConfig
+srv = Server(ServerConfig(num_workers=1, gc_tuning=False), device="cpu")
+srv.start()
+try:
+    for _ in range(5):
+        srv.node_register(mock.node())
+    job = mock.simple_job()
+    out = srv.job_register(job)
+    deadline = time.time() + 120
+    while time.time() < deadline and srv.state.snapshot().eval_by_id(
+            out["eval_id"]).status != "complete":
+        time.sleep(0.01)
+    live = srv.state.snapshot().allocs_by_job(job.namespace, job.id)
+    assert len(live) == 10, len(live)
+finally:
+    srv.shutdown()
 new = {m for m in sys.modules if sys.modules[m] is not None
        and (m == "jax" or m.startswith(("jax.", "nomad_tpu.")))} - before
 assert not new, sorted(new)

@@ -122,7 +122,8 @@ def test_scheduler_members_and_wave_match_reference():
     port_outs = pc.launch_wave(
         [m[0] for m in port_m], [m[1] for m in port_m],
         [m[2] for m in port_m], device="cpu")
-    assert pc.fused_wave_stats.snapshot() == {"launches": 1, "fallbacks": 0}
+    assert pc.fused_wave_stats.snapshot() == {"launches": 1, "fallbacks": 0,
+                                              "failures": 0}
     placed = 0
     for i, (p, r) in enumerate(zip(port_outs, ref_outs)):
         for name in ("chosen", "found", "topk_idx") + tk.FUSED_METRIC_FIELDS:
@@ -150,7 +151,8 @@ def test_threaded_burst_through_the_coalescer():
     evals, co, errors = tp.sched_round(h, jobs, "cpu")
     assert not errors, errors
     assert co.requests == 16 and co.launches == 1 and co.max_wave == 16
-    assert pc.fused_wave_stats.snapshot() == {"launches": 1, "fallbacks": 0}
+    assert pc.fused_wave_stats.snapshot() == {"launches": 1, "fallbacks": 0,
+                                              "failures": 0}
     assert ck.launches == 0, "a CPU wave runs the plain version"
     status = {e.id: e.status for e in h.evals}
     assert all(status[e.id] == port_consts.EVAL_STATUS_COMPLETE
