@@ -42,7 +42,8 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     ``new_scheduler`` with ``LaunchCoalescer.launch`` as the launcher and
     plans committed through the ``Harness`` (every wave one B1 launch, 0
     fallbacks, every eval complete with its 10 placements, no node over
-    capacity); B1 against its plain version on one wave of round 1's
+    capacity; the resident state's counters, 0 errors, and the upload
+    bytes per wave); B1 against its plain version on one wave of round 1's
     recorded members, in a fixed order; then 8 evals one at a time
     through ``default_kernel_launch``. Each thread's round is split by the
     host clock into the scheduler before its launch, the launch (park and
@@ -62,14 +63,35 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     pause, group commits, the restore's time). Every timed job must have
     its 10 allocations, no node may be over capacity, the broker must end
     empty with no failed eval, and B1 must have launched fewer times than
-    there were evals.
+    there were evals. Each arm also reports the device-resident cluster
+    state's counters over the burst (hits, scatter advances, rows, full
+    uploads, forks, evictions, errors: any error fails the run) and the
+    wave launcher's upload bytes per wave; after the window-off arm, the
+    resident generation of the store's final snapshot must equal a fresh
+    ``ClusterTensors.build`` of it uploaded whole (``torch.equal``, plane
+    by plane), and the dirty-row scatter is timed on the card (320 rows
+    of the five usage planes, CUDA events);
+12. the warm start: phase 11's snapshot bytes, written once to a
+    temporary file, restored in three fresh Python processes (no CUDA
+    context, no kernel library loaded) into a server with
+    ``kernel_warmup=True``, one manifest path, the window off and the
+    kernel profiler on; each runs the 200-job timed burst. Run A finds no
+    manifest and persists one at shutdown; run B warms it at ``start()``
+    and waits for the warmup before its burst; run C warms it and bursts
+    at once. Each reports the time from ``start()`` to the first wave's
+    completion, the first wave's latency and assembly, the profiler's
+    stages, bytes, dispatches and misses in the burst, evals/s, e2e
+    p50/p99, and B1 launches against waves; runs B and C must warm at
+    least one entry and fail none, and run B must miss no key in its
+    burst. One ``warm start: {...}`` line per run.
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit, and before that the kernels' JSON line (B1's entry
 counts its launches on the main path of phase 3 under ``launches``, on
 the scheduler path of phase 10 under ``sched_launches`` and on phase 11's
-timed server bursts under ``server_launches``). A full record
+timed server bursts under ``server_launches``; the warm-up launches of
+phase 12 are counted apart, in its child processes). A full record
 goes to chiprun_out/chip_smoke.json.
 """
 
@@ -80,6 +102,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -114,11 +137,18 @@ from nomad_tpu_torch.scheduler.testing import Harness
 from nomad_tpu_torch.server.plan_apply import plan_group_stats
 from nomad_tpu_torch.server.server import Server, ServerConfig
 from nomad_tpu_torch.structs import consts
+from nomad_tpu_torch.ops import warmup as kernel_warmup
 from nomad_tpu_torch.telemetry.histogram import histograms, percentile
+from nomad_tpu_torch.telemetry.kernel_profile import profiler
+from nomad_tpu_torch.tensors.device_state import (
+    DeviceClusterState,
+    default_device_state,
+)
 from nomad_tpu_torch.tensors.schema import (
     MAX_DEV_REQS,
     SPREAD_BUCKETS,
     AskTensor,
+    ClusterTensors,
     EvalTensors,
     default_incremental_cluster_cache,
 )
@@ -365,6 +395,8 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--warm-start"]:
+        return warm_start_child(*sys.argv[2:6])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke run needs an NVIDIA card", file=sys.stderr)
@@ -397,6 +429,7 @@ def main() -> int:
     sched, state_bytes = run_sched_phase(dev, record)
     kline["kernels"][0]["sched_launches"] = sched["b1_launches"]
     server = run_server_phase(dev, record, state_bytes)
+    run_warm_start_phase(record, state_bytes)
     del state_bytes
     kline["kernels"][0]["server_launches"] = sum(
         arm["b1_launches"] for arm in server)
@@ -1098,12 +1131,14 @@ def run_sched_phase(dev: torch.device, record: dict) -> dict:
     ck.launches = 0
     coalesce.fused_wave_stats.reset()
     coalesce.wave_stats.reset()
+    coalesce.upload_stats.reset()
+    default_device_state.reset_stats()
     pauses = GcPauses()
     gc.callbacks.append(pauses)
     for r in range(SCHED_ROUNDS):
         jobs, evals = new_evals(harness, rng, r * SCHED_EVALS, SCHED_EVALS)
         snap = harness.state.snapshot()
-        clusters = coalesce.ClusterCache()
+        clusters = coalesce.ClusterCache(dev)
         co = coalesce.LaunchCoalescer(SCHED_EVALS, device=dev,
                                       adaptive=False)
 
@@ -1155,8 +1190,12 @@ def run_sched_phase(dev: torch.device, record: dict) -> dict:
     deferred_s, commit_s = sum(harness.deferred_s), sum(harness.commit_s)
     fstats = coalesce.fused_wave_stats.snapshot()
     wstats = coalesce.wave_stats.snapshot()
+    dstate = default_device_state.snapshot()
+    uploads = (coalesce.upload_stats.uploads, coalesce.upload_stats.bytes)
     check(fstats["fallbacks"] == 0 and fstats["failures"] == 0,
           f"scheduler waves fell back or failed: {fstats}")
+    check(dstate["errors"] == 0, f"scheduler path: device state errors: "
+          f"{dstate}")
     check(b1_launches == fstats["launches"] == waves,
           f"B1 launches {b1_launches} != fused waves {fstats} / "
           f"coalescer waves {waves}")
@@ -1196,7 +1235,7 @@ def run_sched_phase(dev: torch.device, record: dict) -> dict:
     single = single_eval_stats.snapshot()
     check(single["topk"] + single["full"] - single["breaches"]
           == SCHED_SINGLE, f"single-eval launches {single}")
-    over = store_over_capacity(harness.state, coalesce.ClusterCache())
+    over = store_over_capacity(harness.state, coalesce.ClusterCache(dev))
     check(over == 0, f"single evals: {over} nodes over capacity")
 
     sched = {
@@ -1221,6 +1260,11 @@ def run_sched_phase(dev: torch.device, record: dict) -> dict:
         "wave_latency_p50_ms": wstats["wave_latency_p50_ms"],
         "assemble_latency_p50_ms": wstats["assemble_latency_p50_ms"],
         "park_latency_p50_ms": wstats["park_latency_p50_ms"],
+        # the rounds' waves only (the comparison wave and the single
+        # evals come after these were read)
+        "device_state": dstate,
+        "wave_uploads": uploads[0], "wave_upload_bytes": uploads[1],
+        "wave_upload_bytes_per_wave": uploads[1] / waves if waves else 0.0,
         "single_eval_ms": float(np.mean(single_s)) * 1e3,
         "single_eval_ms_each": [x * 1e3 for x in single_s],
         "single_eval_stats": single,
@@ -1273,8 +1317,15 @@ def server_converged(srv, jobs, deadline: float) -> float:
             if placed >= want:
                 return t_done
         time.sleep(0.005)
+    snap = srv.state.snapshot()
+    statuses: dict = {}
+    for e in snap.evals_iter():
+        statuses[e.status] = statuses.get(e.status, 0) + 1
     fail(f"server burst of {len(jobs)} jobs did not converge: "
-         f"{srv.eval_broker.stats()}, blocked {srv.blocked_evals.stats()}")
+         f"{srv.eval_broker.stats()}, blocked {srv.blocked_evals.stats()}, "
+         f"eval statuses {statuses}, waves {coalesce.wave_stats.snapshot()}, "
+         f"device state {default_device_state.snapshot()}, "
+         f"plan groups {plan_group_stats.snapshot()}")
 
 
 def check_server_burst(srv, jobs, ctx: str) -> None:
@@ -1294,7 +1345,7 @@ def check_server_burst(srv, jobs, ctx: str) -> None:
           == 0, f"{ctx}: broker not empty: {bs}")
     errors = [w.last_error for w in srv.workers if w.last_error]
     check(not errors, f"{ctx}: worker errors: {errors[:1]}")
-    over = store_over_capacity(srv.state, coalesce.ClusterCache())
+    over = store_over_capacity(srv.state, coalesce.ClusterCache(srv.device))
     check(over == 0, f"{ctx}: {over} nodes over capacity")
 
 
@@ -1334,6 +1385,8 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
         plan_group_stats.reset()
         coalesce.fused_wave_stats.reset()
         coalesce.wave_stats.reset()
+        coalesce.upload_stats.reset()
+        default_device_state.reset_stats()
         waves0, requests0 = w.batch_launches, w.batch_requests
         pauses = GcPauses()
         ck.launches = 0
@@ -1346,6 +1399,9 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
         gc.callbacks.remove(pauses)
         b1_launches = ck.launches
         burst_s = t_done - t0
+        dstate = default_device_state.snapshot()
+        uploads = (coalesce.upload_stats.uploads,
+                   coalesce.upload_stats.bytes)
         fstats = coalesce.fused_wave_stats.snapshot()
         e2e = histograms.get("e2e")
         e2e_n = e2e.count
@@ -1358,6 +1414,7 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
             1 for n in srv.state.snapshot().nodes()
             if n.scheduling_eligibility == consts.NODE_SCHEDULING_INELIGIBLE)
         check_server_burst(srv, jobs, ctx)
+        resident = None if adaptive else check_resident(srv, dev, ctx)
     finally:
         t0 = time.perf_counter()
         srv.shutdown()
@@ -1373,6 +1430,8 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
           f"{ctx}: {b1_launches} B1 launches for {SERVER_JOBS} evals")
     # an eval processed again (a blocked eval released) adds a sample
     check(e2e_n >= SERVER_JOBS, f"{ctx}: {e2e_n} e2e samples")
+    check(dstate["errors"] == 0,
+          f"{ctx}: device state errors: {dstate}")
     return {
         "gc_tuning": gc_tuning, "coalesce_adaptive": adaptive,
         "restore_s": restore_s, "start_s": start_s,
@@ -1397,7 +1456,59 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
         "fallback_plans": group["fallback_plans"],
         "rejected_node_plans": group["rejected_node_plans"],
         "ineligible_nodes": ineligible,
+        "device_state": dstate,
+        "wave_uploads": uploads[0], "wave_upload_bytes": uploads[1],
+        "wave_upload_bytes_per_wave": uploads[1] / waves if waves else 0.0,
+        "resident_check": resident,
     }
+
+
+#: rows of one scatter advance timed below: a committed wave of 32 evals
+#: x 10 placements moves at most 320 rows of the five usage planes
+SCATTER_ROWS = 320
+
+
+def check_resident(srv, dev: torch.device, ctx: str) -> dict:
+    """The resident generation of the store's final snapshot, advanced to
+    it by dirty-row scatter, must equal a fresh ``ClusterTensors.build``
+    of that snapshot uploaded whole (``torch.equal``, plane by plane,
+    dtype by dtype). Then the scatter's time per advance on the card:
+    ``SCATTER_ROWS`` rows of the five usage planes, from the host buffer
+    (one packed upload, five ``index_copy``) and on the card alone."""
+    snap = srv.state.snapshot()
+    cluster = coalesce.ClusterCache(dev).get(snap)
+    default_device_state.advance_pending(dev)
+    planes = default_device_state.planes_for(snap.usage, dev)
+    check(planes is not None, f"{ctx}: no resident generation of the "
+          "final snapshot")
+    t0 = time.perf_counter()
+    fresh = ClusterTensors.build(snap.nodes()).wave_shared_planes(snap.usage)
+    build_s = time.perf_counter() - t0
+    check(set(planes) == set(fresh), f"{ctx}: resident planes {set(planes)}")
+    for f, arr in fresh.items():
+        want = torch.tensor(arr, device=dev)
+        check(planes[f].dtype == want.dtype and torch.equal(planes[f], want),
+              f"{ctx}: resident {f} differs from a fresh upload")
+    usage_host = {f: fresh[f] for f in ClusterTensors.WAVE_USAGE_FIELDS}
+    step = max(cluster.n_real // SCATTER_ROWS, 1)
+    rows = set(range(0, step * SCATTER_ROWS, step))
+    private = DeviceClusterState()      # keeps the server's stats clean
+    advance_ms = cuda_ms(
+        lambda: private._scatter(planes, usage_host, rows, dev), 50)
+    rows_d = torch.tensor(sorted(rows), dtype=torch.long, device=dev)
+    vals = {f: planes[f][rows_d] for f in usage_host}
+    device_ms = cuda_ms(lambda: [planes[f].index_copy(0, rows_d, vals[f])
+                                 for f in usage_host], 200)
+    n = int(cluster.n_pad)
+    return {"planes": len(planes), "build_s": build_s,
+            "scatter_rows": len(rows), "scatter_planes": len(usage_host),
+            "scatter_bytes": private.bytes_uploaded // 50,
+            "scatter_advance_ms": advance_ms,
+            "scatter_device_ms": device_ms,
+            # each out-of-place index_copy reads and writes its plane
+            "scatter_bound_ms": bound(
+                len(usage_host) * (2 * 4 * n + 4 * len(rows)) + 8 * len(rows),
+                0)[0]}
 
 
 def run_server_phase(dev: torch.device, record: dict,
@@ -1410,6 +1521,9 @@ def run_server_phase(dev: torch.device, record: dict,
     frozen: a server started again in a process is not frozen either)."""
     if os.environ.pop("NOMAD_TPU_GC_TUNING", None) is not None:
         log("server: NOMAD_TPU_GC_TUNING was set; unset for phase 11")
+    # the arms warm nothing: no manifest outside this run may be read
+    kernel_warmup.DEFAULT_MANIFEST_PATH = str(
+        Path(__file__).resolve().parent / "build" / "no_manifest.json")
     log(f"server state: {len(state_bytes) / 1e6:.1f} MB of snapshot bytes")
     rng = np.random.default_rng(SEED + 11)
     arms = []
@@ -1422,6 +1536,202 @@ def run_server_phase(dev: torch.device, record: dict,
         arms.append(arm)
     record["server"] = arms
     return arms
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the warm start on the server path, in fresh processes.
+# ---------------------------------------------------------------------------
+
+WARM_CHILD_TIMEOUT_S = 420.0    # per child process; killed when it is over
+WARMUP_WAIT_S = 240.0           # the child's wait for its warmup thread
+
+
+def run_warm_start_phase(record: dict, state_bytes: bytes) -> list:
+    """Phase 12: fresh Python processes (no CUDA context, no library
+    loaded) each restore phase 11's snapshot bytes into a server with
+    ``kernel_warmup=True`` and one manifest path, the profiler on, and run
+    the timed burst. Run A finds no manifest, warms nothing and persists
+    one at shutdown; run B warms it at ``start()``, waits for the warmup,
+    then bursts; run C warms it too but bursts at once, as a server that
+    does not wait for its warmup. Runs B and C must warm at least one
+    entry and fail none, and run B must miss no key in its burst (run
+    C's waves may race the warmup to a key; its misses are reported)."""
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="warm_start_") as tmp:
+        state_path = Path(tmp) / "state.bin"
+        state_path.write_bytes(state_bytes)
+        manifest = Path(tmp) / "warmup.json"
+        for run in ("A", "B", "C"):
+            check((run != "A") == manifest.exists(),
+                  f"warm start {run}: manifest exists={manifest.exists()}")
+            out = Path(tmp) / f"run{run}.json"
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--warm-start", run, str(state_path), str(manifest),
+                     str(out)], capture_output=True, text=True,
+                    timeout=WARM_CHILD_TIMEOUT_S,
+                    cwd=str(Path(__file__).resolve().parent))
+            except subprocess.TimeoutExpired:
+                fail(f"warm start {run}: over {WARM_CHILD_TIMEOUT_S} s")
+            for line in proc.stdout.splitlines():
+                log(f"warm start {run}: {line}")
+            check(proc.returncode == 0,
+                  f"warm start {run} failed (exit {proc.returncode}): "
+                  f"{proc.stderr[-3000:]}")
+            res = json.loads(out.read_text())
+            res["process_s"] = time.perf_counter() - t0
+            runs.append(res)
+        entries = len(kernel_warmup.load_manifest(str(manifest)))
+    a, b, c = runs
+    check(a["warmup"]["warmed"] == 0 and a["warmup"]["failed"] == 0,
+          f"warm start A warmed {a['warmup']}")
+    for r in (b, c):
+        check(r["warmup"]["failed"] == 0 and r["warmup"]["warmed"] >= 1,
+              f"warm start {r['run']}: warmup {r['warmup']}")
+    check(b["burst_profile"]["Misses"] == 0,
+          f"warm start B: misses in the burst: {b['burst_profile']['PerKey']}")
+    for r in runs:
+        r["manifest_entries"] = entries
+        log(f"warm start: {json.dumps(r)}")
+    record["warm_start"] = runs
+    return runs
+
+
+def warm_start_child(run: str, state_path: str, manifest: str,
+                     out_path: str, device: str = "cuda") -> int:
+    """One run of phase 12 in its own process: restore, ``start()``
+    (run B then waits for the warmup; runs A and C do not), the timed
+    burst with every count set to 0 just before it, shutdown (which
+    persists the manifest); the result goes to ``out_path`` as JSON.
+    A warmup that overlaps the burst (run C) is joined before the counts
+    are read, and its B1 launches are taken out of the burst's.
+    ``device`` is the card; a rehearsal on the CPU names ``cpu``."""
+    dev = torch.device(device)
+    check(dev.type != "cuda" or torch.cuda.is_available(),
+          "warm start: no CUDA card")
+    ctx = f"warm start {run}"
+    profiler.enable()
+    srv = Server(ServerConfig(num_workers=1, worker_batch_size=SERVER_BATCH,
+                              heartbeat_ttl=3600.0, coalesce_adaptive=False,
+                              kernel_warmup=True,
+                              warmup_manifest_path=manifest),
+                 device=dev)
+    t0 = time.perf_counter()
+    srv.state.restore_from_bytes(Path(state_path).read_bytes())
+    restore_s = time.perf_counter() - t0
+    first_done = []
+    real_launch = coalesce.launch_wave
+
+    def timed_launch(*args, **kwargs):
+        out = real_launch(*args, **kwargs)
+        if not first_done:
+            first_done.append(time.perf_counter())
+        return out
+
+    coalesce.launch_wave = timed_launch
+    ck.launches = 0
+    kernel_warmup.warmup_stats.reset()
+    t_start = time.perf_counter()
+    srv.start()
+    start_s = time.perf_counter() - t_start
+    w = srv.workers[0]
+    try:
+        warm = {"warmed": 0, "failed": 0, "seconds": 0.0, "wait_s": 0.0,
+                "launches": {}, "b1_launches": 0}
+
+        def join_warmup() -> None:
+            if srv._warmup_thread is None:
+                return
+            srv._warmup_thread.join(timeout=WARMUP_WAIT_S)
+            check(not srv._warmup_thread.is_alive(),
+                  f"{ctx}: warmup still running after {WARMUP_WAIT_S} s")
+            warm.update(srv.warmup_stats or {"failed": 1})
+
+        if run == "B":
+            join_warmup()
+            warm["wait_s"] = time.perf_counter() - t_start
+            warm["launches"] = kernel_warmup.warmup_stats.snapshot()
+            warm["b1_launches"] = ck.launches
+            warm["profile"] = profiler.summary()
+            del warm["profile"]["PerKey"]
+
+        rng = np.random.default_rng(SEED + 12)
+        jobs = [c2m.burst_job(rng, i, prefix=f"warm{run}")
+                for i in range(SERVER_JOBS)]
+        histograms.get("e2e").reset()
+        srv.plan_latencies.clear()
+        profiler.reset()
+        coalesce.fused_wave_stats.reset()
+        coalesce.wave_stats.reset()
+        coalesce.upload_stats.reset()
+        default_device_state.reset_stats()
+        waves0, requests0 = w.batch_launches, w.batch_requests
+        if run != "C":
+            ck.launches = 0     # run C counts from start(): see below
+        t0 = time.perf_counter()
+        for job in jobs:
+            srv.job_register(job)
+        t_done = server_converged(srv, jobs,
+                                  time.time() + SERVER_DEADLINE_S)
+        burst_s = t_done - t0
+        warm_b1 = 0
+        if run == "C":
+            # the warmup overlapped the burst: once it has ended, every
+            # B1 launch since start() less its dummy waves is the burst's
+            join_warmup()
+            warm["launches"] = kernel_warmup.warmup_stats.snapshot()
+            warm_b1 = warm["b1_launches"] = warm["launches"].get(
+                "fused_wave", 0)
+        b1_launches = ck.launches - warm_b1
+        # first launches of the live kernels (a racing warmup's own
+        # first launches count under warmup_<kernel>)
+        live_misses = sum(profiler.misses_for(k) for k in (
+            "fused_wave", "joint", "single_topk", "single_full"))
+        fstats = coalesce.fused_wave_stats.snapshot()
+        wstats = coalesce.wave_stats.snapshot()
+        first_wave_ms = coalesce.wave_stats._wave_s[0] * 1e3
+        first_assemble_ms = coalesce.wave_stats._assemble_s[0] * 1e3
+        prof = profiler.summary()
+        dstate = default_device_state.snapshot()
+        uploads = (coalesce.upload_stats.uploads,
+                   coalesce.upload_stats.bytes)
+        e2e_p50, e2e_p99 = histograms.get("e2e").quantiles((0.5, 0.99))
+        check_server_burst(srv, jobs, ctx)
+    finally:
+        srv.shutdown()
+        coalesce.launch_wave = real_launch
+    waves = w.batch_launches - waves0
+    requests = w.batch_requests - requests0
+    check(fstats["fallbacks"] == 0 and fstats["failures"] == 0,
+          f"{ctx}: waves fell back or failed: {fstats}")
+    check(b1_launches == fstats["launches"] == waves,
+          f"{ctx}: B1 launches {b1_launches}, fused {fstats}, waves {waves}")
+    check(dstate["errors"] == 0, f"{ctx}: device state errors: {dstate}")
+    check(Path(manifest).exists(), f"{ctx}: no manifest after shutdown")
+    res = {
+        "run": run, "restore_s": restore_s, "start_s": start_s,
+        "warmup": warm,
+        "start_to_first_wave_s": first_done[0] - t_start,
+        "burst_to_first_wave_s": first_done[0] - t0,
+        "first_wave_latency_ms": first_wave_ms,
+        "first_wave_assemble_ms": first_assemble_ms,
+        "evals": SERVER_JOBS, "burst_s": burst_s,
+        "evals_per_s": SERVER_JOBS / burst_s,
+        "e2e_p50_ms": e2e_p50 * 1e3, "e2e_p99_ms": e2e_p99 * 1e3,
+        "b1_launches": b1_launches, "waves": waves,
+        "wave_fill": requests / waves if waves else 0.0,
+        "wave_latency_p50_ms": wstats["wave_latency_p50_ms"],
+        "assemble_latency_p50_ms": wstats["assemble_latency_p50_ms"],
+        "warmup_b1_in_burst": warm_b1, "live_misses": live_misses,
+        "burst_profile": prof, "device_state": dstate,
+        "wave_uploads": uploads[0], "wave_upload_bytes": uploads[1],
+    }
+    Path(out_path).write_text(json.dumps(res))
+    log(f"burst: {b1_launches} B1 launches in {waves} waves, misses "
+        f"{live_misses}, {SERVER_JOBS / burst_s:.1f} evals/s")
+    return 0
 
 
 if __name__ == "__main__":

@@ -112,24 +112,37 @@ _ENTRY = {"fused_wave": "fused_wave_launch",
           "topk_place_batch": "topk_place_batch_launch"}
 _LIBS: dict = {}          # name -> (entry point, BuiltLibrary, CDLL)
 _LIB_LOCK = threading.Lock()
+#: name -> lock held while that library is built and loaded
+_BUILD_LOCKS = {name: threading.Lock() for name in _ENTRY}
+#: libraries loaded in this process (the kernel profiler counts a launch
+#: during which this grew as a miss)
+library_loads = 0
 
 
 def load_library(name: str) -> BuiltLibrary:
     """Build (or reuse) and load ``lib<name>.so``; returns the build
-    record, whose ``log`` carries ptxas's register/spill report."""
+    record, whose ``log`` carries ptxas's register/spill report. Threads
+    that race for one library (a wave beside the warmup thread) wait for
+    the first one's build and load it once."""
+    global library_loads
     with _LIB_LOCK:
         got = _LIBS.get(name)
     if got is not None:
         return got[1]
-    built = build_library(name)       # concurrent builds are safe
-    with _LIB_LOCK:
-        if name not in _LIBS:
-            lib = ctypes.CDLL(str(built.path))
-            fn = getattr(lib, _ENTRY[name])
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+    with _BUILD_LOCKS[name]:
+        with _LIB_LOCK:
+            got = _LIBS.get(name)
+        if got is not None:
+            return got[1]
+        built = build_library(name)
+        lib = ctypes.CDLL(str(built.path))
+        fn = getattr(lib, _ENTRY[name])
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        with _LIB_LOCK:
             _LIBS[name] = (fn, built, lib)
-        return _LIBS[name][1]
+            library_loads += 1
+        return built
 
 
 def load_libraries() -> dict:

@@ -1228,17 +1228,104 @@ class _SingleEvalStats:
 single_eval_stats = _SingleEvalStats()
 
 
+# ---------------------------------------------------------------------------
+# Uploads: the one host -> device move of launch arguments. The wave
+# launcher (parallel/coalesce._upload), the single-eval dispatch and the
+# kernel profiler all go through it.
+# ---------------------------------------------------------------------------
+
+def on_device(x: torch.Tensor, dev: torch.device) -> bool:
+    """Whether ``x`` lies on ``dev``; ``cuda`` without an index names any
+    card (the current one, as ``resolve_device`` returns it)."""
+    return x.device.type == dev.type and (
+        dev.index is None or x.device.index == dev.index)
+
+
+def upload_leaf(x, dev: torch.device, done: Optional[dict] = None):
+    """``(tensor on dev, bytes moved)`` for one launch argument. A tensor
+    already on ``dev`` (a resident plane) moves nothing, a tensor on
+    another device raises, and host numpy is copied with its dtype.
+    ``done`` maps ``id`` of a host array already uploaded in this call to
+    its tensor, so an array held under several fields goes up once."""
+    if isinstance(x, torch.Tensor):
+        if not on_device(x, dev):
+            raise ValueError(f"plane on {x.device}, wave on {dev}")
+        return x, 0
+    if done is not None:
+        got = done.get(id(x))
+        if got is not None:
+            return got, 0
+    arr = np.asarray(x)
+    t = torch.tensor(arr, device=dev)
+    if done is not None:
+        done[id(x)] = t
+    return t, arr.nbytes
+
+
+def upload_args(args: tuple, dev: torch.device):
+    """Every host leaf of ``args`` on ``dev``: a NamedTuple (a
+    ``KernelIn``) field by field, any other argument as one leaf. Returns
+    the new arguments and the bytes uploaded."""
+    done: dict = {}
+    out = []
+    moved = 0
+    for a in args:
+        if isinstance(a, tuple) and hasattr(a, "_fields"):
+            leaves = []
+            for x in a:
+                t, n = upload_leaf(x, dev, done)
+                leaves.append(t)
+                moved += n
+            out.append(type(a)(*leaves))
+        else:
+            t, n = upload_leaf(a, dev, done)
+            out.append(t)
+            moved += n
+    return tuple(out), moved
+
+
 def _upload_kin(kin: KernelIn, dev: torch.device) -> KernelIn:
     """Every leaf of one eval's planes on ``dev``; a plane the eval holds
-    under several fields by identity (the neutral singletons) goes once."""
-    done: dict = {}
-    leaves = []
-    for x in kin:
-        t = done.get(id(x))
-        if t is None:
-            t = done[id(x)] = torch.tensor(np.asarray(x), device=dev)
-        leaves.append(t)
-    return KernelIn(*leaves)
+    under several fields by identity (the neutral singletons) goes once,
+    and a leaf already on ``dev`` (a resident plane) stays as it is."""
+    return upload_args((kin,), dev)[0][0]
+
+
+def _resident_kin(kin: KernelIn, dev: torch.device) -> KernelIn:
+    """Swap the shared-plane leaves for their twins resident on ``dev``
+    (tensors/device_state.py), so the dispatch uploads only the eval's
+    own planes. All or nothing across the three sharing groups, as in
+    the JAX package: an eval with any group not resident (forked job
+    planes, a stale snapshot) ships every leaf from the host."""
+    from nomad_tpu_torch.parallel.coalesce import (
+        _JOB_SHAREABLE_FIELDS,
+        _NEUTRAL_SHAREABLE_FIELDS,
+        _SHAREABLE_FIELDS,
+    )
+    from nomad_tpu_torch.tensors.device_state import default_device_state
+
+    default_device_state.advance_pending(dev)
+    subs = {}
+    for group in (_SHAREABLE_FIELDS, _NEUTRAL_SHAREABLE_FIELDS,
+                  _JOB_SHAREABLE_FIELDS):
+        for f in group:
+            res = default_device_state.lookup(
+                getattr(kin, f), dev,
+                frozen_ok=group is not _SHAREABLE_FIELDS)
+            if res is None:
+                return kin
+            subs[f] = res
+    return kin._replace(**subs)
+
+
+def _place_topk(kin: KernelIn, k_steps: int, features: KernelFeatures,
+                dev: torch.device):
+    return place_taskgroup_topk(_upload_kin(kin, dev), k_steps, features)
+
+
+def _place_full(kin: KernelIn, k_steps: int, features: KernelFeatures,
+                dev: torch.device):
+    return place_taskgroup(_upload_kin(kin, dev), k_steps, features)
 
 
 def _read_single(out: KernelOut, ok: Optional[torch.Tensor], k: int):
@@ -1281,19 +1368,27 @@ def default_kernel_launch(kin: KernelIn, k_steps: int,
     otherwise or where the candidate set's bound broke (``valid`` False),
     the reference's rule, counted in ``single_eval_stats``. The result
     comes back as host numpy in one packed readback, top-k planes
-    included."""
+    included. Shared planes resident on ``dev`` are not uploaded again,
+    and both placements are profiled under the ``single_topk`` and
+    ``single_full`` keys ``(n_pad, k_steps, features)``."""
+    from nomad_tpu_torch.telemetry.kernel_profile import profiler
+
     dev = resolve_device(device)
     features = canonical_features(features)
-    kin_d = _upload_kin(kin, dev)
+    n_pad = int(kin.cap_cpu.shape[0])
+    kin = _resident_kin(kin, dev)
+    key = (n_pad, k_steps, features)
     if features.n_spreads == 0 and not bool(np.asarray(kin.algorithm_spread)):
-        out, ok = place_taskgroup_topk(kin_d, k_steps, features)
+        out, ok = profiler.call("single_topk", _place_topk, (kin,),
+                                (k_steps, features, dev), key, dev)
         host, valid = _read_single(out, ok, k_steps)
         single_eval_stats.note(topk=True, breach=not valid, full=not valid)
         if valid:
             return host
     else:
         single_eval_stats.note(full=True)
-    host, _ = _read_single(place_taskgroup(kin_d, k_steps, features), None,
-                           k_steps)
+    out = profiler.call("single_full", _place_full, (kin,),
+                        (k_steps, features, dev), key, dev)
+    host, _ = _read_single(out, None, k_steps)
     return host
 

@@ -13,7 +13,11 @@ wave runs the union of its members' features; members that did not ask
 for a feature carry neutral planes, which the kernel defines as no-ops.
 
 ``ClusterCache`` hands the evals of a batch one ``ClusterTensors`` per
-snapshot structure (an identity hit, or a dirty-row delta build).
+snapshot structure (an identity hit, or a dirty-row delta build) and
+requests that snapshot's wave-shared planes resident on its device
+(``tensors/device_state``); the wave launcher advances them before it
+assembles a wave, then finds every shared leaf resident on the wave's
+device and uploads nothing for it.
 
 A batching worker wraps each eval's plan submission in the coalescer's
 ``plan_window()``: the eval yields its rendezvous slot while it waits on
@@ -22,12 +26,12 @@ the plan queue's drain window (``wave_cohorts.note_wave``) before its
 members resume, so the wave's plans commit as one entry. The fault
 points ``wave.launch`` and ``wave.d2h.drain`` and the tracer spans
 ``wave.assemble``, ``wave.park``, ``wave.launch`` and ``kernel.d2h`` sit
-where the JAX launcher has them.
+where the JAX launcher has them, and the kernel profiler
+(``telemetry/kernel_profile``) times each wave's B1 or composite
+dispatch under its bucket key and meters its uploads and readbacks.
 
-Waiting for later slices of the port (each named where the JAX launcher
-has it): the node-axis mesh and sharded dispatch, the kernel profiler,
-and the device-state registry of resident shared planes (a leaf that is
-already a device tensor is used as it is instead).
+Waiting for a later slice of the port: the node-axis mesh and sharded
+dispatch (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -56,8 +60,14 @@ from nomad_tpu_torch.ops.kernel import (
     neutral_step_planes,
     pad_steps,
     unpack_fused_wave,
+    upload_leaf,
 )
+from nomad_tpu_torch.telemetry.kernel_profile import profiler
 from nomad_tpu_torch.telemetry.trace import tracer
+from nomad_tpu_torch.tensors.device_state import (
+    default_device_state,
+    device_key,
+)
 from nomad_tpu_torch.utils.faultpoints import fault
 from nomad_tpu_torch.utils.wavecohort import wave_cohorts
 from nomad_tpu_torch.utils.witness import witness_lock
@@ -147,15 +157,19 @@ upload_stats = _UploadStats()
 
 
 def _upload(x, device: torch.device) -> torch.Tensor:
-    """One plane to the wave's device. A tensor already there (a resident
-    plane) moves nothing; host numpy is copied once and counted."""
+    """One plane to the wave's device (``ops/kernel.upload_leaf``). A
+    tensor already there (a resident plane) moves nothing; host numpy is
+    copied once and counted, and timed into the profiler's h2d stage
+    when it is on."""
     if isinstance(x, torch.Tensor):
-        if x.device != device:
-            raise ValueError(f"plane on {x.device}, wave on {device}")
-        return x
-    arr = np.asarray(x)
-    upload_stats.note(arr.nbytes)
-    return torch.tensor(arr, device=device)
+        return upload_leaf(x, device)[0]
+    t0 = time.perf_counter()
+    t, nbytes = upload_leaf(x, device)
+    upload_stats.note(nbytes)
+    if profiler.enabled:
+        profiler.add_stage("h2d", time.perf_counter() - t0)
+        profiler.add_bytes("h2d", nbytes)
+    return t
 
 
 class _WaveTopK:
@@ -192,6 +206,10 @@ class _WaveTopK:
             # and the others retry the claim
             fault("wave.d2h.drain")
             host = (self._idx.cpu().numpy(), self._scores.cpu().numpy())
+            profiler.add_bytes("d2h", host[0].nbytes + host[1].nbytes)
+            # off the wave-critical path: the drain runs in the plan
+            # window, beside the next wave
+            profiler.count_dispatch("topk_drain")
             with self._lock:
                 self._host = host
                 self._idx = self._scores = None
@@ -428,9 +446,11 @@ def _oldest_inflight_age_s() -> float:
 class ResidentUsage:
     """Used cpu/mem/disk planes resident on the device, which waves read
     as their shared utilization and commit into (``fused_wave_apply``):
-    the device half of the plan applier, until the port's device-state
-    slice lands. Commits make NEW tensors; readers of an older
-    generation keep theirs."""
+    a wave-by-wave device commit for callers that keep no store (the
+    live path of phase 3 in chip_smoke.py). A server's waves read the
+    store's snapshot planes from ``tensors/device_state`` instead.
+    Commits make NEW tensors; readers of an older generation keep
+    theirs."""
 
     def __init__(self, used_cpu, used_mem, used_disk,
                  device: DeviceLike = None) -> None:
@@ -454,12 +474,20 @@ class Wave(NamedTuple):
     b_pad: int
     features: KernelFeatures     # the members' canonical union
     offsets: List[int]           # first step of each real member
+    #: (shareable, neutral_shareable, job_shareable): which groups ship
+    #: unbatched
+    layout: tuple
 
 
 def assemble_wave(kins: List[KernelIn], k_steps: List[int],
                   features: List[KernelFeatures], dev: torch.device) -> Wave:
     """Host stacking, the three sharing groups and the step layout; each
-    distinct plane is uploaded once."""
+    distinct plane is uploaded once, and a shared plane resident on
+    ``dev`` is not uploaded at all."""
+    # the snapshot planes the members' evals asked for go resident now,
+    # on this thread, before the lookups below (keyed once per wave)
+    dkey = device_key(dev)
+    default_device_state.advance_pending(dkey)
     k_max = max(k_steps)
     feats = union_features(features)
     padded = [_pad_kin_steps(kin, k_max) for kin in kins]
@@ -480,6 +508,15 @@ def assemble_wave(kins: List[KernelIn], k_steps: List[int],
     def _stack_field(f, xs):
         if wave_field_is_shared(f, shareable, neutral_shareable,
                                 job_shareable):
+            # the resident twin on THIS device when one exists (the
+            # snapshot's planes advanced above, frozen neutral
+            # singletons uploaded once). The snapshot group is
+            # registry-only: a stale snapshot's read-only gathered planes
+            # must ship as host planes, not pass for singletons.
+            res = default_device_state.lookup(
+                xs[0], dkey, frozen_ok=f not in _SHAREABLE_FIELDS)
+            if res is not None:
+                return res
             return _upload(xs[0], dev)      # ONE upload for every member
         if any(isinstance(x, torch.Tensor) for x in xs):
             return torch.stack([_upload(x, dev) for x in xs])
@@ -502,18 +539,18 @@ def assemble_wave(kins: List[KernelIn], k_steps: List[int],
     step_local[:total] = np.arange(total) - np.repeat(starts, ks)
     return Wave(stacked, _upload(step_member, dev),
                 _upload(step_local, dev), t_pad, b_pad, feats,
-                starts.tolist())
+                starts.tolist(),
+                (shareable, neutral_shareable, job_shareable))
 
 
-def _dispatch(stacked, sm, sl, t_pad, feats, resident):
-    """Fused kernel when the union fits its envelope, else the composite
-    (counted as a fallback). With ``resident`` the wave reads its used
-    planes and commits ``used + a_*`` back into it."""
-    fused = fused_wave_supported(feats)
+def _dispatch(stacked, sm, sl, t_pad, feats, resident, fused):
+    """The fused kernel when ``fused`` (the union fits its envelope), else
+    the composite. With ``resident`` the wave reads its used planes and
+    commits ``used + a_*`` back into it."""
     if resident is None:
         if fused:
-            return fused, fused_wave_place(stacked, sm, sl, t_pad, feats)
-        return fused, fused_wave_place_reference(stacked, sm, sl, t_pad, feats)
+            return fused_wave_place(stacked, sm, sl, t_pad, feats)
+        return fused_wave_place_reference(stacked, sm, sl, t_pad, feats)
     with resident.lock:
         r = resident
         if fused:
@@ -528,7 +565,7 @@ def _dispatch(stacked, sm, sl, t_pad, feats, resident):
             r.used_mem = r.used_mem + fout.a_mem
             r.used_disk = r.used_disk + fout.a_disk
         r.commits += 1
-    return fused, fout
+    return fout
 
 
 def launch_wave(kins: List[KernelIn], k_steps: List[int],
@@ -553,20 +590,34 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     fault("wave.launch")
     t_assemble = time.perf_counter()
     with tracer.span("wave.assemble"):
-        stacked, sm, sl, t_pad, b_pad, feats, offsets = assemble_wave(
-            kins, k_steps, features, dev)
+        stacked, sm, sl, t_pad, b_pad, feats, offsets, layout = \
+            assemble_wave(kins, k_steps, features, dev)
+        if profiler.enabled and dev.type == "cuda":
+            # the uploads are done once the card has them
+            t0 = time.perf_counter()
+            torch.cuda.synchronize(dev)
+            profiler.add_stage("h2d", time.perf_counter() - t0)
     t_launch = time.perf_counter()
     wave_stats.observe_assemble(t_launch - t_assemble)
+    # the bucket identity of the launch: a repeat of this key is no
+    # miss (the profiler counts first launches per key)
+    wave_key = (b_pad, t_pad, int(stacked.cap_cpu.shape[-1]), *layout,
+                feats)
+    fused = fused_wave_supported(feats)
     token = object()
     with _INFLIGHT_LOCK:
         _INFLIGHT_STARTS[token] = t_launch
     try:
         try:
-            fused, fout = _dispatch(stacked, sm, sl, t_pad, feats, resident)
+            fout = profiler.call(
+                "fused_wave" if fused else "joint", _dispatch,
+                (stacked, sm, sl), (t_pad, feats, resident, fused),
+                wave_key, dev)
             # the single wave-critical readback (synchronizes with the
             # wave, so an error of the kernel surfaces here)
             with tracer.span("kernel.d2h"):
                 packed = fout.packed.cpu().numpy()
+            profiler.add_bytes("d2h", packed.nbytes)
         except BaseException:
             fused_wave_stats.note_failure()
             raise
@@ -798,11 +849,19 @@ class ClusterCache:
     identity hit, a bumped one applies dirty-node deltas from the
     store's change log instead of a full O(nodes) rebuild
     (tensors/schema.IncrementalClusterCache). Snapshot-identity keying
-    is the fallback for states without usage planes."""
+    is the fallback for states without usage planes.
 
-    def __init__(self) -> None:
+    Each snapshot's wave-shared planes are requested resident on the
+    cache's device (``DeviceClusterState.request``), the card unless the
+    caller names the CPU; the wave launcher advances them before its next
+    wave. A failed advance is counted in the device state's ``errors``
+    and its waves ship host planes."""
+
+    def __init__(self, device: DeviceLike = None) -> None:
         self._lock = threading.Lock()
         self._cache = {}
+        #: where the snapshots' wave-shared planes are made resident
+        self.device = resolve_device(device)
 
     def get(self, state):
         from nomad_tpu_torch.tensors.schema import (
@@ -812,7 +871,11 @@ class ClusterCache:
 
         u = getattr(state, "usage", None)
         if u is not None and u.uid:
-            return default_incremental_cluster_cache.get(state)
+            built = default_incremental_cluster_cache.get(state)
+            # ask for this snapshot's planes; the wave launcher advances
+            # them before it assembles the next wave
+            default_device_state.request(built, u, self.device)
+            return built
         key = id(state)
         with self._lock:
             hit = self._cache.get(key)
@@ -826,6 +889,18 @@ class ClusterCache:
         return built
 
 
-#: process-wide cache used by schedulers outside batch mode too
-default_cluster_cache = ClusterCache()
+#: device -> the process-wide cache of schedulers outside batch mode
+_DEFAULT_CACHES: dict = {}
+_DEFAULT_CACHES_LOCK = threading.Lock()
+
+
+def default_cluster_cache(device: DeviceLike = None) -> ClusterCache:
+    """The process-wide ``ClusterCache`` of ``device`` (the card unless
+    the caller names the CPU), used by schedulers outside batch mode."""
+    dev = resolve_device(device)
+    with _DEFAULT_CACHES_LOCK:
+        cache = _DEFAULT_CACHES.get(dev)
+        if cache is None:
+            cache = _DEFAULT_CACHES[dev] = ClusterCache(dev)
+        return cache
 

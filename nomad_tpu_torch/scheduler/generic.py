@@ -197,7 +197,7 @@ class GenericScheduler(Scheduler):
             return self.cluster_provider(self.state)
         from nomad_tpu_torch.parallel.coalesce import default_cluster_cache
 
-        return default_cluster_cache.get(self.state)
+        return default_cluster_cache(self.device).get(self.state)
 
     # -- reconcile + placements (generic_sched.go:358,499) ---------------
 

@@ -13,7 +13,6 @@ is where every worker's placement waves and single-eval launches run.
 Settings that ask for a part of the system the port does not have yet
 raise ``NotImplementedError`` naming the ROADMAP item that adds it,
 instead of being ignored: ``use_device_mesh=True`` (A.11),
-``kernel_warmup=True`` or a ``warmup_manifest_path`` (A.5),
 ``scheduler_workers > 0`` (A.3), ``data_dir`` and ``setup_raft`` (A.7),
 and a non-local ``authoritative_region`` (A.9). The API, ACL and
 federation methods import modules that A.7-A.9 add, and fail with an
@@ -124,9 +123,10 @@ class ServerConfig:
         # interpreter-GC treatment for long-running servers (see
         # Server._tune_interpreter_gc); tests and embedders can opt out
         self.gc_tuning = gc_tuning
-        # kernel warmup at start: None and False build each kernel at
-        # its first launch; True or a manifest path raise until the
-        # port has ops/warmup (ROADMAP A.5)
+        # kernel warmup at start (ops/warmup.py): None warms from the
+        # manifest when one exists, True always (a missing manifest is
+        # zero entries), False never; the manifest defaults to the
+        # port's own path
         self.kernel_warmup = kernel_warmup
         self.warmup_manifest_path = warmup_manifest_path
         # adaptive wave-coalescer window bounds (seconds derive from
@@ -429,6 +429,7 @@ class Server:
         otherwise immediately (single-process authority)."""
         self._shutdown.clear()
         self._tune_interpreter_gc()
+        self._maybe_start_kernel_warmup()
         self.vault.start()
         if self.raft is not None:
             self.raft.start()
@@ -495,8 +496,83 @@ class Server:
         threading.Thread(target=maintain, daemon=True,
                          name="interpreter-gc").start()
 
+    #: seconds shutdown waits for the warmup thread to end its entry
+    WARMUP_JOIN_S = 60.0
+
+    def _maybe_start_kernel_warmup(self) -> None:
+        """Warm the placement kernels' bucket keys recorded in the warmup
+        manifest (ops/warmup.py), as observed, on a background thread,
+        so the first evals find every kernel loaded. ``kernel_warmup=None``
+        warms whenever a manifest exists; True forces it (a missing
+        manifest is then zero entries); False disables it. The result
+        lands in ``warmup_stats`` (``warmed``, ``failed``, ``seconds``)."""
+        self._warmup_thread = None
+        self.warmup_stats = None
+        path = self._warmup_manifest_path()
+        if path is None:
+            return
+        from nomad_tpu_torch.ops.warmup import start_background_warmup
+
+        def done(warmed: int, failed: int, seconds: float) -> None:
+            self.warmup_stats = {"warmed": warmed, "failed": failed,
+                                 "seconds": seconds}
+
+        self._warmup_thread = start_background_warmup(
+            path, device=self.device, stop=self._shutdown, on_done=done)
+
+    def _warmup_manifest_path(self):
+        """The manifest warmup should read, or None when warmup is
+        disabled (``kernel_warmup=False``) or auto mode finds none."""
+        if self.config.kernel_warmup is False:
+            return None
+        path = self.config.warmup_manifest_path
+        if not path:
+            from nomad_tpu_torch.ops import warmup
+
+            path = warmup.DEFAULT_MANIFEST_PATH
+        if self.config.kernel_warmup is None and not os.path.exists(path):
+            return None
+        return path
+
+    def _maybe_persist_warmup_manifest(self) -> None:
+        """Union the profiler's observed bucket keys into the warmup
+        manifest, so the next start warms what this one launched. Only
+        when the profiler recorded keys (it does while enabled) and a
+        manifest path is configured, or warmup is forced on, which falls
+        back to the default path (auto mode never writes the default
+        path: test suites start many short-lived servers)."""
+        if self.config.kernel_warmup is False:
+            return
+        path = self.config.warmup_manifest_path
+        if not path:
+            if self.config.kernel_warmup is not True:
+                return
+            from nomad_tpu_torch.ops import warmup
+
+            path = warmup.DEFAULT_MANIFEST_PATH
+        from nomad_tpu_torch.ops.warmup import (
+            manifest_from_profiler,
+            save_manifest,
+        )
+
+        try:
+            entries = manifest_from_profiler()
+            if entries:
+                save_manifest(entries, path, merge=True)
+        except OSError as e:
+            LOG.warning("warmup manifest persist failed: %s", e)
+
     def shutdown(self) -> None:
         self._shutdown.set()
+        # the warmup thread stops between entries; joined so it never
+        # launches on a card the next user of the process takes over
+        t = getattr(self, "_warmup_thread", None)
+        if t is not None:
+            t.join(timeout=self.WARMUP_JOIN_S)
+            if t.is_alive():
+                LOG.warning("kernel warmup still running after %.0f s",
+                            self.WARMUP_JOIN_S)
+        self._maybe_persist_warmup_manifest()
         self.vault.stop()
         for w in self.workers:
             w.stop()
@@ -1823,9 +1899,6 @@ def _refuse_unported(config: ServerConfig) -> None:
     if config.use_device_mesh:
         refused.append("use_device_mesh=True needs the node-axis mesh "
                        "(ROADMAP A.11)")
-    if config.kernel_warmup or config.warmup_manifest_path:
-        refused.append("kernel_warmup=True and warmup_manifest_path need "
-                       "ops/warmup (ROADMAP A.5)")
     if config.scheduler_workers > 0:
         refused.append("scheduler_workers > 0 needs server/workerproc "
                        "(ROADMAP A.3)")

@@ -512,7 +512,8 @@ class Worker:
         trace_ctx = tracer.context() or (
             (batch[0][0].id, 0) if tracer.enabled else None)
 
-        clusters = ClusterCache()
+        # snapshot planes go resident on the waves' device
+        clusters = ClusterCache(self.server.device)
         # the persistent pool replaces a thread spawn/reap per eval per
         # batch (TRACE_DECOMP: ~0.5-1 ms/eval of worker fanout): chunk
         # tasks are SUBMITTED to long-lived daemon threads and reaped

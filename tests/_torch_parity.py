@@ -386,7 +386,7 @@ def sched_round(harness, jobs, device, seed=0):
                                type=job.type, priority=job.priority))
     harness.state.upsert_evals(evals)
     snap = harness.state.snapshot()
-    clusters = ClusterCache()
+    clusters = ClusterCache(device)
     co = LaunchCoalescer(len(jobs), device=device, adaptive=False)
     errors = []
 

@@ -432,3 +432,153 @@ def test_cuda_server_burst_through_b1(cuda_device):
         assert tp.over_capacity_nodes(srv.state) == 0
     finally:
         srv.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The device-resident cluster state, the profiler and the warmup on the card.
+# ---------------------------------------------------------------------------
+
+def _port_store(n_nodes=64):
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.state.store import StateStore
+
+    store = StateStore()
+    for _ in range(n_nodes):
+        store.upsert_node(mock.node())
+    return store
+
+
+def _assert_resident_is_fresh(ds, snap, cluster, dev):
+    planes = ds.planes_for(snap.usage, dev)
+    assert planes is not None
+    fresh = type(cluster).build(snap.nodes()).wave_shared_planes(snap.usage)
+    assert set(planes) == set(fresh)
+    for f, arr in fresh.items():
+        want = torch.tensor(arr, device=dev)
+        assert planes[f].device.type == dev.type, f
+        assert planes[f].dtype == want.dtype, f
+        assert torch.equal(planes[f], want), f
+
+
+@pytest.mark.gpu
+def test_cuda_scatter_advance_matches_fresh_upload(cuda_device):
+    """Alloc churn advanced by the dirty-row scatter, then a structural
+    update forked by scatter, on the card: each resident generation is
+    bit-identical to a fresh build uploaded whole."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.tensors.device_state import DeviceClusterState
+    from nomad_tpu_torch.tensors.schema import IncrementalClusterCache
+
+    store = _port_store()
+    ds = DeviceClusterState()
+    cache = IncrementalClusterCache()
+
+    def ensure():
+        snap = store.snapshot()
+        cluster = cache.get(snap)
+        ds.ensure(cluster, snap.usage, cuda_device)
+        return snap, cluster
+
+    ensure()
+    nodes = store.snapshot().nodes()
+    store.upsert_allocs([mock.alloc(node_id=nodes[i % 9].id)
+                         for i in range(30)])
+    snap, cluster = ensure()
+    assert ds.delta_advances == 1 and ds.full_uploads == 1
+    _assert_resident_is_fresh(ds, snap, cluster, cuda_device)
+    node = nodes[3].copy()
+    node.node_resources.cpu.cpu_shares = 4321
+    store.upsert_node(node)
+    snap, cluster = ensure()
+    assert ds.fork_deltas == 1 and ds.full_uploads == 1
+    _assert_resident_is_fresh(ds, snap, cluster, cuda_device)
+    assert ds.snapshot()["errors"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_evicted_generation_read_in_flight_stays_intact(cuda_device):
+    """A wave launched on a generation's resident planes, whose every
+    reference is then dropped (the generation evicted, the wave's inputs
+    released) while the kernel may still run; new tensors then take the
+    freed memory and are overwritten. Stream order keeps the wave's
+    inputs intact: its result equals the plain version's on copies taken
+    before the launch."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.ops.warmup import _dummy_kin
+    from nomad_tpu_torch.tensors.device_state import default_device_state
+
+    store = _port_store(200)
+    snap = store.snapshot()
+    cluster = pc.ClusterCache(device=cuda_device).get(snap)
+    host = cluster.wave_shared_planes(snap.usage)
+    n = cluster.n_pad
+    rng = np.random.default_rng(5)
+    kin = _dummy_kin(n, 16)._replace(
+        **host, n_steps=np.asarray(10, np.int32),
+        ask_cpu=np.asarray(200.0, np.float32),
+        ask_mem=np.asarray(128.0, np.float32),
+        base_mask=np.arange(n) < cluster.n_real)
+    kins = [kin._replace(node_perm=rng.permutation(n).astype(np.int32))
+            for _ in range(4)]
+    feats = tk.LEAN_FEATURES._replace(with_topk=True)
+    wave = pc.assemble_wave(kins, [16] * 4, [feats] * 4, cuda_device)
+    assert wave.kin.used_cpu is default_device_state.lookup(
+        host["used_cpu"], cuda_device, frozen_ok=False)
+    cpu_kin = tk.KernelIn(*[x.cpu() for x in wave.kin])
+    want = ck.fused_wave_place_reference(
+        cpu_kin, wave.step_member.cpu(), wave.step_local.cpu(), wave.t_pad,
+        wave.features)
+    got = ck.fused_wave_place(wave.kin, wave.step_member, wave.step_local,
+                              wave.t_pad, wave.features)
+    t_pad, b = wave.t_pad, wave.b_pad
+    del wave, kin, kins
+    for _ in range(default_device_state.max_generations + 1):
+        store.upsert_node(mock.node())
+        pc.ClusterCache(device=cuda_device).get(store.snapshot())
+        default_device_state.advance_pending(cuda_device)
+    assert default_device_state.lookup(host["used_cpu"], cuda_device,
+                                       frozen_ok=False) is None
+    del host
+    junk = [torch.full((n,), -7.0, device=cuda_device) for _ in range(64)]
+    torch.cuda.synchronize()
+    del junk
+    g = _assert_fused(got, want, t_pad, b)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+def test_cuda_warmup_marks_the_live_key_warm(cuda_device):
+    """A warmed joint entry launches B1 once (counted as a warm launch,
+    not a wave); a live wave of the same bucket then counts no miss."""
+    from nomad_tpu_torch import telemetry
+    from nomad_tpu_torch.ops import warmup
+    from nomad_tpu_torch.telemetry.kernel_profile import profiler
+
+    feats = tk.LEAN_FEATURES._replace(with_topk=True)
+    kins, _ = tp.wave_members(9, "lean", 200, b=4, lib="port")
+    kins = [k._replace(**{f: getattr(kins[0], f)
+                          for f in pc._SHAREABLE_FIELDS}) for k in kins]
+    ks = [int(kins[0].step_preferred.shape[0])] * 4
+    # the bucket of this wave, as the launcher assembles it
+    w = pc.assemble_wave(kins, ks, [feats] * 4, torch.device("cpu"))
+    entry = {"kernel": "joint", "wave": w.b_pad, "steps": w.t_pad,
+             "nodes": int(w.kin.cap_cpu.shape[-1]), "shared": w.layout[0],
+             "neutral_shared": w.layout[1], "job_shared": w.layout[2],
+             "features": dict(w.features._asdict())}
+    telemetry.enable()
+    try:
+        telemetry.reset()
+        profiler.clear_seen()
+        before = ck.launches
+        assert warmup.warmup_entries([entry], device=cuda_device) == (1, 0)
+        assert ck.launches == before + 1
+        telemetry.reset()
+        pc.launch_wave(kins, ks, [feats] * 4, device=cuda_device)
+        s = profiler.summary()
+        assert s["PerKey"][0]["Kernel"] == "fused_wave", s
+        assert s["Misses"] == 0, s
+        assert s["StageSeconds"]["execute"] > 0.0
+        assert s["TransferBytes"]["d2h"] > 0
+    finally:
+        telemetry.disable()
+        telemetry.reset()

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of nomad_tpu, no silent CPU.
 
 A subprocess blocks ``jax`` and ``nomad_tpu`` in ``sys.modules`` and
-still imports the port and runs one small wave, one batched
+still imports the port and runs one small wave, one profiled warmup
+entry (the kernel profiler, the warmup and the device state), one batched
 schedule-apply loop (``backend="kernel_topk"``), one scheduler eval
 through ``Harness(device="cpu")`` and one job through a started
 ``Server(device="cpu")`` on the CPU; a static scan finds no such
@@ -40,6 +41,17 @@ kins = [build_kernel_in(cluster, synthetic_eval(cluster, used_frac=0.3,
         for s in range(2)]
 outs = launch_wave(kins, [3, 3], [LEAN_FEATURES] * 2, device="cpu")
 assert all(o.found.all() for o in outs), outs
+from nomad_tpu_torch import telemetry
+from nomad_tpu_torch.ops import warmup
+from nomad_tpu_torch.tensors.device_state import default_device_state
+telemetry.enable()
+entry = {"kernel": "joint", "wave": 4, "steps": 32, "nodes": 64,
+         "shared": True, "neutral_shared": True, "job_shared": False,
+         "features": dict(LEAN_FEATURES._asdict())}
+assert warmup.warmup_entries([entry], device="cpu") == (1, 0)
+assert telemetry.profiler.summary()["Dispatches"] == {"warmup_fused_wave": 1}
+telemetry.disable()
+telemetry.reset()
 import torch
 from nomad_tpu_torch.parallel.batching import (device_put_shared,
                                                make_schedule_apply_loop)
@@ -80,6 +92,8 @@ try:
     assert len(live) == 10, len(live)
 finally:
     srv.shutdown()
+assert default_device_state.snapshot()["full_uploads"] >= 1
+assert default_device_state.snapshot()["errors"] == 0
 new = {m for m in sys.modules if sys.modules[m] is not None
        and (m == "jax" or m.startswith(("jax.", "nomad_tpu.")))} - before
 assert not new, sorted(new)

@@ -785,8 +785,6 @@ def test_gc_treatment(mode):
 
 @pytest.mark.parametrize("setting,item", [
     ({"use_device_mesh": True}, "A.11"),
-    ({"kernel_warmup": True}, "A.5"),
-    ({"warmup_manifest_path": "warmup.json"}, "A.5"),
     ({"scheduler_workers": 1}, "A.3"),
     ({"data_dir": "raft-data"}, "A.7"),
     ({"authoritative_region": "eu"}, "A.9"),
@@ -796,7 +794,14 @@ def test_unported_setting_raises(setting, item):
         PortServer(PortConfig(**setting), device="cpu")
 
 
-def test_settings_that_ask_for_nothing_unported_are_accepted():
+def test_settings_that_ask_for_nothing_unported_are_accepted(
+        monkeypatch, tmp_path):
+    # auto warmup reads the default manifest when one exists: point it at
+    # a path that does not, so no manifest outside the test is read
+    from nomad_tpu_torch.ops import warmup
+
+    monkeypatch.setattr(warmup, "DEFAULT_MANIFEST_PATH",
+                        str(tmp_path / "absent.json"))
     for cfg in ({"use_device_mesh": False}, {"use_device_mesh": None},
                 {"kernel_warmup": False}, {"kernel_warmup": None},
                 {"authoritative_region": "global"}):
