@@ -47,12 +47,21 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     recorded members, in a fixed order; then 8 evals one at a time
     through ``default_kernel_launch``. Each thread's round is split by the
     host clock into the scheduler before its launch, the launch (park and
-    wave) and plan assembly and submit; one ``sched: {...}`` line;
+    wave) and plan assembly and submit; one ``sched: {...}`` line. Then,
+    after the store's bytes are taken for phase 11, one system job (a
+    lean node agent on every node) through ``new_scheduler("system",
+    ...)`` on the card: ``_feasible_mask`` on the card against the same
+    ``KernelIn`` on the CPU (mask and fit planes exact) and against a
+    plain fit computed apart (mask exact), for the agent's ask and for
+    an ask of the median free cpu and memory (a large share of the nodes
+    must not fit), its time by CUDA events beside its bound in bytes,
+    and one alloc on every feasible ready node; one ``system: {...}``
+    line;
 11. the server: phase 10's store, taken as bytes with
     ``to_snapshot_bytes()``, restored into the store of a ``Server`` on
     the card (one worker, batch 32, the JAX bench's e2e shape); 40
-    warm-up jobs, then a timed burst of 200 C2M lean jobs registered with
-    ``job_register``: the eval broker hands them out in batches, the
+    warm-up jobs, then a timed burst of 200 C2M lean jobs (100 in the
+    first arm) registered with ``job_register``: the eval broker hands them out in batches, the
     worker's coalescer fires each wave as one B1 launch, and plans commit
     through the plan queue and the applier's group commit. Run three
     times: ``gc_tuning`` off, then on (``gc.freeze()`` runs once per
@@ -83,16 +92,36 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     stages, bytes, dispatches and misses in the burst, evals/s, e2e
     p50/p99, and B1 launches against waves; runs B and C must warm at
     least one entry and fail none, and run B must miss no key in its
-    burst. One ``warm start: {...}`` line per run.
+    burst. One ``warm start: {...}`` line per run;
+13. worker processes: phase 11's window-off server with
+    ``scheduler_workers=2``, then 4, each process opening the card and
+    placing its leases through B1, its waves taking the placement turn
+    in order; the 40 warm-up jobs, then the timed burst of 200 with
+    every count, the processes' own included, set to 0 just before it.
+    Per arm: evals/s, e2e and plan latency, rejected node plans, turns
+    granted and the wait for one, waves, fill and B1 launches per
+    process, lease reissues, the IPC round trip, bootstrap-frame bytes
+    and seconds and first-wave latency per process, their resident
+    memory. Every job placed, no node over capacity, no failed eval, no
+    fallback or failure and no device-state error in any process, every
+    process that took an eval with its B1 launches and the card's name,
+    the busiest process's resident planes equal to a fresh upload, the
+    usage planes equal to a rebuild, no generation lease left after
+    shutdown. The first arm then registers a system and a sysbatch node
+    agent: each eval complete, one alloc on every feasible ready node
+    and on no other, the mask held against the CPU and a plain fit. One
+    ``workerproc: {...}`` line per arm, and phase 11's window-off arm as
+    the arm without.
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
 and power limit, and before that the kernels' JSON line (B1's entry
 counts its launches on the main path of phase 3 under ``launches``, on
-the scheduler path of phase 10 under ``sched_launches`` and on phase 11's
-timed server bursts under ``server_launches``; the warm-up launches of
-phase 12 are counted apart, in its child processes). A full record
-goes to chiprun_out/chip_smoke.json.
+the scheduler path of phase 10 under ``sched_launches``, on phase 11's
+timed server bursts under ``server_launches`` and in phase 13's worker
+processes' timed bursts under ``workerproc_launches``; the warm-up
+launches of phase 12 are counted apart, in its child processes). A full
+record goes to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -116,6 +145,7 @@ from nomad_tpu_torch.ops.kernel import (
     FUSED_METRIC_FIELDS,
     LEAN_FEATURES,
     MAX_PENALTY_NODES,
+    _upload_kin,
     build_kernel_in,
     neutral_planes,
     pad_steps,
@@ -133,6 +163,7 @@ from nomad_tpu_torch.parallel.synthetic import (
     throughput_problem,
 )
 from nomad_tpu_torch.scheduler import new_scheduler
+from nomad_tpu_torch.scheduler import system as system_sched
 from nomad_tpu_torch.scheduler.testing import Harness
 from nomad_tpu_torch.server.plan_apply import plan_group_stats
 from nomad_tpu_torch.server.server import Server, ServerConfig
@@ -430,9 +461,12 @@ def main() -> int:
     kline["kernels"][0]["sched_launches"] = sched["b1_launches"]
     server = run_server_phase(dev, record, state_bytes)
     run_warm_start_phase(record, state_bytes)
+    workerproc = run_workerproc_phase(dev, record, state_bytes, server[-1])
     del state_bytes
     kline["kernels"][0]["server_launches"] = sum(
         arm["b1_launches"] for arm in server)
+    kline["kernels"][0]["workerproc_launches"] = sum(
+        arm["b1_launches"] for arm in workerproc)
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -1275,6 +1309,8 @@ def run_sched_phase(dev: torch.device, record: dict) -> dict:
     t0 = time.perf_counter()
     state_bytes = harness.state.to_snapshot_bytes()
     sched["snapshot_bytes_s"] = time.perf_counter() - t0
+    # after the bytes: phase 11's state stays the one earlier runs used
+    record["system"] = run_system_harness(harness, dev)
     return sched, state_bytes
 
 
@@ -1286,8 +1322,11 @@ SERVER_WARMUP_JOBS = 40     # the JAX bench's E2E_WARMUP_JOBS
 SERVER_JOBS = 200           # the timed burst (E2E_JOBS)
 SERVER_BATCH = 32           # worker_batch_size (E2E_BATCH_SIZE)
 SERVER_DEADLINE_S = 300.0   # per burst; a burst that takes longer fails
-#: (gc_tuning, coalesce_adaptive) of each arm, in this order
-SERVER_ARMS = ((False, True), (True, True), (True, False))
+#: (gc_tuning, coalesce_adaptive, jobs in the timed burst) of each arm,
+#: in this order; the first arm's burst is half, to keep the smoke's time
+#: with phase 13's worker processes
+SERVER_ARMS = ((False, True, SERVER_JOBS // 2), (True, True, SERVER_JOBS),
+               (True, False, SERVER_JOBS))
 
 
 def rss_gb() -> float:
@@ -1350,9 +1389,10 @@ def check_server_burst(srv, jobs, ctx: str) -> None:
 
 
 def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
-               adaptive: bool, rng) -> dict:
+               adaptive: bool, n_jobs: int, rng) -> dict:
     """One ``Server`` on ``dev`` over the restored state: warm-up, then the
-    timed burst, with every count set to 0 just before it."""
+    timed burst of ``n_jobs``, with every count set to 0 just before
+    it."""
     ctx = f"server gc_tuning={gc_tuning} coalesce_adaptive={adaptive}"
     srv = Server(ServerConfig(num_workers=1, worker_batch_size=SERVER_BATCH,
                               heartbeat_ttl=3600.0, gc_tuning=gc_tuning,
@@ -1379,7 +1419,7 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
         check_server_burst(srv, warm, f"{ctx} warm-up")
 
         jobs = [c2m.burst_job(rng, i, prefix=f"{tag}-burst")
-                for i in range(SERVER_JOBS)]
+                for i in range(n_jobs)]
         histograms.get("e2e").reset()
         srv.plan_latencies.clear()
         plan_group_stats.reset()
@@ -1426,10 +1466,10 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
           f"{ctx}: waves fell back or failed: {fstats}")
     check(b1_launches == fstats["launches"],
           f"{ctx}: B1 launches {b1_launches} != fused waves {fstats}")
-    check(1 <= b1_launches < SERVER_JOBS,
-          f"{ctx}: {b1_launches} B1 launches for {SERVER_JOBS} evals")
+    check(1 <= b1_launches < n_jobs,
+          f"{ctx}: {b1_launches} B1 launches for {n_jobs} evals")
     # an eval processed again (a blocked eval released) adds a sample
-    check(e2e_n >= SERVER_JOBS, f"{ctx}: {e2e_n} e2e samples")
+    check(e2e_n >= n_jobs, f"{ctx}: {e2e_n} e2e samples")
     check(dstate["errors"] == 0,
           f"{ctx}: device state errors: {dstate}")
     return {
@@ -1437,8 +1477,8 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
         "restore_s": restore_s, "start_s": start_s,
         "threads_after_start": threads, "rss_gb": rss,
         "warmup_s": warmup_s, "shutdown_s": shutdown_s,
-        "evals": SERVER_JOBS, "e2e_samples": e2e_n, "burst_s": burst_s,
-        "evals_per_s": SERVER_JOBS / burst_s,
+        "evals": n_jobs, "e2e_samples": e2e_n, "burst_s": burst_s,
+        "evals_per_s": n_jobs / burst_s,
         "e2e_p50_ms": e2e_p50 * 1e3, "e2e_p99_ms": e2e_p99 * 1e3,
         "plan_p50_ms": percentile(plan_lat, 0.5) * 1e3,
         "plan_p99_ms": percentile(plan_lat, 0.99) * 1e3,
@@ -1477,19 +1517,15 @@ def check_resident(srv, dev: torch.device, ctx: str) -> dict:
     (one packed upload, five ``index_copy``) and on the card alone."""
     snap = srv.state.snapshot()
     cluster = coalesce.ClusterCache(dev).get(snap)
-    default_device_state.advance_pending(dev)
-    planes = default_device_state.planes_for(snap.usage, dev)
-    check(planes is not None, f"{ctx}: no resident generation of the "
-          "final snapshot")
     t0 = time.perf_counter()
-    fresh = ClusterTensors.build(snap.nodes()).wave_shared_planes(snap.usage)
-    build_s = time.perf_counter() - t0
-    check(set(planes) == set(fresh), f"{ctx}: resident planes {set(planes)}")
-    for f, arr in fresh.items():
-        want = torch.tensor(arr, device=dev)
-        check(planes[f].dtype == want.dtype and torch.equal(planes[f], want),
-              f"{ctx}: resident {f} differs from a fresh upload")
-    usage_host = {f: fresh[f] for f in ClusterTensors.WAVE_USAGE_FIELDS}
+    res = default_device_state.check_fresh(snap, dev)
+    check_s = time.perf_counter() - t0
+    check(res["resident"] and res["differ"] == [],
+          f"{ctx}: resident planes of the final snapshot against a fresh "
+          f"upload: {res}")
+    planes = default_device_state.planes_for(snap.usage, dev)
+    usage_host = {f: planes[f].cpu().numpy()
+                  for f in ClusterTensors.WAVE_USAGE_FIELDS}
     step = max(cluster.n_real // SCATTER_ROWS, 1)
     rows = set(range(0, step * SCATTER_ROWS, step))
     private = DeviceClusterState()      # keeps the server's stats clean
@@ -1500,7 +1536,7 @@ def check_resident(srv, dev: torch.device, ctx: str) -> dict:
     device_ms = cuda_ms(lambda: [planes[f].index_copy(0, rows_d, vals[f])
                                  for f in usage_host], 200)
     n = int(cluster.n_pad)
-    return {"planes": len(planes), "build_s": build_s,
+    return {"planes": len(planes), "check_s": check_s,
             "scatter_rows": len(rows), "scatter_planes": len(usage_host),
             "scatter_bytes": private.bytes_uploaded // 50,
             "scatter_advance_ms": advance_ms,
@@ -1527,8 +1563,8 @@ def run_server_phase(dev: torch.device, record: dict,
     log(f"server state: {len(state_bytes) / 1e6:.1f} MB of snapshot bytes")
     rng = np.random.default_rng(SEED + 11)
     arms = []
-    for gc_tuning, adaptive in SERVER_ARMS:
-        arm = server_arm(dev, state_bytes, gc_tuning, adaptive, rng)
+    for gc_tuning, adaptive, n_jobs in SERVER_ARMS:
+        arm = server_arm(dev, state_bytes, gc_tuning, adaptive, n_jobs, rng)
         t0 = time.perf_counter()
         gc.collect()
         arm["collect_after_s"] = time.perf_counter() - t0
@@ -1732,6 +1768,418 @@ def warm_start_child(run: str, state_path: str, manifest: str,
     log(f"burst: {b1_launches} B1 launches in {waves} waves, misses "
         f"{live_misses}, {SERVER_JOBS / burst_s:.1f} evals/s")
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: system jobs, and the server with scheduler worker processes.
+# ---------------------------------------------------------------------------
+
+#: the node agent's ask: a log shipper or monitoring agent on every node
+AGENT_CPU = 100
+AGENT_MEM = 64
+#: the bool planes ``_feasible_mask`` reads back: the mask and six fit
+#: planes
+MASK_READBACK_PLANES = 7
+#: the planes ``_feasible`` reads with every feature on, each once
+MASK_PLANES = ("base_mask", "cap_cpu", "cap_mem", "cap_disk", "used_cpu",
+               "used_mem", "used_disk", "free_cores", "used_cores",
+               "free_dyn", "port_conflict", "dev_free", "used_mbits",
+               "avail_mbits", "job_tg_count", "job_any_count")
+
+
+def node_agent_job(job_type: str, tag: str):
+    """One job of ``job_type`` (system or sysbatch) asking for a lean node
+    agent on every node of the ten datacenters. Its priority is below
+    every C2M job's (20-60), so it preempts nothing: a node it does not
+    fit stays without it and is counted in ``failed_tg_allocs``."""
+    job = mock.system_job(id=f"{tag}-{job_type}-agent", priority=10,
+                          datacenters=[f"dc{i}" for i in range(1, 11)])
+    job.type = job_type
+    res = job.task_groups[0].tasks[0].resources
+    res.cpu, res.memory_mb = AGENT_CPU, AGENT_MEM
+    return job
+
+
+def system_mask(snap, job, dev: torch.device) -> tuple:
+    """``(cluster, base_mask, kin)`` of the job's task group on ``snap``,
+    built as ``SystemScheduler`` builds it."""
+    from nomad_tpu_torch.scheduler.context import EvalContext
+    from nomad_tpu_torch.scheduler.stack import XLAGenericStack
+
+    cluster = coalesce.ClusterCache(dev).get(snap)
+    ctx = EvalContext(snap, mock.eval(job_id=job.id).make_plan(job),
+                      device=dev)
+    stack = XLAGenericStack(False, ctx, cluster)
+    stack.set_job(job)
+    ev = stack._build_eval_tensors(job.task_groups[0],
+                                   np.zeros(cluster.n_pad, bool))
+    return cluster, np.asarray(ev.base_mask), build_kernel_in(cluster, ev, 1)
+
+
+def plain_fit(kin) -> np.ndarray:
+    """The node agent's mask computed apart from the port: the base mask
+    and free cpu, memory and disk against its ask, in f32 as the card
+    computes them. Only for a lean ask (no cores, ports, devices,
+    bandwidth or distinct hosts), which this checks."""
+    k = {f: np.asarray(getattr(kin, f)) for f in (
+        "base_mask", "cap_cpu", "cap_mem", "cap_disk", "used_cpu",
+        "used_mem", "used_disk", "ask_cpu", "ask_mem", "ask_disk",
+        "ask_cores", "ask_dyn_ports", "ask_has_reserved_ports", "ask_dev",
+        "ask_mbits", "distinct_hosts_job", "distinct_hosts_tg")}
+    check(k["ask_cores"] == 0 and k["ask_dyn_ports"] == 0
+          and not k["ask_has_reserved_ports"] and not k["ask_dev"].any()
+          and k["ask_mbits"] == 0 and not k["distinct_hosts_job"]
+          and not k["distinct_hosts_tg"], "plain fit: the ask is not lean")
+    return (k["base_mask"]
+            & (k["cap_cpu"] - k["used_cpu"] >= k["ask_cpu"])
+            & (k["cap_mem"] - k["used_mem"] >= k["ask_mem"])
+            & (k["cap_disk"] - k["used_disk"] >= k["ask_disk"]))
+
+
+def check_mask(kin, dev: torch.device, ctx: str) -> tuple:
+    """``_feasible_mask`` of ``kin`` on ``dev``, the same on the CPU (mask
+    and fit planes exact) and the plain fit (mask exact); returns
+    ``(mask, nodes true, nodes false)`` over the base mask."""
+    mask_d, dims_d = system_sched._feasible_mask(kin, dev)
+    mask_c, dims_c = system_sched._feasible_mask(kin, "cpu")
+    check(np.array_equal(mask_d, mask_c), f"{ctx}: _feasible_mask on "
+          f"{dev} differs from the CPU")
+    for name in dims_c:
+        check(np.array_equal(dims_d[name], dims_c[name]),
+              f"{ctx}: fit plane {name} differs on {dev}")
+    plain = plain_fit(kin)
+    check(np.array_equal(mask_d, plain), f"{ctx}: _feasible_mask differs "
+          f"from the plain fit on {int((mask_d != plain).sum())} nodes")
+    base = np.asarray(kin.base_mask)
+    return mask_d, int(mask_d.sum()), int((base & ~mask_d).sum())
+
+
+def expected_agents(snap, job, dev: torch.device) -> tuple:
+    """``(node ids the job must place on, nodes it must count as
+    exhausted)``: the ready nodes of the job's base mask where
+    ``_feasible_mask`` is true, and where it is false; the mask held
+    against the CPU and the plain fit first."""
+    cluster, base, kin = system_mask(snap, job, dev)
+    mask, _, _ = check_mask(kin, dev, f"{job.type} agent mask")
+    want, exhausted = set(), 0
+    for i in range(cluster.n_real):
+        node = snap.node_by_id(cluster.node_ids[i])
+        if node is None or not node.ready() or not base[i]:
+            continue
+        if mask[i]:
+            want.add(cluster.node_ids[i])
+        else:
+            exhausted += 1
+    return want, exhausted
+
+
+def check_agents(snap, job, ev, want: set, exhausted: int,
+                 ctx: str) -> int:
+    """The job's eval is complete, one live alloc on every node of
+    ``want`` and on no other, and ``exhausted`` nodes counted in its
+    ``failed_tg_allocs``; returns the allocs placed."""
+    check(ev.status == consts.EVAL_STATUS_COMPLETE,
+          f"{ctx}: eval {ev.status}: {ev.status_description}")
+    live = [a.node_id for a in snap.allocs_by_job(job.namespace, job.id)
+            if not a.terminal_status()]
+    check(len(live) == len(set(live)) == len(want) and set(live) == want,
+          f"{ctx}: {len(live)} allocs on {len(set(live))} nodes, "
+          f"{len(want)} feasible ready nodes, "
+          f"{len(set(live) ^ want)} differ")
+    tg = job.task_groups[0].name
+    got = (ev.failed_tg_allocs[tg].nodes_exhausted
+           if tg in ev.failed_tg_allocs else 0)
+    check(got == exhausted, f"{ctx}: {got} nodes exhausted in "
+          f"failed_tg_allocs, {exhausted} nodes do not fit")
+    return len(live)
+
+
+def run_system_harness(harness, dev: torch.device) -> dict:
+    """A system job on phase 10's store through ``new_scheduler("system",
+    ...)`` on the card: ``_feasible_mask`` on the card against the same
+    ``KernelIn`` on the CPU (mask and fit planes exact), its time by CUDA
+    events (the call as the scheduler makes it, and its device work on
+    planes already on the card) beside its bound in bytes, then the eval,
+    one alloc per feasible ready node."""
+    job = node_agent_job(consts.JOB_TYPE_SYSTEM, "sched")
+    harness.state.upsert_job(job)
+    snap = harness.state.snapshot()
+    cluster, _, kin = system_mask(snap, job, dev)
+    check_mask(kin, dev, "system")
+    # an ask of the median free cpu and memory: a large share of the
+    # nodes do not fit, so the mask must hold both kinds of rows
+    base = np.asarray(kin.base_mask)
+    free_cpu = (np.asarray(kin.cap_cpu) - np.asarray(kin.used_cpu))[base]
+    free_mem = (np.asarray(kin.cap_mem) - np.asarray(kin.used_mem))[base]
+    heavy = kin._replace(
+        ask_cpu=np.asarray(np.median(free_cpu), np.float32),
+        ask_mem=np.asarray(np.median(free_mem), np.float32))
+    _, heavy_fit, heavy_not = check_mask(heavy, dev, "system (median ask)")
+    check(heavy_fit > 0 and heavy_not > heavy_fit // 4,
+          f"system (median ask): {heavy_fit} nodes fit, {heavy_not} do not")
+    on_card = _upload_kin(kin, dev)
+    call_ms = cuda_ms(lambda: system_sched._feasible_mask(kin, dev), 20)
+    # its device work alone, on planes already on the card
+    device_ms = cuda_ms(lambda: system_sched._mask_stack(on_card), 50)
+    n = int(cluster.n_pad)
+    nbytes = sum(np.asarray(getattr(kin, f)).nbytes for f in MASK_PLANES)
+    nbytes += MASK_READBACK_PLANES * n     # the bool planes read back
+    want, exhausted = expected_agents(snap, job, dev)
+
+    ev = mock.eval(job_id=job.id, namespace=job.namespace, type=job.type,
+                   priority=job.priority)
+    harness.state.upsert_evals([ev])
+    plans0 = len(harness.plans)
+    system_sched.mask_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    harness.process(job.type, ev)
+    eval_s = time.perf_counter() - t0
+    launches = system_sched.mask_launches
+    done = [e for e in harness.evals if e.id == ev.id][-1]
+    placed = check_agents(harness.state.snapshot(), job, done, want,
+                          exhausted, "system (harness)")
+    over = store_over_capacity(harness.state, coalesce.ClusterCache(dev))
+    check(over == 0, f"system (harness): {over} nodes over capacity")
+    check(launches == 1, f"system (harness): {launches} masks for one "
+          "task group")
+    res = {
+        "nodes": cluster.n_real, "n_pad": n,
+        "feasible_ready_nodes": len(want), "exhausted_nodes": exhausted,
+        "placed": placed, "plans": len(harness.plans) - plans0,
+        "eval_s": eval_s, "mask_launches": launches,
+        "mask_call_ms": call_ms, "mask_device_ms": device_ms,
+        "mask_bytes": nbytes, "mask_bound_ms": bound(nbytes, 0)[0],
+        "mask_exact_vs_cpu": True,
+        "median_ask_fit_nodes": heavy_fit,
+        "median_ask_unfit_nodes": heavy_not,
+    }
+    log(f"system: {json.dumps(res)}")
+    return res
+
+
+def wait_eval(srv, eval_id: str, deadline: float):
+    """The eval's row once it is no longer pending."""
+    while time.time() < deadline:
+        ev = srv.state.snapshot().eval_by_id(eval_id)
+        if ev is not None and ev.status not in (
+                consts.EVAL_STATUS_PENDING, consts.EVAL_STATUS_BLOCKED):
+            return ev
+        time.sleep(0.01)
+    fail(f"eval {eval_id} still pending after the deadline")
+
+
+def system_jobs_through(srv, dev: torch.device, tag: str) -> list:
+    """A system job, then a sysbatch job, registered with ``srv``: each
+    eval completes with one alloc on every feasible ready node."""
+    out = []
+    for job_type in (consts.JOB_TYPE_SYSTEM, consts.JOB_TYPE_SYSBATCH):
+        job = node_agent_job(job_type, tag)
+        want, exhausted = expected_agents(srv.state.snapshot(), job, dev)
+        t0 = time.perf_counter()
+        eval_id = srv.job_register(job)["eval_id"]
+        ev = wait_eval(srv, eval_id, time.time() + SERVER_DEADLINE_S)
+        eval_s = time.perf_counter() - t0
+        ctx = f"{job_type} through worker processes"
+        placed = check_agents(srv.state.snapshot(), job, ev, want,
+                              exhausted, ctx)
+        over = store_over_capacity(srv.state, coalesce.ClusterCache(dev))
+        check(over == 0, f"{ctx}: {over} nodes over capacity")
+        res = {"type": job_type, "eval_s": eval_s, "plan_allocs": placed,
+               "feasible_ready_nodes": len(want),
+               "exhausted_nodes": exhausted}
+        log(f"system job: {json.dumps(res)}")
+        out.append(res)
+    return out
+
+
+def child_row(handle_stats: dict) -> dict:
+    """One worker process's line: the owner's view and the counters of its
+    last heartbeat."""
+    counters = handle_stats["counters"]
+    waves = counters["waves"]
+    return {
+        "worker_id": handle_stats["worker_id"], "device": counters["device"],
+        "processed": counters["processed"], "waves": waves,
+        "wave_fill": counters["requests"] / waves if waves else 0.0,
+        "b1_launches": counters["b1_launches"], "fused": counters["fused"],
+        "mask_launches": counters["mask_launches"],
+        "device_state_errors": counters["device_state"]["errors"],
+        "delta_advances": counters["device_state"]["delta_advances"],
+        "first_wave_ms": counters["first_wave_ms"],
+        "rpcs": counters["rpcs"], "rpc_p50_ms": counters["rpc_p50_ms"],
+        "rpc_p99_ms": counters["rpc_p99_ms"], "frames": counters["frames"],
+        "frame_apply_s": counters["frame_apply_s"],
+        "frame_apply_max_s": counters["frame_apply_max_s"],
+        "frames_sent": handle_stats["frames_sent"],
+        "bootstrap_bytes": handle_stats["bootstrap_bytes"],
+        "bootstrap_send_s": handle_stats["bootstrap_s"],
+        "bootstrap_apply_s": counters["bootstrap_apply_s"],
+        "rss_gb": counters["rss_bytes"] / 1e9,
+        "turn": counters["turn"],
+    }
+
+
+def workerproc_arm(dev: torch.device, state_bytes: bytes, workers: int,
+                   rng, system_jobs: bool) -> dict:
+    """Phase 11's window-off server with ``workers`` worker processes:
+    warm-up, then the timed burst with every count (the owner's and each
+    process's) set to 0 just before it; then, if asked, the system jobs."""
+    from nomad_tpu_torch.state.store import leased_generation_count
+    from nomad_tpu_torch.state.usage import usage_rebuild_diff
+
+    ctx = f"workerproc S={workers}"
+    card = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    srv = Server(ServerConfig(num_workers=1, worker_batch_size=SERVER_BATCH,
+                              heartbeat_ttl=3600.0, coalesce_adaptive=False,
+                              scheduler_workers=workers),
+                 device=dev)
+    t0 = time.perf_counter()
+    srv.state.restore_from_bytes(state_bytes)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv.start()
+    start_s = time.perf_counter() - t0
+    sup = srv.worker_supervisor
+    try:
+        warm = [c2m.burst_job(rng, i, prefix=f"wp{workers}-warm")
+                for i in range(SERVER_WARMUP_JOBS)]
+        t0 = time.perf_counter()
+        for job in warm:
+            srv.job_register(job)
+        warmup_s = server_converged(
+            srv, warm, time.time() + SERVER_DEADLINE_S) - t0
+        check_server_burst(srv, warm, f"{ctx} warm-up")
+        sup.probe_all("reset")
+
+        jobs = [c2m.burst_job(rng, i, prefix=f"wp{workers}-burst")
+                for i in range(SERVER_JOBS)]
+        for name in ("e2e", "worker_ipc", "worker_rpc_call",
+                     "worker_rpc_sync", "placement_turn_wait"):
+            histograms.get(name).reset()
+        srv.plan_latencies.clear()
+        plan_group_stats.reset()
+        coalesce.fused_wave_stats.reset()
+        ck.launches = 0
+        reissues0 = sup.lease_reissues
+        grants0 = sup.turn.grants if sup.turn is not None else 0
+        t0 = time.perf_counter()
+        for job in jobs:
+            srv.job_register(job)
+        t_done = server_converged(srv, jobs,
+                                  time.time() + SERVER_DEADLINE_S)
+        burst_s = t_done - t0
+        owner_b1 = ck.launches
+        # a process acks its last evals before its worker loop reaps
+        # their chunk (and counts its waves)
+        time.sleep(1.0)
+        sup.child_counters()
+        children = [child_row(c)
+                    for c in srv.stats()["worker_procs"]["children"]]
+        rejected = plan_group_stats.snapshot()["rejected_node_plans"]
+        grants = (sup.turn.grants if sup.turn is not None else 0) - grants0
+        turn_p50, turn_p99 = histograms.get(
+            "placement_turn_wait").quantiles((0.5, 0.99))
+        e2e = histograms.get("e2e")
+        e2e_n = e2e.count
+        e2e_p50, e2e_p99 = e2e.quantiles((0.5, 0.99))
+        ipc_p99 = histograms.get("worker_ipc").quantiles((0.99,))[0]
+        # the server's side of each RPC: the call (the applier's wait
+        # included for a plan) and the state frame sent before the reply
+        rpc_call_p50 = histograms.get("worker_rpc_call").quantiles((0.5,))[0]
+        rpc_sync_p50 = histograms.get("worker_rpc_sync").quantiles((0.5,))[0]
+        plan_lat = list(srv.plan_latencies)
+        reissues = sup.lease_reissues - reissues0
+        check_server_burst(srv, jobs, ctx)
+        check(usage_rebuild_diff(srv.state) == [],
+              f"{ctx}: usage planes differ from a rebuild")
+        busiest = max(sup.handles, key=lambda h: h.child_stats.get(
+            "waves", 0))
+        busiest.sync_state()
+        resident = busiest.probe("resident")
+        agents, mask_launches = [], 0
+        if system_jobs:
+            agents = system_jobs_through(srv, dev, "wp")
+            mask_launches = sum(c["mask_launches"]
+                                for c in sup.child_counters())
+            check(mask_launches >= len(agents), f"{ctx}: {mask_launches} "
+                  f"masks for {len(agents)} system evals")
+        wp_stats = srv.stats()["worker_procs"]
+    finally:
+        t0 = time.perf_counter()
+        srv.shutdown()
+        shutdown_s = time.perf_counter() - t0
+    check(leased_generation_count() == 0,
+          f"{ctx}: {leased_generation_count()} generation leases after "
+          "shutdown")
+    check(len(children) == workers and wp_stats["alive"] == workers,
+          f"{ctx}: {wp_stats['alive']} of {workers} processes alive")
+    check(wp_stats["respawns"] == 0, f"{ctx}: {wp_stats['respawns']} "
+          "respawns")
+    check(owner_b1 == 0, f"{ctx}: the owner launched B1 {owner_b1} times")
+    check(grants >= 1 and sum(c["turn"]["grants"] for c in children)
+          == grants, f"{ctx}: {grants} placement turns granted, the "
+          f"processes took {[c['turn'] for c in children]}")
+    for c in children:
+        cc = f"{ctx} process {c['worker_id']}"
+        check(c["device"] == card, f"{cc}: device {c['device']}")
+        check(c["fused"]["fallbacks"] == 0 and c["fused"]["failures"] == 0,
+              f"{cc}: waves fell back or failed: {c['fused']}")
+        check(c["device_state_errors"] == 0, f"{cc}: device state errors")
+        check(c["b1_launches"] == c["fused"]["launches"] == c["waves"],
+              f"{cc}: B1 {c['b1_launches']}, fused {c['fused']}, "
+              f"waves {c['waves']}")
+        if c["processed"]:
+            check(c["b1_launches"] >= 1, f"{cc}: {c['processed']} evals "
+                  "and no B1 launch")
+    check(resident["resident"] and resident["differ"] == [],
+          f"{ctx}: resident planes of process {busiest.worker_id} differ "
+          f"from a fresh upload: {resident}")
+    check(e2e_n >= SERVER_JOBS, f"{ctx}: {e2e_n} e2e samples")
+    b1 = sum(c["b1_launches"] for c in children)
+    waves = sum(c["waves"] for c in children)
+    return {
+        "workers": workers, "cpu_count": os.cpu_count(),
+        "restore_s": restore_s, "start_s": start_s, "warmup_s": warmup_s,
+        "shutdown_s": shutdown_s, "evals": SERVER_JOBS, "burst_s": burst_s,
+        "evals_per_s": SERVER_JOBS / burst_s,
+        "e2e_p50_ms": e2e_p50 * 1e3, "e2e_p99_ms": e2e_p99 * 1e3,
+        "plan_p50_ms": percentile(plan_lat, 0.5) * 1e3,
+        "plan_p99_ms": percentile(plan_lat, 0.99) * 1e3,
+        "plans": len(plan_lat), "b1_launches": b1, "waves": waves,
+        "wave_fill": (sum(c["wave_fill"] * c["waves"] for c in children)
+                      / waves if waves else 0.0),
+        "rejected_node_plans": rejected, "turn_grants": grants,
+        "turn_wait_p50_ms": turn_p50 * 1e3,
+        "turn_wait_p99_ms": turn_p99 * 1e3,
+        "lease_reissues": reissues, "worker_ipc_p99_ms": ipc_p99 * 1e3,
+        "server_rpc_call_p50_ms": rpc_call_p50 * 1e3,
+        "server_rpc_sync_p50_ms": rpc_sync_p50 * 1e3,
+        "owner_rss_gb": rss_gb(), "children": children,
+        "resident_check": {"worker_id": busiest.worker_id, **resident},
+        "system_jobs": agents, "system_mask_launches": mask_launches,
+    }
+
+
+def run_workerproc_phase(dev: torch.device, record: dict,
+                         state_bytes: bytes, window_off: dict) -> list:
+    """Phase 13: two worker processes with the system jobs, then four;
+    phase 11's window-off arm (``window_off``) stands for the arm without
+    worker processes."""
+    rng = np.random.default_rng(SEED + 13)
+    arms = []
+    for workers in (2, 4):
+        arm = workerproc_arm(dev, state_bytes, workers, rng,
+                             system_jobs=workers == 2)
+        gc.collect()
+        log(f"workerproc: {json.dumps(arm)}")
+        arms.append(arm)
+    base = {k: window_off[k] for k in (
+        "evals_per_s", "e2e_p50_ms", "e2e_p99_ms", "plan_p50_ms",
+        "plan_p99_ms", "b1_launches", "waves", "wave_fill", "rss_gb")}
+    log(f"workerproc S=0 (phase 11, window off): {json.dumps(base)}")
+    record["workerproc"] = {"S0": base, "arms": arms}
+    return arms
 
 
 if __name__ == "__main__":

@@ -23,12 +23,21 @@ A batching worker wraps each eval's plan submission in the coalescer's
 ``plan_window()``: the eval yields its rendezvous slot while it waits on
 the plan applier, so the next wave fires without it. A fired wave arms
 the plan queue's drain window (``wave_cohorts.note_wave``) before its
-members resume, so the wave's plans commit as one entry. The fault
-points ``wave.launch`` and ``wave.d2h.drain`` and the tracer spans
-``wave.assemble``, ``wave.park``, ``wave.launch`` and ``kernel.d2h`` sit
-where the JAX launcher has them, and the kernel profiler
-(``telemetry/kernel_profile``) times each wave's B1 or composite
-dispatch under its bucket key and meters its uploads and readbacks.
+members resume, so the wave's plans commit as one entry.
+
+Where several processes place against one store (the worker processes of
+``server/workerproc``), a coalescer may be given a placement turn: a
+wave takes it before it launches and reads the newest committed usage
+the turn hands it, and the turn is given back once every member of the
+wave has submitted its plan (or finished). Waves of different processes
+then never place against each other's uncommitted capacity.
+
+The fault points ``wave.launch`` and ``wave.d2h.drain`` and the tracer
+spans ``wave.assemble``, ``wave.park``, ``wave.launch`` and
+``kernel.d2h`` sit where the JAX launcher has them, and the kernel
+profiler (``telemetry/kernel_profile``) times each wave's B1 or
+composite dispatch under its bucket key and meters its uploads and
+readbacks.
 
 Waiting for a later slice of the port: the node-axis mesh and sharded
 dispatch (ROADMAP A.11).
@@ -655,7 +664,8 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
 
 
 class _Request:
-    __slots__ = ("kin", "k_steps", "features", "out", "error", "event")
+    __slots__ = ("kin", "k_steps", "features", "out", "error", "event",
+                 "thread")
 
     def __init__(self, kin, k_steps, features):
         self.kin = kin
@@ -664,6 +674,9 @@ class _Request:
         self.out: Optional[KernelOut] = None
         self.error: Optional[BaseException] = None
         self.event = threading.Event()
+        #: the member's thread: it holds the wave's placement turn until
+        #: its plan is submitted
+        self.thread = threading.get_ident()
 
 
 class _PlanWindow:
@@ -684,6 +697,8 @@ class _PlanWindow:
 
     def __exit__(self, *exc) -> None:
         self._coalescer.resume()
+        # the plan is in: this member no longer holds its wave's turn
+        self._coalescer.release_turn()
 
 
 class LaunchCoalescer:
@@ -695,6 +710,13 @@ class LaunchCoalescer:
     expires (a fraction of the EWMA wave latency clamped to
     ``[window_min_s, window_max_s]``). The thread that completes the
     rendezvous runs the device call; there is no dispatcher thread.
+
+    ``turn`` (optional) serializes placement with other processes: an
+    object with ``begin(kins) -> kins``, which blocks until this process
+    may place and returns the members' inputs with their shared usage
+    planes brought up to the newest committed state, and ``end()``. The
+    wave's members hold it from the launch until each has left its plan
+    window, launched again or finished.
     """
 
     #: deadline = EWMA wave latency x this fraction (clamped)
@@ -707,7 +729,7 @@ class LaunchCoalescer:
                  resident: Optional[ResidentUsage] = None,
                  window_min_s: float = 0.001,
                  window_max_s: float = 0.050,
-                 adaptive: bool = True) -> None:
+                 adaptive: bool = True, turn=None) -> None:
         self._cv = threading.Condition(
             witness_lock("LaunchCoalescer._lock"))
         self._active = participants
@@ -717,6 +739,9 @@ class LaunchCoalescer:
         self.window_min_s = window_min_s
         self.window_max_s = window_max_s
         self.adaptive = adaptive
+        self.turn = turn
+        #: threads of the members that hold the placement turn
+        self._holds: set = set()
         # stats (asserted by tests, reported by the worker)
         self.launches = 0
         self.requests = 0
@@ -741,6 +766,7 @@ class LaunchCoalescer:
 
     def launch(self, kin: KernelIn, k_steps: int,
                features: KernelFeatures) -> KernelOut:
+        self.release_turn()
         req = _Request(kin, k_steps, features)
         wave: Optional[List[_Request]] = None
         with self._cv:
@@ -785,18 +811,30 @@ class LaunchCoalescer:
         return req.out
 
     def done(self) -> None:
+        self.release_turn()
+        self._leave()
+
+    def _leave(self) -> None:
         wave: Optional[List[_Request]] = None
         with self._cv:
             self._active -= 1
             if self._pending and len(self._pending) >= self._active:
                 wave = self._pending
                 self._pending = []
-        if wave is not None:
+            holder = threading.get_ident() in self._holds
+        if wave is None:
+            return
+        if holder:
+            # a member entering its plan window holds the turn the next
+            # wave waits for: that wave fires on a thread of its own
+            threading.Thread(target=self._fire, args=(wave,), daemon=True,
+                             name="wave-fire").start()
+        else:
             self._fire(wave)
 
     def suspend(self) -> None:
         """Temporarily yield this participant's rendezvous slot."""
-        self.done()
+        self._leave()
 
     def resume(self) -> None:
         """Re-take the slot released by ``suspend``."""
@@ -806,7 +844,39 @@ class LaunchCoalescer:
     def plan_window(self) -> _PlanWindow:
         return _PlanWindow(self)
 
+    def release_turn(self) -> None:
+        """The calling member gives up its hold on the placement turn; the
+        last holder of a wave gives the turn back."""
+        if not self._holds:
+            return
+        me = threading.get_ident()
+        with self._cv:
+            if me not in self._holds:
+                return
+            self._holds.discard(me)
+            last = not self._holds
+        if last:
+            self.turn.end()
+
+    def _take_turn(self, wave: List[_Request]) -> bool:
+        """Wait for the placement turn and give the members the newest
+        usage; on an error every member fails with it."""
+        try:
+            kins = self.turn.begin([r.kin for r in wave])
+        except BaseException as e:   # noqa: BLE001 - re-raised per member
+            for r in wave:
+                r.error = e
+                r.event.set()
+            return False
+        for r, kin in zip(wave, kins):
+            r.kin = kin
+        with self._cv:
+            self._holds.update(r.thread for r in wave)
+        return True
+
     def _fire(self, wave: List[_Request], deadline_fired: bool = False) -> None:
+        if self.turn is not None and not self._take_turn(wave):
+            return
         # members may sit on different node-axis pad buckets after a
         # snapshot refresh; a joint launch needs one node axis
         groups: dict = {}

@@ -4,9 +4,8 @@ Counterpart of ``nomad_tpu/scheduler/``: the Scheduler factory registry
 (reference scheduler.go:24-61), the reconciler (reconcile.go), the
 placement stack (stack.go), host-side feasibility and eligibility
 caching (feasible.go), preemption, and the test harness (testing.go).
-``service`` and ``batch`` (and the ``xla-binpack`` alias) are
-registered; the system scheduler is not ported yet, and
-``new_scheduler("system", ...)`` raises a ``ValueError`` naming it.
+``service``, ``batch`` (and the ``xla-binpack`` alias), ``system`` and
+``sysbatch`` are registered, each taking a ``device``.
 """
 
 from nomad_tpu_torch.scheduler.scheduler import (  # noqa: F401
@@ -18,3 +17,4 @@ from nomad_tpu_torch.scheduler.scheduler import (  # noqa: F401
     new_scheduler,
 )
 from nomad_tpu_torch.scheduler.generic import GenericScheduler  # noqa: F401
+from nomad_tpu_torch.scheduler.system import SystemScheduler  # noqa: F401

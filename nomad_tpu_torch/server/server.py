@@ -9,11 +9,12 @@ log without changing any caller.
 
 Counterpart of ``nomad_tpu/server/server.py``. ``device`` (an argument
 of ``Server`` or a field of ``ServerConfig``; ``None`` means the card)
-is where every worker's placement waves and single-eval launches run.
-Settings that ask for a part of the system the port does not have yet
-raise ``NotImplementedError`` naming the ROADMAP item that adds it,
-instead of being ignored: ``use_device_mesh=True`` (A.11),
-``scheduler_workers > 0`` (A.3), ``data_dir`` and ``setup_raft`` (A.7),
+is where every worker's placement waves and single-eval launches run;
+with ``scheduler_workers > 0`` each worker process opens it too and
+places there (server/workerproc.py). Settings that ask for a part of the
+system the port does not have yet raise ``NotImplementedError`` naming
+the ROADMAP item that adds it, instead of being ignored:
+``use_device_mesh=True`` (A.11), ``data_dir`` and ``setup_raft`` (A.7),
 and a non-local ``authoritative_region`` (A.9). The API, ACL and
 federation methods import modules that A.7-A.9 add, and fail with an
 ``ImportError`` when called before them.
@@ -351,13 +352,22 @@ class Server:
         self.heartbeats = HeartbeatTimers(
             self._on_heartbeat_expire, ttl=self.config.heartbeat_ttl
         )
-        # every worker runs in this process (scheduler_workers > 0, the
-        # worker processes, is refused above)
+        # with worker processes enabled, the in-process workers shrink
+        # to the core (GC) queue — its schedulers mutate owner-only
+        # state; every other eval type is leased out by the supervisor
+        in_proc_schedulers = None
+        if self.config.scheduler_workers > 0:
+            in_proc_schedulers = [consts.JOB_TYPE_CORE]
         self.workers: List[Worker] = [
-            Worker(self, i, batch_size=self.config.worker_batch_size)
+            Worker(self, i, schedulers=in_proc_schedulers,
+                   batch_size=self.config.worker_batch_size)
             for i in range(self.config.num_workers)
         ]
         self.worker_supervisor = None
+        if self.config.scheduler_workers > 0:
+            from nomad_tpu_torch.server.workerproc import WorkerProcSupervisor
+
+            self.worker_supervisor = WorkerProcSupervisor(self)
         # leader-only lifecycle subsystems (leader.go establishLeadership
         # enables: periodic dispatcher, deployment watcher, drainer)
         from nomad_tpu_torch.server.deployment_watcher import DeploymentsWatcher
@@ -434,7 +444,13 @@ class Server:
         if self.raft is not None:
             self.raft.start()
         else:
-            self.establish_leadership()
+            try:
+                self.establish_leadership()
+            except Exception:
+                # a worker process that could not open its device: stop
+                # what leadership started, then say why
+                self.shutdown()
+                raise
         for w in self.workers:
             w.start()
 
@@ -1899,9 +1915,6 @@ def _refuse_unported(config: ServerConfig) -> None:
     if config.use_device_mesh:
         refused.append("use_device_mesh=True needs the node-axis mesh "
                        "(ROADMAP A.11)")
-    if config.scheduler_workers > 0:
-        refused.append("scheduler_workers > 0 needs server/workerproc "
-                       "(ROADMAP A.3)")
     if config.data_dir:
         refused.append("data_dir needs the durable raft log (ROADMAP A.7)")
     if config.authoritative_region and \

@@ -350,7 +350,10 @@ class Worker:
         )
         if not batch:
             return False
-        if len(batch) == 1:
+        if len(batch) == 1 and getattr(self.server, "placement_turn",
+                                       None) is None:
+            # (a worker process under a placement turn places even a
+            # single eval as a wave, so that it takes the turn)
             ev, token = batch[0]
             self._process(ev, token)
         else:
@@ -544,6 +547,9 @@ class Worker:
                 window_min_s=cfg.coalesce_window_min_ms / 1e3,
                 window_max_s=cfg.coalesce_window_max_ms / 1e3,
                 adaptive=cfg.coalesce_adaptive,
+                # a worker process's waves take the owner's placement
+                # turn (server/workerproc); in-process waves take none
+                turn=getattr(self.server, "placement_turn", None),
             )
 
             def one(ev: Evaluation, token: str,

@@ -51,6 +51,7 @@ import torch
 from nomad_tpu_torch.tensors.schema import (
     ClusterTensors,
     IncrementalClusterCache,
+    default_incremental_cluster_cache,
 )
 from nomad_tpu_torch.telemetry.kernel_profile import profiler
 from nomad_tpu_torch.telemetry.trace import tracer
@@ -399,6 +400,32 @@ class DeviceClusterState:
                 self.ensure(cluster, usage, dev)
             except Exception as err:    # noqa: BLE001 - counted; host planes serve
                 self.note_error(err)
+
+    def check_fresh(self, snapshot, device) -> Dict:
+        """The resident planes of ``snapshot`` on ``device`` against a
+        fresh ``ClusterTensors.build`` of it uploaded whole. The planes
+        are first advanced to the snapshot as a wave would advance them
+        (``request``, then ``advance_pending``); then every plane is
+        compared, dtype included. ``differ`` names the planes that are not
+        equal or are missing on either side; ``resident`` is False when
+        no generation of the snapshot is on the device."""
+        dev = device_key(device)
+        self.request(default_incremental_cluster_cache.get(snapshot),
+                     snapshot.usage, dev)
+        self.advance_pending(dev)
+        planes = self.planes_for(snapshot.usage, dev)
+        if planes is None:
+            return {"resident": False, "planes": 0, "differ": []}
+        fresh = ClusterTensors.build(snapshot.nodes()).wave_shared_planes(
+            snapshot.usage)
+        differ = sorted(set(planes) ^ set(fresh))
+        for f, arr in fresh.items():
+            want = torch.tensor(arr, device=dev)
+            got = planes.get(f)
+            if got is not None and not (got.dtype == want.dtype
+                                        and torch.equal(got, want)):
+                differ.append(f)
+        return {"resident": True, "planes": len(planes), "differ": differ}
 
     def ensure(self, cluster: ClusterTensors, usage,
                device) -> Optional[_Generation]:

@@ -62,6 +62,11 @@ class Twin:
         self.ref.state.upsert_job(job)
         self.port.state.upsert_job(port)
 
+    def upsert_allocs(self, allocs):
+        port = self.conv(allocs)
+        self.ref.state.upsert_allocs(allocs)
+        self.port.state.upsert_allocs(port)
+
     def update_node_drain(self, node_id, drain):
         for h in self.sides:
             h.state.update_node_drain(node_id, drain)
@@ -151,6 +156,16 @@ def compare_metrics(r, p, scores=True):
         np.testing.assert_allclose(pf, rf, rtol=0, atol=SCORE_ATOL)
 
 
+def _named_ids(plan, text):
+    """``text`` with the id of each alloc the plan places read as its
+    name: a preempted alloc's description names the new alloc's id, which
+    is random on each side."""
+    for allocs in plan.node_allocation.values():
+        for a in allocs:
+            text = text.replace(a.id, a.name)
+    return text
+
+
 def compare_plan(r, p):
     for field in ("node_allocation", "node_update", "node_preemptions"):
         rm, pm = _by_name(getattr(r, field)), _by_name(getattr(p, field))
@@ -161,10 +176,12 @@ def compare_plan(r, p):
                 (field, name)
             for a, b in zip(ra, pa):
                 for attr in ("desired_status", "client_status",
-                             "desired_description", "job_version",
-                             "task_group"):
+                             "job_version", "task_group"):
                     assert getattr(a, attr) == getattr(b, attr), (
                         field, name, attr)
+                assert (_named_ids(r, a.desired_description)
+                        == _named_ids(p, b.desired_description)), (
+                    field, name)
                 if field == "node_allocation":
                     compare_metrics(a.metrics, b.metrics)
                     assert ((a.previous_allocation == "")

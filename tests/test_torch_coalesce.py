@@ -4,9 +4,13 @@ The same member kins go through ``nomad_tpu.parallel.coalesce.launch_wave``
 and the port's ``launch_wave(device="cpu")``; every member's KernelOut
 must agree (choices, found, top-k indices and metrics exactly, scores
 within ``SCORE_ATOL``), over the shared, stacked and mixed layouts.
+The placement turn (the port's, for worker processes) is held by a
+wave's members until each has left its plan window, and a holder never
+waits on itself.
 """
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -299,3 +303,141 @@ def test_suspended_participant_does_not_hold_the_wave():
     co.resume()
     out = co.launch(pk[0], tp.K, tp.port_features(feats))
     assert co.launches == 2 and len(out.chosen) == tp.K
+
+
+class _MutexTurn:
+    """A placement turn held by one wave at a time (the owner's lock), whose
+    ``begin`` hands the members the inputs ``refresh`` makes."""
+
+    def __init__(self, refresh=None, error=None):
+        self._lock = threading.Semaphore(1)
+        self.refresh = refresh
+        self.error = error
+        self.begins = 0
+        self.ends = 0
+
+    def begin(self, kins):
+        if self.error is not None:
+            raise self.error
+        assert self._lock.acquire(timeout=30), "turn never given back"
+        self.begins += 1
+        return [self.refresh(k) for k in kins] if self.refresh else kins
+
+    def end(self):
+        self.ends += 1
+        self._lock.release()
+
+
+def _members(co, kins, feats, body):
+    """One thread per member: launch, then ``body(i, out)``, then done."""
+    outs, errors = [None] * len(kins), []
+
+    def member(i):
+        try:
+            outs[i] = co.launch(kins[i], tp.K, tp.port_features(feats))
+            body(i, outs[i])
+        except BaseException as e:    # noqa: BLE001 - asserted by callers
+            errors.append(e)
+        finally:
+            co.done()
+
+    threads = [threading.Thread(target=member, args=(i,))
+               for i in range(len(kins))]
+    for th in threads:
+        th.start()
+    return threads, outs, errors
+
+
+def test_turn_places_on_refreshed_inputs_until_every_plan_is_in():
+    """A wave under a placement turn runs on the inputs ``begin`` returns,
+    and the turn ends once, after the last member leaves its plan
+    window."""
+    kins, feats = tp.wave_members(31, "lean", 120, b=3)
+    pk = _port_kins(_layout(kins, "mixed"))
+    fuller = pk[0].used_cpu + np.float32(0.5) * (pk[0].cap_cpu
+                                                 - pk[0].used_cpu)
+    turn = _MutexTurn(refresh=lambda k: k._replace(used_cpu=fuller))
+    co = pc.LaunchCoalescer(3, device="cpu", adaptive=False, turn=turn)
+    inside, leave = threading.Barrier(4), threading.Event()
+
+    def plan(i, out):
+        with co.plan_window():
+            inside.wait(timeout=30)
+            assert leave.wait(timeout=30)
+
+    threads, outs, errors = _members(co, pk, feats, plan)
+    inside.wait(timeout=30)
+    assert turn.begins == 1 and turn.ends == 0    # plans not yet in
+    leave.set()
+    for th in threads:
+        th.join(timeout=60)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    assert co.launches == 1 and turn.ends == 1
+    want = pc.launch_wave([k._replace(used_cpu=fuller) for k in pk],
+                          [tp.K] * 3, [tp.port_features(feats)] * 3,
+                          device="cpu")
+    for got, exp in zip(outs, want):
+        np.testing.assert_array_equal(got.chosen, exp.chosen)
+        np.testing.assert_array_equal(got.found, exp.found)
+
+
+def test_turn_error_fails_every_member():
+    """A turn that cannot be had fails each member of the wave with its
+    error; nothing launches."""
+    kins, feats = tp.wave_members(32, "lean", 60, b=2)
+    turn = _MutexTurn(error=TimeoutError("turn held elsewhere"))
+    co = pc.LaunchCoalescer(2, device="cpu", adaptive=False, turn=turn)
+    threads, _, errors = _members(co, _port_kins(kins), feats,
+                                  lambda i, out: None)
+    for th in threads:
+        th.join(timeout=60)
+    assert not any(th.is_alive() for th in threads)
+    assert co.launches == 0 and turn.ends == 0
+    assert len(errors) == 2 and all(isinstance(e, TimeoutError)
+                                    for e in errors)
+
+
+def test_turn_holder_entering_its_plan_window_does_not_wait_on_itself():
+    """A member that holds the turn and completes the next wave's
+    rendezvous by entering its plan window does not wait for the turn it
+    holds: that wave fires on a thread of its own once the plan is in."""
+    kins, feats = tp.wave_members(33, "lean", 60, b=2)
+    pk = _port_kins(kins)
+    turn = _MutexTurn()
+    co = pc.LaunchCoalescer(2, device="cpu", adaptive=False, turn=turn)
+    co.suspend()                 # the second member starts later
+    outs, errors = [None] * 2, []
+
+    def first():
+        try:
+            outs[0] = co.launch(pk[0], tp.K, tp.port_features(feats))
+            second.start()
+            deadline = time.time() + 30
+            while not co._pending and time.time() < deadline:
+                time.sleep(0.005)
+            with co.plan_window():        # completes the second wave
+                time.sleep(0.05)
+        except BaseException as e:        # noqa: BLE001 - asserted below
+            errors.append(e)
+        finally:
+            co.done()
+
+    def run_second():
+        try:
+            co.resume()
+            outs[1] = co.launch(pk[1], tp.K, tp.port_features(feats))
+        except BaseException as e:        # noqa: BLE001 - asserted below
+            errors.append(e)
+        finally:
+            co.done()
+
+    second = threading.Thread(target=run_second)
+    one = threading.Thread(target=first)
+    one.start()
+    one.join(timeout=60)
+    second.join(timeout=60)
+    assert not one.is_alive() and not second.is_alive()
+    assert not errors, errors
+    assert co.launches == 2 and turn.begins == 2 and turn.ends == 2
+    assert all(o is not None and len(o.chosen) == tp.K for o in outs)

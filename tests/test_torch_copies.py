@@ -27,6 +27,7 @@ COPIES = (
     "structs/consts", "structs/network", "structs/resources",
     "structs/constraints", "structs/job", "structs/csi", "structs/node",
     "structs/alloc", "structs/eval_plan", "structs/__init__",
+    "structs/services",
     "utils/witness", "telemetry/histogram", "telemetry/trace",
     "state/pmap", "state/usage", "state/store", "state/__init__", "mock",
     "feasibility/attr_planes", "feasibility/cache", "feasibility/compiler",
@@ -35,7 +36,7 @@ COPIES = (
     "scheduler/feasible", "scheduler/preemption", "scheduler/reconcile",
     "scheduler/scaffold",
     "utils/delayheap", "utils/kheap", "utils/metrics", "utils/faultpoints",
-    "utils/wavecohort", "utils/timetable", "utils/cron",
+    "utils/wavecohort", "utils/timetable", "utils/cron", "utils/ipc",
     "server/plan_rejection", "server/blocked_evals",
     "server/eval_broker", "server/plan_queue", "server/fsm",
     "server/plan_apply", "server/stream", "server/readplane",

@@ -377,6 +377,19 @@ class TestPortOnly:
         ds.request(pair.cache.get(ps), ps.usage, "cpu")
         assert ds.hits == hits + 1 and not ds._pending
 
+    def test_check_fresh_names_a_plane_that_differs(self, pair):
+        """``check_fresh`` advances the resident planes to a snapshot and
+        finds them equal to a fresh upload; a plane changed on the device
+        is named."""
+        ds = pair.ds
+        pair.ensure()
+        pair.upsert_allocs([mock.alloc(node_id=pair.nodes()[1].id)])
+        snap = pair.port.snapshot()
+        res = ds.check_fresh(snap, "cpu")
+        assert res["resident"] and res["differ"] == [], res
+        ds.planes_for(snap.usage, "cpu")["used_cpu"][0] += 1.0
+        assert ds.check_fresh(snap, "cpu")["differ"] == ["used_cpu"]
+
     def test_configure_mesh_refuses_a_mesh(self):
         ds = DeviceClusterState()
         ds.configure_mesh(None)

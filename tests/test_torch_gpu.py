@@ -582,3 +582,133 @@ def test_cuda_warmup_marks_the_live_key_warm(cuda_device):
     finally:
         telemetry.disable()
         telemetry.reset()
+
+
+# ---------------------------------------------------------------------------
+# System jobs and worker processes on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["lean", "ports", "distinct", "devices",
+                                     "cores", "network", "kitchen_sink"])
+def test_cuda_feasible_mask_matches_cpu(variant, cuda_device):
+    """``_feasible_mask`` on the card against the same ``KernelIn`` on the
+    CPU, nodes half full to full: mask and fit planes exact."""
+    from nomad_tpu_torch.scheduler import system
+
+    kins, _ = tp.wave_members(5, variant, 383, b=1, lib="port")
+    rng = np.random.default_rng(5)
+    n_pad = kins[0].cap_cpu.shape[0]
+    kin = kins[0]._replace(
+        used_cpu=(kins[0].cap_cpu * rng.uniform(0.5, 1.0, n_pad)).astype(
+            np.float32),
+        used_mem=(kins[0].cap_mem * rng.uniform(0.5, 1.0, n_pad)).astype(
+            np.float32))
+    mask_d, dims_d = system._feasible_mask(kin, cuda_device)
+    mask_c, dims_c = system._feasible_mask(kin, "cpu")
+    np.testing.assert_array_equal(mask_d, mask_c)
+    assert dims_d.keys() == dims_c.keys()
+    for name in dims_c:
+        np.testing.assert_array_equal(dims_d[name], dims_c[name],
+                                      err_msg=name)
+    assert 0 < int(mask_c.sum()) < int(np.asarray(kin.base_mask).sum())
+
+
+@pytest.mark.gpu
+def test_cuda_system_job_places_like_the_cpu(cuda_device):
+    """A system job through ``new_scheduler("system", ...)`` on the card
+    places on the same nodes as on the CPU, one alloc per feasible ready
+    node, through one mask on the card."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.parallel import c2m
+    from nomad_tpu_torch.scheduler import system
+    from nomad_tpu_torch.scheduler.testing import Harness
+    from nomad_tpu_torch.state.store import StateStore
+
+    blob = c2m.generate(200, 600).to_snapshot_bytes()
+    # too big for a standard node with its allocs; too low a priority
+    # to preempt any
+    job = mock.system_job(priority=10,
+                          datacenters=[f"dc{i}" for i in range(1, 11)])
+    job.task_groups[0].tasks[0].resources.cpu = 3500
+    ev = mock.eval(job_id=job.id, type=job.type, priority=job.priority)
+    placed = {}
+    for dev in ("cpu", cuda_device):
+        store = StateStore()
+        store.restore_from_bytes(blob)
+        h = Harness(state=store, device=dev)
+        h.state.upsert_job(job.copy())
+        h.state.upsert_evals([ev.copy()])
+        before = system.mask_launches
+        h.process(job.type, ev.copy())
+        assert system.mask_launches == before + 1
+        assert h.evals[-1].status == "complete"
+        nodes = [a.node_id for a in h.placed_allocs()]
+        assert len(nodes) == len(set(nodes))
+        placed[str(dev)] = sorted(nodes)
+        assert tp.over_capacity_nodes(h.state) == 0
+    assert placed["cpu"] == placed[str(cuda_device)]
+    assert 0 < len(placed["cpu"]) < 200
+
+
+@pytest.mark.gpu
+def test_cuda_worker_processes_place_through_b1(cuda_device):
+    """``Server(scheduler_workers=2)`` on the card, 200 C2M nodes, 8 jobs
+    x 4 in two leases of 4: each worker process reports the card, places
+    its lease through B1 (no fallback, no failure, no device-state
+    error), and its resident planes equal a fresh upload."""
+    import time
+
+    from nomad_tpu_torch.parallel import c2m
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+    from nomad_tpu_torch.state.store import leased_generation_count
+    from nomad_tpu_torch.state.usage import usage_rebuild_diff
+
+    srv = Server(ServerConfig(num_workers=1, worker_batch_size=4,
+                              heartbeat_ttl=60.0, gc_tuning=False,
+                              coalesce_adaptive=False, scheduler_workers=2),
+                 device=cuda_device)
+    srv.state.restore_from_bytes(c2m.generate(200, 400).to_snapshot_bytes())
+    rng = np.random.default_rng(8)
+    jobs = []
+    for i in range(8):
+        job = c2m.burst_job(rng, i, prefix="card-wp")
+        job.task_groups[0].count = 4
+        jobs.append(job)
+        # registered before start: leadership restores the 8 evals and
+        # the supervisor leases them in two batches of 4, one each
+        srv.job_register(job)
+    srv.start()
+    try:
+        def placed():
+            snap = srv.state.snapshot()
+            return all(len(snap.allocs_by_job(j.namespace, j.id)) == 4
+                       for j in jobs)
+
+        deadline = time.time() + 180
+        while time.time() < deadline and not placed():
+            time.sleep(0.05)
+        assert placed(), srv.stats()["worker_procs"]
+        time.sleep(1.0)
+        sup = srv.worker_supervisor
+        counters = sup.child_counters()
+        name = torch.cuda.get_device_name(cuda_device)
+        assert [c["device"] for c in counters] == [name, name]
+        for c in counters:
+            assert c["b1_launches"] >= 1, c
+            assert c["fused"]["launches"] == c["b1_launches"], c
+            assert c["fused"]["fallbacks"] == 0, c
+            assert c["fused"]["failures"] == 0, c
+            assert c["device_state"]["errors"] == 0, c
+        # each wave took the placement turn
+        assert sum(c["turn"]["grants"] for c in counters) == \
+            sup.turn.grants >= 2
+        for h in sup.handles:
+            h.sync_state()
+            res = h.probe("resident")
+            assert res["resident"] and res["differ"] == [], res
+        assert usage_rebuild_diff(srv.state) == []
+        assert tp.over_capacity_nodes(srv.state) == 0
+    finally:
+        srv.shutdown()
+    assert leased_generation_count() == 0

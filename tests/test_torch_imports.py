@@ -3,8 +3,9 @@
 A subprocess blocks ``jax`` and ``nomad_tpu`` in ``sys.modules`` and
 still imports the port and runs one small wave, one profiled warmup
 entry (the kernel profiler, the warmup and the device state), one batched
-schedule-apply loop (``backend="kernel_topk"``), one scheduler eval
-through ``Harness(device="cpu")`` and one job through a started
+schedule-apply loop (``backend="kernel_topk"``), a service and a system
+eval through ``Harness(device="cpu")``, imports the worker processes'
+module, and runs one job through a started
 ``Server(device="cpu")`` on the CPU; a static scan finds no such
 import in the package or in chip_smoke.py; a default device entry point
 raises on a machine without a card.
@@ -74,6 +75,12 @@ h.state.upsert_job(job)
 ev = mock.eval(job_id=job.id, type=job.type)
 h.process("service", ev)
 assert len(h.placed_allocs()) == 10 and h.evals[-1].status == "complete"
+sys_job = mock.system_job()
+h.state.upsert_job(sys_job)
+ev = mock.eval(job_id=sys_job.id, type=sys_job.type)
+h.process("system", ev)
+assert len(h.placed_allocs()) == 15 and h.evals[-1].status == "complete"
+import nomad_tpu_torch.server.workerproc, nomad_tpu_torch.utils.ipc
 import time
 import nomad_tpu_torch.server
 from nomad_tpu_torch.server.server import Server, ServerConfig

@@ -1,9 +1,10 @@
 """The port's GenericScheduler against the JAX package's, eval by eval.
 
 The service and batch scenarios of ``tests/test_generic_sched.py`` (the
-system scheduler's are not ported) run on two harnesses in lockstep
-(``_torch_twin.Twin``): the same nodes, jobs, evals and alloc updates go
-to both stores, and after every eval the new plans and evals must agree.
+system scheduler's are in ``tests/test_torch_system.py``) run on two
+harnesses in lockstep (``_torch_twin.Twin``): the same nodes, jobs, evals
+and alloc updates go to both stores, and after every eval the new plans
+and evals must agree.
 Placements and stops by alloc name, eval statuses, blocked and follow-up
 evals and every ``AllocMetric`` counter exactly; scores within 1e-5. The
 reference runs its jitted kernels on the CPU, the port its plain torch
@@ -330,15 +331,6 @@ def test_scheduler_matches_reference(scenario):
     tw = Twin()
     scenario(tw)
     assert tw.port.plans or tw.port.evals
-
-
-def test_system_scheduler_is_not_ported():
-    from nomad_tpu_torch.scheduler import new_scheduler
-    from nomad_tpu_torch.scheduler.testing import Harness
-
-    h = Harness(device="cpu")
-    with pytest.raises(ValueError, match="system"):
-        new_scheduler("system", h.state.snapshot(), h, device="cpu")
 
 
 # -- the single-eval launcher -------------------------------------------------

@@ -785,7 +785,6 @@ def test_gc_treatment(mode):
 
 @pytest.mark.parametrize("setting,item", [
     ({"use_device_mesh": True}, "A.11"),
-    ({"scheduler_workers": 1}, "A.3"),
     ({"data_dir": "raft-data"}, "A.7"),
     ({"authoritative_region": "eu"}, "A.9"),
 ])
@@ -816,27 +815,28 @@ def test_setup_raft_raises():
         srv.setup_raft("s1", [], transport=None)
 
 
-def test_system_eval_is_nacked_to_failed_queue():
-    """The port has no system scheduler yet: ``new_scheduler`` raises
-    ``ValueError``, the worker nacks, and the eval ends failed through
-    the failed queue with a follow-up; it is never silently dropped."""
-    srv = PortServer(PortConfig(num_workers=1, eval_delivery_limit=1,
-                                heartbeat_ttl=60.0), device="cpu")
-    srv.eval_broker.initial_nack_delay = 0.0
+def test_system_eval_completes_through_the_server():
+    """A system job registered with the port's server places one alloc on
+    every ready node, and its eval completes."""
+    from nomad_tpu_torch import mock as port_mock
+
+    srv = PortServer(PortConfig(num_workers=1, heartbeat_ttl=60.0,
+                                gc_tuning=False), device="cpu")
     srv.start()
     try:
-        from nomad_tpu_torch import mock as port_mock
-
-        srv.node_register(port_mock.node())
-        out = srv.job_register(port_mock.system_job())
+        nodes = [port_mock.node() for _ in range(5)]
+        for n in nodes:
+            srv.node_register(n)
+        job = port_mock.system_job()
+        out = srv.job_register(job)
         wait_for(lambda: srv.state.snapshot().eval_by_id(
-            out["eval_id"]).status == consts.EVAL_STATUS_FAILED,
-            msg="system eval failed")
-        assert "unknown scheduler 'system'" in srv.workers[0].last_error
-        follow = [e for e in srv.state.snapshot().evals_iter()
-                  if e.previous_eval == out["eval_id"]]
-        assert [e.triggered_by for e in follow] == [
-            consts.EVAL_TRIGGER_FAILED_FOLLOW_UP]
+            out["eval_id"]).status == consts.EVAL_STATUS_COMPLETE,
+            msg="system eval complete", servers=(srv,))
+        snap = srv.state.snapshot()
+        live = [a for a in snap.allocs_by_job(job.namespace, job.id)
+                if not a.terminal_status()]
+        assert sorted(a.node_id for a in live) == sorted(n.id for n in nodes)
+        assert srv.workers[0].last_error is None
     finally:
         srv.shutdown()
 
