@@ -111,7 +111,36 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     agent: each eval complete, one alloc on every feasible ready node
     and on no other, the mask held against the CPU and a plain fit. One
     ``workerproc: {...}`` line per arm, and phase 11's window-off arm as
-    the arm without.
+    the arm without;
+14. a raft cluster (``chip_smoke.py --raft-cluster <state> <out.json>``,
+    a child process): three servers with phase 11's window-off settings,
+    each with its own data dir (WAL, stable store, snapshots; fsync
+    policy ``batch``), over the in-memory transport with the cluster
+    timers of ``server/testing.py`` (heartbeat 50 ms, election 300-600
+    ms). Each store restores phase 11's snapshot bytes before
+    ``start()``; once a leader is up every node snapshots that state into
+    its data dir. The 40 warm-up jobs, then the timed burst of 200,
+    registered by a thread with whichever server leads; when half of it
+    is placed the leader is killed (``hard_kill``) between two
+    registrations, the burst converges on the two survivors, and the
+    killed server is restarted from its data dir until it has applied
+    the leader's commit index and the three stores are equal. Gates: one
+    leader at a time and no leadership change in the burst but the
+    kill; B1 launches on the first leader and on the new one, 0
+    fallbacks and failures; once the new leader is established, every
+    request for resident planes names its store, and its resident planes
+    equal a fresh upload; every job with its 10 allocs, unique by name, none
+    over capacity, no failed eval, an empty broker, no worker error in
+    the burst (one before it only on a server whose leadership was
+    revoked: the acks its flushed broker refused); after the restart,
+    equal stores (index, allocs by id, node and status), usage planes
+    equal to a rebuild on each, a recovered snapshot; a valid failover
+    timeline. It reports evals/s before and after the kill, e2e and plan
+    latency, WAL fsync and entries per fsync, the quorum latency, the
+    failover (kill, leader won, established, the new leader's first
+    wave, converged; the timeline's phases), the restart's recovery and
+    catch-up, resident generations and bytes, the interpreter's stalls,
+    worker errors before the burst, thread errors and the child's RSS.
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -119,7 +148,8 @@ and power limit, and before that the kernels' JSON line (B1's entry
 counts its launches on the main path of phase 3 under ``launches``, on
 the scheduler path of phase 10 under ``sched_launches``, on phase 11's
 timed server bursts under ``server_launches`` and in phase 13's worker
-processes' timed bursts under ``workerproc_launches``; the warm-up
+processes' timed bursts under ``workerproc_launches``, in phase 14's
+timed burst, both leaders', under ``raft_launches``; the warm-up
 launches of phase 12 are counted apart, in its child processes). A full
 record goes to chiprun_out/chip_smoke.json.
 """
@@ -428,6 +458,8 @@ def cuda_ms(fn, reps: int) -> float:
 def main() -> int:
     if sys.argv[1:2] == ["--warm-start"]:
         return warm_start_child(*sys.argv[2:6])
+    if sys.argv[1:2] == ["--raft-cluster"]:
+        return raft_cluster_child(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke run needs an NVIDIA card", file=sys.stderr)
@@ -462,11 +494,13 @@ def main() -> int:
     server = run_server_phase(dev, record, state_bytes)
     run_warm_start_phase(record, state_bytes)
     workerproc = run_workerproc_phase(dev, record, state_bytes, server[-1])
+    raft = run_raft_phase(record, state_bytes, smi)
     del state_bytes
     kline["kernels"][0]["server_launches"] = sum(
         arm["b1_launches"] for arm in server)
     kline["kernels"][0]["workerproc_launches"] = sum(
         arm["b1_launches"] for arm in workerproc)
+    kline["kernels"][0]["raft_launches"] = raft["b1_launches"]
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -2180,6 +2214,667 @@ def run_workerproc_phase(dev: torch.device, record: dict,
     log(f"workerproc S=0 (phase 11, window off): {json.dumps(base)}")
     record["workerproc"] = {"S0": base, "arms": arms}
     return arms
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: a three-server raft cluster on the card, through a failover.
+# ---------------------------------------------------------------------------
+
+RAFT_SERVERS = 3
+RAFT_CHILD_TIMEOUT_S = 480.0    # the child process; killed when it is over
+RAFT_WAIT_S = 120.0             # an election, a catch-up, a submission
+#: the cluster has settled once no leader was won for this long (twice
+#: the longest election timeout)
+SETTLE_S = 1.2
+#: a gap in the stall watch's 5 ms sleep longer than this is a stall
+STALL_S = 0.05
+
+
+def run_raft_phase(record: dict, state_bytes: bytes, card: str) -> dict:
+    """Phase 14: phase 11's snapshot bytes in a fresh process that runs a
+    three-server durable raft cluster through a leader's kill and its
+    restart from disk (``raft_cluster_child``). A child, so that the
+    server's GC treatment freezes the three stores, their memory and the
+    killed server's resident generations go with it."""
+    with tempfile.TemporaryDirectory(prefix="raft_cluster_") as tmp:
+        state_path = Path(tmp) / "state.bin"
+        state_path.write_bytes(state_bytes)
+        out = Path(tmp) / "raft.json"
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--raft-cluster", str(state_path), str(out)],
+                capture_output=True, text=True,
+                timeout=RAFT_CHILD_TIMEOUT_S,
+                cwd=str(Path(__file__).resolve().parent))
+        except subprocess.TimeoutExpired:
+            fail(f"raft cluster: over {RAFT_CHILD_TIMEOUT_S} s")
+        for line in proc.stdout.splitlines():
+            log(f"raft: {line}")
+        check(proc.returncode == 0,
+              f"raft cluster failed (exit {proc.returncode}): "
+              f"{proc.stderr[-3000:]}")
+        res = json.loads(out.read_text())
+    res["process_s"] = time.perf_counter() - t0
+    res["card"] = card
+    log(f"raft: {json.dumps(res)}")
+    record["raft"] = res
+    return res
+
+
+class StallWatch:
+    """A thread that sleeps 5 ms at a time and records each wake that
+    came more than ``STALL_S`` late: how long something held the
+    interpreter lock (a pickle, a restore, a collection) away from every
+    thread, the raft timers' included."""
+
+    def __init__(self) -> None:
+        self.stalls: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="stall-watch")
+
+    def _run(self) -> None:
+        last = time.monotonic()
+        while not self._stop.wait(0.005):
+            now = time.monotonic()
+            if now - last - 0.005 > STALL_S:
+                self.stalls.append((last, now - last))
+            last = now
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+    def between(self, t0: float, t1: float) -> dict:
+        """Stalls that began in [t0, t1): count, longest, total, and the
+        five longest as (seconds after t0, seconds)."""
+        got = [(t, s) for t, s in self.stalls if t0 <= t < t1]
+        top = sorted(got, key=lambda x: -x[1])[:5]
+        return {"count": len(got),
+                "max_s": max((s for _, s in got), default=0.0),
+                "total_s": sum(s for _, s in got),
+                "longest": [(round(t - t0, 3), round(s, 3))
+                            for t, s in top]}
+
+
+def leader_wins(events, t0: float, t1: float = float("inf")) -> list:
+    return [e for e in events
+            if e["kind"] == "leader_won" and t0 <= e["t"] < t1]
+
+
+def take_worker_errors(servers, events, ctx: str) -> list:
+    """The last error of each worker of ``servers``, one line each,
+    cleared so that a later gate counts only its own. Each must be on a
+    server whose leadership was revoked in ``events``: a deposed
+    leader's worker keeps the acks that its flushed broker refused (the
+    in-flight batch's evals go back to the new leader from the store);
+    an error anywhere else fails."""
+    deposed = {e["server"] for e in events if e["kind"] == "revoked"}
+    got = []
+    for srv in servers:
+        for w in srv.workers:
+            if not w.last_error:
+                continue
+            line = w.last_error.strip().splitlines()[-1]
+            check(srv.config.name in deposed,
+                  f"{ctx}: worker error on {srv.config.name}, whose "
+                  f"leadership was not revoked: {line}")
+            got.append(f"{srv.config.name}: {line}")
+            w.last_error = None
+    return got
+
+
+def track_batches(srv, busy: dict) -> None:
+    """``busy[name]`` is true while a worker of ``srv`` holds a batch: from
+    a dequeue that handed out evals to the end of that ``run_once``. A
+    deposed leader's worker finishes its batch paused, seconds later
+    when a stall held the interpreter."""
+    name = srv.config.name
+    busy[name] = False
+    real_dequeue = srv.eval_broker.dequeue_batch
+
+    def dequeue_batch(*args, **kwargs):
+        out = real_dequeue(*args, **kwargs)
+        if out:
+            busy[name] = True
+        return out
+
+    srv.eval_broker.dequeue_batch = dequeue_batch
+    for w in srv.workers:
+        def run_once(timeout=0.0, real=w.run_once):
+            try:
+                return real(timeout)
+            finally:
+                busy[name] = False
+
+        w.run_once = run_once
+
+
+def quiesce(servers, raft_observer, busy: dict, ctx: str):
+    """Settle, then wait until no worker holds a batch and the leader's
+    broker is empty, with no leader won meanwhile; returns the
+    leader."""
+    deadline = time.monotonic() + RAFT_WAIT_S
+    while True:
+        leader = settle(servers, raft_observer, ctx)
+        t0 = time.monotonic()
+        while True:
+            bs = leader.eval_broker.stats()
+            if not any(busy.values()) and bs["total_ready"] \
+                    == bs["total_unacked"] == bs["total_waiting"] == 0:
+                break
+            check(time.monotonic() < deadline,
+                  f"{ctx}: workers still busy {busy}, leader's broker {bs}")
+            time.sleep(0.01)
+        if not leader_wins(raft_observer.events(t0), t0):
+            return leader
+
+
+def settle(servers, raft_observer, ctx: str):
+    """Wait until one server leads and no leader was won for
+    ``SETTLE_S`` (a stall that expired every timer may still be electing
+    when the first leader shows); returns the leader."""
+    from nomad_tpu_torch.server.testing import wait_for_leader
+
+    deadline = time.monotonic() + RAFT_WAIT_S
+    while True:
+        leader = wait_for_leader(servers, timeout=RAFT_WAIT_S)
+        now = time.monotonic()
+        if not leader_wins(raft_observer.events(now - SETTLE_S),
+                           now - SETTLE_S):
+            return leader
+        check(now < deadline, f"{ctx}: leadership did not settle")
+        time.sleep(0.05)
+
+
+def store_rows(srv) -> tuple:
+    """The store's index and ``alloc id -> (node, desired, client
+    status)``."""
+    snap = srv.state.snapshot()
+    return srv.state.latest_index(), {
+        a.id: (a.node_id, a.desired_status, a.client_status)
+        for a in snap.allocs_iter()}
+
+
+def resident_bytes(uid: str = "") -> tuple:
+    """(generations, bytes) resident in the process's device state; with
+    ``uid``, only the generations of that store's usage."""
+    gens = [g for k, g in list(default_device_state._gens.items())
+            if not uid or k[0] == uid]
+    return len(gens), sum(t.numel() * t.element_size()
+                          for g in gens for t in g.planes.values())
+
+
+def raft_cluster_child(state_path: str, out_path: str,
+                       device: str = "cuda") -> int:
+    """Phase 14 in its own process. Three servers on ``device`` (the card;
+    a rehearsal on the CPU names ``cpu``), each store restored from
+    phase 11's snapshot bytes before ``start()``, each with its own data
+    dir (WAL, stable store, snapshots; ``raft_fsync_policy="batch"``),
+    over the in-memory transport with ``CLUSTER_RAFT_CONFIG``'s timers.
+    Once a leader is up, every node writes a snapshot of that state to
+    its data dir. Then the 40 warm-up jobs, then the timed burst of 200:
+    a thread registers them with whichever server leads; when half are
+    placed the leader is killed (``hard_kill``), the burst converges on
+    the two survivors, and the killed server is restarted from its data
+    dir until it has applied the leader's commit index. The result goes
+    to ``out_path`` as JSON."""
+    import copy
+
+    from nomad_tpu_torch.raft.observe import raft_observer
+    from nomad_tpu_torch.raft.transport import (
+        InmemTransport,
+        TransportRegistry,
+    )
+    from nomad_tpu_torch.raft.wal import wal_stats
+    from nomad_tpu_torch.server.testing import (
+        CLUSTER_RAFT_CONFIG,
+        hard_kill,
+        restart_server,
+        wait_for_leader,
+    )
+    from nomad_tpu_torch.state.usage import usage_rebuild_diff
+    from nomad_tpu_torch.telemetry.histogram import (
+        RAFT_APPEND,
+        RAFT_QUORUM,
+        WAL_FSYNC,
+    )
+    from nomad_tpu_torch.telemetry.timeline import (
+        build_timeline,
+        validate_timeline,
+    )
+
+    dev = torch.device(device)
+    check(dev.type != "cuda" or torch.cuda.is_available(),
+          "raft cluster: no CUDA card")
+    ctx = "raft cluster"
+    t_phase = time.monotonic()
+    # the servers warm nothing: no manifest outside this run may be read
+    kernel_warmup.DEFAULT_MANIFEST_PATH = str(
+        Path(__file__).resolve().parent / "build" / "no_manifest.json")
+    thread_errors: list = []
+    default_hook = threading.excepthook
+
+    def count_thread_error(args) -> None:
+        thread_errors.append(f"{args.thread.name if args.thread else '?'}: "
+                             f"{args.exc_type.__name__}: {args.exc_value}")
+        default_hook(args)
+
+    threading.excepthook = count_thread_error
+    if dev.type == "cuda":
+        # the context and the kernels' libraries, before any server runs:
+        # either holds the interpreter lock for a while on first use
+        torch.zeros(1, device=dev)
+        ck.load_libraries()
+    stall = StallWatch()
+    stall.start()
+    state_bytes = Path(state_path).read_bytes()
+    cfg = ServerConfig(num_workers=1, worker_batch_size=SERVER_BATCH,
+                       heartbeat_ttl=3600.0, coalesce_adaptive=False,
+                       device=device)
+    check(cfg.raft_fsync_policy == "batch",
+          f"{ctx}: fsync policy {cfg.raft_fsync_policy}")
+    registry = TransportRegistry()
+    addrs = [f"server-{i}" for i in range(RAFT_SERVERS)]
+    servers: list = []
+    busy: dict = {}
+    res: dict = {"servers": RAFT_SERVERS, "device": str(dev)}
+    with tempfile.TemporaryDirectory(prefix="raft_data_") as data:
+        try:
+            # ---- build: each store seeded before start() ----
+            restore_s = []
+            for addr in addrs:
+                c = copy.deepcopy(cfg)
+                c.name = addr
+                c.data_dir = os.path.join(data, addr)
+                srv = Server(c)
+                t0 = time.monotonic()
+                srv.state.restore_from_bytes(state_bytes)
+                restore_s.append(time.monotonic() - t0)
+                srv.setup_raft(node_id=addr, peers=addrs,
+                               transport=InmemTransport(addr, registry),
+                               raft_config=CLUSTER_RAFT_CONFIG)
+                track_batches(srv, busy)
+                servers.append(srv)
+            del state_bytes
+            t_start = time.monotonic()
+            for srv in servers:
+                srv.start()
+            leader = wait_for_leader(servers, timeout=RAFT_WAIT_S)
+            elect_s = time.monotonic() - t_start
+            snapshot_s = []
+            for srv in servers:
+                t0 = time.monotonic()
+                srv.raft.force_snapshot()
+                snapshot_s.append(time.monotonic() - t0)
+            # phase 10's evals are still pending in the state (its harness
+            # records eval updates, not the store's rows): each leader
+            # restores them into its broker, so one deposed by the
+            # snapshots' stalls may keep errors from its last batch
+            leader = quiesce(servers, raft_observer, busy, ctx)
+            t_seeded = time.monotonic()
+            seeding_wins = leader_wins(raft_observer.events(t_start),
+                                       t_start)
+            res.update({
+                "restore_s": restore_s, "first_election_s": elect_s,
+                "force_snapshot_s": snapshot_s,
+                "snapshot_index": [s.raft.log.base_index() for s in servers],
+                "seeding_leader_wins": len(seeding_wins),
+                "seeding_stalls": stall.between(t_start, t_seeded),
+                "seeding_worker_errors": take_worker_errors(
+                    servers, raft_observer.events(t_start), ctx),
+            })
+            log(f"seeded: restores {[round(s, 2) for s in restore_s]} s, "
+                f"snapshots {[round(s, 2) for s in snapshot_s]} s, "
+                f"{len(seeding_wins)} leader wins, stalls "
+                f"{res['seeding_stalls']}, "
+                f"{len(res['seeding_worker_errors'])} worker errors")
+
+            # ---- warm-up ----
+            rng = np.random.default_rng(SEED + 14)
+            warm = [c2m.burst_job(rng, i, prefix="raft-warm")
+                    for i in range(SERVER_WARMUP_JOBS)]
+            t0 = time.monotonic()
+            for job in warm:
+                leader.job_register(job)
+            leader = wait_for_leader(servers, timeout=RAFT_WAIT_S)
+            server_converged(leader, warm, time.time() + SERVER_DEADLINE_S)
+            t1 = time.monotonic()
+            warm_wins = leader_wins(raft_observer.events(t0), t0)
+            res.update({"warmup_s": t1 - t0,
+                        "warmup_leader_wins": len(warm_wins),
+                        "warmup_stalls": stall.between(t0, t1)})
+            if warm_wins:
+                # a leadership change in the warm-up is counted, not
+                # failed
+                log(f"warm-up: {len(warm_wins)} leader wins, stalls "
+                    f"{res['warmup_stalls']}")
+                leader = quiesce(servers, raft_observer, busy, ctx)
+                res["warmup_worker_errors"] = take_worker_errors(
+                    servers, raft_observer.events(t_start), ctx)
+            check_server_burst(leader, warm, f"{ctx} warm-up")
+
+            # ---- the timed burst, through the kill ----
+            leader = quiesce(servers, raft_observer, busy, ctx)
+            res["pre_burst_worker_errors"] = take_worker_errors(
+                servers, raft_observer.events(t_start), ctx)
+            jobs = [c2m.burst_job(rng, i, prefix="raft-burst")
+                    for i in range(SERVER_JOBS)]
+            for name in ("e2e", WAL_FSYNC, RAFT_QUORUM, RAFT_APPEND):
+                histograms.get(name).reset()
+            for srv in servers:
+                srv.plan_latencies.clear()
+            plan_group_stats.reset()
+            coalesce.fused_wave_stats.reset()
+            coalesce.wave_stats.reset()
+            coalesce.upload_stats.reset()
+            default_device_state.reset_stats()
+            wal_stats.reset_stats()
+            first = leader
+            killed_uid = first.state.snapshot().usage.uid
+            waves0 = {s.config.name: s.workers[0].batch_launches
+                      for s in servers}
+            waves: list = []        # (start, end) of each launch_wave
+            requested: list = []
+            real_launch = coalesce.launch_wave
+            real_request = default_device_state.request
+
+            def timed_launch(*args, **kwargs):
+                t = time.monotonic()
+                out = real_launch(*args, **kwargs)
+                waves.append((t, time.monotonic()))
+                return out
+
+            def noted_request(cluster, usage, device):
+                requested.append((time.monotonic(),
+                                  getattr(usage, "uid", "")))
+                return real_request(cluster, usage, device)
+
+            coalesce.launch_wave = timed_launch
+            default_device_state.request = noted_request
+            alive = list(servers)
+            submit_errors: list = []
+            # the kill lands between two registrations: one in flight on
+            # a dead leader would wait out its apply's 10 s timeout
+            submit_lock = threading.Lock()
+
+            def submitter() -> None:
+                for job in jobs:
+                    deadline = time.monotonic() + RAFT_WAIT_S
+                    while True:
+                        with submit_lock:
+                            srv = next((s for s in alive if s.raft.is_leader()
+                                        and s.is_leader()), None)
+                            try:
+                                if srv is not None:
+                                    srv.job_register(job)
+                                    break
+                            except Exception as e:      # noqa: BLE001
+                                submit_errors.append(repr(e)[:200])
+                        if time.monotonic() > deadline:
+                            submit_errors.append(f"no leader took {job.id}")
+                            return
+                        time.sleep(0.005)
+
+            def placed_jobs(srv) -> int:
+                snap = srv.state.snapshot()
+                return sum(len(snap.allocs_by_job(j.namespace, j.id))
+                           >= c2m.BURST_COUNT for j in jobs)
+
+            pauses = GcPauses()
+            gc.callbacks.append(pauses)
+            ck.launches = 0
+            most_leaders = 0
+            t_burst = time.monotonic()
+            sub = threading.Thread(target=submitter, name="submitter")
+            sub.start()
+            deadline = time.monotonic() + SERVER_DEADLINE_S
+            while placed_jobs(first) < SERVER_JOBS // 2:
+                check(time.monotonic() < deadline,
+                      f"{ctx}: half the burst not placed by its deadline")
+                most_leaders = max(most_leaders, sum(
+                    s.raft.is_leader() for s in alive))
+                time.sleep(0.01)
+            with submit_lock:
+                placed_at_kill = placed_jobs(first)
+                submitted_at_kill = sum(1 for j in jobs if first.state
+                                        .snapshot().job_by_id(j.namespace,
+                                                              j.id))
+                alive.remove(first)
+                t_kill = time.monotonic()
+                hard_kill(first)
+                t_killed = time.monotonic()
+            first_b1 = ck.launches
+            first_waves = first.workers[0].batch_launches \
+                - waves0[first.config.name]
+            new = wait_for_leader(alive, timeout=RAFT_WAIT_S)
+            while sub.is_alive():
+                most_leaders = max(most_leaders, sum(
+                    s.raft.is_leader() for s in alive))
+                sub.join(0.01)
+            server_converged(new, jobs, time.time() + SERVER_DEADLINE_S)
+            t_conv = time.monotonic()
+            gc.callbacks.remove(pauses)
+            coalesce.launch_wave = real_launch
+            default_device_state.request = real_request
+            check(not any("no leader took" in e for e in submit_errors),
+                  f"{ctx}: submissions failed: {submit_errors[-3:]}")
+            new_b1 = ck.launches - first_b1
+            new_waves = new.workers[0].batch_launches \
+                - waves0[new.config.name]
+            fstats = coalesce.fused_wave_stats.snapshot()
+            gens_after, bytes_after = resident_bytes()
+            killed_gens, killed_bytes = resident_bytes(killed_uid)
+            e2e = histograms.get("e2e")
+            e2e_n = e2e.count
+            e2e_p50, e2e_p99 = e2e.quantiles((0.5, 0.99))
+            fsync_p50, fsync_p99 = histograms.get(WAL_FSYNC).quantiles(
+                (0.5, 0.99))
+            quorum_p50, quorum_p99 = histograms.get(RAFT_QUORUM).quantiles(
+                (0.5, 0.99))
+            append_p50, append_p99 = histograms.get(RAFT_APPEND).quantiles(
+                (0.5, 0.99))
+            wal = wal_stats.snapshot()
+            plan_lat = list(first.plan_latencies) + list(new.plan_latencies)
+            dstate = default_device_state.snapshot()
+            events = raft_observer.events(t_burst)
+            timeline = build_timeline(events, converged_mono=t_conv,
+                                      cell="phase14-raft-c2m")
+            problems = validate_timeline(timeline)
+            wins = leader_wins(events, t_burst, t_conv)
+            est = [e for e in events if e["kind"] == "established"
+                   and e["server"] == new.raft.id and e["t"] >= t_kill]
+            new_waves_t = [w for w in waves if w[0] > t_killed]
+            old_waves_s = [b - a for a, b in waves if b <= t_kill]
+            burst_stalls = stall.between(t_burst, t_conv)
+
+            # ---- the gates of the burst ----
+            check(len(wins) == 1 and wins[0]["server"] == new.raft.id
+                  and wins[0]["t"] > t_kill,
+                  f"{ctx}: leadership changed in the timed burst other than "
+                  f"by the kill: {[(e['server'], e['term'], round(e['t'] - t_burst, 3)) for e in wins]}; "
+                  f"stalls {burst_stalls}, gc {pauses.full} full "
+                  f"collections, {pauses.seconds:.3f} s")
+            check(most_leaders <= 1,
+                  f"{ctx}: {most_leaders} servers led at once")
+            check(fstats["fallbacks"] == 0 and fstats["failures"] == 0,
+                  f"{ctx}: waves fell back or failed: {fstats}")
+            check(ck.launches == fstats["launches"],
+                  f"{ctx}: B1 launches {ck.launches} != fused {fstats}")
+            check(first_b1 >= 1 and new_b1 >= 1,
+                  f"{ctx}: B1 launches: first leader {first_b1}, new "
+                  f"leader {new_b1}")
+            new_uid = new.state.snapshot().usage.uid
+            check(killed_uid != new_uid,
+                  f"{ctx}: the new leader's store has the killed uid")
+            check(est and new_waves_t,
+                  f"{ctx}: the new leader established {len(est)} times, "
+                  f"ran {len(new_waves_t)} waves")
+            # once the new leader is established every request for planes
+            # is its waves' (the killed server's last evals ask while it
+            # shuts down), and each names the new leader's store
+            after = [u for t, u in requested if t >= est[0]["t"]]
+            check(after and all(u == new_uid for u in after),
+                  f"{ctx}: {sum(u != new_uid for u in after)} of "
+                  f"{len(after)} requests after the new leader was "
+                  "established name another store")
+            check(dstate["errors"] == 0,
+                  f"{ctx}: device state errors: {dstate}")
+            check(e2e_n >= SERVER_JOBS, f"{ctx}: {e2e_n} e2e samples")
+            check_server_burst(new, jobs, ctx)
+            snap = new.state.snapshot()
+            for job in jobs:
+                names = [a.name for a in snap.allocs_by_job(
+                    job.namespace, job.id) if not a.terminal_status()]
+                check(len(set(names)) == len(names) == c2m.BURST_COUNT,
+                      f"{ctx}: job {job.id} allocs by name {sorted(names)}")
+            resident = check_resident(new, dev, ctx)
+            check(not problems, f"{ctx}: failover timeline: {problems}")
+            fos = timeline["failovers"]
+            check(len(fos) == 1 and fos[0]["resolved"]
+                  and fos[0]["leader_from"] == first.raft.id,
+                  f"{ctx}: failovers {fos}")
+            res.update({
+                "evals": SERVER_JOBS, "placed_at_kill": placed_at_kill,
+                "submitted_at_kill": submitted_at_kill,
+                "burst_s": t_conv - t_burst,
+                "evals_per_s_before_kill": placed_at_kill
+                / (t_kill - t_burst),
+                "evals_per_s_after_kill": (SERVER_JOBS - placed_at_kill)
+                / (t_conv - t_kill),
+                "evals_per_s_after_first_new_wave": (
+                    (SERVER_JOBS - placed_at_kill)
+                    / max(t_conv - new_waves_t[0][1], 1e-9)),
+                "e2e_samples": e2e_n,
+                "e2e_p50_ms": e2e_p50 * 1e3, "e2e_p99_ms": e2e_p99 * 1e3,
+                "plan_p50_ms": percentile(plan_lat, 0.5) * 1e3,
+                "plan_p99_ms": percentile(plan_lat, 0.99) * 1e3,
+                "plans": len(plan_lat),
+                "wal_fsync_p50_ms": fsync_p50 * 1e3,
+                "wal_fsync_p99_ms": fsync_p99 * 1e3,
+                "wal_fsyncs": wal["fsyncs"], "wal_frames": wal["frames"],
+                "entries_per_fsync": (wal["frames"] / wal["fsyncs"]
+                                      if wal["fsyncs"] else 0.0),
+                "wal_per_server": {k: v.get("fsync_batch_avg")
+                                   for k, v in wal_stats.per_server().items()},
+                "raft_quorum_p50_ms": quorum_p50 * 1e3,
+                "raft_quorum_p99_ms": quorum_p99 * 1e3,
+                "raft_append_p50_ms": append_p50 * 1e3,
+                "raft_append_p99_ms": append_p99 * 1e3,
+                "failover": {
+                    "kill_s": t_killed - t_kill,
+                    "to_leader_won_s": wins[0]["t"] - t_kill,
+                    "to_established_s": est[0]["t"] - t_kill,
+                    "to_first_new_wave_end_s": new_waves_t[0][1] - t_kill,
+                    "to_converged_s": t_conv - t_kill,
+                    "phases_ms": fos[0]["phases_ms"],
+                    "total_ms": fos[0]["total_ms"],
+                    "attributed_share": fos[0]["attributed_share"],
+                },
+                "first_leader": first.raft.id, "new_leader": new.raft.id,
+                "b1_launches_first": first_b1, "b1_launches_new": new_b1,
+                "b1_launches": ck.launches,
+                "waves_first": first_waves, "waves_new": new_waves,
+                "wave_latency_p50_ms":
+                    coalesce.wave_stats.snapshot()["wave_latency_p50_ms"],
+                # launch_wave: assembly, uploads, B1 and the readback
+                "first_new_wave_ms":
+                    (new_waves_t[0][1] - new_waves_t[0][0]) * 1e3,
+                "first_leader_wave_p50_ms":
+                    percentile(old_waves_s, 0.5) * 1e3,
+                "fallbacks": fstats["fallbacks"],
+                "killed_store_requests_in_kill": sum(
+                    u == killed_uid for t, u in requested
+                    if t_kill < t < est[0]["t"]),
+                "requests_after_established": len(after),
+                "submit_retries": len(submit_errors),
+                "device_state": dstate,
+                "resident_generations_after_kill": gens_after,
+                "resident_bytes_after_kill": bytes_after,
+                "killed_generations": killed_gens,
+                "killed_resident_bytes": killed_bytes,
+                "resident_check": resident,
+                "burst_stalls": burst_stalls,
+                "gc_full": pauses.full, "gc_s": pauses.seconds,
+                "group_commits": plan_group_stats.snapshot()["commit_batches"],
+                "rejected_node_plans":
+                    plan_group_stats.snapshot()["rejected_node_plans"],
+                "timeline_events": len(timeline["events"]),
+            })
+            log(f"burst: {placed_at_kill} of {SERVER_JOBS} jobs placed at "
+                f"the kill; B1 {first_b1} + {new_b1}; new leader "
+                f"{new.raft.id} won {wins[0]['t'] - t_kill:.3f} s after it")
+
+            # ---- restart from disk ----
+            t0 = time.monotonic()
+            fresh = restart_server(first, registry,
+                                   raft_config=CLUSTER_RAFT_CONFIG)
+            recover_s = time.monotonic() - t0
+            servers[servers.index(first)] = fresh
+            del first
+            target = new.raft.commit_index
+            deadline = time.monotonic() + RAFT_WAIT_S
+            while fresh.raft.last_applied < target:
+                check(time.monotonic() < deadline,
+                      f"{ctx}: the restarted server applied "
+                      f"{fresh.raft.last_applied} of {target} (its commit "
+                      f"{fresh.raft.commit_index}, log "
+                      f"{fresh.raft.log.base_index()}-"
+                      f"{fresh.raft.log.last_index()}, term "
+                      f"{fresh.raft.current_term}, leader "
+                      f"{fresh.raft.leader_id}; the leader's next index for "
+                      f"it {new.raft.next_index.get(fresh.raft.id)}, match "
+                      f"{new.raft.match_index.get(fresh.raft.id)}); thread "
+                      f"errors {thread_errors[:3]}")
+                time.sleep(0.01)
+            catch_up_s = time.monotonic() - t0 - recover_s
+            deadline = time.monotonic() + RAFT_WAIT_S
+            while True:
+                rows = [store_rows(s) for s in servers]
+                if all(r == rows[0] for r in rows[1:]):
+                    break
+                check(time.monotonic() < deadline,
+                      f"{ctx}: stores differ after the restart: "
+                      f"{[(r[0], len(r[1])) for r in rows]}")
+                time.sleep(0.1)
+            t_equal = time.monotonic()
+            for srv in servers:
+                check(usage_rebuild_diff(srv.state) == [],
+                      f"{ctx}: {srv.config.name}'s usage planes differ "
+                      "from a rebuild")
+            restart_wins = leader_wins(raft_observer.events(t0), t0)
+            check(fresh.raft.recovered_snapshot_index > 0,
+                  f"{ctx}: the restart recovered no snapshot")
+            res["restart"] = {
+                "server": fresh.raft.id,
+                "snapshot_index": fresh.raft.recovered_snapshot_index,
+                "replayed_entries": fresh.raft.replayed_entries,
+                "recover_s": recover_s, "catch_up_s": catch_up_s,
+                "stores_equal_s": t_equal - t0,
+                "index": rows[0][0], "allocs": len(rows[0][1]),
+                "leader_wins": len(restart_wins),
+                "stalls": stall.between(t0, t_equal),
+            }
+            res["rss_gb"] = rss_gb()
+            log(f"restart: {json.dumps(res['restart'])}")
+        finally:
+            for srv in servers:
+                try:
+                    srv.shutdown()
+                except Exception as e:                  # noqa: BLE001
+                    log(f"shutdown of {srv.config.name}: {e!r}")
+            stall.stop()
+            threading.excepthook = default_hook
+    res["thread_errors"] = thread_errors[:10]
+    res["thread_error_count"] = len(thread_errors)
+    res["phase_s"] = time.monotonic() - t_phase
+    Path(out_path).write_text(json.dumps(res))
+    return 0
 
 
 if __name__ == "__main__":

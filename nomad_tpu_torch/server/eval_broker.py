@@ -226,7 +226,13 @@ class EvalBroker:
             return
         ns_job = (ev.namespace, ev.job_id)
         outstanding = self._job_evals.get(ns_job)
-        if outstanding and outstanding != ev.id:
+        if outstanding == ev.id or any(
+                p.id == ev.id for _, _, p in self._pending.get(ns_job, ())):
+            # already ready or pending (eval_broker.go processEnqueue's
+            # evals map): a leader's restore and its FSM can both enqueue
+            # an eval, and a second copy is handed out twice
+            return
+        if outstanding:
             heapq.heappush(
                 self._pending.setdefault(ns_job, []),
                 (-ev.priority, next(self._pending_seq), ev),

@@ -14,10 +14,13 @@ with ``scheduler_workers > 0`` each worker process opens it too and
 places there (server/workerproc.py). Settings that ask for a part of the
 system the port does not have yet raise ``NotImplementedError`` naming
 the ROADMAP item that adds it, instead of being ignored:
-``use_device_mesh=True`` (A.11), ``data_dir`` and ``setup_raft`` (A.7),
-and a non-local ``authoritative_region`` (A.9). The API, ACL and
-federation methods import modules that A.7-A.9 add, and fail with an
-``ImportError`` when called before them.
+``use_device_mesh=True`` (A.11) and a non-local ``authoritative_region``
+(A.9). The API, ACL and federation methods import modules that A.8-A.9
+add, and fail with an ``ImportError`` when called before them.
+``setup_raft`` attaches the replicated log (``raft/``) as in the
+reference, with ``data_dir`` its durable WAL, stable store and
+snapshots; only the leader's workers dequeue evals, so only the leader
+launches placement waves on ``device``.
 """
 
 from __future__ import annotations
@@ -427,12 +430,46 @@ class Server:
 
     def setup_raft(self, node_id: str, peers: List[str], transport,
                    raft_config=None) -> None:
-        """Attach a replication log (server.go:1228 setupRaft): the
-        port has no raft yet, so a server stays a single-process
-        authority."""
-        raise NotImplementedError(
-            "Server.setup_raft needs nomad_tpu_torch.raft, which the port "
-            "does not have yet (ROADMAP A.7)")
+        """Attach a replication log (server.go:1228 setupRaft). With
+        ``config.data_dir`` set, the raft layer recovers its durable
+        state (term/vote, snapshot, WAL) from ``<data_dir>/raft``
+        before the node participates — the RaftNode constructor runs
+        restore_fn into this server's state store."""
+        from nomad_tpu_torch.raft.node import RaftConfig, RaftNode
+
+        data_dir = ""
+        if self.config.data_dir:
+            data_dir = os.path.join(self.config.data_dir, "raft")
+        if raft_config is None:
+            raft_config = RaftConfig(
+                max_in_flight=self.config.raft_max_in_flight,
+                leader_lease=self.config.raft_leader_lease,
+                lease_fraction=self.config.raft_lease_fraction,
+            )
+        self.raft = RaftNode(
+            node_id=node_id,
+            peers=peers,
+            transport=transport,
+            fsm_apply=self.fsm.apply,
+            fsm_apply_batch=self.fsm.apply_batch,
+            config=raft_config,
+            snapshot_fn=self.state.to_snapshot_bytes,
+            restore_fn=self.state.restore_from_bytes,
+            on_leader=self.establish_leadership,
+            on_follower=self.revoke_leadership,
+            data_dir=data_dir or None,
+            fsync_policy=self.config.raft_fsync_policy,
+        )
+        if data_dir:
+            # the fresh event ring knows nothing before this boot:
+            # everything the restored snapshot covers is trimmed
+            # history, so a client resuming `?index=` below it gets an
+            # explicit LostEvents marker instead of a silent gap.
+            # WAL-replayed entries re-publish through the normal FSM
+            # path with their original indexes (resumes above the
+            # floor stay gap-free and the `index <= from_index` filter
+            # keeps them duplicate-free).
+            self.event_broker.note_trimmed_through(self.state.latest_index())
 
     def start(self) -> None:
         """Start workers; leadership comes from raft when attached,
@@ -442,6 +479,12 @@ class Server:
         self._maybe_start_kernel_warmup()
         self.vault.start()
         if self.raft is not None:
+            # a follower's broker is disabled and returns at once, so an
+            # unpaused worker spins on the interpreter lock (Nomad's
+            # worker backs off, worker.go dequeueEvaluation); workers
+            # wait paused until establish_leadership
+            for w in self.workers:
+                w.set_pause(True)
             self.raft.start()
         else:
             try:
@@ -1915,8 +1958,6 @@ def _refuse_unported(config: ServerConfig) -> None:
     if config.use_device_mesh:
         refused.append("use_device_mesh=True needs the node-axis mesh "
                        "(ROADMAP A.11)")
-    if config.data_dir:
-        refused.append("data_dir needs the durable raft log (ROADMAP A.7)")
     if config.authoritative_region and \
             config.authoritative_region != config.region:
         refused.append("a non-local authoritative_region needs ACL "

@@ -5,8 +5,9 @@ still imports the port and runs one small wave, one profiled warmup
 entry (the kernel profiler, the warmup and the device state), one batched
 schedule-apply loop (``backend="kernel_topk"``), a service and a system
 eval through ``Harness(device="cpu")``, imports the worker processes'
-module, and runs one job through a started
-``Server(device="cpu")`` on the CPU; a static scan finds no such
+module, runs one job through a started ``Server(device="cpu")`` on the
+CPU, and places one job on a one-server durable raft cluster, restarts
+it from its data dir and finds the alloc; a static scan finds no such
 import in the package or in chip_smoke.py; a default device entry point
 raises on a machine without a card.
 """
@@ -101,6 +102,30 @@ finally:
     srv.shutdown()
 assert default_device_state.snapshot()["full_uploads"] >= 1
 assert default_device_state.snapshot()["errors"] == 0
+import tempfile
+from nomad_tpu_torch.server.testing import (hard_kill, make_cluster,
+                                            restart_server, wait_for_leader)
+with tempfile.TemporaryDirectory() as data:
+    (srv,), registry = make_cluster(
+        1, ServerConfig(gc_tuning=False, device="cpu"), data_dirs=[data])
+    try:
+        wait_for_leader([srv], timeout=60.0)
+        srv.node_register(mock.node())
+        job = mock.simple_job()
+        job.task_groups[0].count = 1
+        srv.job_register(job)
+        deadline = time.time() + 120
+        while time.time() < deadline and not srv.state.snapshot(
+                ).allocs_by_job(job.namespace, job.id):
+            time.sleep(0.01)
+        (alloc,) = srv.state.snapshot().allocs_by_job(job.namespace, job.id)
+        hard_kill(srv)
+        srv = restart_server(srv, registry)
+        wait_for_leader([srv], timeout=60.0)
+        assert srv.raft.replayed_entries > 0
+        assert srv.state.snapshot().alloc_by_id(alloc.id) is not None
+    finally:
+        srv.shutdown()
 new = {m for m in sys.modules if sys.modules[m] is not None
        and (m == "jax" or m.startswith(("jax.", "nomad_tpu.")))} - before
 assert not new, sorted(new)

@@ -785,7 +785,6 @@ def test_gc_treatment(mode):
 
 @pytest.mark.parametrize("setting,item", [
     ({"use_device_mesh": True}, "A.11"),
-    ({"data_dir": "raft-data"}, "A.7"),
     ({"authoritative_region": "eu"}, "A.9"),
 ])
 def test_unported_setting_raises(setting, item):
@@ -803,16 +802,45 @@ def test_settings_that_ask_for_nothing_unported_are_accepted(
                         str(tmp_path / "absent.json"))
     for cfg in ({"use_device_mesh": False}, {"use_device_mesh": None},
                 {"kernel_warmup": False}, {"kernel_warmup": None},
-                {"authoritative_region": "global"}):
+                {"authoritative_region": "global"},
+                {"data_dir": str(tmp_path / "data")}):
         srv = PortServer(PortConfig(num_workers=0, **cfg), device="cpu")
         srv.start()
         srv.shutdown()
 
 
-def test_setup_raft_raises():
-    srv = PortServer(PortConfig(num_workers=0), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.7"):
-        srv.setup_raft("s1", [], transport=None)
+def test_setup_raft_attaches_a_durable_log(tmp_path):
+    """``setup_raft`` with a ``data_dir`` recovers and journals under
+    ``<data_dir>/raft``: a one-server cluster elects itself, commits a
+    write through its WAL, and a restart from the directory finds it."""
+    from nomad_tpu_torch import mock as port_mock
+    from nomad_tpu_torch.raft.transport import InmemTransport, TransportRegistry
+
+    def boot():
+        srv = PortServer(PortConfig(num_workers=0, heartbeat_ttl=60.0,
+                                    data_dir=str(tmp_path)), device="cpu")
+        srv.setup_raft("s1", ["s1"], InmemTransport("s1", registry))
+        srv.start()
+        wait_for(srv.is_leader, msg="self-election", servers=(srv,))
+        return srv
+
+    registry = TransportRegistry()
+    node = port_mock.node()
+    srv = boot()
+    try:
+        assert srv.raft._durable
+        srv.node_register(node)
+        index = srv.state.latest_index()
+    finally:
+        srv.shutdown()
+    assert os.listdir(tmp_path / "raft")
+    srv = boot()
+    try:
+        assert srv.raft.replayed_entries > 0
+        assert srv.state.latest_index() >= index
+        assert srv.state.snapshot().node_by_id(node.id) is not None
+    finally:
+        srv.shutdown()
 
 
 def test_system_eval_completes_through_the_server():
