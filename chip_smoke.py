@@ -140,7 +140,30 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     failover (kill, leader won, established, the new leader's first
     wave, converged; the timeline's phases), the restart's recovery and
     catch-up, resident generations and bytes, the interpreter's stalls,
-    worker errors before the burst, thread errors and the child's RSS.
+    worker errors before the burst, thread errors and the child's RSS;
+15. the agent: ``python -m nomad_tpu_torch agent -config <file>
+    -http-port 0`` in a child process on the card (the config gives phase
+    11's window-off shape: one worker, batches of 32, no warmup
+    manifest), driven only over its HTTP API and its CLI. Phase 11's
+    state goes to it as an operator snapshot (``PUT
+    /v1/operator/snapshot``) and ``/v1/nodes`` must list every node
+    ready; the 40 warm-up jobs, then the timed burst of 200 through
+    ``PUT /v1/jobs`` from 8 client threads, every count reset just
+    before it (``PUT /v1/operator/traces`` with ``Reset``); ``job run``
+    and ``job status`` of an HCL job through the CLI; ``job plan`` of a
+    job that fits (10 places, no failed group); a traced burst of 40,
+    its spans reduced to waterfalls. Gates, read from the agent: B1
+    launches in the timed burst (the delta of
+    ``nomad_tpu_wave_fused_launches_total`` in the Prometheus scrape), 0
+    fallbacks, failures and device-state errors; from its snapshot
+    (``GET /v1/operator/snapshot``): every job with its 10 allocs unique
+    by name, no node over capacity, none of the bursts' evals failed; no
+    restored node down; SIGTERM ends the agent with exit 0 within 30 s.
+    It reports the restore's seconds, evals/s, the register latency, e2e
+    and the plan stages' p50/p99, waves, fill, B1 launches, the ``job
+    plan`` seconds, the spans' exclusive p50/p99 and the waterfall's
+    split, the child's RSS and the phase's seconds, beside phase 11's
+    window-off arm.
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -149,8 +172,10 @@ counts its launches on the main path of phase 3 under ``launches``, on
 the scheduler path of phase 10 under ``sched_launches``, on phase 11's
 timed server bursts under ``server_launches`` and in phase 13's worker
 processes' timed bursts under ``workerproc_launches``, in phase 14's
-timed burst, both leaders', under ``raft_launches``; the warm-up
-launches of phase 12 are counted apart, in its child processes). A full
+timed burst, both leaders', under ``raft_launches``, and in phase 15's
+timed burst, read from the agent's scrape, under ``agent_launches``; the
+warm-up launches of phase 12 are counted apart, in its child processes).
+A full
 record goes to chiprun_out/chip_smoke.json.
 """
 
@@ -495,12 +520,14 @@ def main() -> int:
     run_warm_start_phase(record, state_bytes)
     workerproc = run_workerproc_phase(dev, record, state_bytes, server[-1])
     raft = run_raft_phase(record, state_bytes, smi)
+    agent = run_agent_phase(dev, record, state_bytes, server[-1], smi)
     del state_bytes
     kline["kernels"][0]["server_launches"] = sum(
         arm["b1_launches"] for arm in server)
     kline["kernels"][0]["workerproc_launches"] = sum(
         arm["b1_launches"] for arm in workerproc)
     kline["kernels"][0]["raft_launches"] = raft["b1_launches"]
+    kline["kernels"][0]["agent_launches"] = agent["agent_launches"]
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -2875,6 +2902,485 @@ def raft_cluster_child(state_path: str, out_path: str,
     res["phase_s"] = time.monotonic() - t_phase
     Path(out_path).write_text(json.dumps(res))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the agent on the card, over its HTTP API and its CLI.
+# ---------------------------------------------------------------------------
+
+AGENT_START_S = 180.0       # the child's start, up to its "HTTP at" line
+AGENT_DEADLINE_S = 120.0    # per burst; a burst that takes longer fails
+AGENT_STOP_S = 30.0         # SIGTERM to exit
+AGENT_CLIENTS = 8           # threads submitting a burst, one client each
+AGENT_TRACED_JOBS = 40
+AGENT_POLL_S = 0.005
+#: the agent's config file. ``worker_batch_size`` and ``num_schedulers``
+#: give the agent phase 11's server shape (one worker, batches of 32);
+#: the window is off for the reason phase 11's third arm turns it off;
+#: no warmup manifest is read or written
+AGENT_CONFIG = """
+bind_addr = "127.0.0.1"
+server {
+  enabled           = true
+  num_schedulers    = 1
+  worker_batch_size = %d
+  coalesce_adaptive = false
+  kernel_warmup     = false
+}
+"""
+#: the job ``job run`` submits: a lean C2M ask, 10 placements
+AGENT_CLI_JOB = """
+job "%s" {
+  datacenters = [%s]
+  type        = "service"
+  group "web" {
+    count = %d
+    task "app" {
+      driver = "mock_driver"
+      resources {
+        cpu    = 250
+        memory = 256
+      }
+    }
+  }
+}
+"""
+
+
+class AgentChild:
+    """``python -m nomad_tpu_torch agent -config <file> -http-port 0`` as
+    a child process: its stdout is read on a thread (the ``HTTP at``
+    line gives the address), its stderr goes to a file."""
+
+    def __init__(self, config_path: str, log_path: str,
+                 device: str = "") -> None:
+        argv = [sys.executable, "-m", "nomad_tpu_torch", "agent",
+                "-config", config_path, "-http-port", "0"]
+        if device:
+            argv += ["-device", device]
+        self._err = open(log_path, "w")
+        self.log_path = log_path
+        self.proc = subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=self._err, text=True,
+            cwd=str(Path(__file__).resolve().parent))
+        self.lines: list = []
+        self.addr = ""
+        self.t_caught = 0.0
+        self._ready = threading.Event()
+        self._reader = threading.Thread(target=self._read, daemon=True,
+                                        name="agent-stdout")
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            line = line.rstrip("\n")
+            self.lines.append(line)
+            if "Caught signal" in line:
+                self.t_caught = time.perf_counter()
+            if "HTTP at " in line and not self.addr:
+                self.addr = line.split("HTTP at ", 1)[1].strip()
+                self._ready.set()
+        self._ready.set()
+
+    def wait_ready(self, timeout: float) -> str:
+        self._ready.wait(timeout)
+        check(bool(self.addr),
+              f"agent did not start in {timeout} s (exit "
+              f"{self.proc.poll()}): {self.lines[-5:]} {self.stderr()}")
+        return self.addr
+
+    def stderr(self) -> str:
+        if not self._err.closed:
+            self._err.flush()
+        return Path(self.log_path).read_text()[-3000:]
+
+    def rss_gb(self) -> float:
+        status = Path(f"/proc/{self.proc.pid}/status").read_text()
+        for line in status.splitlines():
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+        return 0.0
+
+    def terminate(self) -> None:
+        """SIGTERM: the agent shuts down and exits."""
+        self.t_term = time.perf_counter()
+        self.proc.terminate()
+
+    def wait_exit(self, timeout: float) -> dict:
+        """The exit code after ``terminate`` (None when it took longer
+        than ``timeout`` and was killed), the seconds to its exit, and of
+        them the seconds from its "Caught signal" line on (the agent's
+        shutdown and the interpreter's exit)."""
+        try:
+            rc = self.proc.wait(max(timeout - (time.perf_counter()
+                                               - self.t_term), 0.0))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            rc = None
+        t_exit = time.perf_counter()
+        self._reader.join(5.0)
+        self._err.close()
+        return {"rc": rc, "stop_s": t_exit - self.t_term,
+                "after_signal_line_s": t_exit - self.t_caught
+                if self.t_caught else None}
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self._err.closed:
+            self._err.close()
+
+
+def prometheus_values(text: str) -> dict:
+    """The scrape's samples as ``{"name{labels}": value}``."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            out[key] = float(val)
+    return out
+
+
+def scrape(addr: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(
+            f"{addr}/v1/metrics?format=prometheus", timeout=60) as r:
+        return prometheus_values(r.read().decode())
+
+
+def agent_idle(api) -> dict:
+    """The broker and blocked-eval counters of ``/v1/agent/self``."""
+    stats = api.agent.self()["Stats"]["nomad"]
+    return {"broker": stats["broker"], "blocked": stats["blocked"]}
+
+
+def agent_burst(addr: str, jobs, deadline: float, ctx: str) -> dict:
+    """Register ``jobs`` over HTTP (``PUT /v1/jobs``) from
+    ``AGENT_CLIENTS`` threads, each with its own ``APIClient``, then poll
+    the broker until it is empty with nothing unacked: the host clock at
+    that moment ends the burst. Returns the register latencies, the eval
+    ids and the burst's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nomad_tpu_torch.api.client import APIClient
+    from nomad_tpu_torch.api.codec import encode
+
+    local = threading.local()
+    wires = [encode(job) for job in jobs]
+
+    def register(wire) -> tuple:
+        api = getattr(local, "api", None)
+        if api is None:
+            api = local.api = APIClient(addr)
+        t = time.perf_counter()
+        res = api.jobs.register(wire)
+        return time.perf_counter() - t, res["EvalID"]
+
+    api = APIClient(addr)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(AGENT_CLIENTS) as ex:
+        out = list(ex.map(register, wires))
+    t_sent = time.perf_counter()
+    while time.time() < deadline:
+        idle = agent_idle(api)
+        b = idle["broker"]
+        if b["total_ready"] == b["total_unacked"] == b["total_waiting"] == 0:
+            break
+        time.sleep(AGENT_POLL_S)
+    else:
+        fail(f"{ctx}: burst of {len(jobs)} did not converge: "
+             f"{agent_idle(api)}")
+    t_done = time.perf_counter()
+    lats = [lat for lat, _ in out]
+    return {"jobs": len(jobs), "burst_s": t_done - t0,
+            "send_s": t_sent - t0,
+            "evals_per_s": len(jobs) / (t_done - t0),
+            "register_p50_ms": percentile(lats, 0.5) * 1e3,
+            "register_p99_ms": percentile(lats, 0.99) * 1e3,
+            "eval_ids": [eid for _, eid in out],
+            "blocked": idle["blocked"]}
+
+
+def span_from_api(row: dict):
+    """A ``/v1/operator/traces`` span row as the tracer's ``Span``."""
+    from nomad_tpu_torch.telemetry.trace import Span
+
+    dur = row["DurationMs"] / 1e3
+    cpu = row["CpuMs"] / 1e3
+    return Span(row["Name"], row["TraceID"], row["SpanID"], row["ParentID"],
+                row["Start"], dur, dur - row["ExclusiveMs"] / 1e3, cpu,
+                cpu - row["ExclusiveCpuMs"] / 1e3, row["Thread"])
+
+
+def span_table(rows: list) -> dict:
+    """Per span name: count, and its exclusive wall and CPU p50/p99."""
+    by: dict = {}
+    for r in rows:
+        by.setdefault(r["Name"], []).append(r)
+    return {name: {
+        "count": len(rs),
+        "excl_p50_ms": percentile([r["ExclusiveMs"] for r in rs], 0.5),
+        "excl_p99_ms": percentile([r["ExclusiveMs"] for r in rs], 0.99),
+        "excl_cpu_p50_ms": percentile(
+            [r["ExclusiveCpuMs"] for r in rs], 0.5),
+        "excl_cpu_p99_ms": percentile(
+            [r["ExclusiveCpuMs"] for r in rs], 0.99)}
+        for name, rs in sorted(by.items())}
+
+
+def check_agent_store(state, jobs, eval_ids, dev, ctx: str) -> dict:
+    """Every job with its allocations live and unique by name, none of
+    the bursts' evals failed, no node over capacity."""
+    from nomad_tpu_torch.parallel.coalesce import ClusterCache
+
+    snap = state.snapshot()
+    for ns, job_id, count in jobs:
+        live = [a for a in snap.allocs_by_job(ns, job_id)
+                if not a.terminal_status()]
+        names = {a.name for a in live}
+        check(len(live) == count and len(names) == count,
+              f"{ctx}: job {job_id} has {len(live)} live allocs, "
+              f"{len(names)} names")
+    failed = [eid for eid in eval_ids
+              if snap.eval_by_id(eid) is not None
+              and snap.eval_by_id(eid).status == consts.EVAL_STATUS_FAILED]
+    check(not failed, f"{ctx}: {len(failed)} failed evals")
+    missing = [eid for eid in eval_ids if snap.eval_by_id(eid) is None]
+    check(not missing, f"{ctx}: {len(missing)} evals not in the store")
+    over = store_over_capacity(state, ClusterCache(dev))
+    check(over == 0, f"{ctx}: {over} nodes over capacity")
+    pending = sum(1 for e in snap.evals_iter()
+                  if e.status == consts.EVAL_STATUS_PENDING)
+    return {"jobs": len(jobs), "evals": len(eval_ids),
+            "pending_evals_not_ours": pending}
+
+
+def operator_archive(state_bytes: bytes) -> tuple:
+    """A store's snapshot bytes as an operator snapshot archive (the
+    port's ``utils/snapshot`` format, what ``GET /v1/operator/snapshot``
+    gives), and the number of its nodes."""
+    from types import SimpleNamespace
+
+    from nomad_tpu_torch.state.store import StateStore
+    from nomad_tpu_torch.utils.snapshot import archive_snapshot
+
+    src = StateStore()
+    src.restore_from_bytes(state_bytes)
+    n_nodes = sum(1 for _ in src.snapshot().nodes())
+    return archive_snapshot(SimpleNamespace(state=src, raft=None)), n_nodes
+
+
+def run_agent_phase(dev: torch.device, record: dict, state_bytes: bytes,
+                    window_off: dict, card: str, device: str = "") -> dict:
+    """Phase 15: the agent in a child process, on the card unless
+    ``device`` names another, driven only over its HTTP API and its
+    CLI."""
+    import base64
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nomad_tpu_torch.api.client import APIClient
+    from nomad_tpu_torch.api.codec import encode
+    from nomad_tpu_torch.state.store import StateStore
+    from nomad_tpu_torch.telemetry.waterfall import (
+        aggregate_tail,
+        build_waterfalls,
+    )
+    from nomad_tpu_torch.utils.snapshot import read_snapshot
+
+    ctx = "agent"
+    t_phase = time.perf_counter()
+    res: dict = {"card": card, "clients": AGENT_CLIENTS,
+                 "worker_batch_size": SERVER_BATCH}
+    rng = np.random.default_rng(SEED + 15)
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="agent_") as tmp:
+        cfg = Path(tmp) / "agent.hcl"
+        cfg.write_text(AGENT_CONFIG % SERVER_BATCH)
+        t0 = time.perf_counter()
+        child = AgentChild(str(cfg), str(Path(tmp) / "agent.log"), device)
+        pool = ThreadPoolExecutor(1)
+        try:
+            # the archive is made while the agent starts
+            archiving = pool.submit(operator_archive, state_bytes)
+            addr = child.wait_ready(AGENT_START_S)
+            res["start_s"] = time.perf_counter() - t0
+            api = APIClient(addr)
+
+            # -- restore phase 11's state as an operator snapshot --------
+            archive, n_nodes = archiving.result()
+            res["archive_s"] = time.perf_counter() - t0
+            res["archive_mb"] = len(archive) / 1e6
+            body = base64.b64encode(archive).decode()
+            res["body_mb"] = len(body) / 1e6
+            t0 = time.perf_counter()
+            api.put("/v1/operator/snapshot", {"Snapshot": body})
+            res["restore_s"] = time.perf_counter() - t0
+            del archive, body
+            nodes = api.nodes.list()
+            ready = sum(1 for n in nodes if n["Status"] == "ready")
+            check(len(nodes) == n_nodes and ready == n_nodes,
+                  f"{ctx}: restored {len(nodes)} nodes, {ready} ready, "
+                  f"want {n_nodes}")
+            res["nodes"] = ready
+
+            # -- warm-up, then the timed burst with every count at 0 -----
+            warm = [c2m.burst_job(rng, i, prefix="agent-warm")
+                    for i in range(SERVER_WARMUP_JOBS)]
+            res["warmup"] = agent_burst(
+                addr, warm, time.time() + AGENT_DEADLINE_S,
+                f"{ctx} warm-up")
+            api.put("/v1/operator/traces", {"Reset": True})
+            before = scrape(addr)
+            jobs = [c2m.burst_job(rng, i, prefix="agent-burst")
+                    for i in range(SERVER_JOBS)]
+            burst = agent_burst(addr, jobs, time.time() + AGENT_DEADLINE_S,
+                                f"{ctx} burst")
+            after = scrape(addr)
+            hist = api.get("/v1/operator/slow-evals")["Histogram"]
+            res["burst"] = {k: v for k, v in burst.items()
+                            if k != "eval_ids"}
+            delta = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in (
+                "nomad_tpu_wave_fused_launches_total",
+                "nomad_tpu_wave_fused_fallbacks_total",
+                "nomad_tpu_wave_fused_failures_total",
+                "nomad_tpu_device_state_errors_total",
+                'nomad_tpu_wave_launches_total{fired="full"}',
+                'nomad_tpu_wave_launches_total{fired="deadline"}')}
+            res["scrape"] = delta
+            res["agent_launches"] = int(
+                delta["nomad_tpu_wave_fused_launches_total"])
+            waves = (delta['nomad_tpu_wave_launches_total{fired="full"}']
+                     + delta['nomad_tpu_wave_launches_total'
+                             '{fired="deadline"}'])
+            res["waves"] = int(waves)
+            # evals per wave, as phase 11 counts fill; the scrape's ratio
+            # is members over the coalescer's slots
+            res["evals_per_wave"] = len(jobs) / waves if waves else 0.0
+            res["wave_fill_ratio"] = after["nomad_tpu_wave_fill_ratio"]
+            res["evals_per_s"] = burst["evals_per_s"]
+            res["latency"] = {name: hist[name] for name in (
+                "e2e", "plan_queue", "plan_evaluate", "plan_commit",
+                "snapshot_wait") if name in hist}
+            e2e = hist.get("e2e", {})
+            res["e2e_p50_ms"] = e2e.get("p50_ms")
+            res["e2e_p99_ms"] = e2e.get("p99_ms")
+            check(res["agent_launches"] > 0,
+                  f"{ctx}: no B1 launch in the timed burst: {delta}")
+            check(delta["nomad_tpu_wave_fused_fallbacks_total"] == 0
+                  and delta["nomad_tpu_wave_fused_failures_total"] == 0,
+                  f"{ctx}: waves fell back or failed: {delta}")
+            check(delta["nomad_tpu_device_state_errors_total"] == 0,
+                  f"{ctx}: device state errors: {delta}")
+            check(e2e.get("count", 0) >= len(jobs),
+                  f"{ctx}: {e2e.get('count')} e2e samples")
+
+            # -- the CLI: job run, job status ----------------------------
+            dcs = ", ".join(f'"dc{d}"' for d in range(1, 11))
+            jobfile = Path(tmp) / "cli.hcl"
+            jobfile.write_text(AGENT_CLI_JOB % ("agent-cli", dcs,
+                                                c2m.BURST_COUNT))
+            cli = []
+            for argv in (["job", "run", str(jobfile)],
+                         ["job", "status", "agent-cli"]):
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, "-m", "nomad_tpu_torch", "-address",
+                     addr, *argv], capture_output=True, text=True,
+                    timeout=120, cwd=str(root))
+                cli.append({"argv": argv[:2], "rc": proc.returncode,
+                            "s": time.perf_counter() - t0})
+                check(proc.returncode == 0,
+                      f"{ctx}: {' '.join(argv[:2])} exited "
+                      f"{proc.returncode}: {proc.stdout[-1500:]} "
+                      f"{proc.stderr[-1500:]}")
+            res["cli"] = cli
+            placed = api.jobs.allocations("agent-cli")
+            check(len(placed) == c2m.BURST_COUNT,
+                  f"{ctx}: the CLI's job has {len(placed)} allocs")
+
+            # -- job plan on the card (endpoints.job_plan) ---------------
+            plan_job = c2m.burst_job(rng, 0, prefix="agent-plan")
+            t0 = time.perf_counter()
+            plan = api.jobs.plan(encode(plan_job))
+            res["job_plan_s"] = time.perf_counter() - t0
+            check(not plan["FailedTGAllocs"],
+                  f"{ctx}: job plan failed to place: "
+                  f"{plan['FailedTGAllocs']}")
+            updates = (plan["Annotations"] or {}).get(
+                "DesiredTGUpdates", {})
+            places = sum(u.get("Place", 0) for u in updates.values())
+            check(places == c2m.BURST_COUNT,
+                  f"{ctx}: job plan places {places}: {updates}")
+            res["job_plan_places"] = places
+
+            # -- a traced burst: the waterfall of the host work ----------
+            api.put("/v1/operator/traces", {"Enable": True, "Reset": True})
+            traced = [c2m.burst_job(rng, i, prefix="agent-traced")
+                      for i in range(AGENT_TRACED_JOBS)]
+            tburst = agent_burst(addr, traced,
+                                 time.time() + AGENT_DEADLINE_S,
+                                 f"{ctx} traced burst")
+            dump = api.get("/v1/operator/traces?limit=0")
+            api.put("/v1/operator/traces", {"Enable": False})
+            traced_scrape = scrape(addr)
+            spans = dump["Spans"]
+            wfs = build_waterfalls([span_from_api(r) for r in spans])
+            tail = aggregate_tail(wfs)
+            res["traced"] = {
+                "evals_per_s": tburst["evals_per_s"],
+                "spans": len(spans), "waterfalls": len(wfs),
+                "tail": {k: v for k, v in tail.items() if k != "slowest"},
+                "span_exclusive": span_table(spans),
+                "b1_launches": int(traced_scrape[
+                    "nomad_tpu_wave_fused_launches_total"]),
+            }
+            check(traced_scrape["nomad_tpu_wave_fused_fallbacks_total"] == 0
+                  and traced_scrape["nomad_tpu_wave_fused_failures_total"]
+                  == 0 and traced_scrape[
+                      "nomad_tpu_device_state_errors_total"] == 0,
+                  f"{ctx}: the traced burst fell back, failed or erred")
+            check(len(wfs) >= AGENT_TRACED_JOBS,
+                  f"{ctx}: {len(wfs)} waterfalls of {AGENT_TRACED_JOBS}")
+
+            # -- the agent's store, read back through its snapshot, and
+            # checked while the agent stops --------------------------------
+            t0 = time.perf_counter()
+            _meta, data = read_snapshot(api.operator.snapshot_save())
+            res["snapshot_save_s"] = time.perf_counter() - t0
+            nodes = api.nodes.list()
+            down = sum(1 for n in nodes if n["Status"] != "ready")
+            check(down == 0, f"{ctx}: {down} restored nodes not ready")
+            res["child_rss_gb"] = child.rss_gb()
+            child.terminate()
+            t0 = time.perf_counter()
+            final = StateStore()
+            final.restore_from_bytes(data)
+            del data
+            all_jobs = [(j.namespace, j.id, c2m.BURST_COUNT)
+                        for j in warm + jobs + traced]
+            all_jobs.append(("default", "agent-cli", c2m.BURST_COUNT))
+            res["store"] = check_agent_store(
+                final, all_jobs, res["warmup"]["eval_ids"]
+                + burst["eval_ids"] + tburst["eval_ids"], dev, ctx)
+            res["store"]["check_s"] = time.perf_counter() - t0
+            del final
+            res["warmup"].pop("eval_ids")
+            res["stop"] = child.wait_exit(AGENT_STOP_S)
+            check(res["stop"]["rc"] == 0,
+                  f"{ctx}: SIGTERM gave {res['stop']}: {child.stderr()}")
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+            child.kill()
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["window_off_server"] = {k: window_off.get(k) for k in (
+        "evals_per_s", "e2e_p50_ms", "e2e_p99_ms", "plan_p50_ms",
+        "plan_p99_ms", "b1_launches", "waves", "wave_fill", "restore_s")}
+    log(f"agent: {json.dumps(res)}")
+    record["agent"] = res
+    return res
 
 
 if __name__ == "__main__":

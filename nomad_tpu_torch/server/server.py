@@ -14,9 +14,9 @@ with ``scheduler_workers > 0`` each worker process opens it too and
 places there (server/workerproc.py). Settings that ask for a part of the
 system the port does not have yet raise ``NotImplementedError`` naming
 the ROADMAP item that adds it, instead of being ignored:
-``use_device_mesh=True`` (A.11) and a non-local ``authoritative_region``
-(A.9). The API, ACL and federation methods import modules that A.8-A.9
-add, and fail with an ``ImportError`` when called before them.
+``use_device_mesh=True`` (A.11). Forwarding a job to its region and
+replicating ACLs from the authoritative region go through the port's
+``api/client``, as in the reference.
 ``setup_raft`` attaches the replicated log (``raft/``) as in the
 reference, with ``data_dir`` its durable WAL, stable store and
 snapshots; only the leader's workers dequeue evals, so only the leader
@@ -1958,10 +1958,6 @@ def _refuse_unported(config: ServerConfig) -> None:
     if config.use_device_mesh:
         refused.append("use_device_mesh=True needs the node-axis mesh "
                        "(ROADMAP A.11)")
-    if config.authoritative_region and \
-            config.authoritative_region != config.region:
-        refused.append("a non-local authoritative_region needs ACL "
-                       "replication over the API client (ROADMAP A.9)")
     if refused:
         raise NotImplementedError(
             "not in the PyTorch port yet: " + "; ".join(refused))

@@ -6,7 +6,9 @@ latency histograms) are own copies of the JAX package's modules;
 or dispatch, and execute, and meters the bytes a wave moves. ``enable``
 and ``disable`` drive the tracer and the profiler together; ``reset``
 zeroes both with the wave and device-state counters of the same window.
-The exporters are not part of the port.
+``exporter`` renders them all as Prometheus text and the operator's JSON
+bodies, and ``waterfall`` reduces an eval's spans to its critical path;
+``timeline`` records a failover.
 """
 
 from __future__ import annotations

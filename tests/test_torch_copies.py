@@ -15,7 +15,9 @@ scheduler's context, stack, generic, testing and package init, the
 server's worker, server and heartbeat timers) are held by the parity
 tests instead. Of ``server/server.py``, the methods that wire the raft
 log into the server (``RAFT_WIRING``) must equal the reference's the
-same way, method by method.
+same way, method by method; of ``telemetry/exporter.py``, every function
+but ``prometheus_text`` (``EXPORTER_FUNCTIONS``). The web UI's static
+assets, which ``api/http`` serves, are the reference's bytes.
 """
 
 import ast
@@ -48,6 +50,14 @@ COPIES = (
     "server/secrets", "server/__init__",
     "raft/__init__", "raft/log", "raft/observe", "raft/wal",
     "raft/transport", "raft/node", "server/testing", "telemetry/timeline",
+    "api/codec", "structs/namespace", "structs/diff", "server/endpoints",
+    "server/search", "utils/snapshot", "utils/monitor",
+    "telemetry/waterfall", "server/membership",
+    "jobspec/hcl", "jobspec/eval", "jobspec/parse", "jobspec/__init__",
+    "acl/policy", "acl/acl", "acl/resolver", "acl/__init__",
+    "utils/tlsutil", "utils/ws", "api/http", "api/client",
+    "api/config_file", "api/__init__", "api/agent",
+    "cli/fmt", "cli/main", "cli/__init__", "__main__",
 )
 
 #: deliberate differences of a copy from its reference: each (reference
@@ -68,6 +78,79 @@ PATCHES = {
         "self._pending.get(ns_job, ())):\n"
         "            return\n"
         "        if outstanding:\n"),),
+    # ``job plan`` dry-runs its scheduler on the server's device
+    "server/endpoints": ((
+        "    h = Harness(state=shadow)\n",
+        "    h = Harness(state=shadow, device=server.device)\n"),),
+    # the agent names its server's device (None is the card) and its
+    # workers' batch size (1, the reference's, places each eval alone:
+    # no wave reaches B1), and client mode is refused before any server
+    # is built, naming ROADMAP A.10
+    "api/agent": ((
+        "    raft_lease_fraction: float = 0.75\n",
+        "    raft_lease_fraction: float = 0.75\n"
+        "    device: Optional[str] = None\n"
+        "    worker_batch_size: int = 1\n"), (
+        "        if self.config.server_enabled:\n"
+        "            self._setup_server()\n"
+        "        if self.config.client_enabled:\n"
+        "            self._setup_client()\n",
+        "        if self.config.client_enabled:\n"
+        "            self._setup_client()\n"
+        "        if self.config.server_enabled:\n"
+        "            self._setup_server()\n"), (
+        "            raft_lease_fraction=self.config.raft_lease_fraction,\n",
+        "            raft_lease_fraction=self.config.raft_lease_fraction,\n"
+        "            device=self.config.device,\n"
+        "            worker_batch_size=self.config.worker_batch_size,\n"), (
+        "        from nomad_tpu.client.client import Client, ClientConfig, "
+        "InProcessRPC\n"
+        "\n"
+        "        if self.server is None:\n"
+        "            raise ValueError(\n"
+        "                \"client-only agents need a server address "
+        "(in-process \"\n"
+        "                \"agent requires server_enabled)\"\n"
+        "            )\n"
+        "        cfg = ClientConfig(\n"
+        "            node_class=self.config.node_class,\n"
+        "            plugin_dir=self.config.plugin_dir,\n"
+        "            options=self.config.client_options,\n"
+        "        )\n"
+        "        self.client = Client(InProcessRPC(self.server), cfg)\n",
+        "        raise NotImplementedError(\n"
+        "            \"not in the PyTorch port yet: client mode (-dev, "
+        "-client) \"\n"
+        "            \"needs the client and its plugins (ROADMAP A.10)\")\n")),
+    # the server block's ``worker_batch_size`` sets the agent's
+    "api/config_file": ((
+        "        if \"scheduler_workers\" in sa:\n"
+        "            cfg.scheduler_workers = int(sa[\"scheduler_workers\"])\n",
+        "        if \"scheduler_workers\" in sa:\n"
+        "            cfg.scheduler_workers = int(sa[\"scheduler_workers\"])\n"
+        "        if \"worker_batch_size\" in sa:\n"
+        "            cfg.worker_batch_size = int(sa[\"worker_batch_size\"])\n"),),
+    # ``agent -device`` picks the server's device, and a refused setting
+    # exits 1 with its message
+    "cli/main": ((
+        "    if args.plugin_dir:\n"
+        "        cfg.plugin_dir = args.plugin_dir\n",
+        "    if args.plugin_dir:\n"
+        "        cfg.plugin_dir = args.plugin_dir\n"
+        "    if args.device:\n"
+        "        cfg.device = args.device\n"), (
+        "    except ValueError as e:\n"
+        "        return _fail(str(e))\n"
+        "    agent.start()\n",
+        "    except (ValueError, NotImplementedError) as e:\n"
+        "        return _fail(str(e))\n"
+        "    agent.start()\n"), (
+        "                    help=\"directory of external driver plugins\")\n",
+        "                    help=\"directory of external driver plugins\")\n"
+        "    ag.add_argument(\"-device\", default=None,\n"
+        "                    help=\"device the server places on (default: "
+        "the \"\n"
+        "                    \"CUDA card; 'cpu' runs the plain versions)\")\n")),
 }
 
 _PACKAGE = re.compile(r"\bnomad_tpu\b")
@@ -123,3 +206,43 @@ def test_server_raft_wiring_matches_reference(name):
     assert _method(port, "Server", name) == _method(
         _PACKAGE.sub("nomad_tpu_torch", ref), "Server", name), (
         f"Server.{name} drifted from the reference")
+
+
+#: functions of ``telemetry/exporter.py`` copied whole; its
+#: ``prometheus_text`` differs (the sharded series at zero, the fused
+#: failures series, no source dropped in silence) and is held by its
+#: series against the reference's in ``test_torch_serving_plane.py``
+EXPORTER_FUNCTIONS = (
+    "_esc", "_lbl", "traces_json", "stream_health_json",
+    "cluster_health_json", "slow_raft_json", "slow_evals_json",
+)
+
+
+def _function(text: str, name: str) -> str:
+    tree = ast.parse(text)
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    return _code(ast.unparse(fn))
+
+
+def test_exporter_holds_every_function_it_copies():
+    port = (ROOT / "nomad_tpu_torch" / "telemetry" / "exporter.py").read_text()
+    tree = ast.parse(port)
+    names = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert names == set(EXPORTER_FUNCTIONS) | {"prometheus_text"}
+
+
+@pytest.mark.parametrize("name", EXPORTER_FUNCTIONS)
+def test_exporter_function_matches_reference(name):
+    ref = (ROOT / "nomad_tpu" / "telemetry" / "exporter.py").read_text()
+    port = (ROOT / "nomad_tpu_torch" / "telemetry" / "exporter.py").read_text()
+    assert _function(port, name) == _function(
+        _PACKAGE.sub("nomad_tpu_torch", ref), name), (
+        f"exporter.{name} drifted from the reference")
+
+
+@pytest.mark.parametrize("name", ("index.html", "app.js"))
+def test_ui_asset_is_the_reference_bytes(name):
+    """``api/http`` serves the web UI from ``../ui`` beside itself."""
+    assert (ROOT / "nomad_tpu_torch" / "ui" / name).read_bytes() == (
+        ROOT / "nomad_tpu" / "ui" / name).read_bytes()

@@ -7,9 +7,11 @@ schedule-apply loop (``backend="kernel_topk"``), a service and a system
 eval through ``Harness(device="cpu")``, imports the worker processes'
 module, runs one job through a started ``Server(device="cpu")`` on the
 CPU, and places one job on a one-server durable raft cluster, restarts
-it from its data dir and finds the alloc; a static scan finds no such
-import in the package or in chip_smoke.py; a default device entry point
-raises on a machine without a card.
+it from its data dir and finds the alloc, then imports the agent, its
+HTTP API and CLI, runs ``python -m nomad_tpu_torch version`` and places
+one job submitted over HTTP to an agent on the CPU; a static scan finds
+no such import in the package or in chip_smoke.py; a default device
+entry point raises on a machine without a card.
 """
 
 import ast
@@ -126,6 +128,41 @@ with tempfile.TemporaryDirectory() as data:
         assert srv.state.snapshot().alloc_by_id(alloc.id) is not None
     finally:
         srv.shutdown()
+import io, runpy, contextlib
+import nomad_tpu_torch.api.agent, nomad_tpu_torch.api.http
+import nomad_tpu_torch.cli.main
+out = io.StringIO()
+sys.argv = ["nomad_tpu_torch", "version"]
+with contextlib.redirect_stdout(out):
+    try:  # python -m nomad_tpu_torch version
+        runpy.run_module("nomad_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert out.getvalue().startswith("nomad-tpu v"), out.getvalue()
+from nomad_tpu_torch.api.agent import Agent, AgentConfig
+from nomad_tpu_torch.api.client import APIClient
+from nomad_tpu_torch.api.codec import encode
+agent = Agent(AgentConfig(device="cpu", num_schedulers=1,
+                          serf_enabled=False))
+agent.start()
+try:
+    for _ in range(3):
+        agent.server.node_register(mock.node())
+    api = APIClient(agent.http_addr)
+    job = mock.simple_job()
+    job.task_groups[0].count = 2
+    api.jobs.register(encode(job))
+    deadline = time.time() + 120
+    while time.time() < deadline and len(api.jobs.allocations(job.id)) < 2:
+        time.sleep(0.02)
+    assert len(api.jobs.allocations(job.id)) == 2
+    import urllib.request
+    with urllib.request.urlopen(
+            agent.http_addr + "/v1/metrics?format=prometheus") as r:
+        assert b"nomad_tpu_wave_fused_failures_total" in r.read()
+finally:
+    agent.shutdown()
 new = {m for m in sys.modules if sys.modules[m] is not None
        and (m == "jax" or m.startswith(("jax.", "nomad_tpu.")))} - before
 assert not new, sorted(new)

@@ -785,7 +785,6 @@ def test_gc_treatment(mode):
 
 @pytest.mark.parametrize("setting,item", [
     ({"use_device_mesh": True}, "A.11"),
-    ({"authoritative_region": "eu"}, "A.9"),
 ])
 def test_unported_setting_raises(setting, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -803,6 +802,7 @@ def test_settings_that_ask_for_nothing_unported_are_accepted(
     for cfg in ({"use_device_mesh": False}, {"use_device_mesh": None},
                 {"kernel_warmup": False}, {"kernel_warmup": None},
                 {"authoritative_region": "global"},
+                {"authoritative_region": "eu"},
                 {"data_dir": str(tmp_path / "data")}):
         srv = PortServer(PortConfig(num_workers=0, **cfg), device="cpu")
         srv.start()
