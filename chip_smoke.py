@@ -163,7 +163,49 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     and the plan stages' p50/p99, waves, fill, B1 launches, the ``job
     plan`` seconds, the spans' exclusive p50/p99 and the waterfall's
     split, the child's RSS and the phase's seconds, beside phase 11's
-    window-off arm.
+    window-off arm;
+16. the client: part A, ``python -m nomad_tpu_torch agent -dev -config
+    <file> -http-port 0`` in a child process on the card (server and
+    client in one process; phase 15's server block, and a client block
+    naming the dev node's class ``card-client``). Phase 11's state goes
+    to it as an operator snapshot; the restore drops the dev node, and
+    the client registers it again on its next heartbeat: ``/v1/nodes``
+    must list every node ready and one of that class. The native
+    executor must have built (raw_exec supervises through it). A burst
+    of 32 batch jobs of 4 raw_exec tasks (``sh -c 'echo
+    "$NOMAD_ALLOC_ID"'``, phase 13's node-agent ask, an ephemeral disk
+    of 10 MB) pinned to that class by a constraint, through ``PUT
+    /v1/jobs`` from 8 threads, traced and with every count reset just
+    before it: B1 places the 128 allocs over the whole cluster's planes.
+    Gates: B1 launches (the scrape's delta) at least 1 and fewer than
+    the evals, 0 fallbacks, failures and device-state errors; every
+    fused wave at the cluster's padded width (N=16384, from the kernel
+    profiler's keys); every alloc on the dev node, ``complete``, its
+    task dead after one run with exit code 0; each one's stdout log
+    (``GET /v1/client/fs/logs``, read as soon as the alloc is complete:
+    the client keeps 50 terminal allocs and removes older ones' dirs)
+    its own id, and ``alloc logs`` through the CLI the same for one the
+    client keeps; what the server committed on the node (its live
+    allocs' ``AllocatedResources``, read while the burst runs) never
+    over its capacity; no task process left. The client's data dir lies
+    under the child's own temp dir. A service job of 2 ``sleep`` tasks
+    runs, then ``job stop`` through the CLI ends both. SIGTERM ends the agent with
+    exit 0 within 30 s and leaves no task or log collector behind.
+    Part B, in this process: a server on the card and a client with the
+    CUDA device plugin, whose node must hold one ``nvidia/gpu`` group
+    named as ``nvidia-smi`` names the card with
+    ``torch.cuda.device_count()`` instances; a job holding the card
+    blocks a second that asks for it (no alloc, the ``devices``
+    dimension exhausted) until it is stopped; then the second runs and
+    prints ``CUDA_VISIBLE_DEVICES``, which must read ``0``. The device
+    asks' route (the single-eval launcher's torch composite: no B1
+    launch, fallback or failure) is counted. One ``client: {...}`` line: start, restore and
+    re-registration seconds, evals/s, waves, fill, B1 launches, register
+    → placed → running → complete p50/p99 per alloc from the task
+    events' times, the service's start and stop seconds, the child's
+    RSS, its stop, part B and the phase's seconds. ``chip_smoke.py
+    --client-phase`` runs this phase alone (``--device cpu`` rehearses
+    it on the CPU).
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -172,8 +214,9 @@ counts its launches on the main path of phase 3 under ``launches``, on
 the scheduler path of phase 10 under ``sched_launches``, on phase 11's
 timed server bursts under ``server_launches`` and in phase 13's worker
 processes' timed bursts under ``workerproc_launches``, in phase 14's
-timed burst, both leaders', under ``raft_launches``, and in phase 15's
-timed burst, read from the agent's scrape, under ``agent_launches``; the
+timed burst, both leaders', under ``raft_launches``, in phase 15's
+timed burst, read from the agent's scrape, under ``agent_launches``, and
+in phase 16's burst of client jobs under ``client_launches``; the
 warm-up launches of phase 12 are counted apart, in its child processes).
 A full
 record goes to chiprun_out/chip_smoke.json.
@@ -485,6 +528,8 @@ def main() -> int:
         return warm_start_child(*sys.argv[2:6])
     if sys.argv[1:2] == ["--raft-cluster"]:
         return raft_cluster_child(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--client-phase"]:
+        return client_phase_alone(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke run needs an NVIDIA card", file=sys.stderr)
@@ -521,6 +566,7 @@ def main() -> int:
     workerproc = run_workerproc_phase(dev, record, state_bytes, server[-1])
     raft = run_raft_phase(record, state_bytes, smi)
     agent = run_agent_phase(dev, record, state_bytes, server[-1], smi)
+    client = run_client_phase(dev, record, state_bytes, smi)
     del state_bytes
     kline["kernels"][0]["server_launches"] = sum(
         arm["b1_launches"] for arm in server)
@@ -528,6 +574,7 @@ def main() -> int:
         arm["b1_launches"] for arm in workerproc)
     kline["kernels"][0]["raft_launches"] = raft["b1_launches"]
     kline["kernels"][0]["agent_launches"] = agent["agent_launches"]
+    kline["kernels"][0]["client_launches"] = client["client_launches"]
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -2953,8 +3000,9 @@ class AgentChild:
     line gives the address), its stderr goes to a file."""
 
     def __init__(self, config_path: str, log_path: str,
-                 device: str = "") -> None:
-        argv = [sys.executable, "-m", "nomad_tpu_torch", "agent",
+                 device: str = "", flags: tuple = (),
+                 env: dict = None) -> None:
+        argv = [sys.executable, "-m", "nomad_tpu_torch", "agent", *flags,
                 "-config", config_path, "-http-port", "0"]
         if device:
             argv += ["-device", device]
@@ -2962,7 +3010,8 @@ class AgentChild:
         self.log_path = log_path
         self.proc = subprocess.Popen(
             argv, stdout=subprocess.PIPE, stderr=self._err, text=True,
-            cwd=str(Path(__file__).resolve().parent))
+            cwd=str(Path(__file__).resolve().parent),
+            env={**os.environ, **(env or {})})
         self.lines: list = []
         self.addr = ""
         self.t_caught = 0.0
@@ -3062,7 +3111,8 @@ def agent_burst(addr: str, jobs, deadline: float, ctx: str) -> dict:
     ``AGENT_CLIENTS`` threads, each with its own ``APIClient``, then poll
     the broker until it is empty with nothing unacked: the host clock at
     that moment ends the burst. Returns the register latencies, the eval
-    ids and the burst's seconds."""
+    ids, each registration's wall-clock return (``registered_at``, in
+    the jobs' order) and the burst's seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nomad_tpu_torch.api.client import APIClient
@@ -3077,7 +3127,7 @@ def agent_burst(addr: str, jobs, deadline: float, ctx: str) -> dict:
             api = local.api = APIClient(addr)
         t = time.perf_counter()
         res = api.jobs.register(wire)
-        return time.perf_counter() - t, res["EvalID"]
+        return time.perf_counter() - t, res["EvalID"], time.time()
 
     api = APIClient(addr)
     t0 = time.perf_counter()
@@ -3094,13 +3144,14 @@ def agent_burst(addr: str, jobs, deadline: float, ctx: str) -> dict:
         fail(f"{ctx}: burst of {len(jobs)} did not converge: "
              f"{agent_idle(api)}")
     t_done = time.perf_counter()
-    lats = [lat for lat, _ in out]
+    lats = [lat for lat, _, _ in out]
     return {"jobs": len(jobs), "burst_s": t_done - t0,
             "send_s": t_sent - t0,
             "evals_per_s": len(jobs) / (t_done - t0),
             "register_p50_ms": percentile(lats, 0.5) * 1e3,
             "register_p99_ms": percentile(lats, 0.99) * 1e3,
-            "eval_ids": [eid for _, eid in out],
+            "eval_ids": [eid for _, eid, _ in out],
+            "registered_at": [at for _, _, at in out],
             "blocked": idle["blocked"]}
 
 
@@ -3241,7 +3292,7 @@ def run_agent_phase(dev: torch.device, record: dict, state_bytes: bytes,
             after = scrape(addr)
             hist = api.get("/v1/operator/slow-evals")["Histogram"]
             res["burst"] = {k: v for k, v in burst.items()
-                            if k != "eval_ids"}
+                            if k not in ("eval_ids", "registered_at")}
             delta = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in (
                 "nomad_tpu_wave_fused_launches_total",
                 "nomad_tpu_wave_fused_fallbacks_total",
@@ -3368,6 +3419,7 @@ def run_agent_phase(dev: torch.device, record: dict, state_bytes: bytes,
             res["store"]["check_s"] = time.perf_counter() - t0
             del final
             res["warmup"].pop("eval_ids")
+            res["warmup"].pop("registered_at")
             res["stop"] = child.wait_exit(AGENT_STOP_S)
             check(res["stop"]["rc"] == 0,
                   f"{ctx}: SIGTERM gave {res['stop']}: {child.stderr()}")
@@ -3382,6 +3434,540 @@ def run_agent_phase(dev: torch.device, record: dict, state_bytes: bytes,
     record["agent"] = res
     return res
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the client on the card: ``agent -dev`` runs what B1 places.
+# ---------------------------------------------------------------------------
+
+CLIENT_CLASS = "card-client"    # the dev client's node class
+CLIENT_JOBS = 32                # the burst's batch jobs
+CLIENT_COUNT = 4                # allocations of each
+CLIENT_DISK_MB = 10             # each group's ephemeral disk
+CLIENT_SERVICE_COUNT = 2
+CLIENT_REGISTER_S = 60.0        # the dev node back after the restore
+CLIENT_RUN_S = 120.0            # every alloc of the burst complete
+CLIENT_SERVICE_S = 60.0         # the service running, then stopped
+CLIENT_POLL_S = 0.1
+#: phase 15's server block; ``-dev`` enables the client, and the client
+#: block names its node's class, the one the jobs are pinned to
+CLIENT_CONFIG = AGENT_CONFIG + """
+client {
+  node_class = "%s"
+}
+"""
+#: the Prometheus series whose deltas gate the burst
+CLIENT_SERIES = (
+    "nomad_tpu_wave_fused_launches_total",
+    "nomad_tpu_wave_fused_fallbacks_total",
+    "nomad_tpu_wave_fused_failures_total",
+    "nomad_tpu_device_state_errors_total",
+    'nomad_tpu_wave_launches_total{fired="full"}',
+    'nomad_tpu_wave_launches_total{fired="deadline"}')
+
+
+def pinned_job(job_id: str, job_type: str, command: str, args: list,
+               count: int, devices: list = ()):
+    """A lean job (cpu and memory only, phase 13's node-agent ask) whose
+    one raw_exec task runs ``command args``, pinned by its constraint to
+    the nodes of ``CLIENT_CLASS``."""
+    from nomad_tpu_torch import structs
+
+    job = mock.simple_job(id=job_id, type=job_type, datacenters=["dc1"])
+    job.constraints = [structs.Constraint(
+        ltarget="${node.class}", rtarget=CLIENT_CLASS, operand="=")]
+    tg = job.task_groups[0]
+    tg.count = count
+    tg.ephemeral_disk = structs.EphemeralDisk(size_mb=CLIENT_DISK_MB)
+    task = tg.tasks[0]
+    task.driver = "raw_exec"
+    task.config = {"command": command, "args": list(args)}
+    task.resources = structs.Resources(cpu=AGENT_CPU, memory_mb=AGENT_MEM,
+                                       devices=list(devices))
+    return job
+
+
+def leftover_processes(pattern: str) -> list:
+    """``pgrep -f pattern``: the pids whose command line matches."""
+    out = subprocess.run(["pgrep", "-f", pattern], capture_output=True,
+                         text=True)
+    check(out.returncode in (0, 1),
+          f"pgrep -f {pattern!r} exited {out.returncode}: {out.stderr}")
+    return [int(p) for p in out.stdout.split()
+            if int(p) != os.getpid()]
+
+
+def processes_end(pattern: str, what: str, timeout: float = 10.0) -> None:
+    """Fail unless no process matches ``pattern`` within ``timeout``: an
+    executor and its log collectors end just after their task reports."""
+    deadline = time.time() + timeout
+    while (left := leftover_processes(pattern)):
+        check(time.time() < deadline, f"{what}: {len(left)} processes "
+              f"left after {timeout} s: {left}")
+        time.sleep(CLIENT_POLL_S)
+
+
+def task_events(alloc: dict, task: str) -> tuple:
+    """The task's state, ``failed``, restarts, events (type, ns) and exit
+    codes (from its ``Terminated`` events) in an alloc's wire form."""
+    ts = (alloc.get("TaskStates") or {}).get(task) or {}
+    events = [(e["Type"], e["TimeNs"]) for e in ts.get("Events") or ()]
+    exits = [int(e["Message"].split("exit code ", 1)[1].split(",")[0])
+             for e in ts.get("Events") or ()
+             if e["Type"] == "Terminated" and "exit code " in e["Message"]]
+    return (ts.get("State"), ts.get("Failed"), ts.get("Restarts"), events,
+            exits)
+
+
+def committed(allocs: list) -> dict:
+    """The cpu and memory the server has committed on a node: the sum of
+    the ``AllocatedResources`` of its allocs (wire form) that are not
+    terminal."""
+    used = {"cpu": 0, "memory_mb": 0}
+    for a in allocs:
+        if a["DesiredStatus"] != "run" or a["ClientStatus"] in (
+                "complete", "failed", "lost"):
+            continue
+        for t in a["AllocatedResources"]["Tasks"].values():
+            used["cpu"] += t["CPU"]["CPUShares"]
+            used["memory_mb"] += t["Memory"]["MemoryMB"]
+    return used
+
+
+def stage_ms(deltas: list) -> dict:
+    """p50 and p99 of ``deltas`` (seconds) in milliseconds."""
+    return {"p50_ms": percentile(deltas, 0.5) * 1e3,
+            "p99_ms": percentile(deltas, 0.99) * 1e3}
+
+
+def wave_widths(kernel_summary: dict) -> list:
+    """The node widths (``n_pad``) of the fused waves in the profiler's
+    per-key summary (the key is ``b_pad/t_pad/n_pad/...``)."""
+    return sorted({int(row["Key"].split("/")[2])
+                   for row in kernel_summary["PerKey"]
+                   if row["Kernel"] == "fused_wave"})
+
+
+def run_client_phase(dev: torch.device, record: dict, state_bytes: bytes,
+                     card: str, device: str = "") -> dict:
+    """Phase 16: part A, ``agent -dev`` in a child process on the card
+    (``device`` names another) over phase 11's state; part B, a server
+    and a client with the CUDA device plugin in this process."""
+    import base64
+
+    from nomad_tpu_torch.api.client import APIClient, APIError
+    from nomad_tpu_torch.api.codec import encode
+    from nomad_tpu_torch.drivers.rawexec import executor_path
+    from nomad_tpu_torch.telemetry.waterfall import (
+        aggregate_tail,
+        build_waterfalls,
+    )
+    from nomad_tpu_torch.tensors.schema import pad_bucket
+
+    ctx = "client"
+    t_phase = time.perf_counter()
+    res: dict = {"card": card, "jobs": CLIENT_JOBS, "count": CLIENT_COUNT}
+    root = Path(__file__).resolve().parent
+    nonce = f"{os.getpid()}{int(time.time() * 1e3) % 100000}"
+    marker = f"card-smoke-{nonce}"
+    sleeper = f"600.{nonce}"
+    # raw_exec supervises its tasks through the native executor only
+    t0 = time.perf_counter()
+    exe = executor_path()
+    res["executor_s"] = time.perf_counter() - t0
+    check(exe is not None, f"{ctx}: the native executor did not build")
+    res["executor"] = exe
+    ours: set = set()   # the phase's alloc ids, in its tasks' processes
+    with tempfile.TemporaryDirectory(prefix="client_") as tmp:
+        cfg = Path(tmp) / "agent.hcl"
+        cfg.write_text(CLIENT_CONFIG % (SERVER_BATCH, CLIENT_CLASS))
+        # the client's data dir (alloc dirs, logs) lies under the
+        # child's temp dir, removed with this one
+        (Path(tmp) / "tmp").mkdir()
+        t0 = time.perf_counter()
+        child = AgentChild(str(cfg), str(Path(tmp) / "agent.log"), device,
+                           flags=("-dev",),
+                           env={"NOMAD_TPU_LOGMON_ORPHAN_EXIT": "1",
+                                "TMPDIR": str(Path(tmp) / "tmp")})
+        try:
+            archive, n_nodes = operator_archive(state_bytes)
+            addr = child.wait_ready(AGENT_START_S)
+            res["start_s"] = time.perf_counter() - t0
+            api = APIClient(addr)
+            (own,) = api.nodes.list()
+            node_id = own["ID"]
+            check(own["NodeClass"] == CLIENT_CLASS,
+                  f"{ctx}: the dev node's class is {own['NodeClass']}")
+
+            # -- restore phase 11's state; the dev client re-registers --
+            body = base64.b64encode(archive).decode()
+            del archive
+            t0 = time.perf_counter()
+            api.put("/v1/operator/snapshot", {"Snapshot": body})
+            res["restore_s"] = time.perf_counter() - t0
+            del body
+            t0 = time.perf_counter()
+            deadline = time.time() + CLIENT_REGISTER_S
+            while True:
+                nodes = api.nodes.list()
+                ready = [n for n in nodes if n["Status"] == "ready"]
+                mine = [n for n in nodes if n["NodeClass"] == CLIENT_CLASS]
+                if (len(nodes) == n_nodes + 1 == len(ready)
+                        and [n["ID"] for n in mine] == [node_id]):
+                    break
+                check(time.time() < deadline,
+                      f"{ctx}: {len(nodes)} nodes, {len(ready)} ready, "
+                      f"{len(mine)} of class {CLIENT_CLASS} after "
+                      f"{CLIENT_REGISTER_S} s")
+                time.sleep(CLIENT_POLL_S)
+            res["reregister_s"] = time.perf_counter() - t0
+            res["nodes"] = len(ready)
+            node = api.get(f"/v1/node/{node_id}")
+            nres, rres = node["NodeResources"], node["ReservedResources"]
+            cap_cpu = nres["CPU"]["CPUShares"] - rres["CPUShares"]
+            cap_mem = nres["Memory"]["MemoryMB"] - rres["MemoryMB"]
+            res["node_capacity"] = {"cpu": cap_cpu, "memory_mb": cap_mem}
+
+            # -- the burst: 32 batch jobs of 4 echoes, every count at 0 --
+            jobs = [pinned_job(
+                f"client-echo-{i}", consts.JOB_TYPE_BATCH, "/bin/sh",
+                ["-c", 'echo "$NOMAD_ALLOC_ID"', marker], CLIENT_COUNT)
+                for i in range(CLIENT_JOBS)]
+            api.put("/v1/operator/traces", {"Enable": True, "Reset": True})
+            before = scrape(addr)
+            t0 = time.perf_counter()
+            burst = agent_burst(addr, jobs, time.time() + AGENT_DEADLINE_S,
+                                f"{ctx} burst")
+            registered = {job.id: at for job, at in zip(
+                jobs, burst["registered_at"])}
+            task = jobs[0].task_groups[0].tasks[0].name
+            peak = {"cpu": 0, "memory_mb": 0}
+            # each alloc's stdout, read as soon as it is complete: the
+            # client keeps 50 terminal allocs and removes the dirs, logs
+            # included, of older ones
+            logged: dict = {}
+            deadline = time.time() + CLIENT_RUN_S
+            while True:
+                on_node = api.get(f"/v1/node/{node_id}/allocations")
+                allocs = [a for a in on_node if a["JobID"] in registered]
+                ours.update(a["ID"] for a in allocs)
+                used = committed(on_node)
+                peak = {k: max(peak[k], used[k]) for k in peak}
+                for a in allocs:
+                    if (a["ClientStatus"] == "complete"
+                            and a["ID"] not in logged):
+                        logged[a["ID"]] = api.allocations.logs(
+                            a["ID"], task, "stdout")
+                if (len(allocs) == CLIENT_JOBS * CLIENT_COUNT
+                        and len(logged) == len(allocs)):
+                    break
+                done = sum(a["ClientStatus"] == "complete" for a in allocs)
+                check(time.time() < deadline,
+                      f"{ctx}: {done} of {len(allocs)} allocs complete "
+                      f"after {CLIENT_RUN_S} s")
+                time.sleep(CLIENT_POLL_S)
+            res["run_s"] = time.perf_counter() - t0
+            after = scrape(addr)
+            traces = api.get("/v1/operator/traces?limit=0")
+            api.put("/v1/operator/traces", {"Enable": False})
+            delta = {k: after.get(k, 0.0) - before.get(k, 0.0)
+                     for k in CLIENT_SERIES}
+            res["scrape"] = delta
+            res["client_launches"] = launches = int(
+                delta["nomad_tpu_wave_fused_launches_total"])
+            waves = int(delta['nomad_tpu_wave_launches_total{fired="full"}']
+                        + delta['nomad_tpu_wave_launches_total'
+                                '{fired="deadline"}'])
+            res["waves"] = waves
+            res["evals_per_wave"] = CLIENT_JOBS / waves if waves else 0.0
+            res["wave_fill_ratio"] = after["nomad_tpu_wave_fill_ratio"]
+            res["evals_per_s"] = burst["evals_per_s"]
+            res["send_s"] = burst["send_s"]
+            res["register_p50_ms"] = burst["register_p50_ms"]
+            res["register_p99_ms"] = burst["register_p99_ms"]
+            # the evals' e2e split into the server's segments, and the
+            # waves' launches split into the profiler's stages
+            tail = aggregate_tail(build_waterfalls(
+                [span_from_api(r) for r in traces["Spans"]]))
+            res["eval_tail"] = {k: v for k, v in tail.items()
+                                if k != "slowest"}
+            res["kernel_profile"] = {
+                k: traces["Kernel"][k] for k in ("StageSeconds", "Misses",
+                                                 "Launches")}
+            check(1 <= launches < CLIENT_JOBS,
+                  f"{ctx}: {launches} B1 launches for {CLIENT_JOBS} evals: "
+                  f"{delta}")
+            check(delta["nomad_tpu_wave_fused_fallbacks_total"] == 0
+                  and delta["nomad_tpu_wave_fused_failures_total"] == 0
+                  and delta["nomad_tpu_device_state_errors_total"] == 0,
+                  f"{ctx}: waves fell back, failed or erred: {delta}")
+            widths = wave_widths(traces["Kernel"])
+            res["wave_n_pad"] = widths
+            check(widths == [pad_bucket(n_nodes + 1)],
+                  f"{ctx}: fused waves at widths {widths}, want "
+                  f"{pad_bucket(n_nodes + 1)}")
+            # what the server committed on the node, read while the
+            # burst ran
+            check(0 < peak["cpu"] <= cap_cpu
+                  and 0 < peak["memory_mb"] <= cap_mem,
+                  f"{ctx}: the node's committed resources peaked at {peak}, "
+                  f"its capacity {res['node_capacity']}")
+            res["peak_committed"] = peak
+
+            # -- every alloc: its node, its task, its exit, its log ------
+            stages = {"placed": [], "running": [], "complete": [],
+                      "e2e": []}
+            for a in allocs:
+                state, failed, restarts, events, exits = task_events(
+                    a, task)
+                check(a["NodeID"] == node_id
+                      and (state, failed, restarts, exits)
+                      == ("dead", False, 0, [0]),
+                      f"{ctx}: alloc {a['Name']} on {a['NodeID']}: "
+                      f"{(state, failed, restarts, exits)}")
+                started = next(ns for t, ns in events if t == "Started")
+                ended = next(ns for t, ns in events if t == "Terminated")
+                reg = registered[a["JobID"]] * 1e9
+                stages["placed"].append((a["CreateTimeNs"] - reg) / 1e9)
+                stages["running"].append((started - a["CreateTimeNs"]) / 1e9)
+                stages["complete"].append((ended - started) / 1e9)
+                stages["e2e"].append((ended - reg) / 1e9)
+                check(logged[a["ID"]] == a["ID"] + "\n",
+                      f"{ctx}: alloc {a['ID']} logged {logged[a['ID']]!r}")
+            res["alloc_stages"] = {k: stage_ms(v) for k, v in stages.items()}
+            # the CLI reads the log of an alloc whose dir the client keeps
+            kept = None
+            for a in sorted(allocs, key=lambda a: a["CreateIndex"],
+                            reverse=True):
+                try:
+                    api.allocations.logs(a["ID"], task, "stdout")
+                except APIError:
+                    continue
+                kept = a["ID"]
+                break
+            check(kept is not None, f"{ctx}: the client kept no alloc's log")
+            proc = subprocess.run(
+                [sys.executable, "-m", "nomad_tpu_torch", "-address", addr,
+                 "alloc", "logs", kept, task],
+                capture_output=True, text=True, timeout=120, cwd=str(root))
+            check(proc.returncode == 0 and proc.stdout == kept + "\n",
+                  f"{ctx}: alloc logs exited {proc.returncode}: "
+                  f"{proc.stdout[-500:]} {proc.stderr[-1500:]}")
+            processes_end(marker, f"{ctx}: the echo tasks")
+
+            # -- a service job: started, then stopped by the CLI --------
+            svc = pinned_job(f"client-svc-{nonce}", consts.JOB_TYPE_SERVICE,
+                             "/bin/sleep", [sleeper], CLIENT_SERVICE_COUNT)
+            t0 = time.perf_counter()
+            api.jobs.register(encode(svc))
+            deadline = time.time() + CLIENT_SERVICE_S
+            while True:
+                sallocs = api.jobs.allocations(svc.id)
+                ours.update(a["ID"] for a in sallocs)
+                if len(sallocs) == CLIENT_SERVICE_COUNT and all(
+                        a["ClientStatus"] == "running" for a in sallocs):
+                    break
+                check(time.time() < deadline,
+                      f"{ctx}: service allocs "
+                      f"{[a['ClientStatus'] for a in sallocs]}")
+                time.sleep(CLIENT_POLL_S)
+            res["service_start_s"] = time.perf_counter() - t0
+            check(len(leftover_processes(f"^/bin/sleep {sleeper}$"))
+                  == CLIENT_SERVICE_COUNT,
+                  f"{ctx}: the service's tasks are not both running")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "nomad_tpu_torch", "-address", addr,
+                 "job", "stop", svc.id], capture_output=True, text=True,
+                timeout=120, cwd=str(root))
+            check(proc.returncode == 0,
+                  f"{ctx}: job stop exited {proc.returncode}: "
+                  f"{proc.stdout[-500:]} {proc.stderr[-1500:]}")
+            deadline = time.time() + CLIENT_SERVICE_S
+            while True:
+                sallocs = api.jobs.allocations(svc.id)
+                if all(a["ClientStatus"] == "complete" for a in sallocs):
+                    break
+                check(time.time() < deadline,
+                      f"{ctx}: stopped service allocs "
+                      f"{[a['ClientStatus'] for a in sallocs]}")
+                time.sleep(CLIENT_POLL_S)
+            res["service_stop_s"] = time.perf_counter() - t0
+            processes_end(f"sleep {sleeper}",
+                          f"{ctx}: the stopped service's tasks")
+
+            res["child_rss_gb"] = child.rss_gb()
+            child.terminate()
+            res["stop"] = child.wait_exit(AGENT_STOP_S)
+            check(res["stop"]["rc"] == 0,
+                  f"{ctx}: SIGTERM gave {res['stop']}: {child.stderr()}")
+            processes_end("|".join([marker, f"sleep {sleeper}", *ours]),
+                          f"{ctx}: after the agent's exit, its tasks and "
+                          "log collectors")
+        finally:
+            child.kill()
+    res["device_plugin"] = run_device_part(dev, card, nonce)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"client: {json.dumps(res)}")
+    record["client"] = res
+    return res
+
+
+def run_device_part(dev: torch.device, card: str, nonce: str) -> dict:
+    """Part B of phase 16: the card as a schedulable device. A server on
+    ``dev`` and a client with ``CudaDevicePlugin`` in this process; one
+    job holds the card, a second asking for it is blocked until the first
+    is stopped, then runs and sees it as ``CUDA_VISIBLE_DEVICES=0``."""
+    from nomad_tpu_torch.client.client import (
+        Client,
+        ClientConfig,
+        InProcessRPC,
+    )
+    from nomad_tpu_torch.ops.kernel import single_eval_stats
+    from nomad_tpu_torch.plugins.device import CudaDevicePlugin
+    from nomad_tpu_torch.structs.resources import RequestedDevice
+
+    ctx = "client device"
+    t_part = time.perf_counter()
+    res: dict = {}
+    ask = [RequestedDevice(name="nvidia/gpu", count=1)]
+    holder = pinned_job(f"card-holder-{nonce}", consts.JOB_TYPE_BATCH,
+                        "/bin/sleep", [f"600.{nonce}"], 1, ask)
+    reader = pinned_job(f"card-reader-{nonce}", consts.JOB_TYPE_BATCH,
+                        "/bin/sh", ["-c", 'echo "$CUDA_VISIBLE_DEVICES"',
+                                    f"card-smoke-{nonce}"], 1, ask)
+    with tempfile.TemporaryDirectory(prefix="client_device_") as data:
+        srv = Server(ServerConfig(device=dev, num_workers=1,
+                                  gc_tuning=False))
+        srv.start()
+        client = None
+        try:
+            client = Client(InProcessRPC(srv), ClientConfig(
+                data_dir=data, node_class=CLIENT_CLASS,
+                update_batch_interval=0.05),
+                device_plugins=[CudaDevicePlugin()])
+            client.start()
+            deadline = time.time() + CLIENT_REGISTER_S
+            while (node := srv.state.snapshot().node_by_id(
+                    client.node_id)) is None or not node.ready():
+                check(time.time() < deadline, f"{ctx}: node not ready")
+                time.sleep(CLIENT_POLL_S)
+            groups = [(g.vendor, g.type, g.name, len(g.instance_ids))
+                      for g in node.node_resources.devices]
+            res["devices"] = groups
+            check(groups == [("nvidia", "gpu", card.split(",")[0].strip(),
+                              torch.cuda.device_count())],
+                  f"{ctx}: fingerprinted {groups}, card {card}")
+            waves0 = coalesce.fused_wave_stats.snapshot()
+            single0 = single_eval_stats.snapshot()
+
+            def job_allocs(job):
+                return srv.state.snapshot().allocs_by_job(job.namespace,
+                                                          job.id)
+
+            def wait(cond, what):
+                deadline = time.time() + CLIENT_SERVICE_S
+                while not cond():
+                    check(time.time() < deadline, f"{ctx}: {what}")
+                    time.sleep(CLIENT_POLL_S)
+
+            srv.job_register(holder)
+            wait(lambda: [a.client_status for a in job_allocs(holder)]
+                 == [consts.ALLOC_CLIENT_RUNNING], "the holder never ran")
+            ev_id = srv.job_register(reader)["eval_id"]
+            wait(lambda: srv.state.snapshot().eval_by_id(ev_id).status
+                 == consts.EVAL_STATUS_COMPLETE, "the reader's eval")
+            ev = srv.state.snapshot().eval_by_id(ev_id)
+            metric = ev.failed_tg_allocs.get(reader.task_groups[0].name)
+            check(not job_allocs(reader) and metric is not None
+                  and ev.blocked_eval,
+                  f"{ctx}: the reader was not blocked: "
+                  f"{len(job_allocs(reader))} allocs, {metric}")
+            res["blocked"] = {"dimension_exhausted":
+                              dict(metric.dimension_exhausted),
+                              "nodes_exhausted": metric.nodes_exhausted}
+            check(metric.nodes_exhausted == 1,
+                  f"{ctx}: the reader's metric {metric}")
+            t0 = time.perf_counter()
+            srv.job_deregister(holder.namespace, holder.id)
+            wait(lambda: [a.client_status for a in job_allocs(reader)]
+                 == [consts.ALLOC_CLIENT_COMPLETE],
+                 "the reader never ran after the holder stopped")
+            res["unblock_s"] = time.perf_counter() - t0
+            (alloc,) = job_allocs(reader)
+            logs = os.path.join(data, "allocs", alloc.id, "alloc", "logs",
+                                f"{reader.task_groups[0].tasks[0].name}"
+                                ".stdout.0")
+            seen = Path(logs).read_text()
+            res["cuda_visible_devices"] = seen.strip()
+            check(seen == "0\n", f"{ctx}: the task saw {seen!r}")
+            wait(lambda: all(a.client_terminal_status()
+                             for a in job_allocs(holder)),
+                 "the holder never stopped")
+            waves1 = coalesce.fused_wave_stats.snapshot()
+            single1 = single_eval_stats.snapshot()
+            route = {"fused_wave_" + k: waves1[k] - waves0[k]
+                     for k in waves1}
+            route.update({"single_" + k: single1[k] - single0[k]
+                          for k in single1})
+            res["route"] = route
+            check(route["fused_wave_launches"] == 0
+                  and route["fused_wave_fallbacks"] == 0
+                  and route["fused_wave_failures"] == 0
+                  and route["single_topk"] + route["single_full"] >= 2,
+                  f"{ctx}: the device asks' route {route}")
+        finally:
+            if client is not None:
+                client.shutdown()
+            srv.shutdown()
+    processes_end(f"card-smoke-{nonce}|sleep 600.{nonce}",
+                  f"{ctx}: the tasks")
+    res["part_s"] = time.perf_counter() - t_part
+    return res
+
+
+def client_phase_alone(argv: list) -> int:
+    """``chip_smoke.py --client-phase [--device cpu] [--nodes N] [--allocs
+    M]``: phase 16 alone, on the state of ``c2m.generate(N, M)`` (the C2M
+    replay's 10,000 nodes and 100k allocs unless given). On the card the
+    kernels are built first. ``--device cpu`` rehearses it on the CPU:
+    the agent child runs with ``-device cpu``, and part B's client sees
+    one stand-in card through a patched ``torch.cuda``."""
+    import argparse
+    from unittest import mock as patch
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --client-phase")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--nodes", type=int, default=c2m.N_NODES)
+    ap.add_argument("--allocs", type=int, default=c2m.N_ALLOCS)
+    args = ap.parse_args(argv)
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            print("chip_smoke: --client-phase needs an NVIDIA card; "
+                  "--device cpu rehearses it", file=sys.stderr)
+            return 2
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        log(f"card: {card}")
+        ck.load_libraries()
+    t0 = time.perf_counter()
+    state_bytes = c2m.generate(args.nodes, args.allocs).to_snapshot_bytes()
+    log(f"client phase: state of {args.nodes} nodes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if args.device == "cuda":
+        run_client_phase(torch.device("cuda"), {}, state_bytes, card)
+        return 0
+    card = "stand-in card, 0 W"
+    with patch.patch.object(torch.cuda, "is_available",
+                            return_value=True), \
+            patch.patch.object(torch.cuda, "device_count", return_value=1), \
+            patch.patch.object(torch.cuda, "get_device_name",
+                               return_value="stand-in card"):
+        run_client_phase(torch.device("cpu"), {}, state_bytes, card,
+                         device="cpu")
+    return 0
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -5,8 +5,8 @@ server (setupServer :731) and/or client (setupClient :906) from one
 merged config, then NewHTTPServers (http.go:86) exposes /v1.
 
 The server places on ``AgentConfig.device``: the card unless the
-config names another device. Client mode raises until the port has the
-client.
+config names another device. The client runs the allocations placed on
+its node, in the agent's process, as the reference's does.
 """
 
 from __future__ import annotations
@@ -168,10 +168,10 @@ class Agent:
         self.http = None
         self.acl_resolver = None
 
-        if self.config.client_enabled:
-            self._setup_client()
         if self.config.server_enabled:
             self._setup_server()
+        if self.config.client_enabled:
+            self._setup_client()
 
         from nomad_tpu_torch.api.http import HTTPAgent
 
@@ -260,11 +260,19 @@ class Agent:
         )
 
     def _setup_client(self) -> None:
-        """Client mode (``-dev``, ``-client``) needs the client side,
-        which the port does not have yet."""
-        raise NotImplementedError(
-            "not in the PyTorch port yet: client mode (-dev, -client) "
-            "needs the client and its plugins (ROADMAP A.10)")
+        from nomad_tpu_torch.client.client import Client, ClientConfig, InProcessRPC
+
+        if self.server is None:
+            raise ValueError(
+                "client-only agents need a server address (in-process "
+                "agent requires server_enabled)"
+            )
+        cfg = ClientConfig(
+            node_class=self.config.node_class,
+            plugin_dir=self.config.plugin_dir,
+            options=self.config.client_options,
+        )
+        self.client = Client(InProcessRPC(self.server), cfg)
 
     # -- lifecycle -------------------------------------------------------
 

@@ -7,16 +7,19 @@ autopilot), ``tests/test_tls.py`` (HTTPS, mTLS, region forwarding over
 TLS, the ``tls`` CLI), ``tests/test_monitor.py`` (log streaming, pprof)
 and ``tests/test_federation.py`` (regions, forwarding, ACL replication,
 retry join; every agent a server) and ``tests/test_event_stream_acl.py``
-(ACL-scoped event streams; its ``-dev`` agent a server here, since the
-client waits for ROADMAP A.10) runs on the port's modules, each
-agent built with ``AgentConfig(device="cpu", ...)`` and each server with
+(ACL-scoped event streams, on a ``-dev`` agent) runs on the port's
+modules, each agent built with ``AgentConfig(device="cpu", ...)`` and each server with
 ``ServerConfig(device="cpu", ...)``. Then what the port adds: an
 operator snapshot restored over HTTP under a running server replaces
 the planes its waves place on (the placements equal those of an agent
 that restored the same archive before it placed anything, and the
 resident planes equal a fresh upload); an agent with no device needs a
-card; client mode is refused, naming ROADMAP A.10; and with its
-workers' batch size above 1 the agent places through coalesced waves.
+card; an agent with a client (``-dev``, or server and client) runs a
+raw_exec job to ``complete`` and serves its log, while a client-only
+agent raises the reference's ``ValueError``; a client's default data
+dir, its relays' state and its bridge probe's names are the process's
+own; and with its workers' batch size above 1 the agent places through
+coalesced waves.
 """
 
 import json
@@ -59,6 +62,8 @@ from nomad_tpu_torch.utils.tlsutil import (
     generate_ca,
     generate_cert,
 )
+from _torch_client import port_bridge  # noqa: F401
+from _torch_client import processes_with
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -1038,9 +1043,7 @@ def _open_stream(addr: str, token: str, query: str = ""):
 
 @pytest.fixture()
 def acl_agent():
-    # the reference builds a -dev agent; its client waits for A.10, and
-    # no scenario here needs one
-    cfg = AgentConfig(device="cpu")
+    cfg = AgentConfig.dev(device="cpu")
     cfg.acl_enabled = True
     agent = Agent(cfg)
     agent.start()
@@ -1397,11 +1400,78 @@ def test_agent_without_a_device_needs_a_card():
         Agent(AgentConfig(device="cuda", serf_enabled=False))
 
 
+def test_client_host_paths_and_names_are_the_processes_own(tmp_path,
+                                                         monkeypatch):
+    """A client's default data dir and its relays' state dir lie under
+    the process's temp dir (the reference's are fixed paths under
+    ``/tmp``), and its bridge probe names its netns and veth pair by the
+    process's pid, so that clients of both packages, or two of the
+    port's, probing at once never take each other's."""
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "from nomad_tpu_torch.client.client import ClientConfig\n"
+         "from nomad_tpu_torch.client.network_manager import "
+         "RELAY_STATE_DIR\n"
+         "print(ClientConfig().data_dir)\nprint(RELAY_STATE_DIR)\n"],
+        capture_output=True, text=True, timeout=120, cwd=str(ROOT),
+        env={**os.environ, "TMPDIR": str(tmp_path)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [str(tmp_path / "nomad-tpu-client"),
+                                  str(tmp_path / "nomad-tpu-relays")]
+
+    from nomad_tpu_torch.client import network_manager
+
+    calls = []
+
+    def run(argv, timeout=15.0):
+        calls.append(argv)
+        return subprocess.CompletedProcess(argv, 0)
+
+    monkeypatch.setattr(network_manager, "_run", run)
+    assert network_manager.bridge_supported.__wrapped__() is True
+    pid = os.getpid()
+    assert calls == [
+        ["ip", "netns", "add", f"nomadtpt-probe-{pid}"],
+        ["ip", "link", "add", f"ntp{pid}a", "type", "veth", "peer", "name",
+         f"ntp{pid}b"],
+        ["ip", "link", "del", f"ntp{pid}a"],
+        ["ip", "netns", "del", f"nomadtpt-probe-{pid}"]]
+    assert all(len(name) <= 15 for name in (f"ntp{pid}a", f"ntp{pid}b"))
+
+
 @pytest.mark.parametrize("config", [
-    AgentConfig(device="cpu", client_enabled=True),
+    AgentConfig(device="cpu", client_enabled=True, serf_enabled=False),
     AgentConfig(device="cpu", server_enabled=False, client_enabled=True),
     AgentConfig.dev(device="cpu"),
 ], ids=["server+client", "client", "dev"])
-def test_client_mode_is_refused_naming_a10(config):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.10"):
-        Agent(config)
+def test_client_mode_runs_a_raw_exec_job_to_complete(config):
+    """An agent with a server runs what it places on its own client; a
+    client-only agent has no server to reach in-process."""
+    if not config.server_enabled:
+        with pytest.raises(ValueError, match="client-only agents need a "
+                           "server address"):
+            Agent(config)
+        return
+    agent = Agent(config)
+    agent.start()
+    try:
+        api = APIClient(agent.http_addr)
+        job = mock.job()
+        job.type = consts.JOB_TYPE_BATCH
+        job.task_groups[0].count = 1
+        task = job.task_groups[0].tasks[0]
+        task.driver = "raw_exec"
+        task.config = {"command": "/bin/sh",
+                       "args": ["-c", 'echo "ran $NOMAD_ALLOC_ID"']}
+        api.jobs.register(encode(job))
+        assert wait_until(lambda: [
+            a["ClientStatus"] for a in api.jobs.allocations(job.id)]
+            == ["complete"], timeout=60)
+        (alloc,) = api.jobs.allocations(job.id)
+        assert alloc["NodeID"] == agent.client.node_id
+        assert api.allocations.logs(alloc["ID"], task.name, "stdout") == (
+            f"ran {alloc['ID']}\n")
+    finally:
+        agent.shutdown()
+    # neither the task nor its log collectors outlive it
+    assert wait_until(lambda: not processes_with(alloc["ID"]), timeout=15)

@@ -6,8 +6,11 @@ on the port's ``cli.main`` against an agent built with
 ``AgentConfig(device="cpu", ...)``. Then the port's own: ``python -m
 nomad_tpu_torch agent -server -device cpu -http-port 0`` in a child
 process takes a job from ``job run`` and places it, and stops on
-SIGTERM with exit 0; ``agent -dev`` and ``agent -client`` exit 1 naming
-ROADMAP A.10."""
+SIGTERM with exit 0; ``agent -dev -device cpu`` in a child process runs
+a raw_exec job from ``job run`` to ``complete``, ``alloc logs`` prints
+its output, and SIGTERM ends it with exit 0; ``agent -client`` exits 1
+with the reference's message (a client-only agent has no server to
+reach in-process)."""
 
 import json
 import os
@@ -29,6 +32,7 @@ from nomad_tpu_torch.api.codec import encode
 from nomad_tpu_torch.cli.main import main
 from nomad_tpu_torch.state.store import StateStore
 from nomad_tpu_torch.utils.snapshot import archive_snapshot
+from _torch_client import processes_with
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -318,7 +322,100 @@ def test_agent_process_on_the_cpu_places_a_cli_job(tmp_path):
     assert rc == 0
 
 
-@pytest.mark.parametrize("flag", ["-dev", "-client"])
-def test_client_mode_exits_1_naming_a10(flag, capsys):
-    assert main(["agent", flag, "-device", "cpu", "-http-port", "0"]) == 1
-    assert "ROADMAP A.10" in capsys.readouterr().err
+ECHO_HCL = """
+job "cli-echo" {
+  datacenters = ["dc1"]
+  type = "batch"
+
+  group "echo" {
+    task "say" {
+      driver = "raw_exec"
+      config {
+        command = "/bin/sh"
+        args    = ["-c", "echo cli-echo-ran"]
+      }
+      resources {
+        cpu    = 100
+        memory = 64
+      }
+    }
+  }
+}
+"""
+
+
+def test_dev_agent_process_runs_a_cli_job_and_serves_its_log(tmp_path):
+    """``agent -dev`` is server and client in one process: a job from
+    ``job run`` runs to ``complete`` on its node, in a dir under the
+    agent's own temp dir, ``alloc logs`` prints the task's output, and
+    SIGTERM ends the agent with exit 0."""
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "TMPDIR": str(tmp)}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nomad_tpu_torch", "agent", "-dev",
+         "-device", "cpu", "-http-port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        cwd=str(ROOT), env=env)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                     daemon=True).start()
+    alloc_ids = []
+    try:
+        addr, deadline = "", time.time() + 120
+        while not addr and time.time() < deadline:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                continue
+            if "HTTP at " in line:
+                addr = line.split("HTTP at ", 1)[1].strip()
+        assert addr, "the agent printed no address in 120 s"
+        api = APIClient(addr)
+        jobfile = tmp_path / "echo.hcl"
+        jobfile.write_text(ECHO_HCL)
+
+        def cli(*argv):
+            return subprocess.run(
+                [sys.executable, "-m", "nomad_tpu_torch", "-address", addr,
+                 *argv], capture_output=True, text=True, cwd=str(ROOT),
+                env=env, timeout=120)
+
+        r = cli("job", "run", str(jobfile))
+        assert r.returncode == 0, r.stdout + r.stderr
+        deadline = time.time() + 60
+        while time.time() < deadline and [
+                a["ClientStatus"] for a in api.jobs.allocations("cli-echo")
+        ] != ["complete"]:
+            time.sleep(0.1)
+        (alloc,) = api.jobs.allocations("cli-echo")
+        alloc_ids.append(alloc["ID"])
+        assert alloc["ClientStatus"] == "complete"
+        assert (tmp / "nomad-tpu-client" / "allocs" / alloc["ID"]).is_dir()
+        (node,) = api.nodes.list()
+        assert alloc["NodeID"] == node["ID"]
+        r = cli("alloc", "logs", alloc["ID"], "say")
+        assert r.returncode == 0, r.stderr
+        assert r.stdout == "cli-echo-ran\n"
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+    assert rc == 0
+    # neither the task nor its log collectors outlive the agent
+    deadline = time.time() + 15
+    while [pid for alloc_id in alloc_ids
+           for pid in processes_with(alloc_id)]:
+        assert time.time() < deadline, "task processes left"
+        time.sleep(0.1)
+
+
+def test_client_only_agent_exits_1_with_the_references_message(capsys):
+    assert main(["agent", "-client", "-device", "cpu", "-http-port",
+                 "0"]) == 1
+    assert "client-only agents need a server address" in (
+        capsys.readouterr().err)

@@ -18,6 +18,8 @@ log into the server (``RAFT_WIRING``) must equal the reference's the
 same way, method by method; of ``telemetry/exporter.py``, every function
 but ``prometheus_text`` (``EXPORTER_FUNCTIONS``). The web UI's static
 assets, which ``api/http`` serves, are the reference's bytes.
+``plugins/device`` is not a copy: its ``CudaDevicePlugin`` is held by
+``test_torch_device_reserve.py``.
 """
 
 import ast
@@ -58,6 +60,17 @@ COPIES = (
     "utils/tlsutil", "utils/ws", "api/http", "api/client",
     "api/config_file", "api/__init__", "api/agent",
     "cli/fmt", "cli/main", "cli/__init__", "__main__",
+    "plugins/base", "plugins/drivers", "plugins/__init__",
+    "drivers/mock", "drivers/rawexec", "drivers/execdriver", "drivers/java",
+    "drivers/qemu", "drivers/docker_api", "drivers/docklog",
+    "drivers/docker", "drivers/__init__",
+    "client/state_db", "client/fingerprint", "client/logmon",
+    "client/getter", "client/template", "client/task_runner",
+    "client/alloc_runner", "client/csimanager", "client/network_manager",
+    "client/servicereg", "client/connect", "client/connect_proxy",
+    "client/client", "client/__init__",
+    "plugins/external", "plugins/demo_sleep_driver", "plugins/csi",
+    "ui/harness",
 )
 
 #: deliberate differences of a copy from its reference: each (reference
@@ -84,44 +97,60 @@ PATCHES = {
         "    h = Harness(state=shadow, device=server.device)\n"),),
     # the agent names its server's device (None is the card) and its
     # workers' batch size (1, the reference's, places each eval alone:
-    # no wave reaches B1), and client mode is refused before any server
-    # is built, naming ROADMAP A.10
+    # no wave reaches B1)
     "api/agent": ((
         "    raft_lease_fraction: float = 0.75\n",
         "    raft_lease_fraction: float = 0.75\n"
         "    device: Optional[str] = None\n"
         "    worker_batch_size: int = 1\n"), (
-        "        if self.config.server_enabled:\n"
-        "            self._setup_server()\n"
-        "        if self.config.client_enabled:\n"
-        "            self._setup_client()\n",
-        "        if self.config.client_enabled:\n"
-        "            self._setup_client()\n"
-        "        if self.config.server_enabled:\n"
-        "            self._setup_server()\n"), (
         "            raft_lease_fraction=self.config.raft_lease_fraction,\n",
         "            raft_lease_fraction=self.config.raft_lease_fraction,\n"
         "            device=self.config.device,\n"
-        "            worker_batch_size=self.config.worker_batch_size,\n"), (
-        "        from nomad_tpu.client.client import Client, ClientConfig, "
-        "InProcessRPC\n"
-        "\n"
-        "        if self.server is None:\n"
-        "            raise ValueError(\n"
-        "                \"client-only agents need a server address "
-        "(in-process \"\n"
-        "                \"agent requires server_enabled)\"\n"
+        "            worker_batch_size=self.config.worker_batch_size,\n")),
+    # a client's default data dir and its bridge probe's and relays'
+    # host-wide names are the process's own (under its temp dir, named
+    # by its pid), never the reference's fixed ones under /tmp: both
+    # packages' clients run on one host
+    "client/client": ((
+        "import os\nimport threading\n",
+        "import os\nimport tempfile\nimport threading\n"), (
+        "        data_dir: str = \"/tmp/nomad-tpu-client\",\n",
+        "        data_dir: str = os.path.join(tempfile.gettempdir(),\n"
+        "                                     \"nomad-tpu-client\"),\n")),
+    "client/network_manager": ((
+        "import logging\nimport socket\nimport subprocess\n"
+        "import threading\n",
+        "import logging\nimport os\nimport socket\nimport subprocess\n"
+        "import tempfile\nimport threading\n"), (
+        "    ns = \"nomadtpu-probe\"\n",
+        "    ns = f\"nomadtpt-probe-{os.getpid()}\"\n"
+        "    veth = f\"ntp{os.getpid()}\"\n"), (
+        "        ok = _run([\"ip\", \"link\", \"add\", \"nomadtpu-pr0\", "
+        "\"type\", \"veth\",\n"
+        "                   \"peer\", \"name\", \"nomadtpu-pr1\"])"
+        ".returncode == 0\n"
+        "        _run([\"ip\", \"link\", \"del\", \"nomadtpu-pr0\"])\n",
+        "        ok = _run([\"ip\", \"link\", \"add\", f\"{veth}a\", "
+        "\"type\", \"veth\",\n"
+        "                   \"peer\", \"name\", f\"{veth}b\"])"
+        ".returncode == 0\n"
+        "        _run([\"ip\", \"link\", \"del\", f\"{veth}a\"])\n"), (
+        "RELAY_STATE_DIR = \"/tmp/nomad-tpu-relays\"\n",
+        "RELAY_STATE_DIR = os.path.join(tempfile.gettempdir(), "
+        "\"nomad-tpu-relays\")\n")),
+    # a restarted task's executor starts on an empty status file, not
+    # on the last run's pid and exit records
+    "drivers/rawexec": ((
+        "            task.status_path = os.path.join(\n"
+        "                workdir, f\".executor-{config.name}.status\"\n"
+        "            )\n",
+        "            task.status_path = os.path.join(\n"
+        "                workdir, f\".executor-{config.name}.status\"\n"
         "            )\n"
-        "        cfg = ClientConfig(\n"
-        "            node_class=self.config.node_class,\n"
-        "            plugin_dir=self.config.plugin_dir,\n"
-        "            options=self.config.client_options,\n"
-        "        )\n"
-        "        self.client = Client(InProcessRPC(self.server), cfg)\n",
-        "        raise NotImplementedError(\n"
-        "            \"not in the PyTorch port yet: client mode (-dev, "
-        "-client) \"\n"
-        "            \"needs the client and its plugins (ROADMAP A.10)\")\n")),
+        "            try:\n"
+        "                os.unlink(task.status_path)\n"
+        "            except FileNotFoundError:\n"
+        "                pass\n"),),
     # the server block's ``worker_batch_size`` sets the agent's
     "api/config_file": ((
         "        if \"scheduler_workers\" in sa:\n"

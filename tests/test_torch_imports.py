@@ -9,7 +9,10 @@ module, runs one job through a started ``Server(device="cpu")`` on the
 CPU, and places one job on a one-server durable raft cluster, restarts
 it from its data dir and finds the alloc, then imports the agent, its
 HTTP API and CLI, runs ``python -m nomad_tpu_torch version`` and places
-one job submitted over HTTP to an agent on the CPU; a static scan finds
+one job submitted over HTTP to an agent on the CPU, then imports every
+module of the client, the drivers and the plugins (the device plugin,
+the external plugin loader) and the UI harness, and runs a raw_exec job
+to ``complete`` on a ``-dev`` agent on the CPU; a static scan finds
 no such import in the package or in chip_smoke.py; a default device
 entry point raises on a machine without a card.
 """
@@ -163,6 +166,48 @@ try:
         assert b"nomad_tpu_wave_fused_failures_total" in r.read()
 finally:
     agent.shutdown()
+import importlib, pkgutil
+import nomad_tpu_torch.client, nomad_tpu_torch.drivers, nomad_tpu_torch.plugins
+for pkg in (nomad_tpu_torch.client, nomad_tpu_torch.drivers,
+            nomad_tpu_torch.plugins):
+    for info in pkgutil.iter_modules(pkg.__path__):
+        importlib.import_module(f"{pkg.__name__}.{info.name}")
+import nomad_tpu_torch.ui.harness
+from nomad_tpu_torch.drivers import builtin_drivers
+from nomad_tpu_torch.plugins.device import CudaDevicePlugin
+from nomad_tpu_torch.plugins.external import load_plugin_dir
+assert sorted(builtin_drivers()) == ["docker", "exec", "java", "mock_driver",
+                                     "qemu", "raw_exec"]
+with tempfile.TemporaryDirectory() as plugins:
+    assert load_plugin_dir(plugins) == {}
+import os
+from nomad_tpu_torch.structs import consts
+# the -dev agent's client keeps its allocs under the process's temp dir
+agent = Agent(AgentConfig.dev(device="cpu"))
+agent.start()
+try:
+    api = APIClient(agent.http_addr)
+    job = mock.job()
+    job.type = consts.JOB_TYPE_BATCH
+    job.task_groups[0].count = 1
+    task = job.task_groups[0].tasks[0]
+    task.driver = "raw_exec"
+    task.config = {"command": "/bin/sh", "args": ["-c", "echo dev-ran"]}
+    api.jobs.register(encode(job))
+    deadline = time.time() + 120
+    while time.time() < deadline and [a["ClientStatus"] for a in
+            api.jobs.allocations(job.id)] != ["complete"]:
+        time.sleep(0.05)
+    (alloc,) = api.jobs.allocations(job.id)
+    assert alloc["ClientStatus"] == "complete", alloc["ClientStatus"]
+    assert api.allocations.logs(alloc["ID"], task.name) == "dev-ran\n"
+    assert os.path.isdir(os.path.join(tempfile.gettempdir(),
+                                      "nomad-tpu-client", "allocs",
+                                      alloc["ID"]))
+    if not torch.cuda.is_available():
+        assert CudaDevicePlugin().fingerprint() == []
+finally:
+    agent.shutdown()
 new = {m for m in sys.modules if sys.modules[m] is not None
        and (m == "jax" or m.startswith(("jax.", "nomad_tpu.")))} - before
 assert not new, sorted(new)
@@ -170,9 +215,10 @@ print("ok")
 """
 
 
-def test_port_runs_with_jax_and_reference_blocked():
+def test_port_runs_with_jax_and_reference_blocked(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["TMPDIR"] = str(tmp_path)
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_RUN],
         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=240)
