@@ -205,7 +205,35 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     events' times, the service's start and stop seconds, the child's
     RSS, its stop, part B and the phase's seconds. ``chip_smoke.py
     --client-phase`` runs this phase alone (``--device cpu`` rehearses
-    it on the CPU).
+    it on the CPU);
+17. the node-axis mesh: part A, phase 3's live cluster (10k nodes,
+    N=16384, 100k allocs): the process's first sharded waves at D=4, an
+    inert one (no active step) then a live one (cold), timed beside
+    three repeats of the live one (warm), held against B1; each
+    of the six variants' waves of 32 x 10
+    through ``launch_wave(mesh=wave_mesh(devices=[card] * D))`` for D =
+    2, 4 and 8 virtual shards on the one card and through the unsharded
+    ``launch_wave`` (B1) on the same inputs: choices, found, top-k
+    indices and i32 metrics equal, scores within ATOL (near-ties counted
+    apart), every wave one sharded launch and no B1 launch, its time by
+    CUDA events beside B1's; one spread wave through the joint sharded
+    wave at D=4 against the composite; one wave at N=131072 (100k nodes,
+    1M allocs) at D=8 against B1; the mesh of the real cards (one card:
+    B1, one counted fallback; more: the same parity gate). Part B, the
+    resident state split over 4 shards (``configure_mesh``): two waves
+    of phase 11's store's own planes with 320 allocs stopped between
+    them; the generation advances by the sharded scatter, equals a fresh
+    upload split by shard, and every shared plane of both waves is found
+    resident (0 B of them uploaded by the launcher). Part C, phase 11's
+    window-off server with ``use_device_mesh=True`` (one card: no mesh,
+    logged), then ``Server._adopt_wave_mesh`` of a 4-shard virtual mesh,
+    the 40 warm-up jobs and the timed 200: every wave sharded, no
+    fallback or failure, no B1 launch, every job placed, none over
+    capacity, the exporter's sharded series equal to the waves and
+    ``nomad_tpu_wave_sharded_mesh_devices 4``, evals/s and wave p50
+    beside phase 11's window-off arm. One ``mesh: {...}`` line.
+    ``chip_smoke.py --mesh-phase`` runs phase 11's window-off arm and
+    this phase alone (``--device cpu`` rehearses them).
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -215,8 +243,9 @@ the scheduler path of phase 10 under ``sched_launches``, on phase 11's
 timed server bursts under ``server_launches`` and in phase 13's worker
 processes' timed bursts under ``workerproc_launches``, in phase 14's
 timed burst, both leaders', under ``raft_launches``, in phase 15's
-timed burst, read from the agent's scrape, under ``agent_launches``, and
-in phase 16's burst of client jobs under ``client_launches``; the
+timed burst, read from the agent's scrape, under ``agent_launches``,
+in phase 16's burst of client jobs under ``client_launches``, and in
+phase 17's unsharded reference waves under ``mesh_launches``; the
 warm-up launches of phase 12 are counted apart, in its child processes).
 A full
 record goes to chiprun_out/chip_smoke.json.
@@ -226,6 +255,7 @@ from __future__ import annotations
 
 import gc
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -250,7 +280,7 @@ from nomad_tpu_torch.ops.kernel import (
     single_eval_stats,
     unpack_fused_wave,
 )
-from nomad_tpu_torch.parallel import batching, c2m, coalesce
+from nomad_tpu_torch.parallel import batching, c2m, coalesce, sharded
 from nomad_tpu_torch.parallel.synthetic import (
     C2M_SHAPE_CPU,
     C2M_SHAPE_MEM,
@@ -530,6 +560,8 @@ def main() -> int:
         return raft_cluster_child(*sys.argv[2:4])
     if sys.argv[1:2] == ["--client-phase"]:
         return client_phase_alone(sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-phase"]:
+        return mesh_phase_alone(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke run needs an NVIDIA card", file=sys.stderr)
@@ -567,6 +599,7 @@ def main() -> int:
     raft = run_raft_phase(record, state_bytes, smi)
     agent = run_agent_phase(dev, record, state_bytes, server[-1], smi)
     client = run_client_phase(dev, record, state_bytes, smi)
+    mesh = run_mesh_phase(dev, record, state_bytes, server[-1])
     del state_bytes
     kline["kernels"][0]["server_launches"] = sum(
         arm["b1_launches"] for arm in server)
@@ -575,6 +608,7 @@ def main() -> int:
     kline["kernels"][0]["raft_launches"] = raft["b1_launches"]
     kline["kernels"][0]["agent_launches"] = agent["agent_launches"]
     kline["kernels"][0]["client_launches"] = client["client_launches"]
+    kline["kernels"][0]["mesh_launches"] = mesh["b1_launches"]
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -3423,6 +3457,11 @@ def run_agent_phase(dev: torch.device, record: dict, state_bytes: bytes,
             res["stop"] = child.wait_exit(AGENT_STOP_S)
             check(res["stop"]["rc"] == 0,
                   f"{ctx}: SIGTERM gave {res['stop']}: {child.stderr()}")
+        except BaseException:
+            # the failure propagates; the agent's own account goes first
+            log(f"{ctx}: failed; the agent exited {child.proc.poll()}, its "
+                f"stderr ends: {child.stderr()}")
+            raise
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
             child.kill()
@@ -3967,6 +4006,572 @@ def client_phase_alone(argv: list) -> int:
                                return_value="stand-in card"):
         run_client_phase(torch.device("cpu"), {}, state_bytes, card,
                          device="cpu")
+    return 0
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the node-axis mesh.
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = (2, 4, 8)         # part A: virtual meshes over the one card
+MESH_SPREAD_SHARDS = 4          # part A: the spread wave's joint sharded run
+MESH_SCALE_SHARDS = 8           # part A: the wave at N=131072
+MESH_STATE_SHARDS = 4           # part B: the resident state's mesh
+MESH_SERVER_SHARDS = 4          # part C: the server's mesh
+MESH_LIVE_NODES = 10_000        # part A's cluster, phase 3's
+MESH_LIVE_ALLOCS = 100_000
+MESH_SCALE_NODES = 100_000      # part A's scale wave, phase 5's
+MESH_SCALE_ALLOCS = 1_000_000
+MESH_CHURN = 320                # part B: allocs stopped between the waves
+MESH_WARM_REPEATS = 3           # part A: warm repeats of the first wave
+
+
+def event_ms(fn):
+    """``(fn(), ms)``: the call's time between two CUDA events on the
+    current stream, the call's own synchronisations included."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def wave_host(outs) -> dict:
+    """A launch_wave's member slices as flat host arrays, member after
+    member: steps, top-k rows, and the i32 metrics [B, 8]."""
+    cat = np.concatenate
+    return {
+        "chosen": cat([np.asarray(o.chosen) for o in outs]),
+        "found": cat([np.asarray(o.found) for o in outs]),
+        "scores": cat([np.asarray(o.scores) for o in outs]),
+        "topk_idx": cat([np.asarray(o.topk_idx) for o in outs]),
+        "topk_scores": cat([np.asarray(o.topk_scores) for o in outs]),
+        "metrics": np.array([[int(getattr(o, f)) for f in FUSED_METRIC_FIELDS]
+                             for o in outs]),
+    }
+
+
+def compare_waves(got, want, ctx: str) -> dict:
+    """Two launch_wave results on the same inputs, as ``compare`` holds
+    kernel against plain: metrics, choices, found and top-k indices
+    exact, scores and top-k scores within ATOL; the first differing step
+    is excused only as a near-tie (counted) and the steps after it are
+    not compared."""
+    g, w = wave_host(got), wave_host(want)
+    check(np.array_equal(g["metrics"], w["metrics"]),
+          f"{ctx}: i32 metrics differ")
+    differs = (g["chosen"] != w["chosen"]) | (g["found"] != w["found"]) \
+        | np.any(g["topk_idx"] != w["topk_idx"], axis=1)
+    bad = np.nonzero(differs)[0]
+    near_ties, upto = 0, len(differs)
+    if len(bad):
+        s = int(bad[0])
+        row = w["topk_scores"][s]
+        gaps = [abs(float(row[i]) - float(row[i + 1]))
+                for i in range(len(row) - 1)]
+        check(min(gaps) < NEAR_TIE,
+              f"{ctx}: step {s} differs and is no near-tie (reference "
+              f"top-k {row.tolist()})")
+        near_ties, upto = 1, s
+    err = float(max(
+        np.abs(g["scores"][:upto] - w["scores"][:upto]).max(initial=0.0),
+        np.abs(g["topk_scores"][:upto]
+               - w["topk_scores"][:upto]).max(initial=0.0)))
+    check(err <= ATOL, f"{ctx}: max abs error {err} > {ATOL}")
+    return {"ctx": ctx, "near_ties": near_ties, "max_abs_err": err,
+            "placed": int(g["found"].sum())}
+
+
+def mesh_bound(kins, features, dev: torch.device) -> tuple:
+    """``(bound_ms, bound_by)`` of a wave split over virtual shards on one
+    card: the unsharded wave's bytes and operations (the shards do the
+    same work), from its assembly on ``dev``."""
+    wave = coalesce.assemble_wave(kins, [K_STEPS] * len(kins), features, dev)
+    t, b = wave.t_pad, wave.b_pad
+    n = int(wave.kin.cap_cpu.shape[-1])
+    # its outputs: the packed buffer, the top-k planes, the three carries
+    out_bytes = 4 * (2 * t + 8 * b) + 2 * 4 * t * 8 + 3 * 4 * n
+    return bound(wave_bytes(wave, []) + out_bytes, wave_ops(wave))
+
+
+def mesh_wave(kins, features, dev: torch.device, mesh) -> tuple:
+    """One launch_wave (over ``mesh``, or B1 on ``dev`` when None): its
+    outputs, CUDA-event ms, and the B1 launches and sharded launches and
+    fallbacks it made."""
+    l0 = ck.launches
+    s0 = coalesce.sharded_wave_stats.snapshot()
+    outs, ms = event_ms(lambda: coalesce.launch_wave(
+        kins, [K_STEPS] * len(kins), features, device=dev, mesh=mesh))
+    s1 = coalesce.sharded_wave_stats.snapshot()
+    return outs, ms, {"b1": ck.launches - l0,
+                      "sharded": s1["launches"] - s0["launches"],
+                      "fallbacks": s1["fallbacks"] - s0["fallbacks"]}
+
+
+def mesh_part_a(dev: torch.device, rng) -> dict:
+    """Part A: each fused-envelope variant through the sharded wave at
+    D = 2, 4 and 8 virtual shards on the card, against B1 (the unsharded
+    launch_wave) on the same inputs; one spread wave through the joint
+    sharded wave against the composite; one wave at N=131072 at D=8; the
+    mesh of the real cards."""
+    cluster = c2m_cluster(MESH_LIVE_NODES, seed=SEED)
+    ucpu, umem, udisk, _ = c2m_pack_usage(cluster, MESH_LIVE_ALLOCS,
+                                          seed=SEED)
+    base = base_kin(cluster, (ucpu, umem, udisk))
+    rows = {d: {"shards": d, "waves": 0, "sharded_launches": 0,
+                "ms": [], "b1_ms": [], "max_abs_err": 0.0, "near_ties": 0}
+            for d in MESH_SHARDS}
+    parity, bounds = [], []
+
+    # the process's first sharded waves: an inert one (the members with
+    # no active step: what a warm launch of the bucket's dummy wave
+    # runs), then the first live one (cold), then the same wave repeated
+    # (warm); the live result held against B1 on the same inputs
+    crng = np.random.default_rng(SEED + 170)
+    members = [make_member(base, cluster, "lean", crng)
+               for _ in range(B_WAVE)]
+    kins, feats = [m[0] for m in members], [m[1] for m in members]
+    mesh = sharded.wave_mesh(devices=[dev] * MESH_SERVER_SHARDS)
+    inert = [k._replace(n_steps=np.zeros_like(k.n_steps)) for k in kins]
+    _, inert_ms, n = mesh_wave(inert, feats, dev, mesh)
+    check(n == {"b1": 0, "sharded": 1, "fallbacks": 0},
+          f"mesh/inert: launches {n}")
+    got, cold_ms, n = mesh_wave(kins, feats, dev, mesh)
+    warm_ms = []
+    for _ in range(MESH_WARM_REPEATS):
+        _, ms, n1 = mesh_wave(kins, feats, dev, mesh)
+        check(n1 == n, f"mesh/cold: launches {n1} after {n}")
+        warm_ms.append(ms)
+    check(n == {"b1": 0, "sharded": 1, "fallbacks": 0},
+          f"mesh/cold: launches {n}")
+    want, cold_b1_ms, n0 = mesh_wave(kins, feats, dev, None)
+    b1 = n0["b1"]
+    cold = compare_waves(got, want, f"mesh/cold/D={MESH_SERVER_SHARDS}")
+    cold.update(shards=MESH_SERVER_SHARDS, inert_ms=inert_ms,
+                first_ms=cold_ms,
+                warm_ms=warm_ms, warm_ms_median=float(np.median(warm_ms)),
+                b1_ms=cold_b1_ms)
+    parity.append(cold)
+    log(f"mesh cold: {json.dumps(cold)}")
+    for variant in VARIANTS:
+        members = [make_member(base, cluster, variant, rng)
+                   for _ in range(B_WAVE)]
+        kins, feats = [m[0] for m in members], [m[1] for m in members]
+        want, b1_ms, n = mesh_wave(kins, feats, dev, None)
+        check(n["b1"] == 1 and n["sharded"] == 0,
+              f"mesh/{variant}: the reference wave's launches {n}")
+        b1 += 1
+        bounds.append(mesh_bound(kins, feats, dev))
+        for d in MESH_SHARDS:
+            mesh = sharded.wave_mesh(devices=[dev] * d)
+            got, ms, n = mesh_wave(kins, feats, dev, mesh)
+            ctx = f"mesh/{variant}/D={d}"
+            check(n == {"b1": 0, "sharded": 1, "fallbacks": 0},
+                  f"{ctx}: launches {n}")
+            res = compare_waves(got, want, ctx)
+            check(res["placed"] > 0, f"{ctx}: nothing placed")
+            row = rows[d]
+            row["waves"] += 1
+            row["sharded_launches"] += n["sharded"]
+            row["ms"].append(ms)
+            row["b1_ms"].append(b1_ms)
+            row["max_abs_err"] = max(row["max_abs_err"], res["max_abs_err"])
+            row["near_ties"] += res["near_ties"]
+            parity.append(res)
+        log(f"mesh {variant}: B1 {b1_ms:.2f} ms, sharded "
+            f"{[round(rows[d]['ms'][-1], 1) for d in MESH_SHARDS]} ms "
+            f"at D={list(MESH_SHARDS)}")
+    bound_ms, bound_by = max(bounds)
+    for row in rows.values():
+        row["ms_median"] = float(np.median(row["ms"]))
+        row["b1_ms_median"] = float(np.median(row["b1_ms"]))
+        row["bound_ms"], row["bound_by"] = bound_ms, bound_by
+
+    # the joint sharded wave (a spread member: outside the fused
+    # envelope) against the one-device composite on the card
+    members = [spread_member(base, cluster)] + [
+        make_member(base, cluster, "shuffle", rng)
+        for _ in range(B_WAVE - 1)]
+    kins, feats = [m[0] for m in members], [m[1] for m in members]
+    f0 = coalesce.fused_wave_stats.snapshot()
+    want, comp_ms, n0 = mesh_wave(kins, feats, dev, None)
+    got, joint_ms, n1 = mesh_wave(
+        kins, feats, dev,
+        sharded.wave_mesh(devices=[dev] * MESH_SPREAD_SHARDS))
+    f1 = coalesce.fused_wave_stats.snapshot()
+    check(n0["b1"] == n1["b1"] == 0 and n1["sharded"] == 1,
+          f"mesh/spread: launches {n0} {n1}")
+    check(f1["fallbacks"] - f0["fallbacks"] == 2
+          and f1["failures"] == f0["failures"],
+          f"mesh/spread: fused stats {f0} -> {f1}")
+    spread = compare_waves(got, want, f"mesh/spread/D={MESH_SPREAD_SHARDS}")
+    spread.update(shards=MESH_SPREAD_SHARDS, ms=joint_ms,
+                  composite_ms=comp_ms)
+    log(f"mesh spread: {json.dumps(spread)}")
+
+    # the reference's mesh-cell scale: N=131072 at D=8
+    big = c2m_cluster(MESH_SCALE_NODES, seed=SEED + 1)
+    bc, bm, bd, _ = c2m_pack_usage(big, MESH_SCALE_ALLOCS, seed=SEED + 1)
+    bbase = base_kin(big, (bc, bm, bd))
+    members = [make_member(bbase, big, "kitchen_sink", rng)
+               for _ in range(B_WAVE)]
+    kins, feats = [m[0] for m in members], [m[1] for m in members]
+    want, scale_b1_ms, n0 = mesh_wave(kins, feats, dev, None)
+    got, scale_ms, n1 = mesh_wave(
+        kins, feats, dev,
+        sharded.wave_mesh(devices=[dev] * MESH_SCALE_SHARDS))
+    check(n0["b1"] == 1 and n1 == {"b1": 0, "sharded": 1, "fallbacks": 0},
+          f"mesh/scale: launches {n0} {n1}")
+    b1 += 1
+    scale = compare_waves(got, want, f"mesh/scale/D={MESH_SCALE_SHARDS}")
+    scale.update(n_pad=big.n_pad, shards=MESH_SCALE_SHARDS, ms=scale_ms,
+                 b1_ms=scale_b1_ms)
+    scale["bound_ms"], scale["bound_by"] = mesh_bound(kins, feats, dev)
+    log(f"mesh scale: {json.dumps(scale)}")
+    del big, bbase, members, kins
+
+    # the real cards: one card makes a mesh of one device, which runs
+    # the wave on it (B1), one counted fallback, as the reference's does
+    cards = sharded.wave_mesh(device=dev)
+    members = [make_member(base, cluster, "shuffle", rng)
+               for _ in range(B_WAVE)]
+    kins, feats = [m[0] for m in members], [m[1] for m in members]
+    want, _, n0 = mesh_wave(kins, feats, dev, None)
+    got, cards_ms, n1 = mesh_wave(kins, feats, dev, cards)
+    b1 += n0["b1"] + n1["b1"]
+    if cards.size < 2:
+        check(n1 == {"b1": 1, "sharded": 0, "fallbacks": 1},
+              f"mesh/one card: launches {n1}")
+        log(f"mesh: this host has {cards.size} card; its mesh fell back "
+            "to B1, one counted fallback")
+    else:
+        check(n1 == {"b1": 0, "sharded": 1, "fallbacks": 0},
+              f"mesh/{cards.size} cards: launches {n1}")
+    real = compare_waves(got, want, f"mesh/cards/D={cards.size}")
+    real.update(cards=cards.size, ms=cards_ms, launches=n1)
+    log(f"mesh cards: {json.dumps(real)}")
+    return {"per_d": [rows[d] for d in MESH_SHARDS], "cold": cold,
+            "spread": spread, "scale": scale, "cards": real,
+            "b1_launches": b1,
+            "near_ties": sum(r["near_ties"] for r in parity)
+            + spread["near_ties"] + scale["near_ties"],
+            "variants": len(VARIANTS)}
+
+
+def mesh_part_b(dev: torch.device, state, rng) -> dict:
+    """Part B: the resident state split over a 4-shard mesh. Two waves
+    of the store's own planes with alloc churn between them: the
+    generation advances by the sharded scatter, equals a fresh upload
+    split by shard, and the second wave finds every shared plane
+    resident (0 B of them uploaded)."""
+    mesh = sharded.wave_mesh(devices=[dev] * MESH_STATE_SHARDS)
+    ds = default_device_state
+    ds.configure_mesh(mesh)
+    cache = coalesce.ClusterCache(dev)
+    lookups = {"asked": 0, "resident": 0}
+    real_lookup = ds.lookup
+
+    def counted(arr, device=None, frozen_ok=True, spec=None, mesh=None):
+        got = real_lookup(arr, device, frozen_ok, spec, mesh)
+        if mesh is not None:
+            lookups["asked"] += 1
+            lookups["resident"] += got is not None
+        return got
+
+    masks: dict = {}
+
+    def wave(tag: str) -> dict:
+        # the store's wave-shared planes and a read-only base mask (one
+        # per cluster build), held by every member by identity (the live
+        # stack's shape)
+        snap = state.snapshot()
+        cluster = cache.get(snap)
+        planes = cluster.wave_shared_planes(snap.usage)
+        held, mask = masks.get(id(cluster), (None, None))
+        if held is not cluster:
+            mask = cluster.ready.copy()
+            mask.setflags(write=False)
+            masks[id(cluster)] = (cluster, mask)
+        base = base_kin(cluster, (planes["used_cpu"], planes["used_mem"],
+                                  planes["used_disk"]))._replace(
+            base_mask=mask, **planes)
+        members = [make_member(base, cluster, "lean", rng)
+                   for _ in range(B_WAVE)]
+        kins, feats = [m[0] for m in members], [m[1] for m in members]
+        lookups.update(asked=0, resident=0)
+        before = ds.snapshot()
+        up0 = coalesce.upload_stats.bytes
+        ds.lookup = counted
+        try:
+            got, ms, n = mesh_wave(kins, feats, dev, mesh)
+        finally:
+            del ds.lookup
+        launcher = coalesce.upload_stats.bytes - up0
+        after = ds.snapshot()
+        check(n["sharded"] == 1 and n["b1"] == 0,
+              f"mesh state/{tag}: launches {n}")
+        want, _, n = mesh_wave(kins, feats, dev, None)
+        check(n["b1"] == 1, f"mesh state/{tag}: reference launches {n}")
+        res = compare_waves(got, want, f"mesh state/{tag}")
+        fresh = ds.check_fresh(snap, dev)
+        check(fresh["resident"] and fresh["differ"] == []
+              and fresh["shards"] == MESH_STATE_SHARDS,
+              f"mesh state/{tag}: resident shards against a fresh upload: "
+              f"{fresh}")
+        delta = {k: after[k] - before[k] for k in (
+            "full_uploads", "delta_advances", "fork_deltas",
+            "usage_full_uploads", "rows_uploaded", "bytes_uploaded")}
+        return {"ms": ms, "launcher_bytes": launcher,
+                "shared_lookups": lookups["asked"],
+                "shared_resident": lookups["resident"],
+                "state": delta, "max_abs_err": res["max_abs_err"],
+                "resident_check": fresh}
+
+    try:
+        w1 = wave("first")
+        live = [a for a in state.snapshot().allocs_iter()
+                if not a.terminal_status()]
+        pick = rng.choice(len(live), MESH_CHURN, replace=False)
+        for i in pick:
+            state.stop_alloc(live[int(i)].id, [])
+        w2 = wave("after churn")
+    finally:
+        ds.configure_mesh(None)
+    check(w1["shared_resident"] == w1["shared_lookups"] > 0,
+          f"mesh state: the first wave's shared planes not all resident: "
+          f"{w1}")
+    check(w2["shared_resident"] == w2["shared_lookups"] > 0,
+          f"mesh state: shared planes uploaded again: {w2}")
+    st = w2["state"]
+    check(st["delta_advances"] == 1 and st["full_uploads"] == 0
+          and st["usage_full_uploads"] == 0 and st["fork_deltas"] == 0,
+          f"mesh state: the churn did not advance by the scatter: {st}")
+    # nothing but the dirty rows went up: each row's id and its value in
+    # every usage plane, one int32 each
+    fields = len(ClusterTensors.WAVE_USAGE_FIELDS)
+    rows = st["rows_uploaded"] // fields
+    check(0 < rows <= MESH_CHURN
+          and st["bytes_uploaded"] == 4 * (1 + fields) * rows,
+          f"mesh state: the second wave uploaded more than its rows: {st}")
+    return {"shards": MESH_STATE_SHARDS, "churn": MESH_CHURN,
+            "waves": [w1, w2], "b1_launches": 2, "scatter_rows": rows,
+            "scatter_bytes": st["bytes_uploaded"]}
+
+
+def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
+    """Part C: phase 11's window-off server over the restored state, its
+    waves split over a 4-shard virtual mesh: the warm-up, then the timed
+    burst, every count set to 0 just before it."""
+    from nomad_tpu_torch.telemetry.exporter import prometheus_text
+
+    ctx = "mesh server"
+    records: list = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    logger = logging.getLogger("nomad_tpu_torch.server.server")
+    keep = Keep(level=logging.INFO)
+    level = logger.level
+    logger.addHandler(keep)
+    logger.setLevel(logging.INFO)
+    try:
+        srv.start()
+    finally:
+        logger.removeHandler(keep)
+        logger.setLevel(level)
+    res: dict = {"cards": torch.cuda.device_count() if dev.type == "cuda"
+                 else 1}
+    try:
+        if res["cards"] < 2:
+            check(srv.wave_mesh is None and any(
+                "no mesh adopted" in m for m in records),
+                f"{ctx}: use_device_mesh=True on one card: mesh "
+                f"{srv.wave_mesh}, log {records}")
+        res["probe_log"] = records
+        mesh = sharded.wave_mesh(devices=[dev] * MESH_SERVER_SHARDS)
+        srv._adopt_wave_mesh(mesh)
+        check(srv.wave_mesh is mesh, f"{ctx}: mesh not adopted")
+        w = srv.workers[0]
+        warm = [c2m.burst_job(rng, i, prefix="mesh-warm")
+                for i in range(SERVER_WARMUP_JOBS)]
+        t0 = time.perf_counter()
+        for job in warm:
+            srv.job_register(job)
+        res["warmup_s"] = server_converged(
+            srv, warm, time.time() + SERVER_DEADLINE_S) - t0
+        check_server_burst(srv, warm, f"{ctx} warm-up")
+
+        jobs = [c2m.burst_job(rng, i, prefix="mesh-burst")
+                for i in range(SERVER_JOBS)]
+        histograms.get("e2e").reset()
+        srv.plan_latencies.clear()
+        coalesce.fused_wave_stats.reset()
+        coalesce.sharded_wave_stats.reset()
+        coalesce.wave_stats.reset()
+        default_device_state.reset_stats()
+        waves0, requests0 = w.batch_launches, w.batch_requests
+        ck.launches = 0
+        t0 = time.perf_counter()
+        for job in jobs:
+            srv.job_register(job)
+        t_done = server_converged(srv, jobs,
+                                  time.time() + SERVER_DEADLINE_S)
+        burst_s = t_done - t0
+        b1 = ck.launches
+        sstats = coalesce.sharded_wave_stats.snapshot()
+        fstats = coalesce.fused_wave_stats.snapshot()
+        wstats = coalesce.wave_stats.snapshot()
+        dstate = default_device_state.snapshot()
+        e2e = histograms.get("e2e")
+        e2e_p50, e2e_p99 = e2e.quantiles((0.5, 0.99))
+        scrape = prometheus_values(prometheus_text())
+        check_server_burst(srv, jobs, ctx)
+    finally:
+        srv.shutdown()
+    waves = w.batch_launches - waves0
+    requests = w.batch_requests - requests0
+    check(default_device_state.mesh is None,
+          f"{ctx}: the resident state kept the server's mesh")
+    check(sstats["launches"] == waves >= 1 and sstats["fallbacks"] == 0
+          and sstats["mesh_devices"] == MESH_SERVER_SHARDS,
+          f"{ctx}: sharded {sstats} for {waves} waves")
+    check(fstats == {"launches": waves, "fallbacks": 0, "failures": 0},
+          f"{ctx}: fused {fstats} for {waves} waves")
+    check(b1 == 0, f"{ctx}: {b1} B1 launches in sharded waves")
+    check(dstate["errors"] == 0 and dstate["mesh_devices"]
+          == MESH_SERVER_SHARDS, f"{ctx}: device state {dstate}")
+    series = {k: scrape.get(f"nomad_tpu_wave_sharded_{k}") for k in (
+        "launches_total", "fallbacks_total", "mesh_devices")}
+    check(series == {"launches_total": waves, "fallbacks_total": 0,
+                     "mesh_devices": MESH_SERVER_SHARDS},
+          f"{ctx}: the exporter reads {series} for {waves} waves")
+    res.update({
+        "shards": MESH_SERVER_SHARDS, "evals": SERVER_JOBS,
+        "burst_s": burst_s, "evals_per_s": SERVER_JOBS / burst_s,
+        "e2e_p50_ms": e2e_p50 * 1e3, "e2e_p99_ms": e2e_p99 * 1e3,
+        "waves": waves, "wave_fill": requests / waves if waves else 0.0,
+        "wave_latency_p50_ms": wstats["wave_latency_p50_ms"],
+        "wave_latency_p99_ms": wstats["wave_latency_p99_ms"],
+        "assemble_latency_p50_ms": wstats["assemble_latency_p50_ms"],
+        "sharded": sstats, "fused": fstats,
+        "device_state": {k: dstate[k] for k in (
+            "hits", "delta_advances", "full_uploads", "rows_uploaded",
+            "bytes_uploaded", "errors", "mesh_devices")},
+        "exporter": series,
+        "window_off_evals_per_s": window_off.get("evals_per_s"),
+        "window_off_wave_p50_ms": window_off.get("wave_latency_p50_ms"),
+    })
+    return res
+
+
+def run_mesh_phase(dev: torch.device, record: dict, state_bytes: bytes,
+                   window_off: dict) -> dict:
+    """Phase 17: parts A, B and C; one ``mesh: {...}`` line."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    coalesce.sharded_wave_stats.reset()
+    part_a = mesh_part_a(dev, rng)
+    srv = Server(ServerConfig(num_workers=1, worker_batch_size=SERVER_BATCH,
+                              heartbeat_ttl=3600.0, gc_tuning=True,
+                              coalesce_adaptive=False, use_device_mesh=True),
+                 device=dev)
+    t0 = time.perf_counter()
+    srv.state.restore_from_bytes(state_bytes)
+    restore_s = time.perf_counter() - t0
+    part_b = mesh_part_b(dev, srv.state, rng)
+    part_c = mesh_part_c(dev, srv, rng, window_off)
+    part_c["restore_s"] = restore_s
+    res = {
+        "per_d": [{k: r[k] for k in (
+            "shards", "waves", "sharded_launches", "ms_median",
+            "b1_ms_median", "max_abs_err", "near_ties", "bound_ms",
+            "bound_by", "ms", "b1_ms")} for r in part_a["per_d"]],
+        "cold": part_a["cold"], "spread": part_a["spread"],
+        "scale": part_a["scale"], "cards": part_a["cards"], "near_ties": part_a["near_ties"],
+        "b1_launches": part_a["b1_launches"] + part_b["b1_launches"],
+        "state": part_b, "server": part_c,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"mesh: {json.dumps(res)}")
+    record["mesh"] = res
+    return res
+
+
+def mesh_phase_alone(argv: list) -> int:
+    """``chip_smoke.py --mesh-phase [--device cpu] [--nodes N] [--allocs
+    M]``: phase 11's window-off arm, then phase 17, on the state of
+    ``c2m.generate(N, M)`` (10,000 nodes and 100k allocs unless given).
+    On the card the kernels are built first. ``--device cpu`` rehearses
+    it on the CPU at the cluster sizes given (``--nodes`` also sizes part
+    A's clusters), with host-clock times and B1's plain version counted
+    as its launches."""
+    import argparse
+    from unittest import mock as patch
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --mesh-phase")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--nodes", type=int, default=c2m.N_NODES)
+    ap.add_argument("--allocs", type=int, default=c2m.N_ALLOCS)
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("chip_smoke: --mesh-phase needs an NVIDIA card; --device cpu "
+              "rehearses it", file=sys.stderr)
+        return 2
+    if os.environ.pop("NOMAD_TPU_GC_TUNING", None) is not None:
+        log("mesh phase: NOMAD_TPU_GC_TUNING was set; unset")
+    kernel_warmup.DEFAULT_MANIFEST_PATH = str(
+        Path(__file__).resolve().parent / "build" / "no_manifest.json")
+    dev = torch.device(args.device)
+    if args.device == "cuda":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        log(f"card: {card}")
+        ck.load_libraries()
+    t0 = time.perf_counter()
+    state_bytes = c2m.generate(args.nodes, args.allocs).to_snapshot_bytes()
+    log(f"mesh phase: state of {args.nodes} nodes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 11)
+
+    def run() -> dict:
+        arm = server_arm(dev, state_bytes, True, False, SERVER_JOBS, rng)
+        log(f"server: {json.dumps(arm)}")
+        return run_mesh_phase(dev, {}, state_bytes, arm)
+
+    if args.device == "cuda":
+        run()
+        return 0
+    # the CPU rehearsal: B1's plain version counted as its launches,
+    # host-clock times, the scale wave at ten times the live size
+    plain = ck.fused_wave_place
+
+    def counted(*a, **k):
+        ck.launches += 1
+        return plain(*a, **k)
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    global MESH_LIVE_NODES, MESH_LIVE_ALLOCS, MESH_SCALE_NODES
+    global MESH_SCALE_ALLOCS
+    MESH_LIVE_NODES, MESH_LIVE_ALLOCS = args.nodes, args.allocs
+    MESH_SCALE_NODES, MESH_SCALE_ALLOCS = 10 * args.nodes, 10 * args.allocs
+    with patch.patch.object(ck, "fused_wave_place", counted), \
+            patch.patch.object(coalesce, "fused_wave_place", counted), \
+            patch.patch(f"{__name__}.event_ms", host_ms), \
+            patch.patch(f"{__name__}.cuda_ms",
+                        lambda fn, reps: host_ms(fn)[1]), \
+            patch.patch.object(torch.cuda, "synchronize", lambda *a: None):
+        run()
     return 0
 
 if __name__ == "__main__":

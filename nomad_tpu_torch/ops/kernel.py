@@ -1244,12 +1244,16 @@ def on_device(x: torch.Tensor, dev: torch.device) -> bool:
 def upload_leaf(x, dev: torch.device, done: Optional[dict] = None):
     """``(tensor on dev, bytes moved)`` for one launch argument. A tensor
     already on ``dev`` (a resident plane) moves nothing, a tensor on
-    another device raises, and host numpy is copied with its dtype.
+    another device raises, and host numpy is copied with its dtype. A
+    leaf placed over a mesh (a tuple of per-shard tensors,
+    ``parallel/sharded.place``) stays where its mesh put it.
     ``done`` maps ``id`` of a host array already uploaded in this call to
     its tensor, so an array held under several fields goes up once."""
     if isinstance(x, torch.Tensor):
         if not on_device(x, dev):
             raise ValueError(f"plane on {x.device}, wave on {dev}")
+        return x, 0
+    if isinstance(x, tuple):
         return x, 0
     if done is not None:
         got = done.get(id(x))

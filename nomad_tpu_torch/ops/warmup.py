@@ -25,8 +25,11 @@ its first live launch counts no miss. Warm launches go through the
 profiler under ``warmup_<kernel>`` and are counted in ``warmup_stats``,
 apart from the waves' own counts.
 
-Not ported: the sharded warm passes (``_warm_joint_sharded``,
-``_warm_fused_sharded``) wait for the node-axis mesh (ROADMAP A.11).
+The sharded waves over a device mesh are not warmed: they are eager
+torch ops with nothing to compile, and a process's first sharded wave
+pays its own loading once, a fraction of one wave (PERF.md, phase 17).
+The manifest keeps no mesh: a sharded wave's key folds into the same
+``joint`` entry as its one-device wave.
 """
 
 from __future__ import annotations
@@ -92,13 +95,19 @@ def manifest_from_profiler(profiler=None) -> List[Dict]:
     """Flatten the kernel profiler's (kernel, key) launches into JSON-able
     manifest entries. Fused-wave keys fold into the same ``joint`` entries
     as the composite's: the launcher keys both alike, and warmup derives
-    from an entry's features which of the two its waves run."""
+    from an entry's features which of the two its waves run. Sharded
+    keys (the wave key and the mesh's devices) fold into the same
+    mesh-agnostic entries, their devices dropped: the next start warms
+    them unsharded."""
     if profiler is None:
         from nomad_tpu_torch.telemetry.kernel_profile import profiler as _p
 
         profiler = _p
     entries: List[Dict] = []
     for kernel, key in profiler.keys():
+        if kernel in ("fused_wave_sharded", "joint_sharded") \
+                and len(key) == 8:
+            kernel, key = "joint", key[:7]
         if kernel in ("fused_wave", "joint") and len(key) == 7:
             b_pad, t_pad, n_nodes, shared, neutral_shared, job_shared, \
                 feats = key

@@ -32,15 +32,21 @@ the turn hands it, and the turn is given back once every member of the
 wave has submitted its plan (or finished). Waves of different processes
 then never place against each other's uncommitted capacity.
 
+A wave given a device mesh (``mesh=``; a coalescer passes its server's
+``Server.wave_mesh``) runs with its node axis split over the mesh's devices
+(``parallel/sharded``): the fused sharded wave when the union is in the
+fused envelope and each shard holds at least TOPK rows, else the joint
+sharded wave (counted as a fused fallback). A mesh that does not divide
+the node axis, or has one device, runs the wave on ``device`` and counts
+a sharded fallback in ``sharded_wave_stats``. The results equal the
+one-device wave's bit for bit.
+
 The fault points ``wave.launch`` and ``wave.d2h.drain`` and the tracer
 spans ``wave.assemble``, ``wave.park``, ``wave.launch`` and
 ``kernel.d2h`` sit where the JAX launcher has them, and the kernel
-profiler (``telemetry/kernel_profile``) times each wave's B1 or
-composite dispatch under its bucket key and meters its uploads and
+profiler (``telemetry/kernel_profile``) times each wave's B1, composite
+or sharded dispatch under its bucket key and meters its uploads and
 readbacks.
-
-Waiting for a later slice of the port: the node-axis mesh and sharded
-dispatch (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -61,6 +67,8 @@ from nomad_tpu_torch.ops.cuda_kernel import (
     fused_wave_place_reference,
 )
 from nomad_tpu_torch.ops.kernel import (
+    TOPK,
+    FusedWaveOut,
     KernelFeatures,
     KernelIn,
     KernelOut,
@@ -68,6 +76,7 @@ from nomad_tpu_torch.ops.kernel import (
     fused_wave_supported,
     neutral_step_planes,
     pad_steps,
+    pack_fused_wave,
     unpack_fused_wave,
     upload_leaf,
 )
@@ -139,6 +148,52 @@ class _FusedWaveStats:
 #: process-wide fused-wave stats (coalescers are per batch and too
 #: short-lived to carry their own history)
 fused_wave_stats = _FusedWaveStats()
+
+
+class _ShardedWaveStats:
+    """Sharded-dispatch accounting (exported as the
+    ``nomad_tpu_wave_sharded_*`` series by telemetry/exporter.py; reset
+    with telemetry.reset()).
+
+    ``launches`` counts waves whose node axis was split over a mesh;
+    ``fallbacks`` counts waves that had a mesh but ran on one device (a
+    mesh of one device, or a node axis its device count does not
+    divide): on a healthy mesh server this sits at zero. ``mesh_devices``
+    is the device count of the newest sharded launch or fallback (0 =
+    never)."""
+
+    def __init__(self) -> None:
+        self._lock = witness_lock("ShardedWaveStats._lock")
+        self.launches = 0
+        self.fallbacks = 0
+        self.mesh_devices = 0
+
+    def note_launch(self, devices: int) -> None:
+        with self._lock:
+            self.launches += 1
+            self.mesh_devices = devices
+
+    def note_fallback(self, devices: int) -> None:
+        with self._lock:
+            self.fallbacks += 1
+            self.mesh_devices = devices
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+            self.fallbacks = 0
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "launches": self.launches,
+                "fallbacks": self.fallbacks,
+                "mesh_devices": self.mesh_devices,
+            }
+
+
+#: process-wide sharded-wave stats
+sharded_wave_stats = _ShardedWaveStats()
 
 
 class _UploadStats:
@@ -474,7 +529,10 @@ class ResidentUsage:
 
 
 class Wave(NamedTuple):
-    """One assembled wave, uploaded to its device."""
+    """One assembled wave, uploaded to its device (or placed over its
+    mesh: then every leaf is a placed leaf, ``parallel/sharded.place``,
+    and the step maps stay on the host, where the sharded body reads
+    them)."""
 
     kin: KernelIn                # stacked: shared leaves unbatched
     step_member: torch.Tensor    # i32[t_pad], -1 = padding
@@ -486,17 +544,15 @@ class Wave(NamedTuple):
     #: (shareable, neutral_shareable, job_shareable): which groups ship
     #: unbatched
     layout: tuple
+    mesh: object = None          # the mesh of a sharded wave
 
 
-def assemble_wave(kins: List[KernelIn], k_steps: List[int],
-                  features: List[KernelFeatures], dev: torch.device) -> Wave:
-    """Host stacking, the three sharing groups and the step layout; each
-    distinct plane is uploaded once, and a shared plane resident on
-    ``dev`` is not uploaded at all."""
-    # the snapshot planes the members' evals asked for go resident now,
-    # on this thread, before the lookups below (keyed once per wave)
-    dkey = device_key(dev)
-    default_device_state.advance_pending(dkey)
+def _wave_layout(kins: List[KernelIn], k_steps: List[int],
+                 features: List[KernelFeatures]):
+    """The host half of a wave: members padded to the wave's step count
+    and bucket, the feature union, the sharing layout and the step maps.
+    Returns ``(padded, feats, b_pad, t_pad, layout, step_member,
+    step_local, offsets)``."""
     k_max = max(k_steps)
     feats = union_features(features)
     padded = [_pad_kin_steps(kin, k_max) for kin in kins]
@@ -510,13 +566,39 @@ def assemble_wave(kins: List[KernelIn], k_steps: List[int],
         return all(all(getattr(k, f) is getattr(padded[0], f)
                        for k in padded[1:]) for f in fields)
 
-    shareable = _group_shared(_SHAREABLE_FIELDS)
-    neutral_shareable = _group_shared(_NEUTRAL_SHAREABLE_FIELDS)
-    job_shareable = _group_shared(_JOB_SHAREABLE_FIELDS)
+    layout = (_group_shared(_SHAREABLE_FIELDS),
+              _group_shared(_NEUTRAL_SHAREABLE_FIELDS),
+              _group_shared(_JOB_SHAREABLE_FIELDS))
+
+    # step layout: member 0's steps, then member 1's, ... The step axis
+    # is sized from the PADDED wave so the shape depends only on (wave
+    # bucket, step bucket).
+    t_pad = pad_steps(b_pad * k_max)
+    ks = np.asarray(k_steps, np.int64)
+    starts = np.concatenate(([0], np.cumsum(ks)[:-1]))
+    total = int(ks.sum())
+    step_member = np.full(t_pad, -1, np.int32)
+    step_local = np.zeros(t_pad, np.int32)
+    step_member[:total] = np.repeat(np.arange(len(ks)), ks)
+    step_local[:total] = np.arange(total) - np.repeat(starts, ks)
+    return (padded, feats, b_pad, t_pad, layout, step_member, step_local,
+            starts.tolist())
+
+
+def assemble_wave(kins: List[KernelIn], k_steps: List[int],
+                  features: List[KernelFeatures], dev: torch.device) -> Wave:
+    """Host stacking, the three sharing groups and the step layout; each
+    distinct plane is uploaded once, and a shared plane resident on
+    ``dev`` is not uploaded at all."""
+    # the snapshot planes the members' evals asked for go resident now,
+    # on this thread, before the lookups below (keyed once per wave)
+    dkey = device_key(dev)
+    default_device_state.advance_pending(dkey)
+    padded, feats, b_pad, t_pad, layout, step_member, step_local, \
+        offsets = _wave_layout(kins, k_steps, features)
 
     def _stack_field(f, xs):
-        if wave_field_is_shared(f, shareable, neutral_shareable,
-                                job_shareable):
+        if wave_field_is_shared(f, *layout):
             # the resident twin on THIS device when one exists (the
             # snapshot's planes advanced above, frozen neutral
             # singletons uploaded once). The snapshot group is
@@ -534,22 +616,68 @@ def assemble_wave(kins: List[KernelIn], k_steps: List[int],
     stacked = KernelIn(*[
         _stack_field(f, [getattr(k, f) for k in padded])
         for f in KernelIn._fields])
-
-    # step layout: member 0's steps, then member 1's, ... The step axis
-    # is sized from the PADDED wave so the shape depends only on (wave
-    # bucket, step bucket).
-    t_pad = pad_steps(b_pad * k_max)
-    ks = np.asarray(k_steps, np.int64)
-    starts = np.concatenate(([0], np.cumsum(ks)[:-1]))
-    total = int(ks.sum())
-    step_member = np.full(t_pad, -1, np.int32)
-    step_local = np.zeros(t_pad, np.int32)
-    step_member[:total] = np.repeat(np.arange(len(ks)), ks)
-    step_local[:total] = np.arange(total) - np.repeat(starts, ks)
     return Wave(stacked, _upload(step_member, dev),
-                _upload(step_local, dev), t_pad, b_pad, feats,
-                starts.tolist(),
-                (shareable, neutral_shareable, job_shareable))
+                _upload(step_local, dev), t_pad, b_pad, feats, offsets,
+                layout)
+
+
+def _place(x, sharding, done: Optional[dict] = None) -> tuple:
+    """One leaf placed over its mesh (``parallel/sharded._place``), the
+    bytes counted as ``_upload`` counts them. With ``done`` (members'
+    arrays, alive for the whole wave), a host array placed under several
+    fields with one spec moves once."""
+    from nomad_tpu_torch.parallel.sharded import _place as place_leaf
+
+    key = ((id(x), sharding.spec)
+           if done is not None and isinstance(x, np.ndarray) else None)
+    got = done.get(key) if key is not None else None
+    if got is not None:
+        return got
+    t0 = time.perf_counter()
+    parts, nbytes = place_leaf(x, sharding.spec, sharding.mesh)
+    if nbytes:
+        upload_stats.note(nbytes)
+        if profiler.enabled:
+            profiler.add_stage("h2d", time.perf_counter() - t0)
+            profiler.add_bytes("h2d", nbytes)
+    if key is not None:
+        done[key] = parts
+    return parts
+
+
+def assemble_sharded_wave(kins: List[KernelIn], k_steps: List[int],
+                          features: List[KernelFeatures], mesh) -> Wave:
+    """``assemble_wave`` over a mesh: each leaf placed by the layout's
+    shardings (``parallel/sharded.joint_in_shardings``); a shared leaf
+    whose twin the device state holds split over ``mesh`` is not placed
+    again. The step maps stay on the host."""
+    from nomad_tpu_torch.parallel.sharded import joint_in_shardings
+
+    default_device_state.advance_pending(mesh)
+    padded, feats, b_pad, t_pad, layout, step_member, step_local, \
+        offsets = _wave_layout(kins, k_steps, features)
+    shardings, _ = joint_in_shardings(mesh, *layout)
+    done: dict = {}
+
+    def _stack_field(f, xs, sh):
+        if wave_field_is_shared(f, *layout):
+            # the twin split over THIS mesh when the device state holds
+            # one; the snapshot group is registry-only, as in
+            # assemble_wave
+            res = default_device_state.lookup(
+                xs[0], frozen_ok=f not in _SHAREABLE_FIELDS, spec=sh.spec,
+                mesh=mesh)
+            if res is not None:
+                return res
+            return _place(xs[0], sh, done)
+        return _place(np.stack([np.asarray(x) for x in xs]), sh)
+
+    stacked = KernelIn(*[
+        _stack_field(f, [getattr(k, f) for k in padded], sh)
+        for f, sh in zip(KernelIn._fields, shardings)])
+    return Wave(stacked, torch.from_numpy(step_member),
+                torch.from_numpy(step_local), t_pad, b_pad, feats, offsets,
+                layout, mesh)
 
 
 def _dispatch(stacked, sm, sl, t_pad, feats, resident, fused):
@@ -577,10 +705,30 @@ def _dispatch(stacked, sm, sl, t_pad, feats, resident, fused):
     return fout
 
 
+def _dispatch_sharded(stacked, sm, sl, t_pad, feats, mesh, layout, fused):
+    """The fused sharded wave when ``fused``, else the joint sharded wave
+    packed as a fused wave's outputs (its carries gathered whole)."""
+    from nomad_tpu_torch.parallel.sharded import (
+        fused_sharded_entry,
+        joint_sharded_entry,
+    )
+
+    if fused:
+        return fused_sharded_entry(mesh, *layout)[0](
+            stacked, sm, sl, t_pad, feats)
+    out = joint_sharded_entry(mesh, *layout)[0](
+        stacked, sm, sl, t_pad, feats)
+    return FusedWaveOut(
+        packed=pack_fused_wave(out, t_pad, int(out.nodes_evaluated.shape[0])),
+        topk_idx=out.topk_idx, topk_scores=out.topk_scores,
+        a_cpu=out.a_cpu, a_mem=out.a_mem, a_disk=out.a_disk)
+
+
 def launch_wave(kins: List[KernelIn], k_steps: List[int],
                 features: List[KernelFeatures],
                 device: DeviceLike = None,
-                resident: Optional[ResidentUsage] = None) -> List[KernelOut]:
+                resident: Optional[ResidentUsage] = None,
+                mesh=None) -> List[KernelOut]:
     """Fire B launch requests as ONE device call; split the results.
 
     Members' placement steps run in arrival order over a shared capacity
@@ -589,18 +737,33 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     identity is uploaded once per wave; the per-member result comes back
     in one packed device-to-host copy. An error from the kernel
     propagates to every member.
+
+    ``mesh``: split the node axis over this mesh's devices (see the
+    module doc; None runs on ``device``). A sharded wave commits into no
+    ``resident`` usage: the two together raise.
     """
-    # (node-axis mesh/sharding: a later slice)
     dev = resolve_device(device)
     if resident is not None and resident.device != dev:
         raise ValueError("resident usage lives on another device")
+    if resident is not None and mesh is not None:
+        raise ValueError("a wave over a mesh commits into no resident "
+                         "usage: pass mesh=None with resident=")
     # wave-launch seam (chaos plane): an injected failure lands on every
     # member of the wave
     fault("wave.launch")
+    # a mesh splits the node axis only when its device count divides it
+    # (the pad buckets' powers of two cover every power-of-two mesh); a
+    # wave that cannot split runs on ``dev``, counted
+    n_nodes = int(kins[0].cap_cpu.shape[-1])
+    mesh_size = int(mesh.size) if mesh is not None else 0
+    sharded = mesh_size >= 2 and n_nodes % mesh_size == 0
     t_assemble = time.perf_counter()
     with tracer.span("wave.assemble"):
-        stacked, sm, sl, t_pad, b_pad, feats, offsets, layout = \
-            assemble_wave(kins, k_steps, features, dev)
+        if sharded:
+            wave = assemble_sharded_wave(kins, k_steps, features, mesh)
+        else:
+            wave = assemble_wave(kins, k_steps, features, dev)
+        stacked, sm, sl, t_pad, b_pad, feats, offsets, layout, _ = wave
         if profiler.enabled and dev.type == "cuda":
             # the uploads are done once the card has them
             t0 = time.perf_counter()
@@ -610,18 +773,33 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     wave_stats.observe_assemble(t_launch - t_assemble)
     # the bucket identity of the launch: a repeat of this key is no
     # miss (the profiler counts first launches per key)
-    wave_key = (b_pad, t_pad, int(stacked.cap_cpu.shape[-1]), *layout,
-                feats)
-    fused = fused_wave_supported(feats)
+    wave_key = (b_pad, t_pad, n_nodes, *layout, feats)
+    # a sharded fused wave also needs TOPK rows a shard for its local
+    # top-k merge
+    fused = fused_wave_supported(feats) and (
+        not sharded or n_nodes // mesh_size >= TOPK)
+    if sharded:
+        sharded_wave_stats.note_launch(mesh_size)
+    elif mesh is not None:
+        sharded_wave_stats.note_fallback(mesh_size)
     token = object()
     with _INFLIGHT_LOCK:
         _INFLIGHT_STARTS[token] = t_launch
     try:
         try:
-            fout = profiler.call(
-                "fused_wave" if fused else "joint", _dispatch,
-                (stacked, sm, sl), (t_pad, feats, resident, fused),
-                wave_key, dev)
+            if sharded:
+                # the step maps pass as host arrays, beside the statics
+                fout = profiler.call(
+                    "fused_wave_sharded" if fused else "joint_sharded",
+                    _dispatch_sharded, (stacked,),
+                    (sm, sl, t_pad, feats, mesh, layout, fused),
+                    wave_key + (tuple(mesh.devices.flat),),
+                    mesh.devices.flat[0])
+            else:
+                fout = profiler.call(
+                    "fused_wave" if fused else "joint", _dispatch,
+                    (stacked, sm, sl), (t_pad, feats, resident, fused),
+                    wave_key, dev)
             # the single wave-critical readback (synchronizes with the
             # wave, so an error of the kernel surfaces here)
             with tracer.span("kernel.d2h"):
@@ -717,6 +895,9 @@ class LaunchCoalescer:
     planes brought up to the newest committed state, and ``end()``. The
     wave's members hold it from the launch until each has left its plan
     window, launched again or finished.
+
+    ``mesh`` (optional) is the owning server's device mesh: every wave
+    is launched over it (``launch_wave(mesh=)``).
     """
 
     #: deadline = EWMA wave latency x this fraction (clamped)
@@ -729,12 +910,17 @@ class LaunchCoalescer:
                  resident: Optional[ResidentUsage] = None,
                  window_min_s: float = 0.001,
                  window_max_s: float = 0.050,
-                 adaptive: bool = True, turn=None) -> None:
+                 adaptive: bool = True, turn=None, mesh=None) -> None:
+        if mesh is not None and resident is not None:
+            raise ValueError("a coalescer over a mesh commits into no "
+                             "resident usage")
         self._cv = threading.Condition(
             witness_lock("LaunchCoalescer._lock"))
         self._active = participants
         self.device = resolve_device(device)
         self.resident = resident
+        #: the owning server's device mesh (None: one device)
+        self.mesh = mesh
         self._pending: List[_Request] = []
         self.window_min_s = window_min_s
         self.window_max_s = window_max_s
@@ -892,7 +1078,7 @@ class LaunchCoalescer:
                     outs = launch_wave(
                         [r.kin for r in grp], [r.k_steps for r in grp],
                         [r.features for r in grp], device=self.device,
-                        resident=self.resident)
+                        resident=self.resident, mesh=self.mesh)
                 for r, out in zip(grp, outs):
                     r.out = out
                 # wave-boundary plan batching: the members are about to

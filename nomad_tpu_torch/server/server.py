@@ -11,10 +11,9 @@ Counterpart of ``nomad_tpu/server/server.py``. ``device`` (an argument
 of ``Server`` or a field of ``ServerConfig``; ``None`` means the card)
 is where every worker's placement waves and single-eval launches run;
 with ``scheduler_workers > 0`` each worker process opens it too and
-places there (server/workerproc.py). Settings that ask for a part of the
-system the port does not have yet raise ``NotImplementedError`` naming
-the ROADMAP item that adds it, instead of being ignored:
-``use_device_mesh=True`` (A.11). Forwarding a job to its region and
+places there (server/workerproc.py). ``use_device_mesh`` splits the
+placement waves' node axis over a mesh of devices (``wave_mesh``, see
+``_maybe_configure_wave_mesh``). Forwarding a job to its region and
 replicating ACLs from the authoritative region go through the port's
 ``api/client``, as in the reference.
 ``setup_raft`` attaches the replicated log (``raft/``) as in the
@@ -116,8 +115,8 @@ class ServerConfig:
         self.node_gc_threshold = node_gc_threshold
         self.deployment_gc_threshold = deployment_gc_threshold
         # route placement waves over a device mesh (the node axis split
-        # over several cards). None and False run every wave on the one
-        # device; True raises until the port has the mesh (ROADMAP A.11)
+        # over several cards): True over every available device, None
+        # and False never (the port's sharded wave is slower than B1)
         self.use_device_mesh = use_device_mesh
         # real Vault server (nomad/vault.go config); empty addr = the
         # in-memory dev provider
@@ -307,7 +306,6 @@ class Server:
     def __init__(self, config: Optional[ServerConfig] = None,
                  device: DeviceLike = None) -> None:
         self.config = config or ServerConfig()
-        _refuse_unported(self.config)
         self.device = resolve_device(
             self.config.device if device is None else device)
         self._eval_commit_lock = threading.Lock()
@@ -425,6 +423,13 @@ class Server:
         # loops from a previous term notice and exit
         self._leadership_lock = threading.Lock()
         self._leader_gen = 0
+        # this server's device mesh for placement waves (None = one
+        # device); per server, so co-resident servers with different
+        # meshes cannot clobber each other
+        self.wave_mesh = None
+        # whether THIS server configured the process-wide resident
+        # cluster state's mesh (released at shutdown)
+        self._owns_device_state_mesh = False
 
     # --- lifecycle ------------------------------------------------------
 
@@ -476,6 +481,7 @@ class Server:
         otherwise immediately (single-process authority)."""
         self._shutdown.clear()
         self._tune_interpreter_gc()
+        self._maybe_configure_wave_mesh()
         self._maybe_start_kernel_warmup()
         self.vault.start()
         if self.raft is not None:
@@ -621,6 +627,51 @@ class Server:
         except OSError as e:
             LOG.warning("warmup manifest persist failed: %s", e)
 
+    def _maybe_configure_wave_mesh(self) -> None:
+        """Split the placement waves' node axis over a mesh of devices
+        when the configuration asks for one: ``use_device_mesh=True``
+        over ``parallel/mesh.available_devices`` (every card; the one
+        CPU on the CPU), None and False never. Fewer than two devices
+        adopt no mesh (logged).
+
+        A deliberate difference from the JAX package, whose None builds
+        a mesh on any host of two or more devices: its sharded wave is
+        one compiled program, the port's an eager loop of torch ops
+        over every step and shard, over 100x slower than B1 a wave on
+        one H100 (PERF.md, phase 17). The port's default keeps B1."""
+        use = self.config.use_device_mesh
+        if not use:
+            return
+        from nomad_tpu_torch.parallel.mesh import available_devices
+        from nomad_tpu_torch.parallel.sharded import wave_mesh
+
+        devs = available_devices(self.device)
+        if len(devs) < 2:
+            LOG.info("use_device_mesh: %d %s device, no mesh adopted",
+                     len(devs), self.device.type)
+            return
+        self._adopt_wave_mesh(wave_mesh(devices=devs))
+
+    def _adopt_wave_mesh(self, mesh) -> None:
+        """Make ``mesh`` this server's wave mesh: its workers' coalescers
+        read ``wave_mesh`` per batch, and the process-wide resident state
+        splits its generations over it unless another server's mesh is
+        there first (that server keeps its residency; this one's waves
+        then ship host planes). Nothing is warmed: a sharded wave is
+        eager torch ops, and its first launch pays its own loading."""
+        self.wave_mesh = mesh
+        LOG.info("placement waves sharded over %d devices: %s", mesh.size,
+                 mesh)
+        from nomad_tpu_torch.tensors.device_state import (
+            default_device_state,
+        )
+
+        if (default_device_state.mesh is None
+                or self._owns_device_state_mesh) \
+                and not self._shutdown.is_set():
+            default_device_state.configure_mesh(mesh)
+            self._owns_device_state_mesh = True
+
     def shutdown(self) -> None:
         self._shutdown.set()
         # the warmup thread stops between entries; joined so it never
@@ -631,6 +682,16 @@ class Server:
             if t.is_alive():
                 LOG.warning("kernel warmup still running after %.0f s",
                             self.WARMUP_JOIN_S)
+        if self._owns_device_state_mesh:
+            # give the resident state back its one-device placement, so a
+            # later server without a mesh finds its planes resident
+            from nomad_tpu_torch.tensors.device_state import (
+                default_device_state,
+            )
+
+            default_device_state.configure_mesh(None)
+            self._owns_device_state_mesh = False
+        self.wave_mesh = None
         self._maybe_persist_warmup_manifest()
         self.vault.stop()
         for w in self.workers:
@@ -1949,18 +2010,6 @@ class Server:
             if self.worker_supervisor is not None else None,
             "state_index": self.state.latest_index(),
         }
-
-
-def _refuse_unported(config: ServerConfig) -> None:
-    """Raise for a setting that asks for a part of the system the port
-    does not have yet, naming the ROADMAP item that adds it."""
-    refused = []
-    if config.use_device_mesh:
-        refused.append("use_device_mesh=True needs the node-axis mesh "
-                       "(ROADMAP A.11)")
-    if refused:
-        raise NotImplementedError(
-            "not in the PyTorch port yet: " + "; ".join(refused))
 
 
 def _connect_admission(job) -> None:

@@ -550,6 +550,9 @@ class Worker:
                 # a worker process's waves take the owner's placement
                 # turn (server/workerproc); in-process waves take none
                 turn=getattr(self.server, "placement_turn", None),
+                # the server's own device mesh (None: one device), read
+                # per batch, so a mesh adopted late serves later batches
+                mesh=getattr(self.server, "wave_mesh", None),
             )
 
             def one(ev: Evaluation, token: str,

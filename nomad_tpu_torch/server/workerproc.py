@@ -214,6 +214,9 @@ class _OwnerProxy:
         self.device = device
         #: set by ``worker_main`` when the owner runs several processes
         self.placement_turn: Optional[_PlacementTurn] = None
+        # device ownership stays with the consensus process: no mesh,
+        # as in the reference's worker processes
+        self.wave_mesh = None
         self._rpc_lock = threading.Lock()
         self._rpc_seq = itertools.count(1)
         self._rpc_pending: Dict[int, List] = {}

@@ -64,6 +64,7 @@ def reset() -> None:
     # imported here: both modules import telemetry.trace at load time
     from nomad_tpu_torch.parallel.coalesce import (
         fused_wave_stats,
+        sharded_wave_stats,
         upload_stats,
         wave_stats,
     )
@@ -75,6 +76,7 @@ def reset() -> None:
     flight_recorder.reset()
     consensus_recorder.reset()
     wave_stats.reset()
+    sharded_wave_stats.reset()
     fused_wave_stats.reset()
     upload_stats.reset()
     default_device_state.reset_stats()

@@ -140,18 +140,25 @@ def prometheus_text(registry=None, event_broker=None) -> str:
     lines.append(
         'nomad_tpu_wave_launches_total{fired="deadline"} '
         f"{w['deadline_launches']}")
-    # sharded dispatch: the port has no node-axis mesh yet (ROADMAP
-    # A.11), so its waves never run sharded; the series keep their
-    # names at zero, with no mesh device
+    # sharded dispatch: waves whose node axis was split over a device
+    # mesh vs mesh-present one-device fallbacks (a node axis the device
+    # count does not divide): fallbacks must sit at 0 on a healthy mesh
+    # server, and the mesh-device gauge says how wide the mesh is
+    from nomad_tpu_torch.parallel.coalesce import sharded_wave_stats
+
+    sh = sharded_wave_stats.snapshot()
     lines.append(
         "# TYPE nomad_tpu_wave_sharded_launches_total counter")
-    lines.append("nomad_tpu_wave_sharded_launches_total 0")
+    lines.append(
+        f"nomad_tpu_wave_sharded_launches_total {sh['launches']}")
     lines.append(
         "# TYPE nomad_tpu_wave_sharded_fallbacks_total counter")
-    lines.append("nomad_tpu_wave_sharded_fallbacks_total 0")
+    lines.append(
+        f"nomad_tpu_wave_sharded_fallbacks_total {sh['fallbacks']}")
     lines.append(
         "# TYPE nomad_tpu_wave_sharded_mesh_devices gauge")
-    lines.append("nomad_tpu_wave_sharded_mesh_devices 0")
+    lines.append(
+        f"nomad_tpu_wave_sharded_mesh_devices {sh['mesh_devices']}")
     # fused dispatch: waves that ran the one-dispatch
     # mega-kernel vs fusion-wanted composite fallbacks (an
     # unsupported feature union) — fallbacks must sit at 0 on steady

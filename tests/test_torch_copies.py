@@ -238,9 +238,9 @@ def test_server_raft_wiring_matches_reference(name):
 
 
 #: functions of ``telemetry/exporter.py`` copied whole; its
-#: ``prometheus_text`` differs (the sharded series at zero, the fused
-#: failures series, no source dropped in silence) and is held by its
-#: series against the reference's in ``test_torch_serving_plane.py``
+#: ``prometheus_text`` differs (the fused failures series, no source
+#: dropped in silence) and is held by its series against the
+#: reference's in ``test_torch_serving_plane.py``
 EXPORTER_FUNCTIONS = (
     "_esc", "_lbl", "traces_json", "stream_health_json",
     "cluster_health_json", "slow_raft_json", "slow_evals_json",

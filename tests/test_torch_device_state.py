@@ -390,12 +390,6 @@ class TestPortOnly:
         ds.planes_for(snap.usage, "cpu")["used_cpu"][0] += 1.0
         assert ds.check_fresh(snap, "cpu")["differ"] == ["used_cpu"]
 
-    def test_configure_mesh_refuses_a_mesh(self):
-        ds = DeviceClusterState()
-        ds.configure_mesh(None)
-        with pytest.raises(NotImplementedError, match="A.11"):
-            ds.configure_mesh(object())
-
 
 class TestClusterCacheResidency:
     """Every ``ClusterCache`` names a device (the card unless the caller

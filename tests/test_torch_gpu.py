@@ -712,3 +712,55 @@ def test_cuda_worker_processes_place_through_b1(cuda_device):
     finally:
         srv.shutdown()
     assert leased_generation_count() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,n_nodes", tp.FUSED_VARIANTS,
+                         ids=[v for v, _ in tp.FUSED_VARIANTS])
+def test_cuda_sharded_wave_matches_b1(variant, n_nodes, cuda_device):
+    """The fused sharded wave over four virtual shards on the card against
+    B1 on the same inputs: no B1 launch, the same wave (every shard
+    computes its rows as the whole plane does, at any width)."""
+    from nomad_tpu_torch.parallel import sharded
+
+    kins, feats = tp.wave_members(9, variant, n_nodes, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    want = ck.fused_wave_place(kin, torch.from_numpy(sm).to(cuda_device),
+                               torch.from_numpy(sl).to(cuda_device), t_pad,
+                               feats)
+    mesh = sharded.wave_mesh(devices=[cuda_device] * 4)
+    before = ck.launches
+    fo = sharded.fused_sharded_entry(mesh)[0](
+        kernel_in_from_numpy(stacked, keep_numpy=True), sm, sl, t_pad, feats)
+    assert ck.launches == before
+    assert len(fo.a_cpu) == 4 and fo.a_cpu[0].device.type == "cuda"
+    got = fo._replace(**{name: torch.cat(getattr(fo, name))
+                         for name in ("a_cpu", "a_mem", "a_disk")})
+    torch.cuda.synchronize()
+    g = _assert_fused(got, want, t_pad, tp.B)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+def test_cuda_launch_wave_over_a_virtual_mesh(cuda_device):
+    """``launch_wave(mesh=)`` on the card: one sharded launch, no B1
+    launch, the members' slices equal to the unsharded wave's."""
+    from nomad_tpu_torch.parallel import sharded
+
+    kins, feats = tp.wave_members(10, "kitchen_sink", 383, lib="port")
+    steps = [tp.K] * len(kins)
+    pc.sharded_wave_stats.reset()
+    want = pc.launch_wave(kins, steps, [feats] * len(kins),
+                          device=cuda_device)
+    before = ck.launches
+    got = pc.launch_wave(kins, steps, [feats] * len(kins),
+                         device=cuda_device,
+                         mesh=sharded.wave_mesh(devices=[cuda_device] * 8))
+    assert ck.launches == before
+    assert pc.sharded_wave_stats.snapshot()["launches"] == 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.chosen, w.chosen)
+        np.testing.assert_array_equal(np.asarray(g.topk_idx),
+                                      np.asarray(w.topk_idx))
+        np.testing.assert_allclose(g.scores, w.scores, rtol=0, atol=ATOL)

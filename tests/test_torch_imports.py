@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, nothing of nomad_tpu, no silent CPU.
 
 A subprocess blocks ``jax`` and ``nomad_tpu`` in ``sys.modules`` and
-still imports the port and runs one small wave, one profiled warmup
+still imports the port and runs one small wave (and the same wave over a
+four-entry CPU mesh, and a batched placement over a 2x2 mesh: the
+port's ``parallel/mesh.py`` and ``parallel/sharded.py``), one profiled warmup
 entry (the kernel profiler, the warmup and the device state), one batched
 schedule-apply loop (``backend="kernel_topk"``), a service and a system
 eval through ``Harness(device="cpu")``, imports the worker processes'
@@ -48,6 +50,17 @@ kins = [build_kernel_in(cluster, synthetic_eval(cluster, used_frac=0.3,
         for s in range(2)]
 outs = launch_wave(kins, [3, 3], [LEAN_FEATURES] * 2, device="cpu")
 assert all(o.found.all() for o in outs), outs
+import torch
+from nomad_tpu_torch.parallel import make_mesh, make_place_batch, stack_kernel_ins
+from nomad_tpu_torch.parallel import coalesce as _co
+from nomad_tpu_torch.parallel.sharded import wave_mesh
+mesh_outs = launch_wave(kins, [3, 3], [LEAN_FEATURES] * 2, device="cpu",
+                        mesh=wave_mesh(devices=[torch.device("cpu")] * 4))
+assert _co.sharded_wave_stats.snapshot()["launches"] == 1
+assert all((a.chosen == b.chosen).all() for a, b in zip(outs, mesh_outs))
+batch = make_place_batch(make_mesh(devices=[torch.device("cpu")] * 4), 4,
+                         LEAN_FEATURES)(stack_kernel_ins(kins))
+assert batch.found[:, :3].all(), batch.found
 from nomad_tpu_torch import telemetry
 from nomad_tpu_torch.ops import warmup
 from nomad_tpu_torch.tensors.device_state import default_device_state

@@ -780,16 +780,8 @@ def test_gc_treatment(mode):
 
 
 # ---------------------------------------------------------------------------
-# Refusals: nothing unported is ignored, nothing is dropped.
+# Settings: nothing is ignored, nothing is dropped.
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("setting,item", [
-    ({"use_device_mesh": True}, "A.11"),
-])
-def test_unported_setting_raises(setting, item):
-    with pytest.raises(NotImplementedError, match=item):
-        PortServer(PortConfig(**setting), device="cpu")
-
 
 def test_settings_that_ask_for_nothing_unported_are_accepted(
         monkeypatch, tmp_path):
@@ -800,6 +792,7 @@ def test_settings_that_ask_for_nothing_unported_are_accepted(
     monkeypatch.setattr(warmup, "DEFAULT_MANIFEST_PATH",
                         str(tmp_path / "absent.json"))
     for cfg in ({"use_device_mesh": False}, {"use_device_mesh": None},
+                {"use_device_mesh": True},
                 {"kernel_warmup": False}, {"kernel_warmup": None},
                 {"authoritative_region": "global"},
                 {"authoritative_region": "eu"},
