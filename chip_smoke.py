@@ -7,8 +7,8 @@ The quickest proof that the port (``nomad_tpu_torch``) starts and is right
 on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
 
 1. card and build: the card's name and power limit (nvidia-smi), then the
-   three kernels built from csrc/ at once (one nvcc each) with ptxas's
-   register/spill report;
+   four kernel libraries built from csrc/ at once (one nvcc each) with
+   ptxas's register/spill report;
 2. kernel against its plain torch version at the live shape: a C2M
    cluster of 10k nodes (N=16384) with 100k resident allocs, waves of 32
    members x 10 placements (T=512), six variants of the fused envelope;
@@ -210,16 +210,22 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     N=16384, 100k allocs): the process's first sharded waves at D=4, an
     inert one (no active step) then a live one (cold), timed beside
     three repeats of the live one (warm), held against B1; each
-    of the six variants' waves of 32 x 10
-    through ``launch_wave(mesh=wave_mesh(devices=[card] * D))`` for D =
-    2, 4 and 8 virtual shards on the one card and through the unsharded
-    ``launch_wave`` (B1) on the same inputs: choices, found, top-k
-    indices and i32 metrics equal, scores within ATOL (near-ties counted
-    apart), every wave one sharded launch and no B1 launch, its time by
-    CUDA events beside B1's; one spread wave through the joint sharded
-    wave at D=4 against the composite; one wave at N=131072 (100k nodes,
-    1M allocs) at D=8 against B1; the mesh of the real cards (one card:
-    B1, one counted fallback; more: the same parity gate). Part B, the
+    of the six variants' waves of 32 x 10 through the sharded kernel
+    (``ck.sharded_wave_place``, ``csrc/sharded_wave.cu``) at D=4 against
+    its plain version (``parallel/sharded._sharded_wave`` on the card)
+    on the same shards, one kernel call and a max abs error of 0.0
+    each, and through ``launch_wave(mesh=wave_mesh(devices=[card] *
+    D))`` for D = 2, 4 and 8 virtual shards on the one card and through
+    the unsharded ``launch_wave`` (B1) on the same inputs: choices,
+    found, top-k indices and i32 metrics equal, max abs error 0.0
+    (near-ties counted apart), every wave one sharded launch, one kernel
+    call and no B1 launch, its time by CUDA events beside B1's; the
+    kernel alone timed at each D and its plain version once (kitchen
+    sink); one spread wave through the joint sharded wave (torch ops)
+    at D=4 against the composite; one wave at N=131072 (100k nodes, 1M
+    allocs) at D=8 against B1, and the kernel alone on it; the mesh of
+    the real cards (one card: B1, one counted fallback; more: the same
+    parity gate). Part B, the
     resident state split over 4 shards (``configure_mesh``): two waves
     of phase 11's store's own planes with 320 allocs stopped between
     them; the generation advances by the sharded scatter, equals a fresh
@@ -227,11 +233,13 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     resident (0 B of them uploaded by the launcher). Part C, phase 11's
     window-off server with ``use_device_mesh=True`` (one card: no mesh,
     logged), then ``Server._adopt_wave_mesh`` of a 4-shard virtual mesh,
-    the 40 warm-up jobs and the timed 200: every wave sharded, no
-    fallback or failure, no B1 launch, every job placed, none over
-    capacity, the exporter's sharded series equal to the waves and
+    the 40 warm-up jobs and the timed 200: every wave sharded and one
+    kernel call (its count set to 0 just before the burst), no fallback
+    or failure, no B1 launch, every job placed, none over capacity, the
+    exporter's sharded series equal to the waves and
     ``nomad_tpu_wave_sharded_mesh_devices 4``, evals/s and wave p50
-    beside phase 11's window-off arm. One ``mesh: {...}`` line.
+    beside phase 11's window-off arm. One ``mesh: {...}`` line, and the
+    sharded kernel's entry in the kernels' JSON line.
     ``chip_smoke.py --mesh-phase`` runs phase 11's window-off arm and
     this phase alone (``--device cpu`` rehearses them).
 
@@ -246,7 +254,9 @@ timed burst, both leaders', under ``raft_launches``, in phase 15's
 timed burst, read from the agent's scrape, under ``agent_launches``,
 in phase 16's burst of client jobs under ``client_launches``, and in
 phase 17's unsharded reference waves under ``mesh_launches``; the
-warm-up launches of phase 12 are counted apart, in its child processes).
+warm-up launches of phase 12 are counted apart, in its child processes;
+the sharded kernel's entry counts its calls in phase 17's timed server
+burst).
 A full
 record goes to chiprun_out/chip_smoke.json.
 """
@@ -609,6 +619,7 @@ def main() -> int:
     kline["kernels"][0]["agent_launches"] = agent["agent_launches"]
     kline["kernels"][0]["client_launches"] = client["client_launches"]
     kline["kernels"][0]["mesh_launches"] = mesh["b1_launches"]
+    kline["kernels"].append(mesh["kernel_entry"])
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -3668,9 +3679,18 @@ def run_client_phase(dev: torch.device, record: dict, state_bytes: bytes,
             res["node_capacity"] = {"cpu": cap_cpu, "memory_mb": cap_mem}
 
             # -- the burst: 32 batch jobs of 4 echoes, every count at 0 --
+            # each echo waits, after its line, for a file named by its
+            # alloc id: the phase reads the log while the task runs, since
+            # the client keeps 50 terminal allocs and removes the dirs,
+            # logs included, of older ones as soon as more complete
+            release = Path(tmp) / "release"
+            release.mkdir()
+            echo = ('echo "$NOMAD_ALLOC_ID"; '
+                    f'while [ ! -e "{release}/$NOMAD_ALLOC_ID" ]; '
+                    'do sleep 0.05; done')
             jobs = [pinned_job(
                 f"client-echo-{i}", consts.JOB_TYPE_BATCH, "/bin/sh",
-                ["-c", 'echo "$NOMAD_ALLOC_ID"', marker], CLIENT_COUNT)
+                ["-c", echo, marker], CLIENT_COUNT)
                 for i in range(CLIENT_JOBS)]
             api.put("/v1/operator/traces", {"Enable": True, "Reset": True})
             before = scrape(addr)
@@ -3681,9 +3701,8 @@ def run_client_phase(dev: torch.device, record: dict, state_bytes: bytes,
                 jobs, burst["registered_at"])}
             task = jobs[0].task_groups[0].tasks[0].name
             peak = {"cpu": 0, "memory_mb": 0}
-            # each alloc's stdout, read as soon as it is complete: the
-            # client keeps 50 terminal allocs and removes the dirs, logs
-            # included, of older ones
+            # each alloc's stdout, read once its line is there, then the
+            # task released
             logged: dict = {}
             deadline = time.time() + CLIENT_RUN_S
             while True:
@@ -3693,12 +3712,17 @@ def run_client_phase(dev: torch.device, record: dict, state_bytes: bytes,
                 used = committed(on_node)
                 peak = {k: max(peak[k], used[k]) for k in peak}
                 for a in allocs:
-                    if (a["ClientStatus"] == "complete"
-                            and a["ID"] not in logged):
-                        logged[a["ID"]] = api.allocations.logs(
-                            a["ID"], task, "stdout")
+                    if (a["ClientStatus"] not in ("running", "complete")
+                            or a["ID"] in logged):
+                        continue
+                    out = api.allocations.logs(a["ID"], task, "stdout")
+                    if out.endswith("\n") or a["ClientStatus"] != "running":
+                        logged[a["ID"]] = out
+                        (release / a["ID"]).touch()
                 if (len(allocs) == CLIENT_JOBS * CLIENT_COUNT
-                        and len(logged) == len(allocs)):
+                        and len(logged) == len(allocs)
+                        and all(a["ClientStatus"] == "complete"
+                                for a in allocs)):
                     break
                 done = sum(a["ClientStatus"] == "complete" for a in allocs)
                 check(time.time() < deadline,
@@ -3769,6 +3793,7 @@ def run_client_phase(dev: torch.device, record: dict, state_bytes: bytes,
                 reg = registered[a["JobID"]] * 1e9
                 stages["placed"].append((a["CreateTimeNs"] - reg) / 1e9)
                 stages["running"].append((started - a["CreateTimeNs"]) / 1e9)
+                # the task's run includes its wait for the release
                 stages["complete"].append((ended - started) / 1e9)
                 stages["e2e"].append((ended - reg) / 1e9)
                 check(logged[a["ID"]] == a["ID"] + "\n",
@@ -4025,6 +4050,8 @@ MESH_SCALE_NODES = 100_000      # part A's scale wave, phase 5's
 MESH_SCALE_ALLOCS = 1_000_000
 MESH_CHURN = 320                # part B: allocs stopped between the waves
 MESH_WARM_REPEATS = 3           # part A: warm repeats of the first wave
+MESH_KERNEL_SHARDS = 4          # part A: the kernel against its plain version
+MESH_TIMED_VARIANT = "kitchen_sink"  # part A: the kernel's and plain's times
 
 
 def event_ms(fn):
@@ -4054,12 +4081,12 @@ def wave_host(outs) -> dict:
     }
 
 
-def compare_waves(got, want, ctx: str) -> dict:
+def compare_waves(got, want, ctx: str, exact: bool = False) -> dict:
     """Two launch_wave results on the same inputs, as ``compare`` holds
     kernel against plain: metrics, choices, found and top-k indices
-    exact, scores and top-k scores within ATOL; the first differing step
-    is excused only as a near-tie (counted) and the steps after it are
-    not compared."""
+    exact, scores and top-k scores within ATOL (``exact``: 0.0); the
+    first differing step is excused only as a near-tie (counted) and the
+    steps after it are not compared."""
     g, w = wave_host(got), wave_host(want)
     check(np.array_equal(g["metrics"], w["metrics"]),
           f"{ctx}: i32 metrics differ")
@@ -4080,7 +4107,8 @@ def compare_waves(got, want, ctx: str) -> dict:
         np.abs(g["scores"][:upto] - w["scores"][:upto]).max(initial=0.0),
         np.abs(g["topk_scores"][:upto]
                - w["topk_scores"][:upto]).max(initial=0.0)))
-    check(err <= ATOL, f"{ctx}: max abs error {err} > {ATOL}")
+    check(err <= (0.0 if exact else ATOL),
+          f"{ctx}: max abs error {err} > {0.0 if exact else ATOL}")
     return {"ctx": ctx, "near_ties": near_ties, "max_abs_err": err,
             "placed": int(g["found"].sum())}
 
@@ -4099,16 +4127,74 @@ def mesh_bound(kins, features, dev: torch.device) -> tuple:
 
 def mesh_wave(kins, features, dev: torch.device, mesh) -> tuple:
     """One launch_wave (over ``mesh``, or B1 on ``dev`` when None): its
-    outputs, CUDA-event ms, and the B1 launches and sharded launches and
-    fallbacks it made."""
-    l0 = ck.launches
+    outputs, CUDA-event ms, and the B1 launches, the sharded kernel's
+    calls, and the sharded launches and fallbacks it made."""
+    l0, k0 = ck.launches, ck.sharded_launches
     s0 = coalesce.sharded_wave_stats.snapshot()
     outs, ms = event_ms(lambda: coalesce.launch_wave(
         kins, [K_STEPS] * len(kins), features, device=dev, mesh=mesh))
     s1 = coalesce.sharded_wave_stats.snapshot()
     return outs, ms, {"b1": ck.launches - l0,
+                      "kernel": ck.sharded_launches - k0,
                       "sharded": s1["launches"] - s0["launches"],
                       "fallbacks": s1["fallbacks"] - s0["fallbacks"]}
+
+
+#: the launches of one wave through the sharded kernel, and of one B1 wave
+KERNEL_WAVE = {"b1": 0, "kernel": 1, "sharded": 1, "fallbacks": 0}
+B1_WAVE = {"b1": 1, "kernel": 0, "sharded": 0, "fallbacks": 0}
+
+
+def whole(out):
+    """A sharded FusedWaveOut with its carries gathered on its first
+    shard's device."""
+    root = out.packed.device
+    return out._replace(**{name: torch.cat([p.to(root)
+                                            for p in getattr(out, name)])
+                           for name in ("a_cpu", "a_mem", "a_disk")})
+
+
+def kernel_shards(kins, features, dev: torch.device, shards: int) -> tuple:
+    """A wave assembled over D virtual shards on ``dev``, as the sharded
+    kernel's arguments."""
+    mesh = sharded.wave_mesh(devices=[dev] * shards)
+    wave = coalesce.assemble_sharded_wave(kins, [K_STEPS] * len(kins),
+                                          features, mesh)
+    return (sharded._shards_of(wave.kin, mesh.node_rows()[0]),
+            wave.step_member, wave.step_local, wave.t_pad, wave.features)
+
+
+def mesh_kernel_ms(kins, features, dev: torch.device, shards: int) -> float:
+    """The sharded kernel's CUDA-event ms a wave over D virtual shards
+    (ten calls after one)."""
+    args = kernel_shards(kins, features, dev, shards)
+    ck.sharded_wave_place(*args)
+    return cuda_ms(lambda: ck.sharded_wave_place(*args), 10)
+
+
+def mesh_kernel_check(kins, features, dev: torch.device, shards: int,
+                      ctx: str, time_it: bool = False) -> dict:
+    """The sharded kernel (``ck.sharded_wave_place``) against its plain
+    version on the same D virtual shards of one wave: ``compare`` held to
+    a max abs error of 0.0, one kernel call. With ``time_it``, also the
+    kernel's CUDA-event ms (ten calls) and the plain version's (one)."""
+    args = kernel_shards(kins, features, dev, shards)
+    k0, l0 = ck.sharded_launches, ck.launches
+    got = ck.sharded_wave_place(*args)
+    check(ck.sharded_launches == k0 + 1 and ck.launches == l0,
+          f"{ctx}: kernel calls {ck.sharded_launches - k0}, B1 "
+          f"{ck.launches - l0}")
+    want, plain_ms = event_ms(
+        lambda: ck.sharded_wave_place_reference(*args))
+    flat = coalesce.assemble_wave(kins, [K_STEPS] * len(kins), features,
+                                  dev)
+    res = compare(whole(got), whole(want), flat, ctx)
+    check(res["max_abs_err"] == 0.0,
+          f"{ctx}: max abs error {res['max_abs_err']}, want 0.0")
+    if time_it:
+        res["ms"] = cuda_ms(lambda: ck.sharded_wave_place(*args), 10)
+        res["plain_ms"] = plain_ms
+    return res
 
 
 def mesh_part_a(dev: torch.device, rng) -> dict:
@@ -4137,41 +4223,51 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
     mesh = sharded.wave_mesh(devices=[dev] * MESH_SERVER_SHARDS)
     inert = [k._replace(n_steps=np.zeros_like(k.n_steps)) for k in kins]
     _, inert_ms, n = mesh_wave(inert, feats, dev, mesh)
-    check(n == {"b1": 0, "sharded": 1, "fallbacks": 0},
-          f"mesh/inert: launches {n}")
+    check(n == KERNEL_WAVE, f"mesh/inert: launches {n}")
     got, cold_ms, n = mesh_wave(kins, feats, dev, mesh)
     warm_ms = []
     for _ in range(MESH_WARM_REPEATS):
         _, ms, n1 = mesh_wave(kins, feats, dev, mesh)
         check(n1 == n, f"mesh/cold: launches {n1} after {n}")
         warm_ms.append(ms)
-    check(n == {"b1": 0, "sharded": 1, "fallbacks": 0},
-          f"mesh/cold: launches {n}")
+    check(n == KERNEL_WAVE, f"mesh/cold: launches {n}")
     want, cold_b1_ms, n0 = mesh_wave(kins, feats, dev, None)
     b1 = n0["b1"]
-    cold = compare_waves(got, want, f"mesh/cold/D={MESH_SERVER_SHARDS}")
+    cold = compare_waves(got, want, f"mesh/cold/D={MESH_SERVER_SHARDS}",
+                         exact=True)
     cold.update(shards=MESH_SERVER_SHARDS, inert_ms=inert_ms,
                 first_ms=cold_ms,
                 warm_ms=warm_ms, warm_ms_median=float(np.median(warm_ms)),
                 b1_ms=cold_b1_ms)
     parity.append(cold)
     log(f"mesh cold: {json.dumps(cold)}")
+    kernel = []          # the kernel against its plain version, D=4
     for variant in VARIANTS:
         members = [make_member(base, cluster, variant, rng)
                    for _ in range(B_WAVE)]
         kins, feats = [m[0] for m in members], [m[1] for m in members]
         want, b1_ms, n = mesh_wave(kins, feats, dev, None)
-        check(n["b1"] == 1 and n["sharded"] == 0,
+        check(n == B1_WAVE,
               f"mesh/{variant}: the reference wave's launches {n}")
         b1 += 1
         bounds.append(mesh_bound(kins, feats, dev))
+        res = mesh_kernel_check(
+            kins, feats, dev, MESH_KERNEL_SHARDS,
+            f"mesh kernel/{variant}/D={MESH_KERNEL_SHARDS}",
+            time_it=variant == MESH_TIMED_VARIANT)
+        res["variant"] = variant
+        if variant == MESH_TIMED_VARIANT:
+            # the kernel alone at every D (the D=4 time above is the
+            # JSON line's)
+            res["ms_per_d"] = {d: mesh_kernel_ms(kins, feats, dev, d)
+                               for d in MESH_SHARDS}
+        kernel.append(res)
         for d in MESH_SHARDS:
             mesh = sharded.wave_mesh(devices=[dev] * d)
             got, ms, n = mesh_wave(kins, feats, dev, mesh)
             ctx = f"mesh/{variant}/D={d}"
-            check(n == {"b1": 0, "sharded": 1, "fallbacks": 0},
-                  f"{ctx}: launches {n}")
-            res = compare_waves(got, want, ctx)
+            check(n == KERNEL_WAVE, f"{ctx}: launches {n}")
+            res = compare_waves(got, want, ctx, exact=True)
             check(res["placed"] > 0, f"{ctx}: nothing placed")
             row = rows[d]
             row["waves"] += 1
@@ -4202,7 +4298,7 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
         kins, feats, dev,
         sharded.wave_mesh(devices=[dev] * MESH_SPREAD_SHARDS))
     f1 = coalesce.fused_wave_stats.snapshot()
-    check(n0["b1"] == n1["b1"] == 0 and n1["sharded"] == 1,
+    check(n0["b1"] == n1["b1"] == n1["kernel"] == 0 and n1["sharded"] == 1,
           f"mesh/spread: launches {n0} {n1}")
     check(f1["fallbacks"] - f0["fallbacks"] == 2
           and f1["failures"] == f0["failures"],
@@ -4223,13 +4319,15 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
     got, scale_ms, n1 = mesh_wave(
         kins, feats, dev,
         sharded.wave_mesh(devices=[dev] * MESH_SCALE_SHARDS))
-    check(n0["b1"] == 1 and n1 == {"b1": 0, "sharded": 1, "fallbacks": 0},
+    check(n0 == B1_WAVE and n1 == KERNEL_WAVE,
           f"mesh/scale: launches {n0} {n1}")
     b1 += 1
-    scale = compare_waves(got, want, f"mesh/scale/D={MESH_SCALE_SHARDS}")
+    scale = compare_waves(got, want, f"mesh/scale/D={MESH_SCALE_SHARDS}",
+                          exact=True)
     scale.update(n_pad=big.n_pad, shards=MESH_SCALE_SHARDS, ms=scale_ms,
                  b1_ms=scale_b1_ms)
     scale["bound_ms"], scale["bound_by"] = mesh_bound(kins, feats, dev)
+    scale["kernel_ms"] = mesh_kernel_ms(kins, feats, dev, MESH_SCALE_SHARDS)
     log(f"mesh scale: {json.dumps(scale)}")
     del big, bbase, members, kins
 
@@ -4243,22 +4341,47 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
     got, cards_ms, n1 = mesh_wave(kins, feats, dev, cards)
     b1 += n0["b1"] + n1["b1"]
     if cards.size < 2:
-        check(n1 == {"b1": 1, "sharded": 0, "fallbacks": 1},
+        check(n1 == dict(B1_WAVE, fallbacks=1),
               f"mesh/one card: launches {n1}")
         log(f"mesh: this host has {cards.size} card; its mesh fell back "
             "to B1, one counted fallback")
     else:
-        check(n1 == {"b1": 0, "sharded": 1, "fallbacks": 0},
-              f"mesh/{cards.size} cards: launches {n1}")
-    real = compare_waves(got, want, f"mesh/cards/D={cards.size}")
+        check(n1 == KERNEL_WAVE, f"mesh/{cards.size} cards: launches {n1}")
+    real = compare_waves(got, want, f"mesh/cards/D={cards.size}",
+                         exact=True)
     real.update(cards=cards.size, ms=cards_ms, launches=n1)
     log(f"mesh cards: {json.dumps(real)}")
     return {"per_d": [rows[d] for d in MESH_SHARDS], "cold": cold,
             "spread": spread, "scale": scale, "cards": real,
-            "b1_launches": b1,
-            "near_ties": sum(r["near_ties"] for r in parity)
+            "kernel": kernel, "b1_launches": b1,
+            "near_ties": sum(r["near_ties"] for r in parity + kernel)
             + spread["near_ties"] + scale["near_ties"],
+            "max_abs_err": max(r["max_abs_err"] for r in
+                               parity + kernel + [scale, real]),
             "variants": len(VARIANTS)}
+
+
+def place_batch_bound(b: int, n_nodes: int, n_steps: int) -> dict:
+    """``sharded.make_place_batch``'s bound at one shape, reckoned from
+    its code (no main path runs it, so nothing is timed): each of ``b``
+    evals reads every leaf of its KernelIn once (synthetic problems, half
+    of them with a spread, as the multi-chip dry run builds them) and
+    writes its KernelOut, and every step scores and selects over every
+    node."""
+    from nomad_tpu_torch.parallel.synthetic import synthetic_kernel_in
+
+    k_pad = pad_steps(n_steps)
+    kins = [synthetic_kernel_in(n_nodes=n_nodes, n_steps=n_steps,
+                                with_spread=i % 2 == 0, used_frac=0.4,
+                                seed=i) for i in range(b)]
+    nbytes = sum(np.asarray(x).nbytes for kin in kins for x in kin)
+    # chosen, scores, found, top-k indices and scores, eight metrics
+    nbytes += b * (k_pad * (4 + 4 + 1 + 2 * 4 * 8) + 8 * 4)
+    n_pad = int(np.asarray(kins[0].cap_cpu).shape[-1])
+    ops = b * k_pad * n_pad * (OPS_PER_NODE_SCORE + OPS_PER_NODE_SELECT)
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"evals": b, "n_pad": n_pad, "k_pad": k_pad, "bytes": nbytes,
+            "ops": ops, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def mesh_part_b(dev: torch.device, state, rng) -> dict:
@@ -4311,11 +4434,10 @@ def mesh_part_b(dev: torch.device, state, rng) -> dict:
             del ds.lookup
         launcher = coalesce.upload_stats.bytes - up0
         after = ds.snapshot()
-        check(n["sharded"] == 1 and n["b1"] == 0,
-              f"mesh state/{tag}: launches {n}")
+        check(n == KERNEL_WAVE, f"mesh state/{tag}: launches {n}")
         want, _, n = mesh_wave(kins, feats, dev, None)
         check(n["b1"] == 1, f"mesh state/{tag}: reference launches {n}")
-        res = compare_waves(got, want, f"mesh state/{tag}")
+        res = compare_waves(got, want, f"mesh state/{tag}", exact=True)
         fresh = ds.check_fresh(snap, dev)
         check(fresh["resident"] and fresh["differ"] == []
               and fresh["shards"] == MESH_STATE_SHARDS,
@@ -4416,6 +4538,7 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
         default_device_state.reset_stats()
         waves0, requests0 = w.batch_launches, w.batch_requests
         ck.launches = 0
+        ck.sharded_launches = 0
         t0 = time.perf_counter()
         for job in jobs:
             srv.job_register(job)
@@ -4423,6 +4546,7 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
                                   time.time() + SERVER_DEADLINE_S)
         burst_s = t_done - t0
         b1 = ck.launches
+        kernel_calls = ck.sharded_launches
         sstats = coalesce.sharded_wave_stats.snapshot()
         fstats = coalesce.fused_wave_stats.snapshot()
         wstats = coalesce.wave_stats.snapshot()
@@ -4443,6 +4567,8 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
     check(fstats == {"launches": waves, "fallbacks": 0, "failures": 0},
           f"{ctx}: fused {fstats} for {waves} waves")
     check(b1 == 0, f"{ctx}: {b1} B1 launches in sharded waves")
+    check(kernel_calls == waves,
+          f"{ctx}: {kernel_calls} sharded kernel calls for {waves} waves")
     check(dstate["errors"] == 0 and dstate["mesh_devices"]
           == MESH_SERVER_SHARDS, f"{ctx}: device state {dstate}")
     series = {k: scrape.get(f"nomad_tpu_wave_sharded_{k}") for k in (
@@ -4458,7 +4584,7 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
         "wave_latency_p50_ms": wstats["wave_latency_p50_ms"],
         "wave_latency_p99_ms": wstats["wave_latency_p99_ms"],
         "assemble_latency_p50_ms": wstats["assemble_latency_p50_ms"],
-        "sharded": sstats, "fused": fstats,
+        "sharded": sstats, "fused": fstats, "kernel_calls": kernel_calls,
         "device_state": {k: dstate[k] for k in (
             "hits", "delta_advances", "full_uploads", "rows_uploaded",
             "bytes_uploaded", "errors", "mesh_devices")},
@@ -4486,13 +4612,47 @@ def run_mesh_phase(dev: torch.device, record: dict, state_bytes: bytes,
     part_b = mesh_part_b(dev, srv.state, rng)
     part_c = mesh_part_c(dev, srv, rng, window_off)
     part_c["restore_s"] = restore_s
+    timed = next(r for r in part_a["kernel"] if "ms" in r)
+    per_d = {r["shards"]: r for r in part_a["per_d"]}
+    ratio = (per_d[MESH_KERNEL_SHARDS]["ms_median"]
+             / per_d[MESH_KERNEL_SHARDS]["b1_ms_median"])
+    # the sharded kernel's entry of the kernels' JSON line: its calls in
+    # part C's timed burst (the main path), its times at D=4
+    entry = {
+        "name": "sharded_wave_place",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/csrc/sharded_wave.cu",
+        "replaces": "nomad_tpu/parallel/sharded.py:291",
+        "launches": part_c["kernel_calls"],
+        "max_abs_err": part_a["max_abs_err"],
+        "ms": timed["ms"],
+        "plain_ms": timed["plain_ms"],
+        "bound_ms": per_d[MESH_KERNEL_SHARDS]["bound_ms"],
+        "bound_by": per_d[MESH_KERNEL_SHARDS]["bound_by"],
+        "library_ms": None,
+        "shards": MESH_KERNEL_SHARDS,
+    }
+    log(f"mesh kernel: {timed['ms']:.3f} ms a live wave at "
+        f"D={MESH_KERNEL_SHARDS} ({MESH_TIMED_VARIANT}), plain "
+        f"{timed['plain_ms']:.1f} ms; at D = {list(MESH_SHARDS)} "
+        f"{[round(timed['ms_per_d'][d], 3) for d in MESH_SHARDS]} ms; "
+        f"N={part_a['scale']['n_pad']} at D={MESH_SCALE_SHARDS} "
+        f"{part_a['scale']['kernel_ms']:.3f} ms; launch_wave at "
+        f"D={MESH_KERNEL_SHARDS} {ratio:.2f}x B1's")
     res = {
         "per_d": [{k: r[k] for k in (
             "shards", "waves", "sharded_launches", "ms_median",
             "b1_ms_median", "max_abs_err", "near_ties", "bound_ms",
             "bound_by", "ms", "b1_ms")} for r in part_a["per_d"]],
         "cold": part_a["cold"], "spread": part_a["spread"],
-        "scale": part_a["scale"], "cards": part_a["cards"], "near_ties": part_a["near_ties"],
+        "scale": part_a["scale"], "cards": part_a["cards"],
+        "near_ties": part_a["near_ties"], "kernel": part_a["kernel"],
+        "kernel_entry": entry, "launch_wave_ratio_d4": ratio,
+        # the multi-chip dry run's shape (__graft_entry__.dryrun_multichip
+        # at 8 devices) and the live wave's
+        "place_batch_bound": [place_batch_bound(4, 256, 4),
+                              place_batch_bound(B_WAVE, MESH_LIVE_NODES,
+                                                K_PLACE)],
         "b1_launches": part_a["b1_launches"] + part_b["b1_launches"],
         "state": part_b, "server": part_c,
         "phase_s": time.perf_counter() - t_phase,
@@ -4508,8 +4668,8 @@ def mesh_phase_alone(argv: list) -> int:
     ``c2m.generate(N, M)`` (10,000 nodes and 100k allocs unless given).
     On the card the kernels are built first. ``--device cpu`` rehearses
     it on the CPU at the cluster sizes given (``--nodes`` also sizes part
-    A's clusters), with host-clock times and B1's plain version counted
-    as its launches."""
+    A's clusters), with host-clock times and B1's and the sharded
+    kernel's plain versions counted as their launches."""
     import argparse
     from unittest import mock as patch
 
@@ -4546,15 +4706,25 @@ def mesh_phase_alone(argv: list) -> int:
         return run_mesh_phase(dev, {}, state_bytes, arm)
 
     if args.device == "cuda":
-        run()
+        res = run()
+        out_dir = Path(__file__).resolve().parent / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "mesh_phase.json").write_text(json.dumps(res, indent=1))
+        print(json.dumps({"kernels": [res["kernel_entry"]]}))
         return 0
-    # the CPU rehearsal: B1's plain version counted as its launches,
-    # host-clock times, the scale wave at ten times the live size
+    # the CPU rehearsal: the kernels' plain versions counted as their
+    # launches, host-clock times, the scale wave at ten times the live
+    # size
     plain = ck.fused_wave_place
+    plain_sharded = ck.sharded_wave_place
 
     def counted(*a, **k):
         ck.launches += 1
         return plain(*a, **k)
+
+    def counted_sharded(*a, **k):
+        ck.sharded_launches += 1
+        return plain_sharded(*a, **k)
 
     def host_ms(fn):
         t0 = time.perf_counter()
@@ -4567,6 +4737,9 @@ def mesh_phase_alone(argv: list) -> int:
     MESH_SCALE_NODES, MESH_SCALE_ALLOCS = 10 * args.nodes, 10 * args.allocs
     with patch.patch.object(ck, "fused_wave_place", counted), \
             patch.patch.object(coalesce, "fused_wave_place", counted), \
+            patch.patch.object(ck, "sharded_wave_place", counted_sharded), \
+            patch.patch.object(sharded, "sharded_wave_place",
+                               counted_sharded), \
             patch.patch(f"{__name__}.event_ms", host_ms), \
             patch.patch(f"{__name__}.cuda_ms",
                         lambda fn, reps: host_ms(fn)[1]), \

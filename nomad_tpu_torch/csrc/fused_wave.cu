@@ -63,7 +63,8 @@
 // - Score arithmetic is shared between the row pass and the rescoring and
 //   rounds op for op like the torch version on the card (-fmad=false, the
 //   fit scaled by the f32 reciprocal of 18), so a cached score and a fresh
-//   one are the same bits.
+//   one are the same bits. It lives in csrc/wave_score.cuh, which the
+//   sharded wave (csrc/sharded_wave.cu) shares.
 //
 // Built by nomad_tpu_torch/ops/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v
@@ -82,45 +83,23 @@
 // barrier per step was kept for its smaller hazard surface.
 
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+
+#include "wave_score.cuh"
 
 namespace cg = cooperative_groups;
 
 #define CLUSTER 16
 #define THREADS 512
 #define NWARPS (THREADS / 32)
-#define TOPK 8
 #define MAX_P 4                    // MAX_PENALTY_NODES
 #define N_SPECIAL (MAX_P + 2)      // pending commit, penalty nodes, pin
 #define ROW_UNROLL 2               // nodes a thread loads at once (row pass)
 #define RANK_UNROLL 8              // 16-byte permutation loads in flight
-#define FULL_MASK 0xffffffffu
-#define NO_NODE 0x7fffffff
-#define NO_RANK 0xffffffffu
 #define ALL_WARPS (FULL_MASK >> (32 - NWARPS))
 #define MAX_DEVICES 64
 
-#define NEG_INF_F (-1.0e30f)
-
 static_assert(NWARPS >= 2 && NWARPS <= 32, "warps 0 and 1 have roles");
 static_assert(CLUSTER <= 32, "a warp reduces the CTAs' slots");
-
-// Leaf order: mirrored by nomad_tpu_torch/ops/cuda_kernel._LEAVES.
-enum Leaf {
-  L_CAP_CPU, L_CAP_MEM, L_CAP_DISK,       // f32 [N]
-  L_USED_CPU, L_USED_MEM, L_USED_DISK,    // f32 [N]
-  L_AFF,                                  // f32 [N]
-  L_FREE_DYN, L_JTC, L_JAC, L_PERM,       // i32 [N]
-  L_BASE, L_PC, L_PENALTY,                // bool [N]
-  L_STEP_PEN,                             // i32 [K, P]
-  L_STEP_PREF,                            // i32 [K]
-  L_ASK_CPU, L_ASK_MEM, L_ASK_DISK,       // f32 scalar
-  L_ASK_DYN, L_DESIRED, L_NSTEPS,         // i32 scalar
-  L_ASK_RES, L_ALG, L_DHJ, L_DHT,         // bool scalar
-  N_LEAVES
-};
 
 struct FusedArgs {
   const void* leaf[N_LEAVES];
@@ -148,13 +127,6 @@ __device__ __forceinline__ const T* leaf_of(const FusedArgs& a, int leaf,
   return reinterpret_cast<const T*>(a.leaf[leaf]) + m * a.stride[leaf];
 }
 
-// A member's scalars (ops/kernel._feasible / _score read them per member).
-struct Member {
-  float ask_cpu, ask_mem, ask_disk;
-  int ask_dyn, desired;
-  int has_res, alg_spread, dhj, dht;
-};
-
 __device__ __forceinline__ Member load_member(const FusedArgs& a, int m) {
   Member v;
   v.ask_cpu = *leaf_of<float>(a, L_ASK_CPU, m);
@@ -168,14 +140,6 @@ __device__ __forceinline__ Member load_member(const FusedArgs& a, int m) {
   v.dht = *leaf_of<unsigned char>(a, L_DHT, m) != 0;
   return v;
 }
-
-// One node as member m sees it: its planes, its carries, its counts.
-struct Node {
-  float cap_cpu, cap_mem, cap_disk, used_cpu, used_mem, used_disk, aff;
-  float a_cpu, a_mem, a_disk;
-  int free_dyn, a_dyn, jtc, jac;
-  bool base, pc, pen;
-};
 
 // Member m's view of node i: its planes, the wave's carries, and the
 // member's counts from the inputs (`input_counts`: its first appearance,
@@ -211,91 +175,6 @@ __device__ __forceinline__ Node load_node(const FusedArgs& a, int m, int i,
   return d;
 }
 
-// Feasibility with the current carries (ops/kernel._feasible restricted to
-// the fused envelope).
-__device__ __forceinline__ bool node_feasible(const FusedArgs& a,
-                                              const Member& v,
-                                              const Node& d) {
-  float ucpu = d.used_cpu + d.a_cpu;
-  float umem = d.used_mem + d.a_mem;
-  float udisk = d.used_disk + d.a_disk;
-  bool ok = d.base && (d.cap_cpu - ucpu) >= v.ask_cpu &&
-            (d.cap_mem - umem) >= v.ask_mem &&
-            (d.cap_disk - udisk) >= v.ask_disk;
-  if (a.with_ports) {
-    bool fit_dyn = v.ask_dyn <= 0 || (d.free_dyn - d.a_dyn) >= v.ask_dyn;
-    ok = ok && !(d.pc && v.has_res) && fit_dyn;
-  }
-  if (a.with_distinct) {
-    ok = ok && !((v.dhj && d.jac > 0) || (v.dht && d.jtc > 0));
-  }
-  return ok;
-}
-
-// Normalized score (ops/kernel._score restricted to the fused envelope),
-// same operation order as the torch version. `pen`: the static penalty
-// plane, or'ed with the step's penalty list where the caller says so.
-__device__ __forceinline__ float node_score(const Member& v, const Node& d,
-                                            bool pen) {
-  float util_cpu = (d.used_cpu + d.a_cpu) + v.ask_cpu;
-  float util_mem = (d.used_mem + d.a_mem) + v.ask_mem;
-  float fc = d.cap_cpu > 0.0f ? 1.0f - util_cpu / d.cap_cpu : 0.0f;
-  float fm = d.cap_mem > 0.0f ? 1.0f - util_mem / d.cap_mem : 0.0f;
-  float total = powf(10.0f, fc) + powf(10.0f, fm);
-  float binpack = fminf(fmaxf(20.0f - total, 0.0f), 18.0f);
-  float spreadfit = fminf(fmaxf(total - 2.0f, 0.0f), 18.0f);
-  // torch divides a CUDA tensor by a Python scalar as a product with the
-  // scalar's f32 reciprocal (ATen div_true_kernel_cuda); so does this
-  float sum = (v.alg_spread ? spreadfit : binpack) * (1.0f / 18.0f);
-  float nplanes = 1.0f;
-  float collisions = (float)d.jtc;
-  if (collisions > 0.0f) {
-    float denom = fmaxf((float)v.desired, 1.0f);
-    sum = sum + (-(collisions + 1.0f) / denom);
-    nplanes = nplanes + 1.0f;
-  }
-  if (pen) {
-    sum = sum + -1.0f;
-    nplanes = nplanes + 1.0f;
-  }
-  if (d.aff != 0.0f) {
-    sum = sum + d.aff;
-    nplanes = nplanes + 1.0f;
-  }
-  return sum / nplanes;
-}
-
-__device__ __forceinline__ float masked_score(const FusedArgs& a,
-                                              const Member& v,
-                                              const Node& d, bool pen) {
-  return node_feasible(a, v, d) ? node_score(v, d, pen) : NEG_INF_F;
-}
-
-// Pre-wave metric counts of one node (input planes and counts; carries
-// unread):
-// evaluated, feasible, and exhausted on cpu, mem, disk and ports.
-__device__ __forceinline__ void count_metrics(const FusedArgs& a,
-                                              const Member& v, const Node& d,
-                                              int* c) {
-  bool fit_cpu = (d.cap_cpu - d.used_cpu) >= v.ask_cpu;
-  bool fit_mem = (d.cap_mem - d.used_mem) >= v.ask_mem;
-  bool fit_disk = (d.cap_disk - d.used_disk) >= v.ask_disk;
-  bool fit_ports = true;
-  if (a.with_ports) {
-    bool fit_dyn = v.ask_dyn <= 0 || d.free_dyn >= v.ask_dyn;
-    fit_ports = !(d.pc && v.has_res) && fit_dyn;
-  }
-  bool distinct_ok = true;
-  if (a.with_distinct)
-    distinct_ok = !((v.dhj && d.jac > 0) || (v.dht && d.jtc > 0));
-  c[0] += d.base;
-  c[1] += d.base && fit_cpu && fit_mem && fit_disk && fit_ports && distinct_ok;
-  c[2] += d.base && !fit_cpu;
-  c[3] += d.base && !fit_mem;
-  c[4] += d.base && !fit_disk;
-  c[5] += d.base && !fit_ports;
-}
-
 // Commit one placement of member m on node i (the plain version's one-hot
 // update at that node), in memory and in `d`.
 __device__ __forceinline__ void commit_node(const FusedArgs& a,
@@ -323,91 +202,6 @@ __device__ __forceinline__ void commit_node(const FusedArgs& a,
     a.jac[mi] = d.jac;
   }
 }
-
-// Order-preserving key of a score: a larger key is a larger value; -0 and
-// +0 share a key, as they compare equal.
-__device__ __forceinline__ unsigned score_key(float v) {
-  const unsigned b = __float_as_uint(v + 0.0f);
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_score(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
-#define PAD_KEY 0x007fffffu        // score_key(-INFINITY): below any score
-
-// Warp argmax on (key desc, rank asc); every lane gets the winner.
-__device__ __forceinline__ void warp_best(unsigned& k, unsigned& r, int& i) {
-  const unsigned m = __reduce_max_sync(FULL_MASK, k);
-  const unsigned rr = __reduce_min_sync(FULL_MASK, k == m ? r : NO_RANK);
-  const unsigned hit = __ballot_sync(FULL_MASK, k == m && r == rr);
-  i = __shfl_sync(FULL_MASK, i, __ffs(hit) - 1);
-  k = m;
-  r = rr;
-}
-
-__device__ __forceinline__ void list_clear(unsigned* lk, int* li) {
-#pragma unroll
-  for (int q = 0; q < TOPK; ++q) {
-    lk[q] = PAD_KEY;
-    li[q] = NO_NODE;
-  }
-}
-
-// Insert into this thread's sorted top-8 (best first); its nodes come in
-// increasing index order, so an equal key ranks after the ones held.
-__device__ __forceinline__ void list_insert(unsigned* lk, int* li,
-                                            unsigned k, int i) {
-  if (k <= lk[TOPK - 1]) return;
-  bool placed = false;
-#pragma unroll
-  for (int q = TOPK - 1; q > 0; --q) {
-    if (!placed) {
-      if (k > lk[q - 1]) {
-        lk[q] = lk[q - 1];
-        li[q] = li[q - 1];
-      } else {
-        lk[q] = k;
-        li[q] = i;
-        placed = true;
-      }
-    }
-  }
-  if (!placed) {
-    lk[0] = k;
-    li[0] = i;
-  }
-}
-
-// Top-8 on (key desc, index asc) of the union of the lanes' sorted lists:
-// eight rounds, each taking the best head (two reductions) and popping it
-// from its lane. Every lane gets the result in (ok, oi); lk/li are spent.
-__device__ __forceinline__ void warp_top(unsigned* lk, int* li,
-                                         unsigned* ok, int* oi) {
-#pragma unroll
-  for (int q = 0; q < TOPK; ++q) {
-    const unsigned m = __reduce_max_sync(FULL_MASK, lk[0]);
-    const unsigned mi = __reduce_min_sync(
-        FULL_MASK, lk[0] == m ? (unsigned)li[0] : NO_RANK);
-    ok[q] = m;
-    oi[q] = (int)mi;
-    if (lk[0] == m && (unsigned)li[0] == mi) {
-#pragma unroll
-      for (int s = 0; s < TOPK - 1; ++s) {
-        lk[s] = lk[s + 1];
-        li[s] = li[s + 1];
-      }
-      lk[TOPK - 1] = PAD_KEY;
-      li[TOPK - 1] = NO_NODE;
-    }
-  }
-}
-
-struct Best {
-  unsigned k, r;  // score key, and the order among equal keys (rank)
-  int i;          // node index
-};
 
 // One CTA's argmax for one step, read by every CTA after the step's
 // cluster barrier.

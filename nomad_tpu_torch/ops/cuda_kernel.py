@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-Counterpart of ``nomad_tpu/ops/pallas_kernel.py``. Three kernels, each
-built at first use by ``ops/build.py`` from ``csrc/`` and launched through
-a plain C entry point loaded with ctypes:
+Counterpart of ``nomad_tpu/ops/pallas_kernel.py``, and of the one XLA
+program on a main path that became a kernel. Four kernels, each built at
+first use by ``ops/build.py`` from ``csrc/`` and launched through a plain
+C entry point loaded with ctypes:
 
 - B1 ``fused_wave_place`` (``csrc/fused_wave.cu``; pallas_kernel.py
   :553-603, ``make_fused_wave_apply`` :618): the joint placement wave.
@@ -16,11 +17,17 @@ a plain C entry point loaded with ctypes:
   full-width pass, the exact candidate top-k and rest max, and the K-step
   candidate scan. Plain version: ``topk_place_batch_reference``, the torch
   ``candidate_pass`` then ``cand_scan_reference``.
+- ``sharded_wave_place`` (``csrc/sharded_wave.cu``; the XLA program
+  ``nomad_tpu/parallel/sharded.py`` ``_fused_sharded_core`` :291-505,
+  under ``fused_sharded_entry`` :507): the fused wave over a mesh of node
+  shards, one C call a wave. Plain version:
+  ``sharded_wave_place_reference``, ``parallel/sharded._sharded_wave``
+  packed the same way.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version only for CPU tensors. ``launches``,
-``place_batch_launches`` and ``topk_place_batch_launches`` count kernel
-launches and nothing else.
+``place_batch_launches``, ``topk_place_batch_launches`` and
+``sharded_launches`` count kernel calls and nothing else.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from nomad_tpu_torch.ops.kernel import (
     fused_wave_supported,
     pack_fused_wave,
     _argmax_first,
+    _as_host_ints,
     _rows,
     place_taskgroups_joint,
     topk_ordered,
@@ -109,7 +117,11 @@ class _FusedArgs(ctypes.Structure):
 #: C entry point of each library under csrc/
 _ENTRY = {"fused_wave": "fused_wave_launch",
           "place_batch": "place_batch_launch",
-          "topk_place_batch": "topk_place_batch_launch"}
+          "topk_place_batch": "topk_place_batch_launch",
+          "sharded_wave": "sharded_wave_launch"}
+#: the entry points' arguments: (args, stream) unless listed (the sharded
+#: wave carries each card's stream in its args)
+_ARGTYPES = {"sharded_wave": [ctypes.c_void_p]}
 _LIBS: dict = {}          # name -> (entry point, BuiltLibrary, CDLL)
 _LIB_LOCK = threading.Lock()
 #: name -> lock held while that library is built and loaded
@@ -137,7 +149,7 @@ def load_library(name: str) -> BuiltLibrary:
         built = build_library(name)
         lib = ctypes.CDLL(str(built.path))
         fn = getattr(lib, _ENTRY[name])
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES.get(name, [ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         with _LIB_LOCK:
             _LIBS[name] = (fn, built, lib)
@@ -335,6 +347,288 @@ def fused_wave_apply(kin: KernelIn, used_cpu: torch.Tensor,
     out = fused_wave_place(kin2, step_member, step_local, t_steps, features)
     return (out, used_cpu + out.a_cpu, used_mem + out.a_mem,
             used_disk + out.a_disk)
+
+
+# ---------------------------------------------------------------------------
+# The fused wave over a mesh of node shards.
+# ---------------------------------------------------------------------------
+
+#: kernel calls made by ``sharded_wave_place``: one C call a wave, which
+#: launches csrc/sharded_wave.cu's kernels on every card of the mesh
+sharded_launches = 0
+
+_SLOT_BYTES = 80          # sizeof(StepSlot) in csrc/sharded_wave.cu
+_WINNER_BYTES = 16        # sizeof(Winner)
+_ROWS_PER_BLOCK = 1024    # rows of a position a step block covers (SW_ROWS)
+
+#: the node planes the kernel reads at the shard's own rows
+_NODE_LEAVES = ("cap_cpu", "cap_mem", "cap_disk", "used_cpu", "used_mem",
+                "used_disk", "aff_score", "free_dyn", "job_tg_count",
+                "job_any_count", "base_mask", "port_conflict", "penalty")
+
+
+class _Pos(ctypes.Structure):
+    """Mirror of ``struct Pos`` in csrc/sharded_wave.cu: one mesh
+    position's leaves (in ``_LEAVES`` order), carries and scratch."""
+
+    _fields_ = [
+        ("leaf", ctypes.c_void_p * _N_LEAVES),
+        ("a_cpu", ctypes.c_void_p), ("a_mem", ctypes.c_void_p),
+        ("a_disk", ctypes.c_void_p), ("a_dyn", ctypes.c_void_p),
+        ("jtc", ctypes.c_void_p), ("jac", ctypes.c_void_p),
+        ("pc", ctypes.c_void_p),
+        ("g0", ctypes.c_int), ("pad", ctypes.c_int),
+    ]
+
+
+class _Shape(ctypes.Structure):
+    """Mirror of ``struct Shape`` in csrc/sharded_wave.cu."""
+
+    _fields_ = [
+        ("stride", ctypes.c_int64 * _N_LEAVES),
+        ("n_loc", ctypes.c_int), ("n_glob", ctypes.c_int),
+        ("b", ctypes.c_int), ("k", ctypes.c_int), ("p", ctypes.c_int),
+        ("bp", ctypes.c_int), ("t", ctypes.c_int), ("nb", ctypes.c_int),
+        ("with_topk", ctypes.c_int), ("with_ports", ctypes.c_int),
+        ("with_distinct", ctypes.c_int), ("with_step_pen", ctypes.c_int),
+        ("with_pref", ctypes.c_int), ("with_shuffle", ctypes.c_int),
+    ]
+
+
+class _Card(ctypes.Structure):
+    """Mirror of ``struct Card`` in csrc/sharded_wave.cu: one card of the
+    mesh and its buffers."""
+
+    _fields_ = [
+        ("ordinal", ctypes.c_int), ("n_pos", ctypes.c_int),
+        ("pos0", ctypes.c_int), ("pad", ctypes.c_int),
+        ("stream", ctypes.c_void_p), ("pos_host", ctypes.c_void_p),
+        ("pos", ctypes.c_void_p), ("slots", ctypes.c_void_p),
+        ("win", ctypes.c_void_p), ("part", ctypes.c_void_p),
+        ("rank", ctypes.c_void_p),
+    ]
+
+
+class _ShardedArgs(ctypes.Structure):
+    """Mirror of ``struct ShardedArgs`` in csrc/sharded_wave.cu."""
+
+    _fields_ = [
+        ("s", _Shape), ("n_cards", ctypes.c_int), ("card", ctypes.c_void_p),
+        ("n_act", ctypes.c_int), ("act_t", ctypes.c_void_p),
+        ("act_m", ctypes.c_void_p), ("act_j", ctypes.c_void_p),
+        ("packed", ctypes.c_void_p), ("topk_idx", ctypes.c_void_p),
+        ("topk_scores", ctypes.c_void_p),
+    ]
+
+
+def wave_active_steps(step_member, step_local, n_steps, t_steps: int,
+                      k: int) -> list:
+    """``[(t, m, j)]`` for each step of a wave that places: its member
+    ``step_member[t]`` is not negative and its local step
+    ``step_local[t]`` is below that member's ``n_steps``; ``m`` and ``j``
+    are clamped to the member axis and the ``k`` steps. Every other step
+    masks every node: its outputs are constants and it commits nothing."""
+    counts = _as_host_ints(n_steps)
+    b = len(counts)
+    out = []
+    for t, (member, j) in enumerate(zip(_as_host_ints(step_member)[:t_steps],
+                                        _as_host_ints(step_local)[:t_steps])):
+        m = min(max(member, 0), b - 1)
+        if member >= 0 and j < counts[m]:
+            out.append((t, m, min(max(j, 0), k - 1)))
+    return out
+
+
+def group_positions(cards) -> list:
+    """Mesh positions grouped by the card each lies on: ``[(card,
+    [positions])]`` in order of first appearance, so position 0's card
+    (the root) comes first. A virtual mesh repeats one card."""
+    groups: dict = {}
+    for p, card in enumerate(cards):
+        groups.setdefault(card, []).append(p)
+    return list(groups.items())
+
+
+def _card_of(dev: torch.device) -> tuple:
+    """``(ordinal, current stream handle)`` of a CUDA device."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return idx, torch.cuda.current_stream(torch.device("cuda",
+                                                      idx)).cuda_stream
+
+
+def sharded_wave_place_reference(shards, step_member, step_local,
+                                 t_steps: int,
+                                 features: KernelFeatures) -> FusedWaveOut:
+    """The plain torch version: ``parallel/sharded._sharded_wave`` over the
+    shards, packed; the carries stay lists, one tensor a shard."""
+    from nomad_tpu_torch.parallel.sharded import _sharded_wave
+
+    out = _sharded_wave(list(shards), step_member, step_local, t_steps,
+                        features)
+    b = int(out.nodes_evaluated.shape[0])
+    return FusedWaveOut(
+        packed=pack_fused_wave(out, t_steps, b),
+        topk_idx=out.topk_idx, topk_scores=out.topk_scores,
+        a_cpu=out.a_cpu, a_mem=out.a_mem, a_disk=out.a_disk)
+
+
+def sharded_wave_place(shards, step_member, step_local, t_steps: int,
+                       features: KernelFeatures) -> FusedWaveOut:
+    """One fused wave over a mesh of node shards. ``shards[s]`` is a
+    stacked KernelIn on mesh position s's device whose node planes hold
+    the global rows ``[s * n_loc, (s + 1) * n_loc)`` (every other leaf
+    whole); the step maps are host arrays. Returns a FusedWaveOut whose
+    ``packed`` buffer and top-k planes lie on ``shards[0]``'s device and
+    whose carries are lists, one tensor a shard on its device. CUDA shards
+    run csrc/sharded_wave.cu in one C call (or raise); CPU shards run the
+    plain version."""
+    _check_envelope(features)
+    types = {s.cap_cpu.device.type for s in shards}
+    if types == {"cpu"}:
+        return sharded_wave_place_reference(shards, step_member, step_local,
+                                            t_steps, features)
+    if types != {"cuda"}:
+        raise ValueError(f"shards on {sorted(types)}: want every shard on "
+                         "the CPU or every shard on a CUDA card")
+    return _sharded_launch(shards, step_member, step_local, t_steps,
+                           features)
+
+
+def _shard_strides(shards, b: int, n_loc: int, n_glob: int) -> list:
+    """The member stride of each leaf, equal on every shard; checks each
+    shard's devices, dtypes, contiguity and node axes."""
+    strides = None
+    for s, kin in enumerate(shards):
+        dev = kin.cap_cpu.device
+        got = []
+        for name, dtype in _LEAVES:
+            x = getattr(kin, name)
+            if x.dtype != dtype:
+                raise ValueError(f"shard {s}: {name} has dtype {x.dtype}; "
+                                 f"want {dtype}")
+            got.append(_member_stride(name, x, b, dev))
+        for name in _NODE_LEAVES:
+            if getattr(kin, name).shape[-1] != n_loc:
+                raise ValueError(f"shard {s}: {name} holds "
+                                 f"{getattr(kin, name).shape[-1]} rows; "
+                                 f"want the shard's {n_loc}")
+        if kin.node_perm.shape[-1] != n_glob:
+            raise ValueError(f"shard {s}: node_perm must index all {n_glob} "
+                             "nodes")
+        if strides is None:
+            strides = got
+        elif got != strides:
+            raise ValueError(f"shard {s}: member strides {got} differ from "
+                             f"shard 0's {strides}")
+    return strides
+
+
+def _sharded_launch(shards, step_member, step_local, t_steps: int,
+                    f: KernelFeatures) -> FusedWaveOut:
+    global sharded_launches
+    first = shards[0]
+    n_shards = len(shards)
+    b = int(first.n_steps.shape[0])
+    n_loc = int(first.cap_cpu.shape[-1])
+    n_glob = n_loc * n_shards
+    k = int(first.step_preferred.shape[-1])
+    if n_glob >= 1 << 24:
+        raise ValueError("node ids are packed as f32: N must stay below 2**24")
+    if n_loc < TOPK:
+        raise ValueError(f"a shard of {n_loc} rows is under the top-{TOPK} "
+                         "merge's floor")
+    if first.step_penalty.shape[-1] != MAX_PENALTY_NODES:
+        raise ValueError("step_penalty must be [.., K, MAX_PENALTY_NODES]")
+    strides = _shard_strides(shards, b, n_loc, n_glob)
+    act = wave_active_steps(step_member, step_local, first.n_steps, t_steps,
+                            k)
+    root = first.cap_cpu.device
+    cards = [_card_of(s.cap_cpu.device) for s in shards]
+    nb = -(-n_loc // _ROWS_PER_BLOCK)
+    bp = b if first.node_perm.dim() == 2 else 1
+
+    def buf(n, dtype, dev):
+        return torch.empty(max(n, 1), dtype=dtype, device=dev)
+
+    out = FusedWaveOut(
+        packed=buf(fused_pack_len(t_steps, b), torch.float32, root),
+        topk_idx=torch.empty((t_steps, TOPK), dtype=torch.int32,
+                             device=root),
+        topk_scores=torch.empty((t_steps, TOPK), dtype=torch.float32,
+                                device=root),
+        a_cpu=[None] * n_shards, a_mem=[None] * n_shards,
+        a_disk=[None] * n_shards)
+    keep = []       # every buffer the call reads or writes
+    groups = group_positions([c[0] for c in cards])
+    rows = (_Card * len(groups))()
+    tables = []
+    pos0 = 0
+    for c, (ordinal, positions) in enumerate(groups):
+        dev = shards[positions[0]].cap_cpu.device
+        table = (_Pos * len(positions))()
+        for lp, p in enumerate(positions):
+            kin, row = shards[p], table[lp]
+            for slot, (name, _) in enumerate(_LEAVES):
+                row.leaf[slot] = getattr(kin, name).data_ptr()
+            for name in ("a_cpu", "a_mem", "a_disk"):
+                getattr(out, name)[p] = x = buf(n_loc, torch.float32, dev)
+                setattr(row, name, x.data_ptr())
+            scratch = dict(
+                a_dyn=buf(n_loc if f.with_ports else 0, torch.int32, dev),
+                jtc=buf(b * n_loc, torch.int32, dev),
+                jac=buf(b * n_loc if f.with_distinct else 0, torch.int32,
+                        dev),
+                pc=buf(b * n_loc if f.with_ports else 0, torch.uint8, dev))
+            for name, x in scratch.items():
+                setattr(row, name, x.data_ptr())
+            keep += scratch.values()
+            row.g0 = p * n_loc
+        # the root holds every card's slots and metric partials
+        n_held = n_shards if c == 0 else len(positions)
+        bufs = dict(
+            pos=buf(ctypes.sizeof(table), torch.uint8, dev),
+            slots=buf(n_held * nb * _SLOT_BYTES, torch.uint8, dev),
+            win=buf(_WINNER_BYTES, torch.uint8, dev),
+            part=buf(n_held * 6 * b, torch.int32, dev),
+            rank=buf(bp * n_glob if f.with_shuffle else 0, torch.int32, dev))
+        keep += bufs.values()
+        rows[c] = _Card(ordinal, len(positions), pos0, 0,
+                        cards[positions[0]][1], ctypes.addressof(table),
+                        *(bufs[name].data_ptr() for name in
+                          ("pos", "slots", "win", "part", "rank")))
+        tables.append(table)
+        pos0 += len(positions)
+
+    args = _ShardedArgs()
+    s = args.s
+    for slot, stride in enumerate(strides):
+        s.stride[slot] = stride
+    s.n_loc, s.n_glob, s.b, s.k, s.p = n_loc, n_glob, b, k, MAX_PENALTY_NODES
+    s.bp, s.t, s.nb = bp, t_steps, nb
+    s.with_topk = int(f.with_topk)
+    s.with_ports = int(f.with_ports)
+    s.with_distinct = int(f.with_distinct)
+    s.with_step_pen = int(f.with_step_penalties)
+    s.with_pref = int(f.with_preferred)
+    s.with_shuffle = int(f.with_shuffle)
+    args.n_cards = len(groups)
+    args.card = ctypes.addressof(rows)
+    steps = [(ctypes.c_int * max(len(act), 1))(*col)
+             for col in (zip(*act) if act else ((), (), ()))]
+    args.n_act = len(act)
+    args.act_t, args.act_m, args.act_j = (ctypes.addressof(x) for x in steps)
+    for name in ("packed", "topk_idx", "topk_scores"):
+        setattr(args, name, getattr(out, name).data_ptr())
+
+    load_library("sharded_wave")
+    err = _LIBS["sharded_wave"][0](ctypes.byref(args))
+    if err != 0:
+        raise RuntimeError(f"sharded_wave launch failed: cudaError {err}")
+    with _LAUNCH_LOCK:
+        sharded_launches += 1
+    # scratch freed here is reused only by work queued later on its card's
+    # stream, which follows the wave's launches there
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -412,6 +412,7 @@ def warmup_entries(entries: List[Dict], device: DeviceLike = None,
     names the CPU); returns ``(warmed, failed)``. A failed entry is
     logged, counted and skipped: warmup never stops a server. ``stop``
     ends the pass between entries (a server shutting down)."""
+    from nomad_tpu_torch.parallel.coalesce import fused_wave_enabled
     from nomad_tpu_torch.tensors.device_state import default_device_state
 
     dev = resolve_device(device)
@@ -422,7 +423,10 @@ def warmup_entries(entries: List[Dict], device: DeviceLike = None,
             break
         try:
             if e.get("kernel") == "joint":
-                did = _warm_fused(e, dev) or _warm_joint(e, dev)
+                # the route the launcher takes: B1 when the switch is on
+                # and the entry fits its envelope, else the composite
+                did = (fused_wave_enabled() and _warm_fused(e, dev)) \
+                    or _warm_joint(e, dev)
             elif e.get("kernel") in ("single_topk", "single_full"):
                 did = _warm_single(e, dev)
             else:

@@ -34,11 +34,14 @@ then never place against each other's uncommitted capacity.
 
 A wave given a device mesh (``mesh=``; a coalescer passes its server's
 ``Server.wave_mesh``) runs with its node axis split over the mesh's devices
-(``parallel/sharded``): the fused sharded wave when the union is in the
-fused envelope and each shard holds at least TOPK rows, else the joint
-sharded wave (counted as a fused fallback). A mesh that does not divide
-the node axis, or has one device, runs the wave on ``device`` and counts
-a sharded fallback in ``sharded_wave_stats``. The results equal the
+(``parallel/sharded``): the fused sharded wave (on the card, the hand
+kernel ``csrc/sharded_wave.cu``) when the union is in the fused envelope
+and each shard holds at least TOPK rows, else the joint sharded wave
+(counted as a fused fallback). ``configure_fused_wave(False)`` sends
+every wave to the composite, or to the joint sharded wave, uncounted.
+A mesh that does not divide the node axis, or has one device, runs the
+wave on ``device`` and counts a sharded fallback in
+``sharded_wave_stats``. The results equal the
 one-device wave's bit for bit.
 
 The fault points ``wave.launch`` and ``wave.d2h.drain`` and the tracer
@@ -194,6 +197,24 @@ class _ShardedWaveStats:
 
 #: process-wide sharded-wave stats
 sharded_wave_stats = _ShardedWaveStats()
+
+#: The fused-wave switch (the JAX package's knob). On (the default): a
+#: wave whose feature union fits the fused envelope runs B1, or the fused
+#: sharded kernel over a mesh; the rest run the composite (the joint
+#: sharded wave over a mesh), counted as fallbacks. Off: every wave runs
+#: the composite, and nothing counts as a fallback.
+_FUSED_WAVE = True
+
+
+def configure_fused_wave(on: bool) -> None:
+    """Turn the fused wave on or off process-wide (a composite arm of a
+    benchmark flips this)."""
+    global _FUSED_WAVE
+    _FUSED_WAVE = bool(on)
+
+
+def fused_wave_enabled() -> bool:
+    return _FUSED_WAVE
 
 
 class _UploadStats:
@@ -776,7 +797,8 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     wave_key = (b_pad, t_pad, n_nodes, *layout, feats)
     # a sharded fused wave also needs TOPK rows a shard for its local
     # top-k merge
-    fused = fused_wave_supported(feats) and (
+    want_fused = _FUSED_WAVE
+    fused = want_fused and fused_wave_supported(feats) and (
         not sharded or n_nodes // mesh_size >= TOPK)
     if sharded:
         sharded_wave_stats.note_launch(mesh_size)
@@ -814,7 +836,7 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
             _INFLIGHT_STARTS.pop(token, None)
     if fused:
         fused_wave_stats.note_launch()
-    else:
+    elif want_fused:
         fused_wave_stats.note_fallback()
     elapsed = time.perf_counter() - t_launch
     wave_latency_ewma.update(elapsed)

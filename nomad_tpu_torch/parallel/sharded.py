@@ -2,8 +2,20 @@
 
 Counterpart of ``nomad_tpu/parallel/sharded.py``. The JAX package lets
 GSPMD partition its placement programs and writes the fused wave's
-per-shard body under ``shard_map``; here one process drives every shard
-with torch ops:
+per-shard body under ``shard_map``; here one process drives every shard.
+Which route runs where:
+
+- the fused sharded wave (``fused_sharded_entry``) on CUDA shards is one
+  call of the hand kernel ``ops/cuda_kernel.sharded_wave_place``
+  (``csrc/sharded_wave.cu``): a step launch on every card and a merge
+  launch on the first, a step, with no Python between the steps;
+- on CPU shards it runs ``_sharded_wave``, the kernel's plain version
+  (which ``chip_smoke.py`` also holds the kernel against on the card);
+- the joint sharded wave (``joint_sharded_entry``: spreads, devices,
+  cores and network, outside the fused envelope) runs ``_sharded_wave``
+  on any device, as the one-device composite runs beside B1.
+
+``_sharded_wave`` is torch ops:
 
 - a leaf is *placed* (``place``) as a tuple of per-position tensors, one
   per mesh position, each a contiguous tensor of its own: node-axis
@@ -41,26 +53,26 @@ import numpy as np
 import torch
 
 from nomad_tpu_torch.device import DeviceLike
+from nomad_tpu_torch.ops.cuda_kernel import (
+    sharded_wave_place,
+    wave_active_steps,
+)
 from nomad_tpu_torch.ops.kernel import (
     FULL_FEATURES,
     FUSED_METRIC_FIELDS,
     NEG_INF,
     TOPK,
-    FusedWaveOut,
     JointOut,
     KernelFeatures,
     KernelIn,
     KernelOut,
     _argmax_first,
-    _as_host_ints,
     _bump_spread,
     _deduct,
     _feasible,
     _member_view,
     _score,
     _spread_onehot,
-    fused_wave_supported,
-    pack_fused_wave,
     topk_ordered,
 )
 from nomad_tpu_torch.parallel import mesh as _mesh
@@ -523,17 +535,18 @@ def _sharded_wave(shards: List[KernelIn], step_member, step_local,
     devs = [s.cap_cpu.device for s in shards]
     root = devs[0]
     b = int(shards[0].n_steps.shape[0])   # n_steps is always member-stacked
-    members = _as_host_ints(step_member)[:t_steps]
-    locals_ = _as_host_ints(step_local)[:t_steps]
-    n_steps = _as_host_ints(shards[0].n_steps)
+    # an inactive step (padding, or past its member's count) masks every
+    # node: the composite then returns the idle constants and commits
+    # nothing
+    active = {t: (m, j) for t, m, j in wave_active_steps(
+        step_member, step_local, shards[0].n_steps, t_steps,
+        int(shards[0].step_preferred.shape[-1]))}
     sws = [_ShardWave(kin, s, b, f) for s, kin in enumerate(shards)]
     n_loc = sws[0].n_loc
     n_glob = n_loc * n_shards
     k_loc = min(TOPK, n_loc)
     inverses: dict = {}
 
-    # an inactive step (padding, or past its member's count) masks every
-    # node: the composite then returns these constants and commits nothing
     idle_topi = (torch.arange(TOPK, dtype=torch.int32, device=root)
                  if f.with_topk
                  else torch.zeros(TOPK, dtype=torch.int32, device=root))
@@ -543,16 +556,15 @@ def _sharded_wave(shards: List[KernelIn], step_member, step_local,
             torch.full((TOPK,), NEG_INF, dtype=torch.float32, device=root))
 
     outs = []
-    for member, j in zip(members, locals_):
-        m = min(max(member, 0), b - 1)
-        if member < 0 or j >= n_steps[m]:
+    for t in range(t_steps):
+        if t not in active:
             outs.append(idle)
             continue
+        m, jj = active[t]
         fparts, iparts, steps = [], [], []
         for sw in sws:
             kin_m = sw.view(m)
             st_m = sw.member_state(m, kin_m, f)
-            jj = min(max(j, 0), kin_m.step_preferred.shape[0] - 1)
             feasible, ask_cpu_total, _ = _feasible(kin_m, st_m, f)
             penalty = kin_m.penalty
             if f.with_step_penalties:
@@ -731,9 +743,11 @@ def fused_sharded_entry(mesh: Mesh, shared: bool = False,
     """(fn, KernelIn-of-NamedSharding, replicated) for the FUSED wave
     with the node axis split over ``mesh``: ``fn(kin, step_member,
     step_local, t_steps, features) -> FusedWaveOut`` for a feature union
-    in the fused envelope, its ``packed`` buffer and top-k planes on the
-    mesh's first device and its carries node-sharded (placed leaves of
-    ``node_axis_sharding(mesh)``). The shardings are
+    in the fused envelope (``ops/cuda_kernel.sharded_wave_place``: the
+    kernel on CUDA shards, ``_sharded_wave`` on CPU ones; it refuses a
+    union outside the envelope), its ``packed`` buffer and top-k planes
+    on the mesh's first device and its carries node-sharded (placed
+    leaves of ``node_axis_sharding(mesh)``). The shardings are
     ``shared_field_spec``'s layout, so resident twins placed by the
     device state pass through as they are."""
     layouts = _fused_sharded_cache.get(mesh)
@@ -747,18 +761,12 @@ def fused_sharded_entry(mesh: Mesh, shared: bool = False,
         mesh, shared, neutral_shared, job_shared)
 
     def fn(kin, step_member, step_local, t_steps, features):
-        if not fused_wave_supported(features):
-            raise ValueError(f"features {features} are outside the fused "
-                             "wave's envelope")
-        out = _run_wave(mesh, kin, kin_shardings, step_member, step_local,
-                        t_steps, features)
-        b = int(out.nodes_evaluated.shape[0])
-        return FusedWaveOut(
-            packed=pack_fused_wave(out, t_steps, b),
-            topk_idx=out.topk_idx, topk_scores=out.topk_scores,
-            a_cpu=_to_positions(out.a_cpu, mesh),
-            a_mem=_to_positions(out.a_mem, mesh),
-            a_disk=_to_positions(out.a_disk, mesh))
+        placed, _ = place_args(kin, kin_shardings)
+        shards = _shards_of(placed, mesh.node_rows()[0])
+        out = sharded_wave_place(shards, step_member, step_local, t_steps,
+                                 features)
+        return out._replace(**{name: _to_positions(getattr(out, name), mesh)
+                               for name in ("a_cpu", "a_mem", "a_disk")})
 
     entry = (fn, kin_shardings, repl)
     layouts[key] = entry

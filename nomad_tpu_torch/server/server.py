@@ -628,27 +628,23 @@ class Server:
             LOG.warning("warmup manifest persist failed: %s", e)
 
     def _maybe_configure_wave_mesh(self) -> None:
-        """Split the placement waves' node axis over a mesh of devices
-        when the configuration asks for one: ``use_device_mesh=True``
-        over ``parallel/mesh.available_devices`` (every card; the one
-        CPU on the CPU), None and False never. Fewer than two devices
-        adopt no mesh (logged).
-
-        A deliberate difference from the JAX package, whose None builds
-        a mesh on any host of two or more devices: its sharded wave is
-        one compiled program, the port's an eager loop of torch ops
-        over every step and shard, over 100x slower than B1 a wave on
-        one H100 (PERF.md, phase 17). The port's default keeps B1."""
+        """Split the placement waves' node axis over a mesh of devices,
+        as the JAX package does: ``use_device_mesh=True`` over
+        ``parallel/mesh.available_devices`` (every card; the one CPU on
+        the CPU), None over every card of a host with two or more CUDA
+        cards (never on the CPU), False never. Fewer than two devices
+        adopt no mesh (logged when the configuration asked for one)."""
         use = self.config.use_device_mesh
-        if not use:
+        if use is False or (use is None and self.device.type != "cuda"):
             return
         from nomad_tpu_torch.parallel.mesh import available_devices
         from nomad_tpu_torch.parallel.sharded import wave_mesh
 
         devs = available_devices(self.device)
         if len(devs) < 2:
-            LOG.info("use_device_mesh: %d %s device, no mesh adopted",
-                     len(devs), self.device.type)
+            if use:
+                LOG.info("use_device_mesh: %d %s device, no mesh adopted",
+                         len(devs), self.device.type)
             return
         self._adopt_wave_mesh(wave_mesh(devices=devs))
 
@@ -657,8 +653,9 @@ class Server:
         read ``wave_mesh`` per batch, and the process-wide resident state
         splits its generations over it unless another server's mesh is
         there first (that server keeps its residency; this one's waves
-        then ship host planes). Nothing is warmed: a sharded wave is
-        eager torch ops, and its first launch pays its own loading."""
+        then ship host planes). Nothing is warmed: the sharded kernel
+        compiles nothing per shape, and its library loads at its first
+        wave unless an earlier launch in the process loaded it."""
         self.wave_mesh = mesh
         LOG.info("placement waves sharded over %d devices: %s", mesh.size,
                  mesh)

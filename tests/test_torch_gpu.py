@@ -24,18 +24,18 @@ from nomad_tpu_torch.parallel import coalesce as pc
 ATOL = 1e-5
 
 
-def _assert_fused(got, want, t_pad, b):
+def _assert_fused(got, want, t_pad, b, atol=ATOL):
     g = tk.unpack_fused_wave(got.packed.cpu().numpy(), t_pad, b)
     w = tk.unpack_fused_wave(want.packed.cpu().numpy(), t_pad, b)
     for name in ("chosen", "found") + tk.FUSED_METRIC_FIELDS:
         np.testing.assert_array_equal(g[name], w[name], err_msg=name)
-    np.testing.assert_allclose(g["scores"], w["scores"], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(g["scores"], w["scores"], rtol=0, atol=atol)
     np.testing.assert_array_equal(got.topk_idx.cpu().numpy(),
                                   want.topk_idx.cpu().numpy())
     for name in ("topk_scores", "a_cpu", "a_mem", "a_disk"):
         np.testing.assert_allclose(
             getattr(got, name).cpu().numpy(),
-            getattr(want, name).cpu().numpy(), rtol=0, atol=ATOL,
+            getattr(want, name).cpu().numpy(), rtol=0, atol=atol,
             err_msg=name)
     return g
 
@@ -395,8 +395,10 @@ def test_cuda_server_burst_through_b1(cuda_device):
     from nomad_tpu_torch.parallel import c2m
     from nomad_tpu_torch.server.server import Server, ServerConfig
 
+    # no mesh: a host of several cards would adopt one by default
     srv = Server(ServerConfig(num_workers=1, worker_batch_size=8,
-                              heartbeat_ttl=60.0, gc_tuning=False),
+                              heartbeat_ttl=60.0, gc_tuning=False,
+                              use_device_mesh=False),
                  device=cuda_device)
     srv.state.restore_from_bytes(c2m.generate(200, 400).to_snapshot_bytes())
     pc.fused_wave_stats.reset()
@@ -730,10 +732,10 @@ def test_cuda_sharded_wave_matches_b1(variant, n_nodes, cuda_device):
                                torch.from_numpy(sl).to(cuda_device), t_pad,
                                feats)
     mesh = sharded.wave_mesh(devices=[cuda_device] * 4)
-    before = ck.launches
+    before, calls = ck.launches, ck.sharded_launches
     fo = sharded.fused_sharded_entry(mesh)[0](
         kernel_in_from_numpy(stacked, keep_numpy=True), sm, sl, t_pad, feats)
-    assert ck.launches == before
+    assert ck.launches == before and ck.sharded_launches == calls + 1
     assert len(fo.a_cpu) == 4 and fo.a_cpu[0].device.type == "cuda"
     got = fo._replace(**{name: torch.cat(getattr(fo, name))
                          for name in ("a_cpu", "a_mem", "a_disk")})
@@ -753,14 +755,196 @@ def test_cuda_launch_wave_over_a_virtual_mesh(cuda_device):
     pc.sharded_wave_stats.reset()
     want = pc.launch_wave(kins, steps, [feats] * len(kins),
                           device=cuda_device)
-    before = ck.launches
+    before, calls = ck.launches, ck.sharded_launches
     got = pc.launch_wave(kins, steps, [feats] * len(kins),
                          device=cuda_device,
                          mesh=sharded.wave_mesh(devices=[cuda_device] * 8))
-    assert ck.launches == before
+    assert ck.launches == before and ck.sharded_launches == calls + 1
     assert pc.sharded_wave_stats.snapshot()["launches"] == 1
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.chosen, w.chosen)
         np.testing.assert_array_equal(np.asarray(g.topk_idx),
                                       np.asarray(w.topk_idx))
         np.testing.assert_allclose(g.scores, w.scores, rtol=0, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The fused sharded wave's kernel (csrc/sharded_wave.cu)
+# ---------------------------------------------------------------------------
+
+def _shards_on(stacked, devices):
+    """The stacked numpy wave split over a mesh of ``devices``: one
+    KernelIn a node shard, as ``fused_sharded_entry`` hands them over."""
+    from nomad_tpu_torch.parallel import sharded
+
+    mesh = sharded.wave_mesh(devices=devices)
+    shardings, _ = sharded.joint_in_shardings(mesh)
+    placed, _ = sharded.place_args(
+        kernel_in_from_numpy(stacked, keep_numpy=True), shardings)
+    return sharded._shards_of(placed, mesh.node_rows()[0])
+
+
+def _whole(out, root):
+    """A sharded FusedWaveOut with its carries gathered on ``root``."""
+    return out._replace(**{name: torch.cat([p.to(root)
+                                            for p in getattr(out, name)])
+                           for name in ("a_cpu", "a_mem", "a_disk")})
+
+
+def _kernel_against_plain_and_b1(stacked, sm, sl, t_pad, feats, devices):
+    """The kernel over ``devices`` against its plain version on the same
+    shards and against B1 on the whole wave: equal bit for bit. One
+    kernel call, no B1 launch."""
+    root = devices[0]
+    parts = _shards_on(stacked, devices)
+    before, calls = ck.launches, ck.sharded_launches
+    got = _whole(ck.sharded_wave_place(parts, sm, sl, t_pad, feats), root)
+    assert ck.sharded_launches == calls + 1 and ck.launches == before
+    plain = _whole(ck.sharded_wave_place_reference(parts, sm, sl, t_pad,
+                                                   feats), root)
+    kin = kernel_in_from_numpy(stacked, device=root)
+    b1 = ck.fused_wave_place(kin, torch.from_numpy(sm).to(root),
+                             torch.from_numpy(sl).to(root), t_pad, feats)
+    torch.cuda.synchronize()
+    b = len(stacked.n_steps)
+    _assert_fused(got, plain, t_pad, b, atol=0.0)
+    return _assert_fused(got, b1, t_pad, b, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("variant,n_nodes", tp.FUSED_VARIANTS,
+                         ids=[v for v, _ in tp.FUSED_VARIANTS])
+def test_cuda_sharded_kernel_matches_plain_and_b1(variant, n_nodes, shards,
+                                                 cuda_device):
+    kins, feats = tp.wave_members(12, variant, n_nodes, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    g = _kernel_against_plain_and_b1(stacked, sm, sl, t_pad, feats,
+                                     [cuda_device] * shards)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", tp.FUSED_CASES)
+def test_cuda_sharded_kernel_fused_cases(case, cuda_device):
+    """tests/test_torch_fused_cases.py's waves over four shards: members
+    seeing the ones before them, penalties and pins, ties across the
+    shards' and the blocks' row ranges."""
+    kins, feats, x = tp.fused_case(case, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    root = cuda_device
+    parts = _shards_on(stacked, [root] * 4)
+    got = _whole(ck.sharded_wave_place(parts, sm, sl, t_pad, feats), root)
+    kin = kernel_in_from_numpy(stacked, device=root)
+    want = ck.fused_wave_place(kin, torch.from_numpy(sm).to(root),
+                               torch.from_numpy(sl).to(root), t_pad, feats)
+    torch.cuda.synchronize()
+    g = _assert_fused(got, want, t_pad, tp.B, atol=0.0)
+    tp.check_case(case, x, g["chosen"], g["found"],
+                  got.topk_idx.cpu().numpy(), g["nodes_feasible"])
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_kernel_idle_steps_and_no_topk(cuda_device):
+    """Members with fewer steps than the bucket (and one with none):
+    padding and inactive steps give the idle outputs; with top-k off the
+    planes are 0 / NEG_INF."""
+    kins, feats = tp.wave_members(9, "shuffle", 200, lib="port")
+    kins = [k._replace(n_steps=np.asarray(n, np.int32))
+            for k, n in zip(kins, (4, 0, 2, 3))]
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    for f in (feats, feats._replace(with_topk=False)):
+        _kernel_against_plain_and_b1(stacked, sm, sl, t_pad, f,
+                                     [cuda_device] * 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_nodes,n_pad,shards", (
+    (995, 1024, 4), (5000, 8192, 2), (100_000, 131072, 8)),
+    ids=("n1024", "n8192-d2", "n131072-d8"))
+def test_cuda_sharded_kernel_widths(n_nodes, n_pad, shards, cuda_device):
+    """Several step blocks a shard (N/D over 1024 rows) and the scale
+    width, against B1."""
+    kins, feats = tp.wave_members(24, "kitchen_sink", n_nodes, lib="port",
+                                  n_pad=n_pad)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    g = _kernel_against_plain_and_b1(stacked, sm, sl, t_pad, feats,
+                                     [cuda_device] * shards)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["cards", "interleaved"])
+def test_cuda_sharded_kernel_over_several_cards(layout, cuda_device):
+    """A mesh of real cards (every card, or cards 0, 1, 0, 1): the step
+    launches wait on the root's merge, slots and winners travel between
+    cards; the wave equals B1's on the first card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards or more; this host has {n}")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    devices = cards if layout == "cards" else [cards[0], cards[1]] * 2
+    kins, feats = tp.wave_members(30, "kitchen_sink", 383, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    g = _kernel_against_plain_and_b1(stacked, sm, sl, t_pad, feats, devices)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+def test_cuda_default_server_places_over_the_cards_mesh(cuda_device):
+    """On a host of several cards a server with the default
+    ``use_device_mesh`` splits its waves over every card, as the JAX
+    package's does: every wave one sharded kernel call and no B1 launch,
+    every job placed, no node over capacity."""
+    import time
+
+    from nomad_tpu_torch.parallel import c2m
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards or more; this host has {n}")
+    srv = Server(ServerConfig(num_workers=1, worker_batch_size=8,
+                              heartbeat_ttl=60.0, gc_tuning=False,
+                              coalesce_adaptive=False),
+                 device=cuda_device)
+    srv.state.restore_from_bytes(c2m.generate(200, 400).to_snapshot_bytes())
+    srv.start()
+    try:
+        assert list(srv.wave_mesh.devices.flat) == [
+            torch.device("cuda", i) for i in range(n)]
+        pc.fused_wave_stats.reset()
+        pc.sharded_wave_stats.reset()
+        b1, calls = ck.launches, ck.sharded_launches
+        rng = np.random.default_rng(9)
+        jobs = []
+        for i in range(8):
+            job = c2m.burst_job(rng, i, prefix="cards")
+            job.task_groups[0].count = 4
+            jobs.append(job)
+        w = srv.workers[0]
+        w.stop()
+        for job in jobs:
+            srv.job_register(job)
+        w.start()
+
+        def placed():
+            snap = srv.state.snapshot()
+            return all(len(snap.allocs_by_job(j.namespace, j.id)) == 4
+                       for j in jobs)
+
+        deadline = time.time() + 120
+        while time.time() < deadline and not placed():
+            time.sleep(0.02)
+        assert placed(), w.last_error
+        assert w.last_error is None
+        waves = pc.sharded_wave_stats.snapshot()
+        assert waves["launches"] >= 1 and waves["fallbacks"] == 0, waves
+        assert ck.sharded_launches - calls == waves["launches"]
+        assert ck.launches == b1
+        fused = pc.fused_wave_stats.snapshot()
+        assert fused == {"launches": waves["launches"], "fallbacks": 0,
+                         "failures": 0}, fused
+        assert tp.over_capacity_nodes(srv.state) == 0
+    finally:
+        srv.shutdown()

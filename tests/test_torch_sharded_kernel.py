@@ -1,0 +1,360 @@
+"""The fused sharded wave's kernel route, on the CPU.
+
+``ops/cuda_kernel.sharded_wave_place`` runs ``csrc/sharded_wave.cu`` on
+CUDA shards and its plain version, ``parallel/sharded._sharded_wave``, on
+CPU shards. Here:
+
+- the plain route against the JAX package's ``fused_sharded_entry`` over
+  D = 2, 4 and 8 of the conftest's virtual CPU devices, for the six
+  variants of the fused envelope: choices, found, top-k indices, i32
+  metrics and carries exact, scores within ``SCORE_ATOL`` (one f32 ulp
+  at 1.0: XLA's and torch's ``pow`` may round a last bit apart);
+- the argument packing of the CUDA route, run against a fake library put
+  in place of ``libsharded_wave.so`` that records what it is given: the
+  per-shard leaf pointers and offsets, stride 0 for shared leaves,
+  positions grouped by card, and the active steps, which must be the
+  reference's rule (``step_member >= 0`` and the local step under the
+  member's ``n_steps``) and exactly the steps the plain version does not
+  give the idle outputs;
+- a CUDA request on a host without a card raises, and never runs the
+  plain version;
+- the fused-wave switch (``configure_fused_wave``), held against the JAX
+  package's: off, a wave runs the composite (over a mesh, the joint
+  sharded wave) and counts no fallback.
+
+The card's own cases are in ``tests/test_torch_gpu.py``.
+"""
+
+import ctypes
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import _torch_parity as tp
+from nomad_tpu.ops.kernel import KernelIn as RefKernelIn
+from nomad_tpu.parallel import coalesce as ref_coalesce
+from nomad_tpu.parallel import sharded as ref_sharded
+from nomad_tpu_torch.convert import kernel_in_from_numpy
+from nomad_tpu_torch.ops import cuda_kernel as ck
+from nomad_tpu_torch.ops import kernel as tk
+from nomad_tpu_torch.parallel import coalesce
+from nomad_tpu_torch.parallel import sharded
+
+CPU = torch.device("cpu")
+SCORE_ATOL = 1.19e-7
+#: the node axis of the waves: at least 256 rows (32 a shard at D=8; see
+#: tests/test_torch_mesh.py on the CPU's scalar tail)
+MIN_PAD = 256
+
+
+def _members(seed, variant, n_nodes, b=tp.B):
+    return tp.wave_members(seed, variant, n_nodes, b=b,
+                           n_pad=MIN_PAD if n_nodes <= MIN_PAD else None)
+
+
+def _port_shards(stacked, d, layout=(False, False, False)):
+    """The stacked numpy wave placed over a d-entry CPU mesh: one KernelIn
+    a node shard, as ``fused_sharded_entry`` hands them to the wrapper."""
+    mesh = sharded.wave_mesh(devices=[CPU] * d)
+    shardings, _ = sharded.joint_in_shardings(mesh, *layout)
+    placed, _ = sharded.place_args(
+        kernel_in_from_numpy(stacked, keep_numpy=True), shardings)
+    return sharded._shards_of(placed, mesh.node_rows()[0])
+
+
+def _ref_wave(stacked, sm, sl, t_pad, feats, d):
+    """JAX's fused sharded wave over d virtual devices, as host arrays."""
+    fn, kin_sh, repl = ref_sharded.fused_sharded_entry(
+        ref_sharded.wave_mesh(d))
+    out = fn(RefKernelIn(*[jax.device_put(x, s)
+                           for x, s in zip(stacked, kin_sh)]),
+             jax.device_put(sm, repl), jax.device_put(sl, repl), t_pad,
+             feats)
+    host = tk.unpack_fused_wave(np.asarray(out.packed), t_pad,
+                                len(stacked.n_steps))
+    for name in ("topk_idx", "topk_scores", "a_cpu", "a_mem", "a_disk"):
+        host[name] = np.asarray(getattr(out, name))
+    return host
+
+
+def _port_host(out, t_pad, b):
+    host = tk.unpack_fused_wave(out.packed.numpy(), t_pad, b)
+    host["topk_idx"] = out.topk_idx.numpy()
+    host["topk_scores"] = out.topk_scores.numpy()
+    for name in ("a_cpu", "a_mem", "a_disk"):
+        host[name] = torch.cat(list(getattr(out, name))).numpy()
+    return host
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("variant,n_nodes", tp.FUSED_VARIANTS,
+                         ids=[v for v, _ in tp.FUSED_VARIANTS])
+def test_plain_route_matches_jax_fused_sharded(variant, n_nodes, shards):
+    kins, feats = _members(41 + shards, variant, n_nodes)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    want = _ref_wave(stacked, sm, sl, t_pad, feats, shards)
+    launches = ck.sharded_launches
+    out = ck.sharded_wave_place(_port_shards(stacked, shards), sm, sl,
+                                t_pad, tp.port_features(feats))
+    assert ck.sharded_launches == launches, "CPU shards launch nothing"
+    assert len(out.a_cpu) == shards
+    got = _port_host(out, t_pad, tp.B)
+    for name, w in want.items():
+        if name in ("scores", "topk_scores"):
+            np.testing.assert_allclose(got[name], w, rtol=0, atol=SCORE_ATOL,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(got[name], w, err_msg=name)
+    assert got["found"].any()
+
+
+# ---------------------------------------------------------------------------
+# The CUDA route's argument packing, against a fake library.
+# ---------------------------------------------------------------------------
+
+class _FakeLibrary:
+    """Stands in for ``sharded_wave_launch``: records the structure it is
+    given, launches nothing, returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, ref):
+        args = ref._obj
+        cards = (ck._Card * args.n_cards).from_address(args.card)
+        got = {"shape": args.s, "cards": [], "n_act": args.n_act}
+        for c in cards:
+            table = (ck._Pos * c.n_pos).from_address(c.pos_host)
+            got["cards"].append({
+                "ordinal": c.ordinal, "n_pos": c.n_pos, "pos0": c.pos0,
+                "g0": [p.g0 for p in table],
+                "leaves": [list(p.leaf) for p in table],
+                "a_cpu": [p.a_cpu for p in table]})
+        steps = [list((ctypes.c_int * max(args.n_act, 1)).from_address(a))
+                 for a in (args.act_t, args.act_m, args.act_j)]
+        got["act"] = list(zip(*steps))[:args.n_act]
+        got["stride"] = list(args.s.stride)
+        self.calls.append(got)
+        return 0
+
+
+@pytest.fixture()
+def fake_library(monkeypatch):
+    fake = _FakeLibrary()
+    monkeypatch.setitem(ck._LIBS, "sharded_wave", (fake, None, None))
+    return fake
+
+
+def _wave_with_idle_steps():
+    """A shuffle wave whose members want fewer steps than the bucket: the
+    step maps hold padding (member -1) and steps past a member's count."""
+    kins, feats = _members(5, "kitchen_sink", 200)
+    kins = [k._replace(n_steps=np.asarray(n, np.int32))
+            for k, n in zip(kins, (4, 0, 2, 3))]
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    return stacked, sm, sl, t_pad, tp.port_features(feats)
+
+
+def test_packing_per_shard_pointers_offsets_and_steps(fake_library,
+                                                      monkeypatch):
+    stacked, sm, sl, t_pad, feats = _wave_with_idle_steps()
+    shards = _port_shards(stacked, 4)
+    monkeypatch.setattr(ck, "_card_of", lambda dev: (0, 0))
+    launches = ck.sharded_launches
+    out = ck._sharded_launch(shards, sm, sl, t_pad, feats)
+    assert ck.sharded_launches == launches + 1
+    (call,) = fake_library.calls
+    n_loc = int(shards[0].cap_cpu.shape[-1])
+    shape = call["shape"]
+    assert (shape.n_loc, shape.n_glob, shape.b) == (n_loc, 4 * n_loc, tp.B)
+    assert shape.t == t_pad and shape.bp == tp.B
+    assert shape.nb == -(-n_loc // ck._ROWS_PER_BLOCK)
+    # a virtual mesh: one card holds every position
+    (card,) = call["cards"]
+    assert (card["ordinal"], card["n_pos"], card["pos0"]) == (0, 4, 0)
+    assert card["g0"] == [p * n_loc for p in range(4)]
+    for p, leaves in enumerate(card["leaves"]):
+        assert leaves == [getattr(shards[p], name).data_ptr()
+                          for name, _ in ck._LEAVES]
+    assert card["a_cpu"] == [t.data_ptr() for t in out.a_cpu]
+    # every leaf stacked: a member stride of its per-member size
+    for (name, _), stride in zip(ck._LEAVES, call["stride"]):
+        assert stride == getattr(shards[0], name)[0].numel(), name
+    # the active steps: the reference's rule, computed apart
+    n_steps = stacked.n_steps
+    m = np.clip(sm, 0, tp.B - 1)
+    active = np.nonzero((sm >= 0) & (sl < n_steps[m]))[0]
+    assert [t for t, _, _ in call["act"]] == active.tolist()
+    assert [(mm, j) for _, mm, j in call["act"]] == [
+        (int(m[t]), int(sl[t])) for t in active]
+    assert call["n_act"] == len(active) == 9
+    # and the plain version's idle steps are exactly the others
+    plain = ck.sharded_wave_place(shards, sm, sl, t_pad, feats)
+    host = tk.unpack_fused_wave(plain.packed.numpy(), t_pad, tp.B)
+    idle = np.setdiff1d(np.arange(t_pad), active)
+    assert not host["found"][idle].any()
+    assert (plain.topk_idx.numpy()[idle] == np.arange(tk.TOPK)).all()
+    assert (plain.topk_scores.numpy()[idle] == tk.NEG_INF).all()
+    assert host["found"][active].any()
+
+
+def test_packing_shared_leaves_have_stride_zero(fake_library, monkeypatch):
+    """A wave whose three sharing groups ship unbatched (the live stack's
+    layout): those leaves' member strides are 0, the stacked ones' their
+    per-member size."""
+    stacked, sm, sl, t_pad, feats = _wave_with_idle_steps()
+    layout = (True, True, True)
+    first = tk.KernelIn(*[
+        x[0] if coalesce.wave_field_is_shared(name, *layout) else x
+        for name, x in zip(tk.KernelIn._fields, stacked)])
+    shards = _port_shards(first, 2, layout)
+    monkeypatch.setattr(ck, "_card_of", lambda dev: (0, 0))
+    ck._sharded_launch(shards, sm, sl, t_pad, feats)
+    (call,) = fake_library.calls
+    shared = 0
+    for (name, _), stride in zip(ck._LEAVES, call["stride"]):
+        if coalesce.wave_field_is_shared(name, *layout):
+            assert stride == 0, name
+            shared += 1
+        else:
+            assert stride == getattr(shards[0], name)[0].numel(), name
+    assert shared >= 10
+
+
+def test_packing_groups_repeated_cards(fake_library, monkeypatch):
+    """Positions on cards 0, 1, 0, 1: two cards, the root (position 0's)
+    first holding positions 0 and 2, every card's slots and partials
+    sized on the root."""
+    stacked, sm, sl, t_pad, feats = _wave_with_idle_steps()
+    shards = _port_shards(stacked, 4)
+    ordinals = iter([0, 1, 0, 1])
+    monkeypatch.setattr(ck, "_card_of", lambda dev: (next(ordinals), 0))
+    ck._sharded_launch(shards, sm, sl, t_pad, feats)
+    (call,) = fake_library.calls
+    n_loc = int(shards[0].cap_cpu.shape[-1])
+    assert [(c["ordinal"], c["n_pos"], c["pos0"]) for c in call["cards"]] \
+        == [(0, 2, 0), (1, 2, 2)]
+    assert [c["g0"] for c in call["cards"]] == [[0, 2 * n_loc],
+                                                [n_loc, 3 * n_loc]]
+    assert ck.group_positions(["a", "b", "a", "c", "b"]) == [
+        ("a", [0, 2]), ("b", [1, 4]), ("c", [3])]
+
+
+def test_packing_refuses_what_the_kernel_does_not_take(fake_library,
+                                                      monkeypatch):
+    stacked, sm, sl, t_pad, feats = _wave_with_idle_steps()
+    monkeypatch.setattr(ck, "_card_of", lambda dev: (0, 0))
+    shards = _port_shards(stacked, 4)
+    bad = [shards[0]._replace(cap_cpu=shards[0].cap_cpu.double())] \
+        + shards[1:]
+    with pytest.raises(ValueError, match="dtype"):
+        ck._sharded_launch(bad, sm, sl, t_pad, feats)
+    narrow = [s._replace(cap_mem=s.cap_mem[..., :-1].contiguous())
+              for s in shards]
+    with pytest.raises(ValueError, match="rows"):
+        ck._sharded_launch(narrow, sm, sl, t_pad, feats)
+    with pytest.raises(ValueError, match="floor"):
+        ck._sharded_launch(_port_shards(stacked, 64), sm, sl, t_pad, feats)
+    assert fake_library.calls == []
+
+
+def test_cuda_request_without_a_card_raises(monkeypatch):
+    """A mesh of CUDA devices on a host without one fails at once; the
+    plain version never runs in the kernel's place."""
+    ran = []
+    real = sharded._sharded_wave
+
+    def counted(*a, **k):
+        ran.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(sharded, "_sharded_wave", counted)
+    stacked, sm, sl, t_pad, feats = _wave_with_idle_steps()
+    mesh = sharded.wave_mesh(devices=[torch.device("cuda", 0)] * 2)
+    fn = sharded.fused_sharded_entry(mesh)[0]
+    with pytest.raises((RuntimeError, AssertionError)):
+        fn(kernel_in_from_numpy(stacked, keep_numpy=True), sm, sl, t_pad,
+           feats)
+    # CPU shards handed to the CUDA route: no card to launch on
+    with pytest.raises((RuntimeError, AssertionError)):
+        ck._sharded_launch(_port_shards(stacked, 2), sm, sl, t_pad, feats)
+    assert ran == []
+
+
+# ---------------------------------------------------------------------------
+# The fused-wave switch, against the JAX package's.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def switch():
+    """Both packages' switches and wave counters given back as they were."""
+    prior = (coalesce.fused_wave_enabled(), ref_coalesce.fused_wave_enabled())
+    yield
+    coalesce.configure_fused_wave(prior[0])
+    ref_coalesce.configure_fused_wave(prior[1])
+    for mod in (coalesce, ref_coalesce):
+        mod.fused_wave_stats.reset()
+        mod.sharded_wave_stats.reset()
+
+
+def _switch_wave(seed=9):
+    ref_kins, ref_feats = _members(seed, "kitchen_sink", 383)
+    kins = [kernel_in_from_numpy(k, keep_numpy=True) for k in ref_kins]
+    return (ref_kins, [ref_feats] * len(kins), kins,
+            [tp.port_features(ref_feats)] * len(kins), [tp.K] * len(kins))
+
+
+def _same(a_outs, b_outs, exact=True):
+    for a, b in zip(a_outs, b_outs):
+        for name in ("chosen", "found", "topk_idx") + tk.FUSED_METRIC_FIELDS:
+            np.testing.assert_array_equal(np.asarray(getattr(a, name)),
+                                          np.asarray(getattr(b, name)), name)
+        np.testing.assert_allclose(np.asarray(a.scores), np.asarray(b.scores),
+                                   rtol=0, atol=0 if exact else SCORE_ATOL)
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_fused_switch_routes_and_counts_as_the_reference(on, switch):
+    """One wave with the switch on and off in both packages: on, one fused
+    launch; off, the composite and no fallback; the same placements
+    either way and in both packages."""
+    ref_kins, ref_feats, kins, feats, steps = _switch_wave()
+    coalesce.configure_fused_wave(on)
+    ref_coalesce.configure_fused_wave(on)
+    assert coalesce.fused_wave_enabled() is on
+    for mod in (coalesce, ref_coalesce):
+        mod.fused_wave_stats.reset()
+    port = coalesce.launch_wave(kins, steps, feats, device="cpu")
+    ref = ref_coalesce.launch_wave(ref_kins, steps, ref_feats, mesh=None)
+    _same(port, ref, exact=False)
+    want = {"launches": int(on), "fallbacks": 0}
+    assert ref_coalesce.fused_wave_stats.snapshot() == want
+    assert coalesce.fused_wave_stats.snapshot() == dict(want, failures=0)
+    # the composite and the fused wave place alike
+    coalesce.configure_fused_wave(not on)
+    _same(coalesce.launch_wave(kins, steps, feats, device="cpu"), port)
+
+
+def test_fused_switch_off_runs_the_joint_sharded_wave(switch):
+    """Off, a wave over a mesh runs the joint sharded wave: still one
+    sharded launch, no fused launch or fallback, as the reference's."""
+    ref_kins, ref_feats, kins, feats, steps = _switch_wave(seed=10)
+    coalesce.configure_fused_wave(False)
+    ref_coalesce.configure_fused_wave(False)
+    for mod in (coalesce, ref_coalesce):
+        mod.fused_wave_stats.reset()
+        mod.sharded_wave_stats.reset()
+    port = coalesce.launch_wave(
+        kins, steps, feats, device="cpu",
+        mesh=sharded.wave_mesh(devices=[CPU] * 8))
+    ref = ref_coalesce.launch_wave(ref_kins, steps, ref_feats,
+                                   mesh=ref_sharded.wave_mesh(8))
+    _same(port, ref, exact=False)
+    assert coalesce.fused_wave_stats.snapshot() == {
+        "launches": 0, "fallbacks": 0, "failures": 0}
+    assert ref_coalesce.fused_wave_stats.snapshot() == {
+        "launches": 0, "fallbacks": 0}
+    assert coalesce.sharded_wave_stats.snapshot()["launches"] == 1 == \
+        ref_coalesce.sharded_wave_stats.snapshot()["launches"]

@@ -462,14 +462,14 @@ def test_use_device_mesh_on_one_device_adopts_none(monkeypatch, tmp_path,
     assert srv.wave_mesh is None and default_device_state.mesh is prior
 
 
-@pytest.mark.parametrize("use,adopts", [(None, False), (False, False),
+@pytest.mark.parametrize("use,adopts", [(None, True), (False, False),
                                         (True, True)])
 def test_only_use_device_mesh_true_adopts_a_mesh_over_the_cards(
         use, adopts, monkeypatch, tmp_path):
     """With four cards patched in, ``use_device_mesh=True`` adopts a mesh
-    over them; None, which adopts one on such a host in the JAX package,
-    adopts none in the port (its sharded wave is eager torch ops, far
-    slower than B1), and neither does False."""
+    over them, and so does None, as in the JAX package (the port's
+    sharded wave is the hand kernel, within 3x of B1's wave on one
+    card); False adopts none. On the CPU, None adopts none."""
     from nomad_tpu_torch.server.server import Server, ServerConfig
 
     monkeypatch.setattr(kernel_warmup, "DEFAULT_MANIFEST_PATH",
