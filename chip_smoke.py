@@ -213,19 +213,22 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     of the six variants' waves of 32 x 10 through the sharded kernel
     (``ck.sharded_wave_place``, ``csrc/sharded_wave.cu``) at D=4 against
     its plain version (``parallel/sharded._sharded_wave`` on the card)
-    on the same shards, one kernel call and a max abs error of 0.0
-    each, and through ``launch_wave(mesh=wave_mesh(devices=[card] *
-    D))`` for D = 2, 4 and 8 virtual shards on the one card and through
-    the unsharded ``launch_wave`` (B1) on the same inputs: choices,
-    found, top-k indices and i32 metrics equal, max abs error 0.0
-    (near-ties counted apart), every wave one sharded launch, one kernel
-    call and no B1 launch, its time by CUDA events beside B1's; the
-    kernel alone timed at each D and its plain version once (kitchen
-    sink); one spread wave through the joint sharded wave (torch ops)
-    at D=4 against the composite; one wave at N=131072 (100k nodes, 1M
-    allocs) at D=8 against B1, and the kernel alone on it; the mesh of
-    the real cards (one card: B1, one counted fallback; more: the same
-    parity gate). Part B, the
+    on the same shards, one kernel call, one kernel launch (the C
+    side's count) and a max abs error of 0.0 each, and through
+    ``launch_wave(mesh=wave_mesh(devices=[card] * D))`` for D = 2, 4 and
+    8 virtual shards on the one card and through the unsharded
+    ``launch_wave`` (B1) on the same inputs: choices, found, top-k
+    indices and i32 metrics equal, max abs error 0.0 (near-ties counted
+    apart), every wave one sharded launch, one kernel call, one kernel
+    launch and no B1 launch, its time by CUDA events beside B1's; the
+    kernel alone timed at each D beside B1's kernel on the same wave,
+    its time an active step, and its plain version once (kitchen sink);
+    one spread wave through the joint sharded wave (torch ops) at D=4
+    against the composite; one wave at N=131072 (100k nodes, 1M allocs)
+    at D=8 against B1, and the kernel alone on it beside B1's; the mesh
+    of the real cards (one card: B1, one counted fallback; more: the
+    same parity gate, one kernel launch a card, and the kernel alone
+    timed over the cards beside B1's). Part B, the
     resident state split over 4 shards (``configure_mesh``): two waves
     of phase 11's store's own planes with 320 allocs stopped between
     them; the generation advances by the sharded scatter, equals a fresh
@@ -233,8 +236,9 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     resident (0 B of them uploaded by the launcher). Part C, phase 11's
     window-off server with ``use_device_mesh=True`` (one card: no mesh,
     logged), then ``Server._adopt_wave_mesh`` of a 4-shard virtual mesh,
-    the 40 warm-up jobs and the timed 200: every wave sharded and one
-    kernel call (its count set to 0 just before the burst), no fallback
+    the 40 warm-up jobs and the timed 200: every wave sharded, one
+    kernel call and one kernel launch (counts read just before and after
+    the burst), no fallback
     or failure, no B1 launch, every job placed, none over capacity, the
     exporter's sharded series equal to the waves and
     ``nomad_tpu_wave_sharded_mesh_devices 4``, evals/s and wave p50
@@ -256,7 +260,7 @@ in phase 16's burst of client jobs under ``client_launches``, and in
 phase 17's unsharded reference waves under ``mesh_launches``; the
 warm-up launches of phase 12 are counted apart, in its child processes;
 the sharded kernel's entry counts its calls in phase 17's timed server
-burst).
+burst, and its kernel launches there under ``cluster_launches``).
 A full
 record goes to chiprun_out/chip_smoke.json.
 """
@@ -1547,9 +1551,12 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
     timed burst of ``n_jobs``, with every count set to 0 just before
     it."""
     ctx = f"server gc_tuning={gc_tuning} coalesce_adaptive={adaptive}"
+    # B1's server: no mesh, also on a host of several cards, where the
+    # default would split its waves over every card
     srv = Server(ServerConfig(num_workers=1, worker_batch_size=SERVER_BATCH,
                               heartbeat_ttl=3600.0, gc_tuning=gc_tuning,
-                              coalesce_adaptive=adaptive),
+                              coalesce_adaptive=adaptive,
+                              use_device_mesh=False),
                  device=dev)
     t0 = time.perf_counter()
     srv.state.restore_from_bytes(state_bytes)
@@ -4125,24 +4132,35 @@ def mesh_bound(kins, features, dev: torch.device) -> tuple:
     return bound(wave_bytes(wave, []) + out_bytes, wave_ops(wave))
 
 
+def cluster_launches() -> int:
+    """The sharded kernel's launches so far, every card's, as the C side
+    counts them (one a card a wave)."""
+    return ck.sharded_kernel_launches()
+
+
 def mesh_wave(kins, features, dev: torch.device, mesh) -> tuple:
     """One launch_wave (over ``mesh``, or B1 on ``dev`` when None): its
     outputs, CUDA-event ms, and the B1 launches, the sharded kernel's
-    calls, and the sharded launches and fallbacks it made."""
-    l0, k0 = ck.launches, ck.sharded_launches
+    calls and its kernel launches, and the sharded launches and fallbacks
+    it made."""
+    l0, k0, c0 = ck.launches, ck.sharded_launches, cluster_launches()
     s0 = coalesce.sharded_wave_stats.snapshot()
     outs, ms = event_ms(lambda: coalesce.launch_wave(
         kins, [K_STEPS] * len(kins), features, device=dev, mesh=mesh))
     s1 = coalesce.sharded_wave_stats.snapshot()
     return outs, ms, {"b1": ck.launches - l0,
                       "kernel": ck.sharded_launches - k0,
+                      "clusters": cluster_launches() - c0,
                       "sharded": s1["launches"] - s0["launches"],
                       "fallbacks": s1["fallbacks"] - s0["fallbacks"]}
 
 
-#: the launches of one wave through the sharded kernel, and of one B1 wave
-KERNEL_WAVE = {"b1": 0, "kernel": 1, "sharded": 1, "fallbacks": 0}
-B1_WAVE = {"b1": 1, "kernel": 0, "sharded": 0, "fallbacks": 0}
+#: the launches of one wave through the sharded kernel on one card (one C
+#: call, one cluster launch), and of one B1 wave
+KERNEL_WAVE = {"b1": 0, "kernel": 1, "clusters": 1, "sharded": 1,
+               "fallbacks": 0}
+B1_WAVE = {"b1": 1, "kernel": 0, "clusters": 0, "sharded": 0,
+           "fallbacks": 0}
 
 
 def whole(out):
@@ -4154,10 +4172,11 @@ def whole(out):
                            for name in ("a_cpu", "a_mem", "a_disk")})
 
 
-def kernel_shards(kins, features, dev: torch.device, shards: int) -> tuple:
-    """A wave assembled over D virtual shards on ``dev``, as the sharded
-    kernel's arguments."""
-    mesh = sharded.wave_mesh(devices=[dev] * shards)
+def kernel_shards(kins, features, dev: torch.device, shards: int,
+                  devices=None) -> tuple:
+    """A wave assembled over D virtual shards on ``dev`` (or over
+    ``devices``), as the sharded kernel's arguments."""
+    mesh = sharded.wave_mesh(devices=devices or [dev] * shards)
     wave = coalesce.assemble_sharded_wave(kins, [K_STEPS] * len(kins),
                                           features, mesh)
     return (sharded._shards_of(wave.kin, mesh.node_rows()[0]),
@@ -4172,6 +4191,25 @@ def mesh_kernel_ms(kins, features, dev: torch.device, shards: int) -> float:
     return cuda_ms(lambda: ck.sharded_wave_place(*args), 10)
 
 
+def b1_kernel_ms(kins, features, dev: torch.device) -> float:
+    """B1's CUDA-event ms on the same wave, unsharded (ten calls after
+    one): the sharded kernel's yardstick in the same call."""
+    wave = coalesce.assemble_wave(kins, [K_STEPS] * len(kins), features,
+                                  dev)
+    args = (wave.kin, wave.step_member, wave.step_local, wave.t_pad,
+            wave.features)
+    ck.fused_wave_place(*args)
+    return cuda_ms(lambda: ck.fused_wave_place(*args), 10)
+
+
+def sharded_active_steps(args) -> int:
+    """The active steps of a sharded wave's arguments (the reference's
+    rule, as the wrapper hands them to the kernel)."""
+    shards, sm, sl, t_pad = args[:4]
+    return len(ck.wave_active_steps(sm, sl, shards[0].n_steps, t_pad,
+                                    int(shards[0].step_preferred.shape[-1])))
+
+
 def mesh_kernel_check(kins, features, dev: torch.device, shards: int,
                       ctx: str, time_it: bool = False) -> dict:
     """The sharded kernel (``ck.sharded_wave_place``) against its plain
@@ -4179,11 +4217,15 @@ def mesh_kernel_check(kins, features, dev: torch.device, shards: int,
     a max abs error of 0.0, one kernel call. With ``time_it``, also the
     kernel's CUDA-event ms (ten calls) and the plain version's (one)."""
     args = kernel_shards(kins, features, dev, shards)
-    k0, l0 = ck.sharded_launches, ck.launches
+    k0, l0, c0 = ck.sharded_launches, ck.launches, cluster_launches()
     got = ck.sharded_wave_place(*args)
-    check(ck.sharded_launches == k0 + 1 and ck.launches == l0,
-          f"{ctx}: kernel calls {ck.sharded_launches - k0}, B1 "
-          f"{ck.launches - l0}")
+    clusters = cluster_launches() - c0
+    check(ck.sharded_launches == k0 + 1 and ck.launches == l0
+          and clusters == 1,
+          f"{ctx}: kernel calls {ck.sharded_launches - k0}, cluster "
+          f"launches {clusters}, B1 {ck.launches - l0}")
+    ck.raise_on_wave_error(got.packed.cpu().numpy(), args[3],
+                           int(args[0][0].n_steps.shape[0]))
     want, plain_ms = event_ms(
         lambda: ck.sharded_wave_place_reference(*args))
     flat = coalesce.assemble_wave(kins, [K_STEPS] * len(kins), features,
@@ -4191,9 +4233,15 @@ def mesh_kernel_check(kins, features, dev: torch.device, shards: int,
     res = compare(whole(got), whole(want), flat, ctx)
     check(res["max_abs_err"] == 0.0,
           f"{ctx}: max abs error {res['max_abs_err']}, want 0.0")
+    res["cluster_launches"] = clusters
     if time_it:
         res["ms"] = cuda_ms(lambda: ck.sharded_wave_place(*args), 10)
+        res["b1_ms"] = b1_kernel_ms(kins, features, dev)
         res["plain_ms"] = plain_ms
+        res["active_steps"] = sharded_active_steps(args)
+        res["us_per_active_step"] = res["ms"] * 1e3 / res["active_steps"]
+        res["b1_us_per_active_step"] = (res["b1_ms"] * 1e3
+                                        / res["active_steps"])
     return res
 
 
@@ -4258,9 +4306,11 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
         res["variant"] = variant
         if variant == MESH_TIMED_VARIANT:
             # the kernel alone at every D (the D=4 time above is the
-            # JSON line's)
-            res["ms_per_d"] = {d: mesh_kernel_ms(kins, feats, dev, d)
-                               for d in MESH_SHARDS}
+            # JSON line's), each beside B1's kernel on the same wave
+            res["ms_per_d"], res["b1_ms_per_d"] = {}, {}
+            for d in MESH_SHARDS:
+                res["b1_ms_per_d"][d] = b1_kernel_ms(kins, feats, dev)
+                res["ms_per_d"][d] = mesh_kernel_ms(kins, feats, dev, d)
         kernel.append(res)
         for d in MESH_SHARDS:
             mesh = sharded.wave_mesh(devices=[dev] * d)
@@ -4327,7 +4377,12 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
     scale.update(n_pad=big.n_pad, shards=MESH_SCALE_SHARDS, ms=scale_ms,
                  b1_ms=scale_b1_ms)
     scale["bound_ms"], scale["bound_by"] = mesh_bound(kins, feats, dev)
+    scale["b1_kernel_ms"] = b1_kernel_ms(kins, feats, dev)
     scale["kernel_ms"] = mesh_kernel_ms(kins, feats, dev, MESH_SCALE_SHARDS)
+    scale["active_steps"] = sharded_active_steps(
+        kernel_shards(kins, feats, dev, MESH_SCALE_SHARDS))
+    scale["us_per_active_step"] = (scale["kernel_ms"] * 1e3
+                                   / scale["active_steps"])
     log(f"mesh scale: {json.dumps(scale)}")
     del big, bbase, members, kins
 
@@ -4346,10 +4401,20 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
         log(f"mesh: this host has {cards.size} card; its mesh fell back "
             "to B1, one counted fallback")
     else:
-        check(n1 == KERNEL_WAVE, f"mesh/{cards.size} cards: launches {n1}")
+        check(n1 == dict(KERNEL_WAVE, clusters=cards.size),
+              f"mesh/{cards.size} cards: launches {n1}")
     real = compare_waves(got, want, f"mesh/cards/D={cards.size}",
                          exact=True)
     real.update(cards=cards.size, ms=cards_ms, launches=n1)
+    if cards.size >= 2:
+        # the kernel alone over the cards, beside B1's on the first
+        args = kernel_shards(kins, feats, dev, 0, list(cards.devices.flat))
+        ck.sharded_wave_place(*args)
+        real["kernel_ms"] = cuda_ms(lambda: ck.sharded_wave_place(*args), 10)
+        real["b1_kernel_ms"] = b1_kernel_ms(kins, feats, dev)
+        real["active_steps"] = sharded_active_steps(args)
+        real["us_per_active_step"] = (real["kernel_ms"] * 1e3
+                                      / real["active_steps"])
     log(f"mesh cards: {json.dumps(real)}")
     return {"per_d": [rows[d] for d in MESH_SHARDS], "cold": cold,
             "spread": spread, "scale": scale, "cards": real,
@@ -4539,6 +4604,7 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
         waves0, requests0 = w.batch_launches, w.batch_requests
         ck.launches = 0
         ck.sharded_launches = 0
+        c0 = cluster_launches()
         t0 = time.perf_counter()
         for job in jobs:
             srv.job_register(job)
@@ -4547,6 +4613,7 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
         burst_s = t_done - t0
         b1 = ck.launches
         kernel_calls = ck.sharded_launches
+        clusters = cluster_launches() - c0
         sstats = coalesce.sharded_wave_stats.snapshot()
         fstats = coalesce.fused_wave_stats.snapshot()
         wstats = coalesce.wave_stats.snapshot()
@@ -4569,6 +4636,9 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
     check(b1 == 0, f"{ctx}: {b1} B1 launches in sharded waves")
     check(kernel_calls == waves,
           f"{ctx}: {kernel_calls} sharded kernel calls for {waves} waves")
+    check(clusters == waves,
+          f"{ctx}: {clusters} cluster launches for {waves} waves on one "
+          "card")
     check(dstate["errors"] == 0 and dstate["mesh_devices"]
           == MESH_SERVER_SHARDS, f"{ctx}: device state {dstate}")
     series = {k: scrape.get(f"nomad_tpu_wave_sharded_{k}") for k in (
@@ -4585,6 +4655,7 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
         "wave_latency_p99_ms": wstats["wave_latency_p99_ms"],
         "assemble_latency_p50_ms": wstats["assemble_latency_p50_ms"],
         "sharded": sstats, "fused": fstats, "kernel_calls": kernel_calls,
+        "cluster_launches": clusters,
         "device_state": {k: dstate[k] for k in (
             "hits", "delta_advances", "full_uploads", "rows_uploaded",
             "bytes_uploaded", "errors", "mesh_devices")},
@@ -4618,6 +4689,7 @@ def run_mesh_phase(dev: torch.device, record: dict, state_bytes: bytes,
              / per_d[MESH_KERNEL_SHARDS]["b1_ms_median"])
     # the sharded kernel's entry of the kernels' JSON line: its calls in
     # part C's timed burst (the main path), its times at D=4
+    scale = part_a["scale"]
     entry = {
         "name": "sharded_wave_place",
         "route": "cuda",
@@ -4631,14 +4703,33 @@ def run_mesh_phase(dev: torch.device, record: dict, state_bytes: bytes,
         "bound_by": per_d[MESH_KERNEL_SHARDS]["bound_by"],
         "library_ms": None,
         "shards": MESH_KERNEL_SHARDS,
+        # B1's kernel on the same wave in this call, the kernel launches
+        # (one a card a wave) in part C's timed burst, the time an active
+        # step
+        "b1_ms": timed["b1_ms"],
+        "cluster_launches": part_c["cluster_launches"],
+        "cluster_launches_per_wave": (part_c["cluster_launches"]
+                                      / part_c["waves"]),
+        "active_steps": timed["active_steps"],
+        "us_per_active_step": timed["us_per_active_step"],
+        "ms_per_d": timed["ms_per_d"],
+        "b1_ms_per_d": timed["b1_ms_per_d"],
+        "scale_ms": scale["kernel_ms"],
+        "scale_b1_ms": scale["b1_kernel_ms"],
+        "scale_us_per_active_step": scale["us_per_active_step"],
     }
     log(f"mesh kernel: {timed['ms']:.3f} ms a live wave at "
-        f"D={MESH_KERNEL_SHARDS} ({MESH_TIMED_VARIANT}), plain "
+        f"D={MESH_KERNEL_SHARDS} ({MESH_TIMED_VARIANT}; B1 "
+        f"{timed['b1_ms']:.3f} ms), {timed['us_per_active_step']:.2f} us "
+        f"an active step of {timed['active_steps']}, "
+        f"{entry['cluster_launches_per_wave']:g} kernel launch a wave in "
+        f"the server burst, plain "
         f"{timed['plain_ms']:.1f} ms; at D = {list(MESH_SHARDS)} "
-        f"{[round(timed['ms_per_d'][d], 3) for d in MESH_SHARDS]} ms; "
-        f"N={part_a['scale']['n_pad']} at D={MESH_SCALE_SHARDS} "
-        f"{part_a['scale']['kernel_ms']:.3f} ms; launch_wave at "
-        f"D={MESH_KERNEL_SHARDS} {ratio:.2f}x B1's")
+        f"{[round(timed['ms_per_d'][d], 3) for d in MESH_SHARDS]} ms "
+        f"(B1 {[round(timed['b1_ms_per_d'][d], 3) for d in MESH_SHARDS]}); "
+        f"N={scale['n_pad']} at D={MESH_SCALE_SHARDS} "
+        f"{scale['kernel_ms']:.3f} ms (B1 {scale['b1_kernel_ms']:.3f}); "
+        f"launch_wave at D={MESH_KERNEL_SHARDS} {ratio:.2f}x B1's")
     res = {
         "per_d": [{k: r[k] for k in (
             "shards", "waves", "sharded_launches", "ms_median",
@@ -4722,8 +4813,11 @@ def mesh_phase_alone(argv: list) -> int:
         ck.launches += 1
         return plain(*a, **k)
 
+    clusters = [0]
+
     def counted_sharded(*a, **k):
         ck.sharded_launches += 1
+        clusters[0] += len({s.cap_cpu.device for s in a[0]})
         return plain_sharded(*a, **k)
 
     def host_ms(fn):
@@ -4741,6 +4835,8 @@ def mesh_phase_alone(argv: list) -> int:
             patch.patch.object(sharded, "sharded_wave_place",
                                counted_sharded), \
             patch.patch(f"{__name__}.event_ms", host_ms), \
+            patch.patch(f"{__name__}.cluster_launches",
+                        lambda: clusters[0]), \
             patch.patch(f"{__name__}.cuda_ms",
                         lambda fn, reps: host_ms(fn)[1]), \
             patch.patch.object(torch.cuda, "synchronize", lambda *a: None):

@@ -20,7 +20,7 @@ C entry point loaded with ctypes:
 - ``sharded_wave_place`` (``csrc/sharded_wave.cu``; the XLA program
   ``nomad_tpu/parallel/sharded.py`` ``_fused_sharded_core`` :291-505,
   under ``fused_sharded_entry`` :507): the fused wave over a mesh of node
-  shards, one C call a wave. Plain version:
+  shards, one C call a wave and one cluster launch a card. Plain version:
   ``sharded_wave_place_reference``, ``parallel/sharded._sharded_wave``
   packed the same way.
 
@@ -37,6 +37,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from nomad_tpu_torch.ops.build import BuiltLibrary, build_library
@@ -354,12 +355,20 @@ def fused_wave_apply(kin: KernelIn, used_cpu: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 #: kernel calls made by ``sharded_wave_place``: one C call a wave, which
-#: launches csrc/sharded_wave.cu's kernels on every card of the mesh
+#: launches csrc/sharded_wave.cu's kernel once on every card of the mesh
+#: (``sharded_kernel_launches`` counts those)
 sharded_launches = 0
 
-_SLOT_BYTES = 80          # sizeof(StepSlot) in csrc/sharded_wave.cu
-_WINNER_BYTES = 16        # sizeof(Winner)
-_ROWS_PER_BLOCK = 1024    # rows of a position a step block covers (SW_ROWS)
+#: CTAs in the cluster that runs one card's share of a sharded wave
+#: (CLUSTER in csrc/sharded_wave.cu)
+SHARDED_CLUSTER = 16
+#: the most cards, and mesh positions, one sharded wave spans (MAX_CARDS,
+#: MAX_SHARDS)
+MAX_SHARDED_CARDS = 8
+MAX_POSITIONS = 64
+#: how long a card waits on another card's step before the wave fails
+SPIN_S = 5.0
+_ENTRY_BYTES = 96         # sizeof(Entry): one card's result for one step
 
 #: the node planes the kernel reads at the shard's own rows
 _NODE_LEAVES = ("cap_cpu", "cap_mem", "cap_disk", "used_cpu", "used_mem",
@@ -388,7 +397,7 @@ class _Shape(ctypes.Structure):
         ("stride", ctypes.c_int64 * _N_LEAVES),
         ("n_loc", ctypes.c_int), ("n_glob", ctypes.c_int),
         ("b", ctypes.c_int), ("k", ctypes.c_int), ("p", ctypes.c_int),
-        ("bp", ctypes.c_int), ("t", ctypes.c_int), ("nb", ctypes.c_int),
+        ("bp", ctypes.c_int), ("t", ctypes.c_int),
         ("with_topk", ctypes.c_int), ("with_ports", ctypes.c_int),
         ("with_distinct", ctypes.c_int), ("with_step_pen", ctypes.c_int),
         ("with_pref", ctypes.c_int), ("with_shuffle", ctypes.c_int),
@@ -401,11 +410,8 @@ class _Card(ctypes.Structure):
 
     _fields_ = [
         ("ordinal", ctypes.c_int), ("n_pos", ctypes.c_int),
-        ("pos0", ctypes.c_int), ("pad", ctypes.c_int),
-        ("stream", ctypes.c_void_p), ("pos_host", ctypes.c_void_p),
-        ("pos", ctypes.c_void_p), ("slots", ctypes.c_void_p),
-        ("win", ctypes.c_void_p), ("part", ctypes.c_void_p),
-        ("rank", ctypes.c_void_p),
+        ("stream", ctypes.c_void_p), ("table", ctypes.c_void_p),
+        ("mail", ctypes.c_void_p),
     ]
 
 
@@ -414,11 +420,140 @@ class _ShardedArgs(ctypes.Structure):
 
     _fields_ = [
         ("s", _Shape), ("n_cards", ctypes.c_int), ("card", ctypes.c_void_p),
-        ("n_act", ctypes.c_int), ("act_t", ctypes.c_void_p),
-        ("act_m", ctypes.c_void_p), ("act_j", ctypes.c_void_p),
-        ("packed", ctypes.c_void_p), ("topk_idx", ctypes.c_void_p),
-        ("topk_scores", ctypes.c_void_p),
+        ("packed", ctypes.c_void_p),
+        ("topk_idx", ctypes.c_void_p), ("topk_scores", ctypes.c_void_p),
+        ("spin_ns", ctypes.c_int64),
     ]
+
+
+def _mail_bytes(n_cards: int, b: int) -> int:
+    """A card's mailbox (``mail_bytes`` in csrc/sharded_wave.cu): every
+    card's step entry by parity, then each card's metric tag, error flag
+    and partial sums."""
+    return 2 * n_cards * _ENTRY_BYTES + 4 * n_cards * (2 + 6 * b)
+
+
+def sharded_smem_bytes(n_pos: int, n_loc: int, b: int,
+                       shuffle: bool) -> int:
+    """Dynamic shared memory each CTA of a card holding ``n_pos``
+    positions of ``n_loc`` rows takes (``sharded_smem_bytes`` in
+    csrc/sharded_wave.cu): the card's position table, its range's score
+    keys (and shuffle ranks), and seven i32 a member."""
+    chunk = -(-n_pos * n_loc // SHARDED_CLUSTER)
+    return (n_pos * ctypes.sizeof(_Pos) + chunk * 4 * (2 if shuffle else 1)
+            + b * 7 * 4)
+
+
+def sharded_row_plan(g0s, n_loc: int) -> list:
+    """How the kernel splits one card's rows among its cluster's CTAs.
+    ``g0s`` are the first global rows of the positions the card holds,
+    ascending; card row r is row ``r % n_loc`` of position ``r // n_loc``.
+    CTA c owns the card rows ``[c*chunk, (c+1)*chunk)``, walked one
+    position segment at a time: returns, for each CTA, its segments
+    ``(position index on the card, first row, end row, g0)``."""
+    rows = len(g0s) * n_loc
+    chunk = -(-rows // SHARDED_CLUSTER)
+    plan = []
+    for c in range(SHARDED_CLUSTER):
+        lo = min(c * chunk, rows)
+        hi = min(lo + chunk, rows)
+        segs = []
+        while lo < hi:
+            lp = lo // n_loc
+            end = min(hi, (lp + 1) * n_loc)
+            segs.append((lp, lo - lp * n_loc, end - lp * n_loc, g0s[lp]))
+            lo = end
+        plan.append(segs)
+    return plan
+
+
+def check_sharded_plan(plan: tuple, rows: int, b: int) -> None:
+    """Raise unless one card's cluster can hold its rows: ``plan`` is
+    ``sharded_wave_plan``'s (cluster, shared memory a CTA needs, the most
+    a block may take, clusters the card holds at once)."""
+    cluster, smem, limit, clusters = plan
+    if smem > limit:
+        raise ValueError(
+            f"{rows} rows on one card do not fit the sharded wave: each of "
+            f"the {cluster} CTAs keeps {-(-rows // cluster)} rows' scores in "
+            f"shared memory, {smem} B with B={b}, over the limit of {limit} "
+            "B a block may take on this card")
+    if clusters == 0:
+        raise RuntimeError(f"the card runs no cluster of {cluster} CTAs with "
+                           f"{smem} B of shared memory each")
+
+
+_SHARDED_PLANS: dict = {}   # (ordinal, n_pos, n_loc, b, shuffle) -> plan
+
+
+def _sharded_plan(ordinal: int, n_pos: int, n_loc: int, b: int,
+                  shuffle: bool) -> tuple:
+    """``sharded_wave_plan`` on card ``ordinal``, once per shape."""
+    key = (ordinal, n_pos, n_loc, b, bool(shuffle))
+    plan = _SHARDED_PLANS.get(key)
+    if plan is None:
+        load_library("sharded_wave")
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(ordinal):
+            err = _LIBS["sharded_wave"][2].sharded_wave_plan(
+                ctypes.c_int(n_pos), ctypes.c_int(n_loc), ctypes.c_int(b),
+                ctypes.c_int(int(shuffle)), out)
+        if err != 0:
+            raise RuntimeError(f"sharded_wave_plan failed: cudaError {err}")
+        if out[0] != SHARDED_CLUSTER:
+            raise RuntimeError(f"csrc/sharded_wave.cu runs clusters of "
+                               f"{out[0]} CTAs; SHARDED_CLUSTER says "
+                               f"{SHARDED_CLUSTER}")
+        plan = _SHARDED_PLANS[key] = tuple(out)
+    return plan
+
+
+_PEERS: set = set()        # card tuples whose pairs have peer access
+
+
+def _enable_peers(ordinals: tuple) -> None:
+    """Enable peer access between every pair of the mesh's cards, once;
+    raise where a pair has none (the cards exchange each step's result
+    through each other's memory)."""
+    if len(ordinals) < 2 or ordinals in _PEERS:
+        return
+    load_library("sharded_wave")
+    ords = (ctypes.c_int * len(ordinals))(*ordinals)
+    bad = (ctypes.c_int * 2)()
+    err = _LIBS["sharded_wave"][2].sharded_wave_enable_peers(
+        ords, ctypes.c_int(len(ordinals)), bad)
+    if err == -1:
+        raise RuntimeError(
+            f"cards {bad[0]} and {bad[1]} cannot access each other's memory "
+            "(cudaDeviceCanAccessPeer is 0): a sharded wave over them needs "
+            "peer access")
+    if err != 0:
+        raise RuntimeError(f"sharded_wave_enable_peers failed: cudaError "
+                           f"{err}")
+    _PEERS.add(ordinals)
+
+
+def sharded_kernel_launches() -> int:
+    """Kernel launches csrc/sharded_wave.cu has made in this process,
+    every card's: one a card a wave."""
+    load_library("sharded_wave")
+    fn = _LIBS["sharded_wave"][2].sharded_wave_kernel_launches
+    fn.restype = ctypes.c_ulonglong
+    return int(fn())
+
+
+def raise_on_wave_error(packed, t_steps: int, b: int) -> None:
+    """Raise where a sharded wave's packed buffer, read back, carries a
+    set error word after ``pack_fused_wave``'s layout: the mask of the
+    cards where a wait on another card's step ran past ``SPIN_S``. Other
+    packed buffers have no such word."""
+    n = fused_pack_len(t_steps, b)
+    if len(packed) > n and packed[n] != 0:
+        cards = [c for c in range(MAX_SHARDED_CARDS)
+                 if int(packed[n]) >> c & 1]
+        raise RuntimeError(
+            f"sharded wave failed: a wait on another card's step ran past "
+            f"{SPIN_S} s (cards {cards})")
 
 
 def wave_active_steps(step_member, step_local, n_steps, t_steps: int,
@@ -447,6 +582,16 @@ def group_positions(cards) -> list:
     for p, card in enumerate(cards):
         groups.setdefault(card, []).append(p)
     return list(groups.items())
+
+
+def _host_i32(x, n: int) -> np.ndarray:
+    """A step map (host array or CPU tensor) as contiguous i32 [n]."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    out = np.ascontiguousarray(np.asarray(x, dtype=np.int32)[:n])
+    if out.shape != (n,):
+        raise ValueError(f"a step map of shape {out.shape}; want ({n},)")
+    return out
 
 
 def _card_of(dev: torch.device) -> tuple:
@@ -480,8 +625,9 @@ def sharded_wave_place(shards, step_member, step_local, t_steps: int,
     whole); the step maps are host arrays. Returns a FusedWaveOut whose
     ``packed`` buffer and top-k planes lie on ``shards[0]``'s device and
     whose carries are lists, one tensor a shard on its device. CUDA shards
-    run csrc/sharded_wave.cu in one C call (or raise); CPU shards run the
-    plain version."""
+    run csrc/sharded_wave.cu in one C call, one cluster launch a card (or
+    raise), its ``packed`` buffer one error word longer
+    (``raise_on_wave_error``); CPU shards run the plain version."""
     _check_envelope(features)
     types = {s.cap_cpu.device.type for s in shards}
     if types == {"cpu"}:
@@ -495,31 +641,38 @@ def sharded_wave_place(shards, step_member, step_local, t_steps: int,
 
 
 def _shard_strides(shards, b: int, n_loc: int, n_glob: int) -> list:
-    """The member stride of each leaf, equal on every shard; checks each
-    shard's devices, dtypes, contiguity and node axes."""
-    strides = None
-    for s, kin in enumerate(shards):
+    """The member stride of each leaf, equal on every shard: shard 0's
+    devices, dtypes, contiguity and node axes checked in full, every other
+    shard's leaves against shard 0's (dtype, shape, device, contiguity)."""
+    first = shards[0]
+    dev = first.cap_cpu.device
+    strides, want = [], []
+    for name, dtype in _LEAVES:
+        x = getattr(first, name)
+        if x.dtype != dtype:
+            raise ValueError(f"shard 0: {name} has dtype {x.dtype}; "
+                             f"want {dtype}")
+        strides.append(_member_stride(name, x, b, dev))
+        want.append((x.dtype, x.shape))
+    for name in _NODE_LEAVES:
+        if getattr(first, name).shape[-1] != n_loc:
+            raise ValueError(f"shard 0: {name} holds "
+                             f"{getattr(first, name).shape[-1]} rows; "
+                             f"want the shard's {n_loc}")
+    if first.node_perm.shape[-1] != n_glob:
+        raise ValueError(f"shard 0: node_perm must index all {n_glob} nodes")
+    for s in range(1, len(shards)):
+        kin = shards[s]
         dev = kin.cap_cpu.device
-        got = []
-        for name, dtype in _LEAVES:
+        for (name, _), (dtype, shape) in zip(_LEAVES, want):
             x = getattr(kin, name)
-            if x.dtype != dtype:
-                raise ValueError(f"shard {s}: {name} has dtype {x.dtype}; "
-                                 f"want {dtype}")
-            got.append(_member_stride(name, x, b, dev))
-        for name in _NODE_LEAVES:
-            if getattr(kin, name).shape[-1] != n_loc:
-                raise ValueError(f"shard {s}: {name} holds "
-                                 f"{getattr(kin, name).shape[-1]} rows; "
-                                 f"want the shard's {n_loc}")
-        if kin.node_perm.shape[-1] != n_glob:
-            raise ValueError(f"shard {s}: node_perm must index all {n_glob} "
-                             "nodes")
-        if strides is None:
-            strides = got
-        elif got != strides:
-            raise ValueError(f"shard {s}: member strides {got} differ from "
-                             f"shard 0's {strides}")
+            if x.dtype != dtype or x.shape != shape:
+                raise ValueError(
+                    f"shard {s}: {name} is {x.dtype} {tuple(x.shape)}; "
+                    f"shard 0's is {dtype} {tuple(shape)}")
+            if x.device != dev or not x.is_contiguous():
+                raise ValueError(f"shard {s}: {name} must be contiguous on "
+                                 f"the shard's {dev}")
     return strides
 
 
@@ -537,21 +690,38 @@ def _sharded_launch(shards, step_member, step_local, t_steps: int,
     if n_loc < TOPK:
         raise ValueError(f"a shard of {n_loc} rows is under the top-{TOPK} "
                          "merge's floor")
+    if n_shards > MAX_POSITIONS:
+        raise ValueError(f"a mesh of {n_shards} positions: the sharded wave "
+                         f"takes at most {MAX_POSITIONS}")
     if first.step_penalty.shape[-1] != MAX_PENALTY_NODES:
         raise ValueError("step_penalty must be [.., K, MAX_PENALTY_NODES]")
     strides = _shard_strides(shards, b, n_loc, n_glob)
-    act = wave_active_steps(step_member, step_local, first.n_steps, t_steps,
-                            k)
+    # the step maps as the kernel reads them after a card's position
+    # table: it finds the active steps itself (``wave_active_steps``'s
+    # rule), so nothing is read back from the card before the launch
+    maps = np.stack([_host_i32(step_member, t_steps),
+                     _host_i32(step_local, t_steps)])
     root = first.cap_cpu.device
     cards = [_card_of(s.cap_cpu.device) for s in shards]
-    nb = -(-n_loc // _ROWS_PER_BLOCK)
+    groups = group_positions([c[0] for c in cards])
+    if len(groups) > MAX_SHARDED_CARDS:
+        raise ValueError(f"a mesh over {len(groups)} cards: the sharded "
+                         f"wave spans at most {MAX_SHARDED_CARDS}")
+    for ordinal, positions in groups:
+        check_sharded_plan(_sharded_plan(ordinal, len(positions), n_loc, b,
+                                         f.with_shuffle),
+                           len(positions) * n_loc, b)
+    multi = len(groups) > 1
+    if multi:
+        _enable_peers(tuple(ordinal for ordinal, _ in groups))
     bp = b if first.node_perm.dim() == 2 else 1
 
     def buf(n, dtype, dev):
         return torch.empty(max(n, 1), dtype=dtype, device=dev)
 
     out = FusedWaveOut(
-        packed=buf(fused_pack_len(t_steps, b), torch.float32, root),
+        # the packed layout, then the error word (raise_on_wave_error)
+        packed=buf(fused_pack_len(t_steps, b) + 1, torch.float32, root),
         topk_idx=torch.empty((t_steps, TOPK), dtype=torch.int32,
                              device=root),
         topk_scores=torch.empty((t_steps, TOPK), dtype=torch.float32,
@@ -559,52 +729,58 @@ def _sharded_launch(shards, step_member, step_local, t_steps: int,
         a_cpu=[None] * n_shards, a_mem=[None] * n_shards,
         a_disk=[None] * n_shards)
     keep = []       # every buffer the call reads or writes
-    groups = group_positions([c[0] for c in cards])
     rows = (_Card * len(groups))()
-    tables = []
-    pos0 = 0
     for c, (ordinal, positions) in enumerate(groups):
         dev = shards[positions[0]].cap_cpu.device
-        table = (_Pos * len(positions))()
+        n_pos = len(positions)
+        table = (_Pos * n_pos)()
+        # one buffer a card for each carry and scratch, a slice a position
+        carry = torch.empty((3, n_pos, n_loc), dtype=torch.float32,
+                            device=dev)
+        rows_b = b * n_loc
+        ports, distinct = int(f.with_ports), int(f.with_distinct)
+        scratch = dict(     # name: (buffer, bytes a position; 0: unused)
+            a_dyn=(buf(ports * n_pos * n_loc, torch.int32, dev),
+                   ports * 4 * n_loc),
+            jtc=(buf(n_pos * rows_b, torch.int32, dev), 4 * rows_b),
+            jac=(buf(distinct * n_pos * rows_b, torch.int32, dev),
+                 distinct * 4 * rows_b),
+            pc=(buf(ports * n_pos * rows_b, torch.uint8, dev),
+                ports * rows_b))
+        keep.append(carry)
+        keep += [x for x, _ in scratch.values()]
         for lp, p in enumerate(positions):
             kin, row = shards[p], table[lp]
             for slot, (name, _) in enumerate(_LEAVES):
                 row.leaf[slot] = getattr(kin, name).data_ptr()
-            for name in ("a_cpu", "a_mem", "a_disk"):
-                getattr(out, name)[p] = x = buf(n_loc, torch.float32, dev)
+            for q, name in enumerate(("a_cpu", "a_mem", "a_disk")):
+                getattr(out, name)[p] = x = carry[q, lp]
                 setattr(row, name, x.data_ptr())
-            scratch = dict(
-                a_dyn=buf(n_loc if f.with_ports else 0, torch.int32, dev),
-                jtc=buf(b * n_loc, torch.int32, dev),
-                jac=buf(b * n_loc if f.with_distinct else 0, torch.int32,
-                        dev),
-                pc=buf(b * n_loc if f.with_ports else 0, torch.uint8, dev))
-            for name, x in scratch.items():
-                setattr(row, name, x.data_ptr())
-            keep += scratch.values()
+            for name, (x, step) in scratch.items():
+                setattr(row, name, x.data_ptr() + lp * step)
             row.g0 = p * n_loc
-        # the root holds every card's slots and metric partials
-        n_held = n_shards if c == 0 else len(positions)
-        bufs = dict(
-            pos=buf(ctypes.sizeof(table), torch.uint8, dev),
-            slots=buf(n_held * nb * _SLOT_BYTES, torch.uint8, dev),
-            win=buf(_WINNER_BYTES, torch.uint8, dev),
-            part=buf(n_held * 6 * b, torch.int32, dev),
-            rank=buf(bp * n_glob if f.with_shuffle else 0, torch.int32, dev))
-        keep += bufs.values()
-        rows[c] = _Card(ordinal, len(positions), pos0, 0,
-                        cards[positions[0]][1], ctypes.addressof(table),
-                        *(bufs[name].data_ptr() for name in
-                          ("pos", "slots", "win", "part", "rank")))
-        tables.append(table)
-        pos0 += len(positions)
+        # the table and the step maps go up from pinned memory on the
+        # card's current stream (a copy, not a launch)
+        staged = torch.empty(ctypes.sizeof(table) + maps.nbytes,
+                             dtype=torch.uint8, pin_memory=dev.type == "cuda")
+        ctypes.memmove(staged.data_ptr(), ctypes.addressof(table),
+                       ctypes.sizeof(table))
+        ctypes.memmove(staged.data_ptr() + ctypes.sizeof(table),
+                       maps.ctypes.data, maps.nbytes)
+        dev_table = staged.to(dev, non_blocking=True)
+        mail = (buf(_mail_bytes(len(groups), b), torch.uint8, dev)
+                if multi else None)
+        keep += [dev_table, mail]
+        rows[c] = _Card(ordinal, n_pos, cards[positions[0]][1],
+                        dev_table.data_ptr(),
+                        mail.data_ptr() if multi else None)
 
     args = _ShardedArgs()
     s = args.s
     for slot, stride in enumerate(strides):
         s.stride[slot] = stride
     s.n_loc, s.n_glob, s.b, s.k, s.p = n_loc, n_glob, b, k, MAX_PENALTY_NODES
-    s.bp, s.t, s.nb = bp, t_steps, nb
+    s.bp, s.t = bp, t_steps
     s.with_topk = int(f.with_topk)
     s.with_ports = int(f.with_ports)
     s.with_distinct = int(f.with_distinct)
@@ -613,12 +789,9 @@ def _sharded_launch(shards, step_member, step_local, t_steps: int,
     s.with_shuffle = int(f.with_shuffle)
     args.n_cards = len(groups)
     args.card = ctypes.addressof(rows)
-    steps = [(ctypes.c_int * max(len(act), 1))(*col)
-             for col in (zip(*act) if act else ((), (), ()))]
-    args.n_act = len(act)
-    args.act_t, args.act_m, args.act_j = (ctypes.addressof(x) for x in steps)
     for name in ("packed", "topk_idx", "topk_scores"):
         setattr(args, name, getattr(out, name).data_ptr())
+    args.spin_ns = int(SPIN_S * 1e9)
 
     load_library("sharded_wave")
     err = _LIBS["sharded_wave"][0](ctypes.byref(args))
@@ -626,8 +799,10 @@ def _sharded_launch(shards, step_member, step_local, t_steps: int,
         raise RuntimeError(f"sharded_wave launch failed: cudaError {err}")
     with _LAUNCH_LOCK:
         sharded_launches += 1
-    # scratch freed here is reused only by work queued later on its card's
-    # stream, which follows the wave's launches there
+    # buffers freed here are reused only by work queued later on their
+    # card's stream; over several cards the C call has made that stream
+    # wait on the end of every card's kernel (also where it failed after
+    # launching on some), so a mailbox has taken its last peer store
     return out
 
 

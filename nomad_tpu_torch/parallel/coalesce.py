@@ -68,6 +68,7 @@ from nomad_tpu_torch.ops.cuda_kernel import (
     fused_wave_apply,
     fused_wave_place,
     fused_wave_place_reference,
+    raise_on_wave_error,
 )
 from nomad_tpu_torch.ops.kernel import (
     TOPK,
@@ -827,6 +828,8 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
             with tracer.span("kernel.d2h"):
                 packed = fout.packed.cpu().numpy()
             profiler.add_bytes("d2h", packed.nbytes)
+            # a sharded wave's error word comes back with the outputs
+            raise_on_wave_error(packed, t_pad, b_pad)
         except BaseException:
             fused_wave_stats.note_failure()
             raise

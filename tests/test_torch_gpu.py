@@ -10,6 +10,8 @@ Choices, found, ``valid``, top-k indices and metrics must match exactly;
 scores, top-k scores and carries within 1e-5.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -798,15 +800,19 @@ def _kernel_against_plain_and_b1(stacked, sm, sl, t_pad, feats, devices):
     root = devices[0]
     parts = _shards_on(stacked, devices)
     before, calls = ck.launches, ck.sharded_launches
+    clusters = ck.sharded_kernel_launches()
     got = _whole(ck.sharded_wave_place(parts, sm, sl, t_pad, feats), root)
     assert ck.sharded_launches == calls + 1 and ck.launches == before
+    # one cluster launch a card, counted on the C side
+    assert ck.sharded_kernel_launches() - clusters == len(set(devices))
+    b = len(stacked.n_steps)
+    ck.raise_on_wave_error(got.packed.cpu().numpy(), t_pad, b)
     plain = _whole(ck.sharded_wave_place_reference(parts, sm, sl, t_pad,
                                                    feats), root)
     kin = kernel_in_from_numpy(stacked, device=root)
     b1 = ck.fused_wave_place(kin, torch.from_numpy(sm).to(root),
                              torch.from_numpy(sl).to(root), t_pad, feats)
     torch.cuda.synchronize()
-    b = len(stacked.n_steps)
     _assert_fused(got, plain, t_pad, b, atol=0.0)
     return _assert_fused(got, b1, t_pad, b, atol=0.0)
 
@@ -874,11 +880,186 @@ def test_cuda_sharded_kernel_widths(n_nodes, n_pad, shards, cuda_device):
 
 
 @pytest.mark.gpu
+def test_cuda_sharded_kernel_sixteen_virtual_shards(cuda_device):
+    """D=16 on one card: one cluster over all sixteen positions, a CTA
+    a position."""
+    kins, feats = tp.wave_members(25, "kitchen_sink", 383, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    g = _kernel_against_plain_and_b1(stacked, sm, sl, t_pad, feats,
+                                     [cuda_device] * 16)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["shuffle", "kitchen_sink"])
+def test_cuda_sharded_kernel_range_crosses_a_position(variant, cuda_device):
+    """N=4004 over four shards: CTA 3's rows [753, 1004) end position 0
+    and begin position 1 at row 1001, off the warps' 32-row grid; each
+    row keeps its own position's planes, carries and global index."""
+    assert ck.sharded_row_plan([0, 1001, 2002, 3003], 1001)[3] == [
+        (0, 753, 1001, 0), (1, 0, 3, 1001)]
+    kins, feats = tp.wave_members(26, variant, 3990, lib="port", n_pad=4004)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    g = _kernel_against_plain_and_b1(stacked, sm, sl, t_pad, feats,
+                                     [cuda_device] * 4)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_wave_is_one_launch_a_card(cuda_device):
+    """A ``launch_wave`` over a virtual mesh of eight: one C call and
+    exactly one kernel launch on the card, read from the C side's count;
+    no per-step launch."""
+    from nomad_tpu_torch.parallel import sharded
+
+    kins, feats = tp.wave_members(27, "kitchen_sink", 383, lib="port")
+    steps = [tp.K] * len(kins)
+    mesh = sharded.wave_mesh(devices=[cuda_device] * 8)
+    pc.launch_wave(kins, steps, [feats] * len(kins), device=cuda_device,
+                   mesh=mesh)
+    calls, clusters = ck.sharded_launches, ck.sharded_kernel_launches()
+    pc.launch_wave(kins, steps, [feats] * len(kins), device=cuda_device,
+                   mesh=mesh)
+    assert ck.sharded_launches - calls == 1
+    assert ck.sharded_kernel_launches() - clusters == 1
+
+
+def _two_clusters_on_one_card(monkeypatch, dev, groups, same_stream=False,
+                              root_second=False, fail_second=False):
+    """Run the several-card path on one card: the wrapper sees the mesh's
+    positions grouped as ``groups`` on two "cards" that are one device
+    and two streams (one stream with ``same_stream``), so two clusters
+    exchange every step through their mailboxes as cards do over NVLink.
+    The wrapper copies both cards' tables and allocates every buffer on
+    the device's current stream; the second stream first waits on it.
+    The root runs on the current stream, or on the second with
+    ``root_second``. With ``fail_second`` the C side refuses the second
+    card's launch (its table claims more rows than a block's shared
+    memory holds) after it has launched the first. Returns the current
+    stream and the second."""
+    s0 = torch.cuda.current_stream(dev)
+    s1 = s0 if same_stream else torch.cuda.Stream(dev)
+    fn, built, lib = ck._LIBS["sharded_wave"]
+
+    def launch(ref):
+        s1.wait_stream(s0)
+        if fail_second:
+            cards = ctypes.cast(ref._obj.card, ctypes.POINTER(ck._Card))
+            cards[1].n_pos = 1 << 20
+        return fn(ref)
+
+    first, second = (s1, s0) if root_second else (s0, s1)
+    stream = {p: (first if c == 0 else second).cuda_stream
+              for c, (_, ps) in enumerate(groups) for p in ps}
+    order = iter(range(len(stream)))
+    monkeypatch.setitem(ck._LIBS, "sharded_wave", (launch, built, lib))
+    monkeypatch.setattr(ck, "_card_of",
+                        lambda d: (d.index or 0, stream[next(order)]))
+    monkeypatch.setattr(ck, "group_positions", lambda cards: groups)
+    monkeypatch.setattr(ck, "_enable_peers", lambda cards: None)
+    return s0, s1
+
+
+def _assert_joined(s0, s1):
+    """Work queued on ``s0`` after a wave's C call runs only once every
+    card's kernel has ended: nothing of ``s1``'s is still running."""
+    after = torch.cuda.Event()
+    after.record(s0)
+    after.synchronize()
+    assert s1.query(), "a card's kernel outlived another card's stream"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [[(0, [0, 2]), (0, [1, 3])],
+                                    [(0, [0, 1]), (0, [2, 3])]],
+                         ids=["interleaved", "halves"])
+@pytest.mark.parametrize("variant,n_nodes", tp.FUSED_VARIANTS,
+                         ids=[v for v, _ in tp.FUSED_VARIANTS])
+def test_cuda_sharded_kernel_exchange_on_one_card(variant, n_nodes, groups,
+                                                  cuda_device, monkeypatch):
+    """The several-card kernel (mailboxes, tags, the cards' merge, the
+    root's top-k and metrics from every card) as two clusters on one
+    card: bit for bit B1's wave, two kernel launches, no error word."""
+    ck.load_library("sharded_wave")
+    s0, s1 = _two_clusters_on_one_card(monkeypatch, cuda_device, groups)
+    kins, feats = tp.wave_members(30, variant, n_nodes, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    parts = _shards_on(stacked, [cuda_device] * 4)
+    clusters = ck.sharded_kernel_launches()
+    out = ck.sharded_wave_place(parts, sm, sl, t_pad, feats)
+    _assert_joined(s0, s1)
+    got = _whole(out, cuda_device)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    b1 = ck.fused_wave_place(kin, torch.from_numpy(sm).to(cuda_device),
+                             torch.from_numpy(sl).to(cuda_device), t_pad,
+                             feats)
+    torch.cuda.synchronize()
+    assert ck.sharded_kernel_launches() - clusters == 2
+    ck.raise_on_wave_error(got.packed.cpu().numpy(), t_pad, tp.B)
+    g = _assert_fused(got, b1, t_pad, tp.B, atol=0.0)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_kernel_wait_is_bounded(cuda_device, monkeypatch):
+    """Two "cards" on one stream: the first card's cluster waits for the
+    second, which cannot start before it ends. Each wait gives up at the
+    bound, the wave ends, and its error word raises."""
+    import time
+
+    ck.load_library("sharded_wave")
+    _two_clusters_on_one_card(monkeypatch, cuda_device,
+                              [(0, [0, 1]), (0, [2, 3])], same_stream=True)
+    monkeypatch.setattr(ck, "SPIN_S", 0.25)
+    kins, feats = tp.wave_members(31, "kitchen_sink", 383, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    parts = _shards_on(stacked, [cuda_device] * 4)
+    t0 = time.perf_counter()
+    got = ck.sharded_wave_place(parts, sm, sl, t_pad, feats)
+    packed = got.packed.cpu().numpy()
+    took = time.perf_counter() - t0
+    assert took < 30, took
+    with pytest.raises(RuntimeError, match="ran past"):
+        ck.raise_on_wave_error(packed, t_pad, tp.B)
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_kernel_buffers_outlive_every_card(cuda_device,
+                                                        monkeypatch):
+    """The first card's kernel is launched, the second card's launch
+    fails, and the call raises while the first still waits for the second
+    (up to the bound) and stores into its mailbox. The wrapper frees that
+    mailbox in the second card's stream order, so that stream must not
+    run on before the first card's kernel has ended: an event on it
+    completes only after, and tensors allocated there at once keep what
+    is written into them."""
+    ck.load_library("sharded_wave")
+    s0, s1 = _two_clusters_on_one_card(
+        monkeypatch, cuda_device, [(0, [0, 1]), (0, [2, 3])],
+        root_second=True, fail_second=True)
+    monkeypatch.setattr(ck, "SPIN_S", 0.25)
+    kins, feats = tp.wave_members(31, "kitchen_sink", 383, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    parts = _shards_on(stacked, [cuda_device] * 4)
+    torch.cuda.synchronize()
+    clusters = ck.sharded_kernel_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ck.sharded_wave_place(parts, sm, sl, t_pad, feats)
+    assert ck.sharded_kernel_launches() - clusters == 1
+    n = ck._mail_bytes(2, len(stacked.n_steps))
+    held = [torch.full((n,), 0x5A, dtype=torch.uint8, device=cuda_device)
+            for _ in range(64)]
+    _assert_joined(s0, s1)
+    torch.cuda.synchronize()
+    assert all(bool((x == 0x5A).all()) for x in held)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("layout", ["cards", "interleaved"])
 def test_cuda_sharded_kernel_over_several_cards(layout, cuda_device):
-    """A mesh of real cards (every card, or cards 0, 1, 0, 1): the step
-    launches wait on the root's merge, slots and winners travel between
-    cards; the wave equals B1's on the first card."""
+    """A mesh of real cards (every card, or cards 0, 1, 0, 1): one
+    cluster launch a card, each step's result pushed into every card's
+    mailbox over NVLink; the wave equals B1's on the first card."""
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip(f"needs two cards or more; this host has {n}")

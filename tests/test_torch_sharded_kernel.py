@@ -12,10 +12,14 @@ CPU shards. Here:
 - the argument packing of the CUDA route, run against a fake library put
   in place of ``libsharded_wave.so`` that records what it is given: the
   per-shard leaf pointers and offsets, stride 0 for shared leaves,
-  positions grouped by card, and the active steps, which must be the
-  reference's rule (``step_member >= 0`` and the local step under the
-  member's ``n_steps``) and exactly the steps the plain version does not
-  give the idle outputs;
+  positions grouped by card (a mailbox and peer access for several), and
+  the active steps, which must be the reference's rule (``step_member >=
+  0`` and the local step under the member's ``n_steps``) and exactly the
+  steps the plain version does not give the idle outputs;
+- the kernel's split of a card's rows among its cluster's CTAs, through
+  the Python mirror of its plan, and a plan that does not fit raising;
+- the error word a sharded wave hands back, raised by the launcher and
+  counted as a failure;
 - a CUDA request on a host without a card raises, and never runs the
   plain version;
 - the fused-wave switch (``configure_fused_wave``), held against the JAX
@@ -124,26 +128,45 @@ class _FakeLibrary:
     def __call__(self, ref):
         args = ref._obj
         cards = (ck._Card * args.n_cards).from_address(args.card)
-        got = {"shape": args.s, "cards": [], "n_act": args.n_act}
+        got = {"shape": args.s, "cards": [], "spin_ns": args.spin_ns,
+               "packed": args.packed}
         for c in cards:
-            table = (ck._Pos * c.n_pos).from_address(c.pos_host)
+            # CPU shards: the card's table buffer is host memory
+            table = (ck._Pos * c.n_pos).from_address(c.table)
+            t = args.s.t
+            maps = np.ctypeslib.as_array((ctypes.c_int * (2 * t)).from_address(
+                c.table + ctypes.sizeof(table))).reshape(2, t).copy()
             got["cards"].append({
-                "ordinal": c.ordinal, "n_pos": c.n_pos, "pos0": c.pos0,
+                "ordinal": c.ordinal, "n_pos": c.n_pos,
                 "g0": [p.g0 for p in table],
                 "leaves": [list(p.leaf) for p in table],
-                "a_cpu": [p.a_cpu for p in table]})
-        steps = [list((ctypes.c_int * max(args.n_act, 1)).from_address(a))
-                 for a in (args.act_t, args.act_m, args.act_j)]
-        got["act"] = list(zip(*steps))[:args.n_act]
+                "a_cpu": [p.a_cpu for p in table],
+                "jtc": [p.jtc for p in table], "maps": maps,
+                "mail": c.mail})
         got["stride"] = list(args.s.stride)
         self.calls.append(got)
         return 0
 
 
+#: the most dynamic shared memory a block takes on an H100 beside the
+#: kernel's static part (what ``sharded_wave_plan`` reports there)
+_H100_LIMIT = 227 * 1024 - 4096
+
+
+def _mirror_plan(ordinal, n_pos, n_loc, b, shuffle, limit=_H100_LIMIT):
+    """``sharded_wave_plan`` as the wrapper reads it, from the Python
+    mirror of the kernel's shared-memory need."""
+    return (ck.SHARDED_CLUSTER,
+            ck.sharded_smem_bytes(n_pos, n_loc, b, shuffle), limit, 1)
+
+
 @pytest.fixture()
 def fake_library(monkeypatch):
     fake = _FakeLibrary()
+    fake.peers = []
     monkeypatch.setitem(ck._LIBS, "sharded_wave", (fake, None, None))
+    monkeypatch.setattr(ck, "_sharded_plan", _mirror_plan)
+    monkeypatch.setattr(ck, "_enable_peers", fake.peers.append)
     return fake
 
 
@@ -170,26 +193,43 @@ def test_packing_per_shard_pointers_offsets_and_steps(fake_library,
     shape = call["shape"]
     assert (shape.n_loc, shape.n_glob, shape.b) == (n_loc, 4 * n_loc, tp.B)
     assert shape.t == t_pad and shape.bp == tp.B
-    assert shape.nb == -(-n_loc // ck._ROWS_PER_BLOCK)
-    # a virtual mesh: one card holds every position
+    assert call["spin_ns"] == int(ck.SPIN_S * 1e9)
+    # the packed layout and one error word, on the root
+    assert call["packed"] == out.packed.data_ptr()
+    assert out.packed.numel() == tk.fused_pack_len(t_pad, tp.B) + 1
+    # a virtual mesh: one card holds every position, and has no mailbox
     (card,) = call["cards"]
-    assert (card["ordinal"], card["n_pos"], card["pos0"]) == (0, 4, 0)
+    assert (card["ordinal"], card["n_pos"]) == (0, 4)
+    assert card["mail"] is None
+    assert fake_library.peers == []
     assert card["g0"] == [p * n_loc for p in range(4)]
     for p, leaves in enumerate(card["leaves"]):
         assert leaves == [getattr(shards[p], name).data_ptr()
                           for name, _ in ck._LEAVES]
     assert card["a_cpu"] == [t.data_ptr() for t in out.a_cpu]
+    # each position's scratch: its own slice of the card's buffer
+    jtc = card["jtc"]
+    assert [q - jtc[0] for q in jtc] == [4 * p * tp.B * n_loc
+                                         for p in range(4)]
     # every leaf stacked: a member stride of its per-member size
     for (name, _), stride in zip(ck._LEAVES, call["stride"]):
         assert stride == getattr(shards[0], name)[0].numel(), name
-    # the active steps: the reference's rule, computed apart
+    # the step maps after the card's position table, and the active
+    # steps the kernel finds in them (its rule mirrored by
+    # wave_active_steps, over the n_steps leaf it is handed): the
+    # reference's rule, computed apart
+    np.testing.assert_array_equal(card["maps"], np.stack([sm, sl]))
     n_steps = stacked.n_steps
     m = np.clip(sm, 0, tp.B - 1)
     active = np.nonzero((sm >= 0) & (sl < n_steps[m]))[0]
-    assert [t for t, _, _ in call["act"]] == active.tolist()
-    assert [(mm, j) for _, mm, j in call["act"]] == [
+    n_steps_leaf = ck._LEAVES.index(("n_steps", torch.int32))
+    assert card["leaves"][0][n_steps_leaf] == shards[0].n_steps.data_ptr()
+    kernel_rule = ck.wave_active_steps(card["maps"][0], card["maps"][1],
+                                       shards[0].n_steps, t_pad, tp.K)
+    assert [t for t, _, _ in kernel_rule] == active.tolist()
+    assert [(mm, j) for _, mm, j in kernel_rule] == [
         (int(m[t]), int(sl[t])) for t in active]
-    assert call["n_act"] == len(active) == 9
+    assert len(active) == 9
     # and the plain version's idle steps are exactly the others
     plain = ck.sharded_wave_place(shards, sm, sl, t_pad, feats)
     host = tk.unpack_fused_wave(plain.packed.numpy(), t_pad, tp.B)
@@ -225,8 +265,8 @@ def test_packing_shared_leaves_have_stride_zero(fake_library, monkeypatch):
 
 def test_packing_groups_repeated_cards(fake_library, monkeypatch):
     """Positions on cards 0, 1, 0, 1: two cards, the root (position 0's)
-    first holding positions 0 and 2, every card's slots and partials
-    sized on the root."""
+    first holding positions 0 and 2 in ascending order, each card with a
+    mailbox, peer access asked for the pair."""
     stacked, sm, sl, t_pad, feats = _wave_with_idle_steps()
     shards = _port_shards(stacked, 4)
     ordinals = iter([0, 1, 0, 1])
@@ -234,10 +274,14 @@ def test_packing_groups_repeated_cards(fake_library, monkeypatch):
     ck._sharded_launch(shards, sm, sl, t_pad, feats)
     (call,) = fake_library.calls
     n_loc = int(shards[0].cap_cpu.shape[-1])
-    assert [(c["ordinal"], c["n_pos"], c["pos0"]) for c in call["cards"]] \
-        == [(0, 2, 0), (1, 2, 2)]
+    assert [(c["ordinal"], c["n_pos"]) for c in call["cards"]] \
+        == [(0, 2), (1, 2)]
     assert [c["g0"] for c in call["cards"]] == [[0, 2 * n_loc],
                                                 [n_loc, 3 * n_loc]]
+    assert all(c["mail"] for c in call["cards"])
+    np.testing.assert_array_equal(call["cards"][0]["maps"],
+                                  call["cards"][1]["maps"])
+    assert fake_library.peers == [(0, 1)]
     assert ck.group_positions(["a", "b", "a", "c", "b"]) == [
         ("a", [0, 2]), ("b", [1, 4]), ("c", [3])]
 
@@ -258,6 +302,151 @@ def test_packing_refuses_what_the_kernel_does_not_take(fake_library,
     with pytest.raises(ValueError, match="floor"):
         ck._sharded_launch(_port_shards(stacked, 64), sm, sl, t_pad, feats)
     assert fake_library.calls == []
+
+
+def test_failed_call_raises_and_counts_no_launch(fake_library,
+                                                 monkeypatch):
+    """A C call that returns an error (a launch refused on one card after
+    others were launched, which the C side has joined first) raises, and
+    the wave is not counted as a sharded launch."""
+    stacked, sm, sl, t_pad, feats = _wave_with_idle_steps()
+    shards = _port_shards(stacked, 4)
+    ordinals = iter([0, 1, 0, 1])
+    monkeypatch.setattr(ck, "_card_of", lambda dev: (next(ordinals), 0))
+
+    def refused(ref):
+        fake_library(ref)
+        return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setitem(ck._LIBS, "sharded_wave", (refused, None, None))
+    launches = ck.sharded_launches
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        ck._sharded_launch(shards, sm, sl, t_pad, feats)
+    assert ck.sharded_launches == launches
+    (call,) = fake_library.calls
+    assert [c["ordinal"] for c in call["cards"]] == [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# The row partition: each card's rows among its cluster's CTAs.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cards,d,n_loc", [
+    ([0] * 4, 4, 1001),             # a virtual mesh; ranges cross at 1001
+    ([0] * 16, 16, 32),             # D=16 on one card: a CTA a position
+    ([0] * 3, 3, 1000),             # a boundary inside CTA 5's range
+    ([0, 1, 0, 1], 4, 777),         # interleaved cards
+    ([0, 1, 2, 3], 4, 10),          # one position a card, CTAs left empty
+], ids=["virtual-d4", "virtual-d16", "virtual-d3", "interleaved",
+        "one-a-card"])
+def test_row_plan_owns_every_row_once(cards, d, n_loc):
+    """Through the Python mirror of the kernel's split: every global row
+    is owned by exactly one CTA of its card, and a CTA range that crosses
+    a position boundary maps each row to its own position and g0."""
+    owner = {}
+    crossings = inside = 0
+    for card, positions in ck.group_positions(cards):
+        chunk = -(-len(positions) * n_loc // ck.SHARDED_CLUSTER)
+        # position boundaries that fall inside a CTA's range
+        inside += sum(p * n_loc % chunk != 0
+                      for p in range(1, len(positions)))
+        g0s = [p * n_loc for p in positions]
+        plan = ck.sharded_row_plan(g0s, n_loc)
+        assert len(plan) == ck.SHARDED_CLUSTER
+        card_row = 0
+        for cta, segs in enumerate(plan):
+            crossings += len(segs) > 1
+            for lp, x_lo, x_hi, g0 in segs:
+                assert g0 == positions[lp] * n_loc
+                # segments walk the card's rows in order, within a position
+                assert lp * n_loc + x_lo == card_row
+                assert 0 <= x_lo < x_hi <= n_loc
+                for x in range(x_lo, x_hi):
+                    g = g0 + x
+                    assert g not in owner, g
+                    owner[g] = (card, cta)
+                card_row += x_hi - x_lo
+        assert card_row == len(positions) * n_loc
+    assert sorted(owner) == list(range(d * n_loc))
+    assert crossings == inside
+
+
+def test_row_plan_crosses_a_boundary_off_the_warp_grid():
+    """N=4004 over four virtual shards: CTA 3's range [753, 1004) holds
+    the last rows of position 0 and the first of position 1, the
+    boundary at row 1001 (not a multiple of 32)."""
+    plan = ck.sharded_row_plan([0, 1001, 2002, 3003], 1001)
+    assert plan[3] == [(0, 753, 1001, 0), (1, 0, 3, 1001)]
+    assert 1001 % 32 != 0
+
+
+def test_plan_that_does_not_fit_raises(fake_library, monkeypatch):
+    """A card whose rows' score keys overflow a CTA's shared memory: the
+    wrapper raises before any launch, as B1's plan does."""
+    rows, b = 131072, 32
+    need = ck.sharded_smem_bytes(8, rows // 8, b, True)
+    assert need == 8 * 272 + 8192 * 8 + b * 28
+    ck.check_sharded_plan((16, need, need, 1), rows, b)   # fits exactly
+    with pytest.raises(ValueError, match="do not fit"):
+        ck.check_sharded_plan((16, need, need - 1, 1), rows, b)
+    with pytest.raises(RuntimeError, match="no cluster"):
+        ck.check_sharded_plan((16, need, need, 0), rows, b)
+    stacked, sm, sl, t_pad, feats = _wave_with_idle_steps()
+    monkeypatch.setattr(ck, "_card_of", lambda dev: (0, 0))
+    monkeypatch.setattr(ck, "_sharded_plan",
+                        lambda *a: _mirror_plan(*a, limit=64))
+    with pytest.raises(ValueError, match="do not fit"):
+        ck._sharded_launch(_port_shards(stacked, 4), sm, sl, t_pad, feats)
+    assert fake_library.calls == []
+
+
+def test_cards_without_peer_access_raise(monkeypatch):
+    """A mesh over two cards that cannot reach each other's memory: the
+    wrapper raises before any launch; no quiet return to another route."""
+    class Lib:
+        def sharded_wave_enable_peers(self, ordinals, n, bad):
+            bad[0], bad[1] = ordinals[0], ordinals[1]
+            return -1
+
+    monkeypatch.setitem(ck._LIBS, "sharded_wave", (None, None, Lib()))
+    monkeypatch.setattr(ck, "_PEERS", set())
+    with pytest.raises(RuntimeError, match="cards 0 and 1 cannot access"):
+        ck._enable_peers((0, 1))
+    assert ck._PEERS == set()
+    ck._enable_peers((3,))            # one card: nothing to enable
+
+
+def test_error_word_raises_and_counts_a_failure(monkeypatch):
+    """The kernel's trailing error word (a card waited past the bound)
+    reaches the launcher with the packed readback: the wave raises and
+    counts one failure; a clear word and B1's buffer pass."""
+    t_pad, b = 16, 4
+    n = tk.fused_pack_len(t_pad, b)
+    ck.raise_on_wave_error(np.zeros(n), t_pad, b)
+    ck.raise_on_wave_error(np.zeros(n + 1), t_pad, b)
+    bad = np.zeros(n + 1)
+    bad[n] = 0b101
+    with pytest.raises(RuntimeError, match=r"cards \[0, 2\]"):
+        ck.raise_on_wave_error(bad, t_pad, b)
+
+    real = sharded.sharded_wave_place
+
+    def failing(*a, **k):
+        out = real(*a, **k)
+        flag = torch.tensor([1.0], dtype=out.packed.dtype)
+        return out._replace(packed=torch.cat([out.packed, flag]))
+
+    monkeypatch.setattr(sharded, "sharded_wave_place", failing)
+    _, _, kins, feats, steps = _switch_wave(seed=11)
+    coalesce.fused_wave_stats.reset()
+    try:
+        with pytest.raises(RuntimeError, match="ran past"):
+            coalesce.launch_wave(kins, steps, feats, device="cpu",
+                                 mesh=sharded.wave_mesh(devices=[CPU] * 2))
+        assert coalesce.fused_wave_stats.snapshot()["failures"] == 1
+    finally:
+        coalesce.fused_wave_stats.reset()
+        coalesce.sharded_wave_stats.reset()
 
 
 def test_cuda_request_without_a_card_raises(monkeypatch):
