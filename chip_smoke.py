@@ -235,8 +235,14 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     upload split by shard, and every shared plane of both waves is found
     resident (0 B of them uploaded by the launcher). Part C, phase 11's
     window-off server with ``use_device_mesh=True`` (one card: no mesh,
-    logged), then ``Server._adopt_wave_mesh`` of a 4-shard virtual mesh,
-    the 40 warm-up jobs and the timed 200: every wave sharded, one
+    logged) and ``kernel_warmup=True`` over a manifest of the keys part
+    A launched (the kernel profiler is on from part A to the end of the
+    phase; the keys seen are forgotten before the server starts) and of
+    phase 12's run A (a server of the same shape), then
+    ``Server._adopt_wave_mesh`` of a 4-shard virtual mesh, whose
+    mesh-only warm pass and the start-up pass are waited for (at least
+    one entry warmed, none failed), the 40 warm-up jobs and the timed
+    200: no sharded miss in the timed burst, every wave sharded, one
     kernel call and one kernel launch (counts read just before and after
     the burst), no fallback
     or failure, no B1 launch, every job placed, none over capacity, the
@@ -244,8 +250,10 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     ``nomad_tpu_wave_sharded_mesh_devices 4``, evals/s and wave p50
     beside phase 11's window-off arm. One ``mesh: {...}`` line, and the
     sharded kernel's entry in the kernels' JSON line.
-    ``chip_smoke.py --mesh-phase`` runs phase 11's window-off arm and
-    this phase alone (``--device cpu`` rehearses them).
+    ``chip_smoke.py --mesh-phase`` runs phase 12's three fresh
+    processes over a mesh (``run_mesh_warm_start``), then phase 11's
+    window-off arm and this phase alone (``--device cpu`` rehearses
+    them).
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -569,7 +577,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 def main() -> int:
     if sys.argv[1:2] == ["--warm-start"]:
-        return warm_start_child(*sys.argv[2:6])
+        return warm_start_alone(sys.argv[2:])
     if sys.argv[1:2] == ["--raft-cluster"]:
         return raft_cluster_child(*sys.argv[2:4])
     if sys.argv[1:2] == ["--client-phase"]:
@@ -613,7 +621,8 @@ def main() -> int:
     raft = run_raft_phase(record, state_bytes, smi)
     agent = run_agent_phase(dev, record, state_bytes, server[-1], smi)
     client = run_client_phase(dev, record, state_bytes, smi)
-    mesh = run_mesh_phase(dev, record, state_bytes, server[-1])
+    mesh = run_mesh_phase(dev, record, state_bytes, server[-1],
+                          record["warm_start_manifest"])
     del state_bytes
     kline["kernels"][0]["server_launches"] = sum(
         arm["b1_launches"] for arm in server)
@@ -1779,7 +1788,9 @@ def run_warm_start_phase(record: dict, state_bytes: bytes) -> list:
             res = json.loads(out.read_text())
             res["process_s"] = time.perf_counter() - t0
             runs.append(res)
-        entries = len(kernel_warmup.load_manifest(str(manifest)))
+        entries = kernel_warmup.load_manifest(str(manifest))
+    # the server's own keys: phase 17 part C's server warms them too
+    record["warm_start_manifest"] = entries
     a, b, c = runs
     check(a["warmup"]["warmed"] == 0 and a["warmup"]["failed"] == 0,
           f"warm start A warmed {a['warmup']}")
@@ -1789,25 +1800,102 @@ def run_warm_start_phase(record: dict, state_bytes: bytes) -> list:
     check(b["burst_profile"]["Misses"] == 0,
           f"warm start B: misses in the burst: {b['burst_profile']['PerKey']}")
     for r in runs:
-        r["manifest_entries"] = entries
+        r["manifest_entries"] = len(entries)
         log(f"warm start: {json.dumps(r)}")
     record["warm_start"] = runs
     return runs
 
 
+def warm_start_alone(argv: list) -> int:
+    """``chip_smoke.py --warm-start RUN STATE MANIFEST OUT [--mesh]
+    [--device cpu] [--jobs N]``: one child of phase 12, or with
+    ``--mesh`` of ``--mesh-phase``'s warm start."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --warm-start")
+    ap.add_argument("run", choices=("A", "B", "C"))
+    ap.add_argument("state")
+    ap.add_argument("manifest")
+    ap.add_argument("out")
+    ap.add_argument("--mesh", action="store_true")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--jobs", type=int, default=SERVER_JOBS)
+    a = ap.parse_args(argv)
+    return warm_start_child(a.run, a.state, a.manifest, a.out,
+                            device=a.device, mesh=a.mesh, n_jobs=a.jobs)
+
+
+#: --mesh-phase's warm start: probe jobs a run places before its burst,
+#: each pinned to a rack of its own, so a wave's placements do not depend
+#: on the order its members arrive in (runs A and B must place them alike)
+PROBE_JOBS = 32
+
+
+def place_probe(srv, ctx: str) -> dict:
+    """Register ``PROBE_JOBS`` jobs of the C2M mix's smallest service
+    shape, job i pinned to rack r<i>, with the worker stopped and each
+    eval id drawn from a seed (the same ids, so the same shuffles, in
+    every run); wait for them; return each alloc's node by alloc name."""
+    import random
+    import uuid
+
+    from nomad_tpu_torch.structs import eval_plan
+    from nomad_tpu_torch.structs.constraints import Constraint
+
+    rng = np.random.default_rng(SEED + 160)
+    jobs = []
+    for i in range(PROBE_JOBS):
+        job = c2m._make_job(rng, i, c2m.LEAN_SHAPES[0])
+        job.id = f"probe-{i}"
+        job.task_groups[0].count = c2m.BURST_COUNT
+        job.constraints = list(job.constraints) + [Constraint(
+            ltarget="${attr.platform.aws.placement.rack}",
+            rtarget=f"r{i}", operand="=")]
+        jobs.append(job)
+    for w in srv.workers:
+        w.stop()
+    try:
+        for i, job in enumerate(jobs):
+            eval_plan._UUID_RNG = random.Random(SEED + 16_000 + i)
+            srv.job_register(job)
+    finally:
+        eval_plan._UUID_RNG = random.Random(uuid.uuid4().int)
+        for w in srv.workers:
+            w.start()
+    server_converged(srv, jobs, time.time() + SERVER_DEADLINE_S)
+    check_server_burst(srv, jobs, f"{ctx} probe")
+    snap = srv.state.snapshot()
+    return {a.name: a.node_id for j in jobs
+            for a in snap.allocs_by_job(j.namespace, j.id)}
+
+
+def sharded_misses() -> int:
+    """The profiler's misses of sharded waves since its last reset."""
+    return sum(profiler.misses_for(k) for k in ("fused_wave_sharded",
+                                                "joint_sharded"))
+
+
 def warm_start_child(run: str, state_path: str, manifest: str,
-                     out_path: str, device: str = "cuda") -> int:
+                     out_path: str, device: str = "cuda",
+                     mesh: bool = False, n_jobs: int = SERVER_JOBS) -> int:
     """One run of phase 12 in its own process: restore, ``start()``
     (run B then waits for the warmup; runs A and C do not), the timed
     burst with every count set to 0 just before it, shutdown (which
     persists the manifest); the result goes to ``out_path`` as JSON.
     A warmup that overlaps the burst (run C) is joined before the counts
     are read, and its B1 launches are taken out of the burst's.
-    ``device`` is the card; a rehearsal on the CPU names ``cpu``."""
+    ``device`` is the card; a rehearsal on the CPU names ``cpu``.
+
+    ``mesh``: the server's waves run over a mesh: its own over the cards
+    on a host of several (``use_device_mesh=None``), else a virtual
+    4-shard mesh on the card adopted after ``start()``, whose mesh-only
+    warm pass runs on its own thread. Runs A and B place the probe jobs
+    (``place_probe``) before the burst; the waves must all run sharded,
+    with no B1 launch."""
     dev = torch.device(device)
     check(dev.type != "cuda" or torch.cuda.is_available(),
           "warm start: no CUDA card")
-    ctx = f"warm start {run}"
+    ctx = f"warm start {run}" + (" (mesh)" if mesh else "")
     profiler.enable()
     srv = Server(ServerConfig(num_workers=1, worker_batch_size=SERVER_BATCH,
                               heartbeat_ttl=3600.0, coalesce_adaptive=False,
@@ -1818,10 +1906,13 @@ def warm_start_child(run: str, state_path: str, manifest: str,
     srv.state.restore_from_bytes(Path(state_path).read_bytes())
     restore_s = time.perf_counter() - t0
     first_done = []
+    launch_s = []       # each launch_wave call's own seconds
     real_launch = coalesce.launch_wave
 
     def timed_launch(*args, **kwargs):
+        t = time.perf_counter()
         out = real_launch(*args, **kwargs)
+        launch_s.append(time.perf_counter() - t)
         if not first_done:
             first_done.append(time.perf_counter())
         return out
@@ -1831,19 +1922,26 @@ def warm_start_child(run: str, state_path: str, manifest: str,
     kernel_warmup.warmup_stats.reset()
     t_start = time.perf_counter()
     srv.start()
+    if mesh and srv.wave_mesh is None:
+        srv._adopt_wave_mesh(sharded.wave_mesh(
+            devices=[dev] * MESH_SERVER_SHARDS))
     start_s = time.perf_counter() - t_start
     w = srv.workers[0]
+    probe: dict = {}
     try:
         warm = {"warmed": 0, "failed": 0, "seconds": 0.0, "wait_s": 0.0,
                 "launches": {}, "b1_launches": 0}
 
         def join_warmup() -> None:
-            if srv._warmup_thread is None:
-                return
-            srv._warmup_thread.join(timeout=WARMUP_WAIT_S)
-            check(not srv._warmup_thread.is_alive(),
-                  f"{ctx}: warmup still running after {WARMUP_WAIT_S} s")
-            warm.update(srv.warmup_stats or {"failed": 1})
+            threads = [t for t in (srv._warmup_thread,
+                                   srv._mesh_warmup_thread) if t is not None]
+            for t in threads:
+                t.join(timeout=WARMUP_WAIT_S)
+                check(not t.is_alive(),
+                      f"{ctx}: warmup still running after {WARMUP_WAIT_S} s")
+            if threads:
+                warm.update(srv.warmup_stats or {"failed": 1})
+                warm["passes"] = srv.warmup_passes
 
         if run == "B":
             join_warmup()
@@ -1852,23 +1950,42 @@ def warm_start_child(run: str, state_path: str, manifest: str,
             warm["b1_launches"] = ck.launches
             warm["profile"] = profiler.summary()
             del warm["profile"]["PerKey"]
+        first_wave_ms = None
+        if mesh and run != "C":
+            # the process's first wave is the probe's
+            profiler.reset()
+            probe["placements"] = place_probe(srv, ctx)
+            probe["sharded_misses"] = sharded_misses()
+            probe["per_key"] = profiler.summary()["PerKey"]
+            first_wave_ms = coalesce.wave_stats._wave_s[0] * 1e3
 
         rng = np.random.default_rng(SEED + 12)
         jobs = [c2m.burst_job(rng, i, prefix=f"warm{run}")
-                for i in range(SERVER_JOBS)]
+                for i in range(n_jobs)]
         histograms.get("e2e").reset()
         srv.plan_latencies.clear()
-        profiler.reset()
+        if not probe:
+            # (after a probe the profiler keeps its keys for the manifest;
+            # the burst's misses are counted from the probe's on)
+            profiler.reset()
         coalesce.fused_wave_stats.reset()
         coalesce.wave_stats.reset()
         coalesce.upload_stats.reset()
+        coalesce.sharded_wave_stats.reset()
         default_device_state.reset_stats()
         waves0, requests0 = w.batch_launches, w.batch_requests
         if run != "C":
             ck.launches = 0     # run C counts from start(): see below
+        burst0 = len(launch_s)
+        if mesh:
+            # the batches, so the waves' keys, in registration order: the
+            # same in every run
+            w.stop()
         t0 = time.perf_counter()
         for job in jobs:
             srv.job_register(job)
+        if mesh:
+            w.start()
         t_done = server_converged(srv, jobs,
                                   time.time() + SERVER_DEADLINE_S)
         burst_s = t_done - t0
@@ -1884,11 +2001,18 @@ def warm_start_child(run: str, state_path: str, manifest: str,
         # first launches of the live kernels (a racing warmup's own
         # first launches count under warmup_<kernel>)
         live_misses = sum(profiler.misses_for(k) for k in (
-            "fused_wave", "joint", "single_topk", "single_full"))
+            "fused_wave", "joint", "single_topk", "single_full",
+            "fused_wave_sharded", "joint_sharded"))
+        burst_sharded_misses = sharded_misses() - probe.get(
+            "sharded_misses", 0)
         fstats = coalesce.fused_wave_stats.snapshot()
+        sstats = coalesce.sharded_wave_stats.snapshot()
         wstats = coalesce.wave_stats.snapshot()
-        first_wave_ms = coalesce.wave_stats._wave_s[0] * 1e3
+        if first_wave_ms is None:
+            first_wave_ms = coalesce.wave_stats._wave_s[0] * 1e3
         first_assemble_ms = coalesce.wave_stats._assemble_s[0] * 1e3
+        # the burst's launch_wave calls after the process's first
+        warm_launch = launch_s[max(burst0, 1):]
         prof = profiler.summary()
         dstate = default_device_state.snapshot()
         uploads = (coalesce.upload_stats.uploads,
@@ -1902,19 +2026,33 @@ def warm_start_child(run: str, state_path: str, manifest: str,
     requests = w.batch_requests - requests0
     check(fstats["fallbacks"] == 0 and fstats["failures"] == 0,
           f"{ctx}: waves fell back or failed: {fstats}")
-    check(b1_launches == fstats["launches"] == waves,
-          f"{ctx}: B1 launches {b1_launches}, fused {fstats}, waves {waves}")
+    if mesh:
+        # (on the CPU no B1 launch is counted, the warmup's included)
+        check((b1_launches == 0 or dev.type != "cuda")
+              and sstats["launches"] == fstats["launches"]
+              == waves and sstats["fallbacks"] == 0,
+              f"{ctx}: B1 launches {b1_launches}, sharded {sstats}, fused "
+              f"{fstats}, waves {waves}")
+    else:
+        check(b1_launches == fstats["launches"] == waves,
+              f"{ctx}: B1 launches {b1_launches}, fused {fstats}, waves "
+              f"{waves}")
     check(dstate["errors"] == 0, f"{ctx}: device state errors: {dstate}")
     check(Path(manifest).exists(), f"{ctx}: no manifest after shutdown")
     res = {
-        "run": run, "restore_s": restore_s, "start_s": start_s,
+        "run": run, "mesh": mesh, "restore_s": restore_s, "start_s": start_s,
         "warmup": warm,
         "start_to_first_wave_s": first_done[0] - t_start,
         "burst_to_first_wave_s": first_done[0] - t0,
         "first_wave_latency_ms": first_wave_ms,
         "first_wave_assemble_ms": first_assemble_ms,
-        "evals": SERVER_JOBS, "burst_s": burst_s,
-        "evals_per_s": SERVER_JOBS / burst_s,
+        "first_launch_wave_ms": launch_s[0] * 1e3,
+        "burst_launch_wave_warm_median_ms": (
+            float(np.median(warm_launch)) * 1e3 if warm_launch else None),
+        "burst_sharded_misses": burst_sharded_misses, "probe": probe,
+        "sharded": sstats,
+        "evals": len(jobs), "burst_s": burst_s,
+        "evals_per_s": len(jobs) / burst_s,
         "e2e_p50_ms": e2e_p50 * 1e3, "e2e_p99_ms": e2e_p99 * 1e3,
         "b1_launches": b1_launches, "waves": waves,
         "wave_fill": requests / waves if waves else 0.0,
@@ -1925,8 +2063,9 @@ def warm_start_child(run: str, state_path: str, manifest: str,
         "wave_uploads": uploads[0], "wave_upload_bytes": uploads[1],
     }
     Path(out_path).write_text(json.dumps(res))
-    log(f"burst: {b1_launches} B1 launches in {waves} waves, misses "
-        f"{live_misses}, {SERVER_JOBS / burst_s:.1f} evals/s")
+    log(f"burst: {b1_launches} B1 launches, {sstats['launches']} sharded, "
+        f"in {waves} waves, misses {live_misses}, "
+        f"{len(jobs) / burst_s:.1f} evals/s")
     return 0
 
 
@@ -4566,6 +4705,9 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
     level = logger.level
     logger.addHandler(keep)
     logger.setLevel(logging.INFO)
+    # as in a fresh process, only the warmup makes a key seen
+    profiler.clear_seen()
+    kernel_warmup.warmup_stats.reset()
     try:
         srv.start()
     finally:
@@ -4583,15 +4725,32 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
         mesh = sharded.wave_mesh(devices=[dev] * MESH_SERVER_SHARDS)
         srv._adopt_wave_mesh(mesh)
         check(srv.wave_mesh is mesh, f"{ctx}: mesh not adopted")
+        # the warmup of part A's keys: the start-up pass and the mesh
+        # pass of the mesh just adopted, both waited for
+        t0 = time.perf_counter()
+        for t in (srv._warmup_thread, srv._mesh_warmup_thread):
+            check(t is not None, f"{ctx}: a warm pass did not start")
+            t.join(timeout=WARMUP_WAIT_S)
+            check(not t.is_alive(), f"{ctx}: warmup still running after "
+                  f"{WARMUP_WAIT_S} s")
+        res["kernel_warmup"] = dict(
+            srv.warmup_stats or {"failed": 1}, wait_s=time.perf_counter() - t0,
+            passes=srv.warmup_passes,
+            launches=kernel_warmup.warmup_stats.snapshot())
+        check(res["kernel_warmup"]["warmed"] >= 1
+              and res["kernel_warmup"]["failed"] == 0,
+              f"{ctx}: warmup {res['kernel_warmup']}")
         w = srv.workers[0]
         warm = [c2m.burst_job(rng, i, prefix="mesh-warm")
                 for i in range(SERVER_WARMUP_JOBS)]
+        profiler.reset()
         t0 = time.perf_counter()
         for job in warm:
             srv.job_register(job)
         res["warmup_s"] = server_converged(
             srv, warm, time.time() + SERVER_DEADLINE_S) - t0
         check_server_burst(srv, warm, f"{ctx} warm-up")
+        res["warmup_jobs_sharded_misses"] = sharded_misses()
 
         jobs = [c2m.burst_job(rng, i, prefix="mesh-burst")
                 for i in range(SERVER_JOBS)]
@@ -4601,6 +4760,7 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
         coalesce.sharded_wave_stats.reset()
         coalesce.wave_stats.reset()
         default_device_state.reset_stats()
+        profiler.reset()
         waves0, requests0 = w.batch_launches, w.batch_requests
         ck.launches = 0
         ck.sharded_launches = 0
@@ -4614,6 +4774,7 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
         b1 = ck.launches
         kernel_calls = ck.sharded_launches
         clusters = cluster_launches() - c0
+        misses = sharded_misses()
         sstats = coalesce.sharded_wave_stats.snapshot()
         fstats = coalesce.fused_wave_stats.snapshot()
         wstats = coalesce.wave_stats.snapshot()
@@ -4634,6 +4795,8 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
     check(fstats == {"launches": waves, "fallbacks": 0, "failures": 0},
           f"{ctx}: fused {fstats} for {waves} waves")
     check(b1 == 0, f"{ctx}: {b1} B1 launches in sharded waves")
+    check(misses == 0, f"{ctx}: {misses} sharded misses in the timed burst "
+          "after the warmup")
     check(kernel_calls == waves,
           f"{ctx}: {kernel_calls} sharded kernel calls for {waves} waves")
     check(clusters == waves,
@@ -4655,7 +4818,7 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
         "wave_latency_p99_ms": wstats["wave_latency_p99_ms"],
         "assemble_latency_p50_ms": wstats["assemble_latency_p50_ms"],
         "sharded": sstats, "fused": fstats, "kernel_calls": kernel_calls,
-        "cluster_launches": clusters,
+        "cluster_launches": clusters, "sharded_misses": misses,
         "device_state": {k: dstate[k] for k in (
             "hits", "delta_advances", "full_uploads", "rows_uploaded",
             "bytes_uploaded", "errors", "mesh_devices")},
@@ -4667,22 +4830,41 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
 
 
 def run_mesh_phase(dev: torch.device, record: dict, state_bytes: bytes,
-                   window_off: dict) -> dict:
-    """Phase 17: parts A, B and C; one ``mesh: {...}`` line."""
+                   window_off: dict, server_entries: list) -> dict:
+    """Phase 17: parts A, B and C; one ``mesh: {...}`` line. Part C's
+    server warms the keys part A launched and ``server_entries``, the
+    manifest a server of its shape persisted in a warm start's run A
+    (part A's synthetic waves take other layouts and feature unions than
+    a server's)."""
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 17)
     coalesce.sharded_wave_stats.reset()
-    part_a = mesh_part_a(dev, rng)
-    srv = Server(ServerConfig(num_workers=1, worker_batch_size=SERVER_BATCH,
-                              heartbeat_ttl=3600.0, gc_tuning=True,
-                              coalesce_adaptive=False, use_device_mesh=True),
-                 device=dev)
-    t0 = time.perf_counter()
-    srv.state.restore_from_bytes(state_bytes)
-    restore_s = time.perf_counter() - t0
-    part_b = mesh_part_b(dev, srv.state, rng)
-    part_c = mesh_part_c(dev, srv, rng, window_off)
+    # the profiler records part A's keys: part C's server warms them
+    profiler.enable()
+    profiler.reset()
+    try:
+        part_a = mesh_part_a(dev, rng)
+        entries = kernel_warmup.manifest_from_profiler() + list(
+            server_entries)
+        with tempfile.TemporaryDirectory(prefix="mesh_manifest_") as tmp:
+            manifest = str(Path(tmp) / "warmup.json")
+            kernel_warmup.save_manifest(entries, manifest)
+            srv = Server(ServerConfig(
+                num_workers=1, worker_batch_size=SERVER_BATCH,
+                heartbeat_ttl=3600.0, gc_tuning=True, coalesce_adaptive=False,
+                use_device_mesh=True, kernel_warmup=True,
+                warmup_manifest_path=manifest), device=dev)
+            t0 = time.perf_counter()
+            srv.state.restore_from_bytes(state_bytes)
+            restore_s = time.perf_counter() - t0
+            part_b = mesh_part_b(dev, srv.state, rng)
+            part_c = mesh_part_c(dev, srv, rng, window_off)
+    finally:
+        profiler.disable()
+        profiler.reset()
     part_c["restore_s"] = restore_s
+    part_c["manifest_entries"] = len(entries)
+    part_c["server_manifest_entries"] = len(server_entries)
     timed = next(r for r in part_a["kernel"] if "ms" in r)
     per_d = {r["shards"]: r for r in part_a["per_d"]}
     ratio = (per_d[MESH_KERNEL_SHARDS]["ms_median"]
@@ -4753,9 +4935,87 @@ def run_mesh_phase(dev: torch.device, record: dict, state_bytes: bytes,
     return res
 
 
+def run_mesh_warm_start(state_bytes: bytes, device: str = "cuda",
+                        n_jobs: int = SERVER_JOBS) -> tuple:
+    """``--mesh-phase``'s warm start: phase 12's three fresh processes
+    (``warm_start_child`` with ``mesh``) from the same snapshot bytes and
+    one manifest, each a server whose waves run over a mesh. Run A is
+    cold and persists the manifest; run B waits for its warmup, run C
+    bursts at once. Gates: B and C fail no warm entry and warm at least
+    one sharded key; B misses no sharded key in its probe or its burst;
+    B places the probe jobs as A does; each child's own gates (every job
+    placed, none over capacity, every wave sharded, no B1 launch, 0
+    fallbacks, failures and device-state errors). One line a run.
+    Returns the runs and the manifest's entries."""
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="mesh_warm_start_") as tmp:
+        state_path = Path(tmp) / "state.bin"
+        state_path.write_bytes(state_bytes)
+        manifest = Path(tmp) / "warmup.json"
+        for run in ("A", "B", "C"):
+            check((run != "A") == manifest.exists(),
+                  f"mesh warm start {run}: manifest exists="
+                  f"{manifest.exists()}")
+            out = Path(tmp) / f"run{run}.json"
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--warm-start", run, str(state_path), str(manifest),
+                     str(out), "--mesh", "--device", device, "--jobs",
+                     str(n_jobs)], capture_output=True, text=True,
+                    timeout=WARM_CHILD_TIMEOUT_S,
+                    cwd=str(Path(__file__).resolve().parent),
+                    # one string-hash seed for every run: the order of a
+                    # set of strings, which the scheduler's choices reach,
+                    # is then the same in each
+                    env=dict(os.environ, PYTHONHASHSEED="0"))
+            except subprocess.TimeoutExpired:
+                fail(f"mesh warm start {run}: over {WARM_CHILD_TIMEOUT_S} s")
+            for line in proc.stdout.splitlines():
+                log(f"mesh warm start {run}: {line}")
+            check(proc.returncode == 0,
+                  f"mesh warm start {run} failed (exit {proc.returncode}): "
+                  f"{proc.stderr[-3000:]}")
+            res = json.loads(out.read_text())
+            res["process_s"] = time.perf_counter() - t0
+            runs.append(res)
+        entries = kernel_warmup.load_manifest(str(manifest))
+    a, b, c = runs
+    check(a["warmup"]["warmed"] == 0 and a["warmup"]["failed"] == 0,
+          f"mesh warm start A warmed {a['warmup']}")
+    for r in (b, c):
+        launches = r["warmup"]["launches"]
+        check(r["warmup"]["failed"] == 0
+              and launches.get("fused_wave_sharded", 0)
+              + launches.get("joint_sharded", 0) >= 1,
+              f"mesh warm start {r['run']}: warmup {r['warmup']}")
+    check(b["probe"]["sharded_misses"] == 0
+          and b["burst_sharded_misses"] == 0,
+          f"mesh warm start B: sharded misses: probe "
+          f"{b['probe']['per_key']}, burst {b['burst_profile']['PerKey']}")
+    placed = a["probe"]["placements"]
+    check(len(placed) == PROBE_JOBS * c2m.BURST_COUNT
+          and b["probe"]["placements"] == placed,
+          f"mesh warm start: B placed the probe jobs unlike A "
+          f"({sum(b['probe']['placements'].get(k) != v for k, v in placed.items())}"
+          f" of {len(placed)} allocs differ)")
+    for r in runs:
+        line = {k: r[k] for k in (
+            "run", "start_to_first_wave_s", "first_wave_latency_ms",
+            "first_launch_wave_ms", "burst_launch_wave_warm_median_ms",
+            "burst_sharded_misses", "evals_per_s", "waves")}
+        line["warmup"] = {k: r["warmup"].get(k) for k in (
+            "warmed", "failed", "seconds", "wait_s", "passes", "launches")}
+        line["probe_sharded_misses"] = r["probe"].get("sharded_misses")
+        log(f"mesh warm start: {json.dumps(line)}")
+    return runs, entries
+
+
 def mesh_phase_alone(argv: list) -> int:
     """``chip_smoke.py --mesh-phase [--device cpu] [--nodes N] [--allocs
-    M]``: phase 11's window-off arm, then phase 17, on the state of
+    M]``: the warm start over a mesh (``run_mesh_warm_start``), phase
+    11's window-off arm, then phase 17, on the state of
     ``c2m.generate(N, M)`` (10,000 nodes and 100k allocs unless given).
     On the card the kernels are built first. ``--device cpu`` rehearses
     it on the CPU at the cluster sizes given (``--nodes`` also sizes part
@@ -4790,14 +5050,20 @@ def mesh_phase_alone(argv: list) -> int:
     log(f"mesh phase: state of {args.nodes} nodes in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(SEED + 11)
+    # the warm start first: its run A's manifest holds the server's keys,
+    # which part C's server warms as the full smoke's takes phase 12's
+    warm_start, server_entries = run_mesh_warm_start(
+        state_bytes, args.device,
+        SERVER_JOBS if args.device == "cuda" else SERVER_WARMUP_JOBS)
 
     def run() -> dict:
         arm = server_arm(dev, state_bytes, True, False, SERVER_JOBS, rng)
         log(f"server: {json.dumps(arm)}")
-        return run_mesh_phase(dev, {}, state_bytes, arm)
+        return run_mesh_phase(dev, {}, state_bytes, arm, server_entries)
 
     if args.device == "cuda":
         res = run()
+        res["warm_start"] = warm_start
         out_dir = Path(__file__).resolve().parent / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "mesh_phase.json").write_text(json.dumps(res, indent=1))

@@ -483,7 +483,12 @@ def check_sharded_plan(plan: tuple, rows: int, b: int) -> None:
                            f"{smem} B of shared memory each")
 
 
-_SHARDED_PLANS: dict = {}   # (ordinal, n_pos, n_loc, b, shuffle) -> plan
+#: (ordinal, n_pos, n_loc, b, shuffle) -> plan. Shared with no lock by a
+#: warm pass on its own thread and live waves (ops/warmup.py): two
+#: threads may both build one key's plan, which is the same tuple, and
+#: both ask for peer access, which the C side takes as already enabled;
+#: the C side enqueues one wave's launches on every card at a time
+_SHARDED_PLANS: dict = {}
 
 
 def _sharded_plan(ordinal: int, n_pos: int, n_loc: int, b: int,

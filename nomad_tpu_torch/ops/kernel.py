@@ -109,7 +109,9 @@ def neutral_planes(n: int) -> NeutralPlanes:
             zeros_spread_weight=_frozen(np.zeros(MAX_SPREADS, np.float32)),
             arange_i32=_frozen(np.arange(n, dtype=np.int32)),
         )
-        _NEUTRAL_CACHE[n] = got
+        # threads racing to the first call all keep the first stored:
+        # members that hold one singleton by identity share it in a wave
+        got = _NEUTRAL_CACHE.setdefault(n, got)
     return got
 
 
@@ -121,7 +123,7 @@ def neutral_port_words(n: int, w: int) -> np.ndarray:
     got = _NEUTRAL_WORDS_CACHE.get((n, w))
     if got is None:
         got = _frozen(np.zeros((n, w), np.uint32))
-        _NEUTRAL_WORDS_CACHE[(n, w)] = got
+        got = _NEUTRAL_WORDS_CACHE.setdefault((n, w), got)
     return got
 
 
@@ -136,7 +138,7 @@ def neutral_step_planes(k_pad: int):
             _frozen(np.full((k_pad, MAX_PENALTY_NODES), -1, np.int32)),
             _frozen(np.full(k_pad, -1, np.int32)),
         )
-        _NEUTRAL_STEP_CACHE[k_pad] = got
+        got = _NEUTRAL_STEP_CACHE.setdefault(k_pad, got)
     return got
 
 

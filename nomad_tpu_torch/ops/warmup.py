@@ -25,11 +25,19 @@ its first live launch counts no miss. Warm launches go through the
 profiler under ``warmup_<kernel>`` and are counted in ``warmup_stats``,
 apart from the waves' own counts.
 
-The sharded waves over a device mesh are not warmed: they are eager
-torch ops with nothing to compile, and a process's first sharded wave
-pays its own loading once, a fraction of one wave (PERF.md, phase 17).
-The manifest keeps no mesh: a sharded wave's key folds into the same
-``joint`` entry as its one-device wave.
+A server with a device mesh also warms the **mesh pass** (the JAX
+package's ``mesh=`` pass): each joint entry launched once over the mesh,
+through the sharded hand kernel (``csrc/sharded_wave.cu``) where the
+entry fits the fused envelope and the mesh leaves each shard at least
+TOPK rows, else through the joint sharded wave, as ``launch_wave``
+routes it. A process's first sharded wave pays what the mesh needs once:
+the CUDA contexts of the other cards, the library, each card's plan,
+peer access and the caching allocator's first blocks on every card
+(PERF.md §5 splits it); the warm launch pays them instead and marks the
+key ``launch_wave`` uses (the wave key and the mesh's devices) warm. The
+manifest keeps no mesh: a sharded key folds into the same ``joint``
+entry as its one-device wave, and each start warms it over whatever
+mesh the server has then.
 """
 
 from __future__ import annotations
@@ -98,7 +106,7 @@ def manifest_from_profiler(profiler=None) -> List[Dict]:
     from an entry's features which of the two its waves run. Sharded
     keys (the wave key and the mesh's devices) fold into the same
     mesh-agnostic entries, their devices dropped: the next start warms
-    them unsharded."""
+    them on its device and over its own mesh."""
     if profiler is None:
         from nomad_tpu_torch.telemetry.kernel_profile import profiler as _p
 
@@ -302,24 +310,21 @@ def _dummy_kin(n: int, k_pad: int):
     )
 
 
-def _entry_wave(e: Dict, dev: torch.device):
-    """One joint entry's dummy wave, assembled by the live launcher's own
-    ``assemble_wave`` on ``dev``: ``wave`` members of ``steps / wave``
-    inert steps each, where a group the entry does not share holds its
-    own copy in every member, so the wave takes exactly the entry's
-    layout. Raises when the assembled wave is not the entry's bucket."""
+def _entry_members(e: Dict) -> Tuple:
+    """One joint entry's dummy members, as the live launcher receives
+    them: ``wave`` members of ``steps / wave`` inert steps each, where a
+    group the entry does not share holds its own copy in every member, so
+    the wave assembles with exactly the entry's layout. Returns ``(kins,
+    k_steps, features)``."""
     from nomad_tpu_torch.parallel.coalesce import (
         _JOB_SHAREABLE_FIELDS,
         _NEUTRAL_SHAREABLE_FIELDS,
         _SHAREABLE_FIELDS,
-        assemble_wave,
     )
 
     b_pad = int(e["wave"])
     t_pad = int(e["steps"])
-    layout = (bool(e.get("shared", True)),
-              bool(e.get("neutral_shared", True)),
-              bool(e.get("job_shared", True)))
+    layout = _entry_layout(e)
     feats = _features_from_dict(e["features"])
     k_max = max(t_pad // max(b_pad, 1), 1)
     kin = _dummy_kin(int(e["nodes"]), k_max)
@@ -328,11 +333,32 @@ def _entry_wave(e: Dict, dev: torch.device):
          _JOB_SHAREABLE_FIELDS), layout) if not shared for f in group]
     kins = [kin._replace(**{f: np.array(getattr(kin, f)) for f in own})
             for _ in range(b_pad)]
-    wave = assemble_wave(kins, [k_max] * b_pad, [feats] * b_pad, dev)
-    if (wave.b_pad, wave.t_pad, wave.layout) != (b_pad, t_pad, layout):
+    return kins, [k_max] * b_pad, [feats] * b_pad
+
+
+def _entry_layout(e: Dict) -> Tuple[bool, bool, bool]:
+    return (bool(e.get("shared", True)),
+            bool(e.get("neutral_shared", True)),
+            bool(e.get("job_shared", True)))
+
+
+def _check_bucket(wave, e: Dict) -> None:
+    """Raise when an assembled dummy wave is not the entry's bucket."""
+    want = (int(e["wave"]), int(e["steps"]), _entry_layout(e))
+    if (wave.b_pad, wave.t_pad, wave.layout) != want:
         raise ValueError(
             f"entry {e} assembles as wave {wave.b_pad}, steps {wave.t_pad}, "
             f"layout {wave.layout}")
+
+
+def _entry_wave(e: Dict, dev: torch.device):
+    """One joint entry's dummy wave, assembled by the live launcher's own
+    ``assemble_wave`` on ``dev``. Raises when the assembled wave is not
+    the entry's bucket."""
+    from nomad_tpu_torch.parallel.coalesce import assemble_wave
+
+    wave = assemble_wave(*_entry_members(e), dev)
+    _check_bucket(wave, e)
     return wave
 
 
@@ -375,6 +401,63 @@ def _warm_joint(e: Dict, dev: torch.device) -> bool:
     return _warm_wave("joint", fused_wave_place_reference, e, dev)
 
 
+def _warm_sharded(kernel: str, e: Dict, mesh, fused: bool) -> bool:
+    """Launch one entry's dummy wave over ``mesh`` exactly as a live
+    sharded wave runs: assembled by ``assemble_sharded_wave``, dispatched
+    by ``_dispatch_sharded`` under the profiler, its packed result read
+    back and its error word checked; then every card of the mesh is
+    synchronized and the key ``launch_wave`` uses is marked warm."""
+    from nomad_tpu_torch.ops.cuda_kernel import raise_on_wave_error
+    from nomad_tpu_torch.parallel.coalesce import (
+        _dispatch_sharded,
+        assemble_sharded_wave,
+    )
+    from nomad_tpu_torch.telemetry.kernel_profile import profiler
+
+    wave = assemble_sharded_wave(*_entry_members(e), mesh)
+    _check_bucket(wave, e)
+    key = (wave.b_pad, wave.t_pad, int(e["nodes"]), *wave.layout,
+           wave.features, tuple(mesh.devices.flat))
+    fout = profiler.call(
+        f"warmup_{kernel}", _dispatch_sharded, (wave.kin,),
+        (wave.step_member, wave.step_local, wave.t_pad, wave.features, mesh,
+         wave.layout, fused), key, mesh.devices.flat[0])
+    raise_on_wave_error(fout.packed.cpu().numpy(), wave.t_pad, wave.b_pad)
+    for d in dict.fromkeys(mesh.devices.flat):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+    warmup_stats.note(kernel)
+    profiler.mark_warm(kernel, key)
+    return True
+
+
+def _warm_fused_sharded(e: Dict, mesh) -> bool:
+    """The sharded hand kernel for a joint entry, where ``launch_wave``
+    would take it: the entry fits the fused envelope, the mesh splits its
+    node axis, and each shard keeps at least TOPK rows for the local
+    top-k merge (the reference's rule, ``nomad_tpu/ops/warmup.py``)."""
+    from nomad_tpu_torch.ops.kernel import TOPK, fused_wave_supported
+    from nomad_tpu_torch.parallel.coalesce import mesh_splits
+
+    if not fused_wave_supported(_features_from_dict(e["features"])):
+        return False
+    n = int(e["nodes"])
+    if not mesh_splits(mesh, n) or n // mesh.size < TOPK:
+        return False
+    return _warm_sharded("fused_wave_sharded", e, mesh, True)
+
+
+def _warm_joint_sharded(e: Dict, mesh) -> bool:
+    """The joint sharded wave for a joint entry the sharded kernel does
+    not take; skipped where the mesh does not split the node axis (the
+    live wave then runs on one device)."""
+    from nomad_tpu_torch.parallel.coalesce import mesh_splits
+
+    if not mesh_splits(mesh, int(e["nodes"])):
+        return False
+    return _warm_sharded("joint_sharded", e, mesh, False)
+
+
 def _warm_single(e: Dict, dev: torch.device) -> bool:
     """The direct single-eval placement of a ``single_topk`` or
     ``single_full`` entry, with the shared planes resident as the live
@@ -406,39 +489,70 @@ def _warm_single(e: Dict, dev: torch.device) -> bool:
 
 
 def warmup_entries(entries: List[Dict], device: DeviceLike = None,
-                   stop: Optional[threading.Event] = None
-                   ) -> Tuple[int, int]:
+                   stop: Optional[threading.Event] = None, mesh=None,
+                   mesh_only: bool = False) -> Tuple[int, int]:
     """Warm every manifest entry on ``device`` (the card unless the caller
-    names the CPU); returns ``(warmed, failed)``. A failed entry is
-    logged, counted and skipped: warmup never stops a server. ``stop``
-    ends the pass between entries (a server shutting down)."""
+    names the CPU; the mesh's first device when only ``mesh`` is given);
+    returns ``(warmed, failed)``, an entry counted once whatever it
+    warmed. A failed entry is logged, counted and skipped: warmup never
+    stops a server, and never changes the route a live wave takes.
+    ``stop`` ends the pass between entries (a server shutting down).
+
+    ``mesh``: first the mesh pass, every joint entry over ``mesh`` as a
+    live wave over it runs (the waves' route), then the one-device pass.
+    ``mesh_only`` skips the one-device pass: the joint entries on one
+    device and the single-eval entries (a server that adopts a mesh after
+    its start-up warmup covered them)."""
     from nomad_tpu_torch.parallel.coalesce import fused_wave_enabled
     from nomad_tpu_torch.tensors.device_state import default_device_state
 
-    dev = resolve_device(device)
-    warmed = failed = 0
-    node_sizes = set()
-    for e in _dedupe(entries):
-        if stop is not None and stop.is_set():
-            break
-        try:
-            if e.get("kernel") == "joint":
-                # the route the launcher takes: B1 when the switch is on
-                # and the entry fits its envelope, else the composite
-                did = (fused_wave_enabled() and _warm_fused(e, dev)) \
-                    or _warm_joint(e, dev)
-            elif e.get("kernel") in ("single_topk", "single_full"):
-                did = _warm_single(e, dev)
-            else:
+    dev = resolve_device(device if device is not None or mesh is None
+                         else mesh.devices.flat[0])
+    entries = _dedupe(entries)
+    did = [False] * len(entries)
+    bad = [False] * len(entries)
+
+    def one_pass(warm) -> None:
+        for i, e in enumerate(entries):
+            if stop is not None and stop.is_set():
+                return
+            if bad[i]:
                 continue
-            if did:
-                warmed += 1
-                node_sizes.add(int(e["nodes"]))
-        except Exception as err:                # noqa: BLE001 - counted, logged
-            failed += 1
-            LOG.warning("kernel warmup entry failed (%s): %s", e, err)
+            try:
+                did[i] = warm(e) or did[i]
+            except Exception as err:            # noqa: BLE001 - counted, logged
+                bad[i] = True
+                LOG.warning("kernel warmup entry failed (%s): %s", e, err)
+
+    def sharded(e: Dict) -> bool:
+        # the route launch_wave takes over the mesh: the sharded kernel
+        # when the switch is on and the entry fits it, else the joint
+        # sharded wave
+        if e.get("kernel") != "joint":
+            return False
+        return (fused_wave_enabled() and _warm_fused_sharded(e, mesh)) \
+            or _warm_joint_sharded(e, mesh)
+
+    def one_device(e: Dict) -> bool:
+        if e.get("kernel") == "joint":
+            # B1 when the switch is on and the entry fits its envelope,
+            # else the composite
+            return (fused_wave_enabled() and _warm_fused(e, dev)) \
+                or _warm_joint(e, dev)
+        if e.get("kernel") in ("single_topk", "single_full"):
+            return _warm_single(e, dev)
+        return False
+
+    if mesh is not None:
+        one_pass(sharded)
+    if not mesh_only:
+        one_pass(one_device)
+    warmed = sum(d and not b for d, b in zip(did, bad))
+    failed = sum(bad)
     # the resident state's dirty-row scatter rides the same node shapes
-    for n in sorted(node_sizes):
+    # (split over the state's mesh when it has one)
+    for n in sorted({int(e["nodes"]) for e, d, b in zip(entries, did, bad)
+                     if d and not b}):
         try:
             default_device_state.warm_scatter(n, dev)
         except Exception as err:                # noqa: BLE001 - counted, logged
@@ -448,12 +562,12 @@ def warmup_entries(entries: List[Dict], device: DeviceLike = None,
 
 
 def warmup_from_manifest(path: str, device: DeviceLike = None,
-                         stop: Optional[threading.Event] = None
-                         ) -> Tuple[int, int]:
+                         stop: Optional[threading.Event] = None, mesh=None,
+                         mesh_only: bool = False) -> Tuple[int, int]:
     """Load ``path`` and warm its entries as they were observed (a caller
     that wants the lattice passes ``expand_lattice`` of the entries to
-    ``warmup_entries``). A missing manifest warms nothing; an unreadable
-    one counts one failure."""
+    ``warmup_entries``; see it for ``mesh`` and ``mesh_only``). A missing
+    manifest warms nothing; an unreadable one counts one failure."""
     try:
         entries = load_manifest(path)
     except FileNotFoundError:
@@ -461,34 +575,40 @@ def warmup_from_manifest(path: str, device: DeviceLike = None,
     except (OSError, ValueError) as err:
         LOG.warning("warmup manifest %s unreadable: %s", path, err)
         return (0, 1)
-    return warmup_entries(entries, device=device, stop=stop)
+    return warmup_entries(entries, device=device, stop=stop, mesh=mesh,
+                          mesh_only=mesh_only)
 
 
 def start_background_warmup(path: str, device: DeviceLike = None,
                             stop: Optional[threading.Event] = None,
-                            on_done=None) -> threading.Thread:
+                            on_done=None, mesh=None,
+                            mesh_only: bool = False) -> threading.Thread:
     """Server-start entry point: warm the manifest on a daemon thread; the
     server keeps serving, and a wave that races the warmup loads its
     kernel first (``load_library`` builds and loads each library once).
     ``on_done(warmed, failed, seconds)`` runs when the pass ends; an
-    error that ends the pass early counts one failure."""
+    error that ends the pass early counts one failure. ``mesh`` and
+    ``mesh_only`` as in ``warmup_entries``."""
     dev = resolve_device(device)
 
     def run() -> None:
         t0 = time.perf_counter()
         warmed = failed = 0
         try:
-            warmed, failed = warmup_from_manifest(path, device=dev,
-                                                  stop=stop)
+            warmed, failed = warmup_from_manifest(
+                path, device=dev, stop=stop, mesh=mesh, mesh_only=mesh_only)
             if warmed or failed:
-                LOG.info("kernel warmup: %d warmed, %d failed (%s)",
-                         warmed, failed, path)
+                LOG.info("kernel warmup%s: %d warmed, %d failed (%s)",
+                         " (mesh)" if mesh_only else "", warmed, failed,
+                         path)
         except Exception as err:                # noqa: BLE001 - counted, logged
             failed += 1
             LOG.warning("kernel warmup failed: %s", err)
         if on_done is not None:
             on_done(warmed, failed, time.perf_counter() - t0)
 
-    t = threading.Thread(target=run, daemon=True, name="kernel-warmup")
+    t = threading.Thread(target=run, daemon=True,
+                         name="mesh-kernel-warmup" if mesh_only
+                         else "kernel-warmup")
     t.start()
     return t

@@ -727,6 +727,13 @@ def _dispatch(stacked, sm, sl, t_pad, feats, resident, fused):
     return fout
 
 
+def mesh_splits(mesh, n_nodes: int) -> bool:
+    """Whether a wave of ``n_nodes`` rows splits its node axis over
+    ``mesh``: only when the mesh's device count divides it (the pad
+    buckets' powers of two cover every power-of-two mesh)."""
+    return mesh is not None and mesh.size >= 2 and n_nodes % mesh.size == 0
+
+
 def _dispatch_sharded(stacked, sm, sl, t_pad, feats, mesh, layout, fused):
     """The fused sharded wave when ``fused``, else the joint sharded wave
     packed as a fused wave's outputs (its carries gathered whole)."""
@@ -773,12 +780,10 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     # wave-launch seam (chaos plane): an injected failure lands on every
     # member of the wave
     fault("wave.launch")
-    # a mesh splits the node axis only when its device count divides it
-    # (the pad buckets' powers of two cover every power-of-two mesh); a
-    # wave that cannot split runs on ``dev``, counted
+    # a wave that cannot split over the mesh runs on ``dev``, counted
     n_nodes = int(kins[0].cap_cpu.shape[-1])
     mesh_size = int(mesh.size) if mesh is not None else 0
-    sharded = mesh_size >= 2 and n_nodes % mesh_size == 0
+    sharded = mesh_splits(mesh, n_nodes)
     t_assemble = time.perf_counter()
     with tracer.span("wave.assemble"):
         if sharded:

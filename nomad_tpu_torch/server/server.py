@@ -430,6 +430,14 @@ class Server:
         # whether THIS server configured the process-wide resident
         # cluster state's mesh (released at shutdown)
         self._owns_device_state_mesh = False
+        # the start-up warmup thread, and the mesh-only pass a mesh
+        # adopted after it runs (both joined at shutdown)
+        self._warmup_thread = None
+        self._mesh_warmup_thread = None
+        self._warmup_started = False
+        self._warmup_lock = threading.Lock()
+        self.warmup_stats = None
+        self.warmup_passes: List[dict] = []
 
     # --- lifecycle ------------------------------------------------------
 
@@ -567,23 +575,59 @@ class Server:
     def _maybe_start_kernel_warmup(self) -> None:
         """Warm the placement kernels' bucket keys recorded in the warmup
         manifest (ops/warmup.py), as observed, on a background thread,
-        so the first evals find every kernel loaded. ``kernel_warmup=None``
-        warms whenever a manifest exists; True forces it (a missing
-        manifest is then zero entries); False disables it. The result
-        lands in ``warmup_stats`` (``warmed``, ``failed``, ``seconds``)."""
+        so the first evals find every kernel loaded: over the server's
+        mesh first when it has one (the waves' route), then on its device
+        (the single-eval launches). ``kernel_warmup=None`` warms whenever
+        a manifest exists; True forces it (a missing manifest is then
+        zero entries); False disables it. The result lands in
+        ``warmup_stats`` (``warmed``, ``failed``, ``seconds``, summed
+        over this pass and a later mesh pass; each pass in
+        ``warmup_passes``)."""
         self._warmup_thread = None
+        self._mesh_warmup_thread = None
         self.warmup_stats = None
+        self.warmup_passes = []
+        self._warmup_started = True
         path = self._warmup_manifest_path()
         if path is None:
             return
         from nomad_tpu_torch.ops.warmup import start_background_warmup
 
-        def done(warmed: int, failed: int, seconds: float) -> None:
-            self.warmup_stats = {"warmed": warmed, "failed": failed,
-                                 "seconds": seconds}
-
         self._warmup_thread = start_background_warmup(
-            path, device=self.device, stop=self._shutdown, on_done=done)
+            path, device=self.device, stop=self._shutdown,
+            on_done=self._warmup_done("start"), mesh=self.wave_mesh)
+
+    def _warmup_done(self, name: str):
+        """``on_done`` of one warm pass: adds it to ``warmup_stats`` and
+        lists it in ``warmup_passes``."""
+        def done(warmed: int, failed: int, seconds: float) -> None:
+            with self._warmup_lock:
+                prior = self.warmup_stats or {
+                    "warmed": 0, "failed": 0, "seconds": 0.0}
+                self.warmup_stats = {
+                    "warmed": prior["warmed"] + warmed,
+                    "failed": prior["failed"] + failed,
+                    "seconds": prior["seconds"] + seconds}
+                self.warmup_passes = self.warmup_passes + [{
+                    "pass": name, "warmed": warmed, "failed": failed,
+                    "seconds": seconds}]
+        return done
+
+    def _maybe_start_mesh_warmup(self, mesh) -> None:
+        """A mesh adopted after ``start()``: warm the manifest's entries
+        over it alone (the start-up pass covered the device), on a daemon
+        thread of its own, under the start-up pass's gating."""
+        path = self._warmup_manifest_path()
+        if path is None or self._shutdown.is_set():
+            return
+        from nomad_tpu_torch.ops.warmup import start_background_warmup
+
+        prior = self._mesh_warmup_thread
+        if prior is not None:
+            prior.join(timeout=self.WARMUP_JOIN_S)
+        self._mesh_warmup_thread = start_background_warmup(
+            path, device=self.device, stop=self._shutdown,
+            on_done=self._warmup_done("mesh"), mesh=mesh, mesh_only=True)
 
     def _warmup_manifest_path(self):
         """The manifest warmup should read, or None when warmup is
@@ -653,9 +697,14 @@ class Server:
         read ``wave_mesh`` per batch, and the process-wide resident state
         splits its generations over it unless another server's mesh is
         there first (that server keeps its residency; this one's waves
-        then ship host planes). Nothing is warmed: the sharded kernel
-        compiles nothing per shape, and its library loads at its first
-        wave unless an earlier launch in the process loaded it."""
+        then ship host planes). A mesh adopted after ``start()`` (a test
+        or the chip smoke giving a server a virtual mesh) is warmed by a
+        mesh-only pass on its own thread, as the JAX server warms the
+        mesh its probe adopts: each manifest key launched once through
+        the sharded kernel, so the first live wave over the mesh finds
+        the library loaded, each card's plan built, peer access on and
+        the allocator warm. A mesh adopted inside ``start()`` is warmed
+        by the start-up pass."""
         self.wave_mesh = mesh
         LOG.info("placement waves sharded over %d devices: %s", mesh.size,
                  mesh)
@@ -668,17 +717,21 @@ class Server:
                 and not self._shutdown.is_set():
             default_device_state.configure_mesh(mesh)
             self._owns_device_state_mesh = True
+        if self._warmup_started:
+            self._maybe_start_mesh_warmup(mesh)
 
     def shutdown(self) -> None:
         self._shutdown.set()
-        # the warmup thread stops between entries; joined so it never
-        # launches on a card the next user of the process takes over
-        t = getattr(self, "_warmup_thread", None)
-        if t is not None:
-            t.join(timeout=self.WARMUP_JOIN_S)
-            if t.is_alive():
-                LOG.warning("kernel warmup still running after %.0f s",
-                            self.WARMUP_JOIN_S)
+        # the warmup threads stop between entries; joined before the
+        # resident state's mesh is released, so none launches over a mesh
+        # or a card the next user of the process takes over
+        for t in (self._warmup_thread, self._mesh_warmup_thread):
+            if t is not None:
+                t.join(timeout=self.WARMUP_JOIN_S)
+                if t.is_alive():
+                    LOG.warning("kernel warmup still running after %.0f s",
+                                self.WARMUP_JOIN_S)
+        self._warmup_started = False
         if self._owns_device_state_mesh:
             # give the resident state back its one-device placement, so a
             # later server without a mesh finds its planes resident

@@ -1129,3 +1129,140 @@ def test_cuda_default_server_places_over_the_cards_mesh(cuda_device):
         assert tp.over_capacity_nodes(srv.state) == 0
     finally:
         srv.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The warmup's mesh pass on the card (ops/warmup.warmup_entries(mesh=))
+# ---------------------------------------------------------------------------
+
+def _mesh_of(layout, cuda_device):
+    """A virtual 4-shard mesh on the card, or a mesh over every card
+    (skipped on a host of one)."""
+    from nomad_tpu_torch.parallel import sharded
+
+    if layout == "virtual":
+        return sharded.wave_mesh(devices=[cuda_device] * 4)
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards or more; this host has {n}")
+    return sharded.wave_mesh(device=cuda_device)
+
+
+def _entry_of(kins, steps, feats):
+    """The manifest entry of the bucket ``launch_wave`` gives these
+    members."""
+    _, union, b_pad, t_pad, layout, *_ = pc._wave_layout(kins, steps, feats)
+    return {"kernel": "joint", "wave": b_pad, "steps": t_pad,
+            "nodes": int(kins[0].cap_cpu.shape[-1]), "shared": layout[0],
+            "neutral_shared": layout[1], "job_shared": layout[2],
+            "features": dict(union._asdict())}
+
+
+def _assert_exact(got, want):
+    for g, w in zip(got, want):
+        for name in ("chosen", "found", "scores"):
+            np.testing.assert_array_equal(getattr(g, name),
+                                          getattr(w, name), name)
+        np.testing.assert_array_equal(np.asarray(g.topk_idx),
+                                      np.asarray(w.topk_idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["virtual", "cards"])
+def test_cuda_mesh_warmup_then_live_wave(layout, cuda_device, monkeypatch):
+    """The mesh pass launches the sharded kernel once over the mesh and
+    marks the live key warm: afterwards the plan of every card and (over
+    several cards) peer access are in place, and the first live wave over
+    the mesh loads no library, builds no plan, enables no peer and counts
+    no miss; it places exactly as B1 on the first card."""
+    from nomad_tpu_torch import telemetry
+    from nomad_tpu_torch.ops import warmup
+    from nomad_tpu_torch.telemetry.kernel_profile import profiler
+
+    mesh = _mesh_of(layout, cuda_device)
+    ordinals = tuple(dict.fromkeys(d.index for d in mesh.devices.flat))
+    kins, feats = tp.wave_members(31, "kitchen_sink", 1000, b=8, lib="port")
+    steps = [tp.K] * len(kins)
+    entry = _entry_of(kins, steps, [feats] * len(kins))
+    n_loc = entry["nodes"] // mesh.size
+    # as in a fresh process: no plan at this shape, peers not recorded
+    for key in [k for k in ck._SHARDED_PLANS if k[2] == n_loc]:
+        del ck._SHARDED_PLANS[key]
+    ck._PEERS.discard(ordinals)
+    profiler.clear_seen()
+    calls = ck.sharded_launches
+    assert warmup.warmup_entries([entry], device=cuda_device, mesh=mesh,
+                                 mesh_only=True) == (1, 0)
+    assert ck.sharded_launches == calls + 1
+    assert len(ordinals) < 2 or ordinals in ck._PEERS
+    planned = {k[0] for k in ck._SHARDED_PLANS if k[2] == n_loc}
+    assert planned == set(ordinals)
+
+    lib = ck._LIBS["sharded_wave"][2]
+    asked = []
+    for name in ("sharded_wave_plan", "sharded_wave_enable_peers"):
+        real = getattr(lib, name)
+
+        def counted(*a, _real=real, _name=name):
+            asked.append(_name)
+            return _real(*a)
+
+        monkeypatch.setattr(lib, name, counted)
+    loads, plans = ck.library_loads, len(ck._SHARDED_PLANS)
+    telemetry.enable()
+    try:
+        telemetry.reset()
+        got = pc.launch_wave(kins, steps, [feats] * len(kins),
+                             device=cuda_device, mesh=mesh)
+        assert profiler.misses_for("fused_wave_sharded") == 0, \
+            profiler.summary()["PerKey"]
+    finally:
+        telemetry.disable()
+        telemetry.reset()
+    assert asked == [] and ck.library_loads == loads
+    assert len(ck._SHARDED_PLANS) == plans
+    assert ck.sharded_launches == calls + 2
+    want = pc.launch_wave(kins, steps, [feats] * len(kins),
+                          device=cuda_device)
+    _assert_exact(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["virtual", "cards"])
+def test_cuda_warm_pass_racing_live_waves(layout, cuda_device):
+    """A mesh pass on another thread (as a server's, after it adopts a
+    mesh) while live waves run over the same mesh: the plans, the peer
+    set and the library are shared by both threads, and every live wave
+    places exactly as B1; the warm passes warm and fail as one alone."""
+    import threading
+
+    from nomad_tpu_torch.ops import warmup
+
+    mesh = _mesh_of(layout, cuda_device)
+    kins, feats = tp.wave_members(32, "shuffle", 1000, b=8, lib="port")
+    steps = [tp.K] * len(kins)
+    fl = [feats] * len(kins)
+    entries = [_entry_of(kins, steps, fl),
+               dict(_entry_of(kins, steps, fl), wave=4,
+                    steps=tk.pad_steps(4 * tp.K))]
+    want = pc.launch_wave(kins, steps, fl, device=cuda_device)
+    stop = threading.Event()
+    passes = []
+
+    def warm():
+        while not stop.is_set():
+            passes.append(warmup.warmup_entries(
+                entries, device=cuda_device, mesh=mesh, mesh_only=True))
+
+    t = threading.Thread(target=warm)
+    t.start()
+    try:
+        for _ in range(8):
+            _assert_exact(pc.launch_wave(kins, steps, fl,
+                                         device=cuda_device, mesh=mesh),
+                          want)
+    finally:
+        stop.set()
+        t.join(timeout=120)
+    assert not t.is_alive()
+    assert passes and set(passes) == {(2, 0)}

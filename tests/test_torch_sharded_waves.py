@@ -9,8 +9,10 @@ counted; sharded waves' keys fold back into mesh-agnostic manifest
 entries; and a port server over an 8-entry CPU mesh places a burst as a
 JAX server over its 8 virtual devices does. The port's own rules are
 held too: a fused sharded launch that raises fails its wave, counted,
-and nothing runs in its place; only ``use_device_mesh=True`` adopts a
-mesh; and adopting one warms nothing.
+and nothing runs in its place; ``use_device_mesh=None`` adopts a mesh
+over the cards only; and the warmup's mesh pass warms the keys a mesh
+server launches, with the reference's skip and route rules, while
+adopting a mesh without warmup launches nothing.
 
 The port's mesh is eight CPU entries (``devices=[cpu] * 8``, the
 ``cpu8`` fixture), the counterpart of the conftest's eight virtual JAX
@@ -348,6 +350,169 @@ class TestShardedManifest:
             (e["wave"], e["steps"], e["nodes"]) for e in joints]
 
 
+def _warm_entries(features=REF_LEAN._replace(with_topk=True)):
+    """One entry of each case of the reference's mesh-pass rules, with
+    the JAX package's feature dicts: a lean fused entry (the sharded
+    kernel), a spread entry (the joint sharded wave), an entry whose
+    shards would be narrower than TOPK (joint), an entry whose node axis
+    an 8-device mesh does not divide (skipped) and a single-eval entry
+    (skipped under ``mesh_only``)."""
+    lean = dict(features._asdict())
+    spread = dict(features._replace(n_spreads=1)._asdict())
+
+    def joint(**kw):
+        return {"kernel": "joint", "wave": 4, "steps": tk.pad_steps(16),
+                "nodes": 256, "shared": True, "neutral_shared": True,
+                "job_shared": True, "features": lean, **kw}
+
+    return [joint(), joint(features=spread), joint(nodes=32),
+            joint(nodes=100, shared=False),
+            {"kernel": "single_topk", "nodes": 256, "steps": 4,
+             "features": lean}]
+
+
+_ROUTES = {
+    "_warm_fused_sharded": "fused_wave_sharded",
+    "_warm_joint_sharded": "joint_sharded",
+    "_warm_fused": "fused_wave", "_warm_joint": "joint",
+    "_warm_single": "single",
+}
+
+
+def _record_routes(monkeypatch, module, calls: list) -> None:
+    """Wrap ``module``'s warm functions: each one that warms an entry
+    appends ``(entry's position, route)`` to ``calls``."""
+    for name, route in _ROUTES.items():
+        real = getattr(module, name)
+
+        def wrapped(e, *a, _real=real, _route=route):
+            did = _real(e, *a)
+            if did:
+                calls.append((e["_pos"], _route))
+            return did
+
+        monkeypatch.setattr(module, name, wrapped)
+
+
+class TestShardedWarmup:
+    @pytest.mark.parametrize("mesh_only", [True, False])
+    def test_mesh_pass_matches_the_reference(self, cpu8, counts,
+                                             monkeypatch, mesh_only):
+        """``warmup_entries(mesh=, mesh_only=)`` over the port's 8-entry
+        CPU mesh and the JAX package's 8 virtual devices: the same
+        ``(warmed, failed)`` and the same route for each entry; the port
+        warms every mesh entry before any one-device entry."""
+        entries = [dict(e, _pos=i) for i, e in enumerate(_warm_entries())]
+        ref_calls, calls = [], []
+        _record_routes(monkeypatch, ref_warmup, ref_calls)
+        _record_routes(monkeypatch, kernel_warmup, calls)
+        ref = ref_warmup.warmup_entries(entries, mesh=ref_sharded.wave_mesh(8),
+                                        mesh_only=mesh_only)
+        kernel_warmup.warmup_stats.reset()
+        got = kernel_warmup.warmup_entries(
+            entries, device="cpu", mesh=sharded.wave_mesh(devices=cpu8),
+            mesh_only=mesh_only)
+        assert got == ref == ((3, 0) if mesh_only else (5, 0))
+        assert sorted(calls) == sorted(ref_calls)
+        # the waves' route first: the three mesh entries, in order
+        assert calls[:3] == [(0, "fused_wave_sharded"), (1, "joint_sharded"),
+                             (2, "joint_sharded")]
+        assert not any("sharded" in r for _, r in calls[3:])
+        stats = kernel_warmup.warmup_stats.snapshot()
+        assert stats["fused_wave_sharded"] == 1
+        assert stats["joint_sharded"] == 2
+
+    def test_warmed_sharded_key_counts_no_miss(self, wave_mesh, counts):
+        """The counterpart of the reference's
+        ``TestShardedWarmup::test_warmup_populates_sharded_jit_signatures``:
+        an entry warmed over the mesh leaves its live sharded launch no
+        miss."""
+        _, _, kins, steps, feats = _shared_layout_wave(seed=11)
+        _, union, b_pad, t_pad, layout, *_ = coalesce._wave_layout(
+            kins, steps, feats)
+        entry = {"kernel": "joint", "wave": b_pad, "steps": t_pad,
+                 "nodes": int(kins[0].cap_cpu.shape[-1]),
+                 "shared": layout[0], "neutral_shared": layout[1],
+                 "job_shared": layout[2], "features": dict(union._asdict())}
+        profiler.clear_seen()
+        assert kernel_warmup.warmup_entries(
+            [entry], device="cpu", mesh=wave_mesh, mesh_only=True) == (1, 0)
+        telemetry.enable()
+        telemetry.reset()
+        coalesce.launch_wave(kins, steps, feats, device="cpu",
+                             mesh=wave_mesh)
+        assert profiler.summary()["Launches"] == 1
+        assert profiler.misses_for("fused_wave_sharded") == 0, \
+            profiler.summary()["PerKey"]
+
+    def test_racing_first_calls_share_one_neutral_singleton(
+            self, monkeypatch):
+        """Eval threads racing to a node size's first neutral planes all
+        get one object, so a process's first wave shares the neutral
+        group as every later wave does and takes the key the warm pass
+        warmed."""
+        import threading
+        import time
+
+        real = tk._frozen
+
+        def slow(a):
+            time.sleep(0.002)
+            return real(a)
+
+        monkeypatch.setattr(tk, "_frozen", slow)
+        n, k = 4096 + 8 * 37, 24
+        for cache, key in ((tk._NEUTRAL_CACHE, n),
+                           (tk._NEUTRAL_STEP_CACHE, k),
+                           (tk._NEUTRAL_WORDS_CACHE, (n, 3))):
+            cache.pop(key, None)
+        start = threading.Barrier(8)
+        got = []
+
+        def first_call():
+            start.wait()
+            got.append((tk.neutral_planes(n), tk.neutral_step_planes(k),
+                        tk.neutral_port_words(n, 3)))
+
+        threads = [threading.Thread(target=first_call) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for i in range(3):
+            assert len({id(g[i]) for g in got}) == 1
+
+    def test_warm_pass_racing_live_waves_places_as_b1(self, wave_mesh,
+                                                      counts):
+        """A mesh pass on another thread, over the same mesh, while live
+        waves run: every live wave places exactly as B1 on one device."""
+        import threading
+
+        _, _, kins, steps, feats = _shared_layout_wave(seed=17)
+        want = coalesce.launch_wave(kins, steps, feats, device="cpu")
+        stop = threading.Event()
+        passes = []
+
+        def warm():
+            while not stop.is_set():
+                passes.append(kernel_warmup.warmup_entries(
+                    _warm_entries(tk.LEAN_FEATURES._replace(with_topk=True)),
+                    device="cpu", mesh=wave_mesh, mesh_only=True))
+
+        t = threading.Thread(target=warm)
+        t.start()
+        try:
+            for _ in range(4):
+                _assert_same_outs(coalesce.launch_wave(
+                    kins, steps, feats, device="cpu", mesh=wave_mesh), want)
+        finally:
+            stop.set()
+            t.join(timeout=60)
+        assert passes and set(passes) == {(3, 0)}
+        stats = coalesce.sharded_wave_stats.snapshot()
+        assert stats["launches"] == 4 and stats["fallbacks"] == 0
+
+
 # ---------------------------------------------------------------------------
 # Servers over a mesh, the port beside the JAX package.
 # ---------------------------------------------------------------------------
@@ -557,10 +722,11 @@ def test_agent_scrape_reads_the_sharded_series(cpu8, counts, monkeypatch,
 def test_mesh_server_manifest_round_trip(cpu8, counts, tmp_path):
     """The reference's mini-mesh smoke, through the server: a mesh
     server's burst persists its sharded keys as mesh-agnostic manifest
-    entries; a second server warms those entries on its one device at
-    start (no sharded warm launch), adopts its mesh, and its bursts of
-    the same shape run sharded with no fallback, the resident state
-    advancing by the sharded scatter."""
+    entries; a second server, as a fresh process would (no key seen),
+    warms those entries on its one device at start and over the mesh it
+    adopts after, and its bursts of the same shape run sharded with no
+    fallback and no sharded miss, the resident state advancing by the
+    sharded scatter."""
     import time
 
     from nomad_tpu_torch import mock as port_mock
@@ -611,16 +777,26 @@ def test_mesh_server_manifest_round_trip(cpu8, counts, tmp_path):
 
     kernel_warmup.warmup_stats.reset()
     telemetry.reset()
+    profiler.clear_seen()
     srv = server()
     try:
-        srv._warmup_thread.join(timeout=60)
+        for t in (srv._warmup_thread, srv._mesh_warmup_thread):
+            t.join(timeout=60)
         warmed = kernel_warmup.warmup_stats.snapshot()
-        assert warmed and not any("sharded" in k for k in warmed), warmed
+        assert warmed.get("fused_wave_sharded", 0) >= 1, warmed
+        assert warmed.get("fused_wave", 0) >= 1, warmed
+        assert srv.warmup_stats["failed"] == 0, srv.warmup_stats
+        assert sorted(p["pass"] for p in srv.warmup_passes) == [
+            "mesh", "start"]
         telemetry.reset()
         burst(srv)
         burst(srv)
         stats = coalesce.sharded_wave_stats.snapshot()
         assert stats["launches"] >= 2 and stats["fallbacks"] == 0, stats
+        # every sharded key the bursts launched was warmed
+        assert profiler.misses_for("fused_wave_sharded") == 0, \
+            profiler.summary()["PerKey"]
+        assert profiler.misses_for("joint_sharded") == 0
         # the second burst's planes advanced from the first's by the
         # sharded scatter
         assert default_device_state.snapshot()["delta_advances"] >= 1
@@ -659,3 +835,94 @@ def test_adopting_a_mesh_launches_nothing(cpu8, counts, tmp_path):
     finally:
         srv.shutdown()
     assert srv.wave_mesh is None and default_device_state.mesh is None
+
+
+def _one_entry_manifest(path: str) -> str:
+    kernel_warmup.save_manifest([{
+        "kernel": "joint", "wave": 4, "steps": tk.pad_steps(16),
+        "nodes": 256, "shared": True, "neutral_shared": True,
+        "job_shared": True,
+        "features": dict(tk.LEAN_FEATURES._replace(
+            with_topk=True)._asdict())}], path)
+    return path
+
+
+def test_mesh_from_start_is_warmed_by_the_start_up_pass(cpu8, counts,
+                                                       monkeypatch,
+                                                       tmp_path):
+    """A mesh adopted inside ``start()`` (eight CPU entries patched in as
+    the devices): the one start-up thread warms the entry over the mesh
+    and on the device, counted once, and no mesh-only pass runs."""
+    from nomad_tpu_torch.parallel import mesh as mesh_mod
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+
+    manifest = _one_entry_manifest(str(tmp_path / "manifest.json"))
+    monkeypatch.setattr(mesh_mod, "available_devices", lambda d=None: cpu8)
+    kernel_warmup.warmup_stats.reset()
+    srv = Server(ServerConfig(num_workers=0, use_device_mesh=True,
+                              kernel_warmup=True,
+                              warmup_manifest_path=manifest), device="cpu")
+    srv.start()
+    try:
+        assert srv.wave_mesh is not None and srv.wave_mesh.size == 8
+        srv._warmup_thread.join(timeout=60)
+        assert srv._mesh_warmup_thread is None
+        assert kernel_warmup.warmup_stats.snapshot() == {
+            "fused_wave_sharded": 1, "fused_wave": 1}
+        assert srv.warmup_stats["warmed"] == 1
+        assert srv.warmup_stats["failed"] == 0
+        assert [p["pass"] for p in srv.warmup_passes] == ["start"]
+    finally:
+        srv.shutdown()
+    assert default_device_state.mesh is None
+
+
+def test_mesh_adopted_after_start_is_warmed_and_joined(cpu8, counts,
+                                                      monkeypatch,
+                                                      tmp_path):
+    """``_adopt_wave_mesh`` after ``start()`` with a manifest runs a
+    mesh-only pass on its own thread; ``shutdown()`` joins it before it
+    gives the resident state's mesh back."""
+    import threading
+    import time
+
+    from nomad_tpu_torch.server.server import Server, ServerConfig
+
+    manifest = _one_entry_manifest(str(tmp_path / "manifest.json"))
+    entered = threading.Event()
+    real_warm = kernel_warmup._warm_sharded
+
+    def slow_warm(*a, **k):
+        entered.set()
+        time.sleep(0.3)
+        return real_warm(*a, **k)
+
+    monkeypatch.setattr(kernel_warmup, "_warm_sharded", slow_warm)
+    srv = Server(ServerConfig(num_workers=0, kernel_warmup=True,
+                              warmup_manifest_path=manifest), device="cpu")
+    released = []
+    real_configure = default_device_state.configure_mesh
+
+    def configure(mesh):
+        if mesh is None:
+            released.append(srv._mesh_warmup_thread.is_alive())
+        return real_configure(mesh)
+
+    monkeypatch.setattr(default_device_state, "configure_mesh", configure)
+    kernel_warmup.warmup_stats.reset()
+    srv.start()
+    srv._warmup_thread.join(timeout=60)
+    assert srv._mesh_warmup_thread is None
+    mesh = sharded.wave_mesh(devices=cpu8)
+    srv._adopt_wave_mesh(mesh)
+    t = srv._mesh_warmup_thread
+    assert t is not None and t.name == "mesh-kernel-warmup"
+    assert entered.wait(10)
+    srv.shutdown()
+    assert released == [False] and not t.is_alive()
+    assert srv.wave_mesh is None and default_device_state.mesh is None
+    assert kernel_warmup.warmup_stats.snapshot() == {
+        "fused_wave": 1, "fused_wave_sharded": 1}
+    passes = {p["pass"]: p for p in srv.warmup_passes}
+    assert passes["mesh"]["warmed"] == 1 and passes["mesh"]["failed"] == 0
+    assert srv.warmup_stats["warmed"] == 2
