@@ -71,8 +71,13 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     fallbacks, plans and rejected node plans, full collections and their
     pause, group commits, the restore's time). Every timed job must have
     its 10 allocations, no node may be over capacity, the broker must end
-    empty with no failed eval, and B1 must have launched fewer times than
-    there were evals. Each arm also reports the device-resident cluster
+    empty with no failed eval but one whose plans were rejected five
+    times and whose blocked follow-up, released by the leader's
+    failed-eval unblock loop (each minute, Nomad's
+    periodicUnblockFailedEvals), completed, and B1 must have launched
+    fewer times than there were evals. Each arm prints how many evals
+    that loop released in its burst and how many failed so. Each arm
+    also reports the device-resident cluster
     state's counters over the burst (hits, scatter advances, rows, full
     uploads, forks, evictions, errors: any error fails the run) and the
     wave launcher's upload bytes per wave; after the window-off arm, the
@@ -140,7 +145,9 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     failover (kill, leader won, established, the new leader's first
     wave, converged; the timeline's phases), the restart's recovery and
     catch-up, resident generations and bytes, the interpreter's stalls,
-    worker errors before the burst, thread errors and the child's RSS;
+    worker errors before the burst, thread errors and the child's RSS,
+    and the vote threads that an exception ended, counted in the
+    child's log (a RequestVote reaching a recovering server; must be 0);
 15. the agent: ``python -m nomad_tpu_torch agent -config <file>
     -http-port 0`` in a child process on the card (the config gives phase
     11's window-off shape: one worker, batches of 32, no warmup
@@ -252,8 +259,26 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     sharded kernel's entry in the kernels' JSON line.
     ``chip_smoke.py --mesh-phase`` runs phase 12's three fresh
     processes over a mesh (``run_mesh_warm_start``), then phase 11's
-    window-off arm and this phase alone (``--device cpu`` rehearses
-    them).
+    window-off arm and this phase alone, then phase 18 (over four cards
+    when the host has them; ``--device cpu`` rehearses them);
+18. the batched placement step over an (evals, nodes) mesh
+    (``run_place_batch_phase``): ``entry.dryrun_multichip(8)`` over eight
+    virtual positions of the card (its asserts, then a live server whose
+    waves run over them); then ``sharded.make_place_batch`` at full width
+    (32 evals x 10 placements, 10,000 nodes, N=16384, each eval its own
+    planes): the dry run's mix (a spread on every even eval) and an
+    all-lean batch over a (2, 4) mesh, where each eval in the fused
+    envelope is one sharded-kernel call, and the all-lean batch over a
+    (2, 1) mesh, where it is one B1 call. Counts set to 0 just before the
+    three batches' first routed calls and read just after: 16 / 32 / 32
+    kernel calls, 16 / 0 / 0 plain evals, one cluster launch a card a
+    sharded call. Each batch against the plain step (every eval through
+    the torch-op body) on the card: i32 outputs exact, scores within
+    ATOL, near-ties counted apart; CUDA-event ms a batch beside the plain
+    step's and beside placing its leaves, and ``place_batch_bound``. One
+    ``place batch: {...}`` line. ``chip_smoke.py --place-batch-phase``
+    runs it alone (over four cards, a (2, 2) mesh and the dry run at 4,
+    when the host has them).
 
 Any mismatch exits non-zero without the final line. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name
@@ -265,10 +290,12 @@ processes' timed bursts under ``workerproc_launches``, in phase 14's
 timed burst, both leaders', under ``raft_launches``, in phase 15's
 timed burst, read from the agent's scrape, under ``agent_launches``,
 in phase 16's burst of client jobs under ``client_launches``, and in
-phase 17's unsharded reference waves under ``mesh_launches``; the
-warm-up launches of phase 12 are counted apart, in its child processes;
-the sharded kernel's entry counts its calls in phase 17's timed server
-burst, and its kernel launches there under ``cluster_launches``).
+phase 17's unsharded reference waves under ``mesh_launches`` and in
+phase 18's batches under ``place_batch_launches``; the warm-up launches
+of phase 12 are counted apart, in its child processes; the sharded
+kernel's entry counts its calls in phase 17's timed server burst, its
+kernel launches there under ``cluster_launches``, and its calls in
+phase 18's batches under ``place_batch_launches``).
 A full
 record goes to chiprun_out/chip_smoke.json.
 """
@@ -279,6 +306,7 @@ import gc
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -303,6 +331,7 @@ from nomad_tpu_torch.ops.kernel import (
     unpack_fused_wave,
 )
 from nomad_tpu_torch.parallel import batching, c2m, coalesce, sharded
+from nomad_tpu_torch.parallel import mesh as pmesh
 from nomad_tpu_torch.parallel.synthetic import (
     C2M_SHAPE_CPU,
     C2M_SHAPE_MEM,
@@ -584,6 +613,8 @@ def main() -> int:
         return client_phase_alone(sys.argv[2:])
     if sys.argv[1:2] == ["--mesh-phase"]:
         return mesh_phase_alone(sys.argv[2:])
+    if sys.argv[1:2] == ["--place-batch-phase"]:
+        return place_batch_alone(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke run needs an NVIDIA card", file=sys.stderr)
@@ -624,6 +655,7 @@ def main() -> int:
     mesh = run_mesh_phase(dev, record, state_bytes, server[-1],
                           record["warm_start_manifest"])
     del state_bytes
+    place_batch = run_place_batch_phase(dev, record)
     kline["kernels"][0]["server_launches"] = sum(
         arm["b1_launches"] for arm in server)
     kline["kernels"][0]["workerproc_launches"] = sum(
@@ -632,7 +664,11 @@ def main() -> int:
     kline["kernels"][0]["agent_launches"] = agent["agent_launches"]
     kline["kernels"][0]["client_launches"] = client["client_launches"]
     kline["kernels"][0]["mesh_launches"] = mesh["b1_launches"]
+    kline["kernels"][0]["place_batch_launches"] = \
+        place_batch["launches"]["b1"]
     kline["kernels"].append(mesh["kernel_entry"])
+    kline["kernels"][-1]["place_batch_launches"] = \
+        place_batch["launches"]["kernel"]
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -1533,18 +1569,34 @@ def server_converged(srv, jobs, deadline: float) -> float:
          f"plan groups {plan_group_stats.snapshot()}")
 
 
-def check_server_burst(srv, jobs, ctx: str) -> None:
-    """Every job has its placements live, no eval failed, none is left in
-    the broker (its failed queue included), no node is over capacity."""
+def check_server_burst(srv, jobs, ctx: str) -> int:
+    """Every job has its placements live, no eval failed but on rejected
+    plans with its follow-up complete, none is left in the broker (its
+    failed queue included), no node is over capacity. An eval whose plans
+    were rejected too often fails with a blocked follow-up (Nomad's
+    max-plan-attempts); the leader's failed-eval unblock loop releases
+    that, and it places the job. Returns how many evals failed so."""
     snap = srv.state.snapshot()
     for job in jobs:
         live = [a for a in snap.allocs_by_job(job.namespace, job.id)
                 if not a.terminal_status()]
         check(len(live) == c2m.BURST_COUNT,
               f"{ctx}: job {job.id} has {len(live)} live allocs")
-    failed = [e.id for e in snap.evals_iter()
+    def completed_later(ev) -> bool:
+        # a follow-up that failed on its plans again has its own
+        while (ev is not None and ev.status == consts.EVAL_STATUS_FAILED
+               and ev.status_description.startswith("maximum attempts")
+               and ev.blocked_eval):
+            ev = snap.eval_by_id(ev.blocked_eval)
+        return ev is not None and ev.status == consts.EVAL_STATUS_COMPLETE
+
+    failed = [e for e in snap.evals_iter()
               if e.status == consts.EVAL_STATUS_FAILED]
-    check(not failed, f"{ctx}: {len(failed)} failed evals")
+    followed = [e for e in failed if completed_later(e)]
+    check(len(followed) == len(failed),
+          f"{ctx}: {len(failed) - len(followed)} failed evals "
+          f"({len(failed)} failed, {len(followed)} of them on rejected "
+          "plans with their follow-up complete)")
     bs = srv.eval_broker.stats()
     check(bs["total_ready"] == bs["total_unacked"] == bs["total_waiting"]
           == 0, f"{ctx}: broker not empty: {bs}")
@@ -1552,6 +1604,7 @@ def check_server_burst(srv, jobs, ctx: str) -> None:
     check(not errors, f"{ctx}: worker errors: {errors[:1]}")
     over = store_over_capacity(srv.state, coalesce.ClusterCache(srv.device))
     check(over == 0, f"{ctx}: {over} nodes over capacity")
+    return len(followed)
 
 
 def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
@@ -1597,6 +1650,7 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
         coalesce.upload_stats.reset()
         default_device_state.reset_stats()
         waves0, requests0 = w.batch_launches, w.batch_requests
+        released0 = srv.failed_evals_unblocked
         pauses = GcPauses()
         ck.launches = 0
         gc.callbacks.append(pauses)
@@ -1622,7 +1676,8 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
         ineligible = sum(
             1 for n in srv.state.snapshot().nodes()
             if n.scheduling_eligibility == consts.NODE_SCHEDULING_INELIGIBLE)
-        check_server_burst(srv, jobs, ctx)
+        plan_failed = check_server_burst(srv, jobs, ctx)
+        released = srv.failed_evals_unblocked - released0
         resident = None if adaptive else check_resident(srv, dev, ctx)
     finally:
         t0 = time.perf_counter()
@@ -1664,6 +1719,11 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
         "vector_plans": group["vector_plans"],
         "fallback_plans": group["fallback_plans"],
         "rejected_node_plans": group["rejected_node_plans"],
+        # evals of the arm's store that failed on rejected plans, and the
+        # blocked follow-ups the leader's failed-eval unblock loop
+        # released in the burst
+        "plan_failed_evals": plan_failed,
+        "released_evals": released,
         "ineligible_nodes": ineligible,
         "device_state": dstate,
         "wave_uploads": uploads[0], "wave_upload_bytes": uploads[1],
@@ -1738,6 +1798,10 @@ def run_server_phase(dev: torch.device, record: dict,
         gc.collect()
         arm["collect_after_s"] = time.perf_counter() - t0
         log(f"server: {json.dumps(arm)}")
+        log(f"server: gc_tuning={gc_tuning} coalesce_adaptive={adaptive}: "
+            f"{arm['released_evals']} evals released by the failed-eval "
+            f"unblock loop, {arm['plan_failed_evals']} failed on rejected "
+            f"plans, {arm['rejected_node_plans']} rejected node plans")
         arms.append(arm)
     record["server"] = arms
     return arms
@@ -2495,6 +2559,11 @@ SETTLE_S = 1.2
 STALL_S = 0.05
 
 
+#: the header Python prints for a vote thread that an exception ended
+VOTE_THREAD_ERROR = re.compile(
+    r"^Exception in thread .*\(_request_vote_from\)", re.M)
+
+
 def run_raft_phase(record: dict, state_bytes: bytes, card: str) -> dict:
     """Phase 14: phase 11's snapshot bytes in a fresh process that runs a
     three-server durable raft cluster through a leader's kill and its
@@ -2521,9 +2590,17 @@ def run_raft_phase(record: dict, state_bytes: bytes, card: str) -> dict:
               f"raft cluster failed (exit {proc.returncode}): "
               f"{proc.stderr[-3000:]}")
         res = json.loads(out.read_text())
+    # a vote thread that a recovering server's RequestVote handler ended
+    # with an exception (ROADMAP C.2, repaired in raft/node)
+    res["vote_thread_errors"] = len(VOTE_THREAD_ERROR.findall(proc.stderr))
     res["process_s"] = time.perf_counter() - t0
     res["card"] = card
+    log(f"raft: {res['vote_thread_errors']} vote threads ended by an "
+        "exception in the child's log")
     log(f"raft: {json.dumps(res)}")
+    check(res["vote_thread_errors"] == 0,
+          f"raft: {res['vote_thread_errors']} vote threads ended by an "
+          "exception")
     record["raft"] = res
     return res
 
@@ -5012,11 +5089,205 @@ def run_mesh_warm_start(state_bytes: bytes, device: str = "cuda",
     return runs, entries
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the batched placement step over an (evals, nodes) mesh.
+# ---------------------------------------------------------------------------
+
+PB_EVALS = B_WAVE              # evals a batch (a worker batch's 32)
+PB_NODES = MESH_LIVE_NODES     # 10,000 nodes: N=16384, c2m's width
+PB_PLACE = K_PLACE             # placements an eval (k_pad 16)
+PB_MESH = (2, 4)               # evals x nodes, virtual on one card
+PB_CARDS_MESH = (2, 2)         # over four cards (--mesh-phase)
+PB_B1_MESH = (2, 1)            # rows of one node shard: B1
+PB_REPEATS = 3                 # timed calls of the routed step (lean)
+
+
+def place_batch_kins(n_evals: int, mix: bool) -> list:
+    """A batch of independent problems as the multi-chip dry run builds
+    them at full width (``place_batch_bound``'s): ``mix`` puts a spread
+    on every even eval, else every eval is lean."""
+    from nomad_tpu_torch.parallel.synthetic import synthetic_kernel_in
+
+    return [synthetic_kernel_in(n_nodes=PB_NODES, n_steps=PB_PLACE,
+                                with_spread=mix and i % 2 == 0,
+                                used_frac=0.4, seed=i)
+            for i in range(n_evals)]
+
+
+def place_batch_counts() -> dict:
+    """B1's and the sharded kernel's launches so far, and the step's
+    route counts."""
+    return {"b1": ck.launches, "kernel": ck.sharded_launches,
+            "clusters": cluster_launches(),
+            **sharded.place_batch_stats.snapshot()}
+
+
+def place_batch_check(name: str, stacked, mesh, dev,
+                      repeats: int = PB_REPEATS) -> dict:
+    """One batch through the routed step and the plain step on ``mesh``:
+    every eval held against the plain step's (i32 outputs exact, scores
+    within ATOL, near-ties counted apart), the routed step's CUDA-event
+    ms (``repeats`` calls) beside the plain step's (one call) and beside
+    placing the batch's leaves alone (its upload, part of every call)."""
+    k_pad = pad_steps(PB_PLACE)
+    place_ms = event_ms(lambda: sharded.place_args(
+        stacked, sharded.batched_in_shardings(mesh)))[1]
+    routed = sharded.make_place_batch(mesh, k_pad)
+    plain = sharded.make_place_batch(mesh, k_pad, plain=True)
+    got = sharded.unstack_kernel_outs(routed(stacked))
+    want_out, plain_ms = event_ms(lambda: plain(stacked))
+    want = sharded.unstack_kernel_outs(want_out)
+    errs, near_ties, placed = [], 0, 0
+    for e, (g, w) in enumerate(zip(got, want)):
+        res = compare_waves([g], [w], f"place batch {name} eval {e}")
+        errs.append(res["max_abs_err"])
+        near_ties += res["near_ties"]
+        placed += res["placed"]
+    ms = sorted(event_ms(lambda: routed(stacked))[1]
+                for _ in range(repeats))
+    return {"batch": name, "mesh": dict(mesh.shape),
+            "evals": len(got), "placed": placed,
+            "max_abs_err": max(errs), "near_ties": near_ties,
+            "ms": ms, "ms_median": ms[len(ms) // 2], "plain_ms": plain_ms,
+            "place_ms": place_ms}
+
+
+def run_place_batch_phase(dev: torch.device, record: dict,
+                          cards: list = None) -> dict:
+    """Phase 18: ``entry.dryrun_multichip(8)`` over eight virtual
+    positions of the card (or ``dryrun_multichip(4)`` over ``cards``),
+    then ``sharded.make_place_batch`` at full width: the dry run's mix
+    and an all-lean batch over ``PB_MESH`` (``PB_CARDS_MESH`` over
+    ``cards``), where every eval in the envelope is one call of the
+    sharded kernel, and the all-lean batch over ``PB_B1_MESH``, where it
+    is one call of B1. The counts are set to 0 just before the three
+    batches' first routed calls (the main path) and read just after:
+    each lean eval one kernel call, each spread eval one plain eval, one
+    cluster launch a card a sharded call. Each batch is then held against
+    the plain step and timed beside it. One ``place batch: {...}``
+    line."""
+    from nomad_tpu_torch import entry
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    if cards:
+        dry = entry.dryrun_multichip(len(cards), devices=cards)
+    else:
+        dry = entry.dryrun_multichip(8, devices=[dev] * 8)
+    dry_s = time.perf_counter() - t0
+    check(dry["routes"]["kernel_calls"] == dry["batch"] // 2
+          and dry["routes"]["plain_evals"] == dry["batch"] // 2,
+          f"place batch: the dry run's routes {dry['routes']}")
+    log(f"place batch: dry run over {dry['mesh']} in {dry_s:.1f} s: "
+        f"routes {dry['routes']}, {dry['placed']} live allocs, "
+        f"{dry['sharded_waves']} sharded waves")
+
+    def mesh_of(shape, devices):
+        n = shape[0] * shape[1]
+        return pmesh.make_mesh(n, evals_parallel=shape[0],
+                               devices=devices[:n])
+
+    if cards:
+        main_mesh = mesh_of(PB_CARDS_MESH, cards)
+        b1_mesh = mesh_of(PB_B1_MESH, cards)
+    else:
+        main_mesh = mesh_of(PB_MESH, [dev] * 8)
+        b1_mesh = mesh_of(PB_B1_MESH, [dev] * 2)
+    # the cards one sharded call spans: one evals row's
+    n_cards = len({main_mesh.devices.flat[p]
+                   for p in main_mesh.node_rows()[0]})
+    mix = sharded.stack_kernel_ins(place_batch_kins(PB_EVALS, True))
+    lean = sharded.stack_kernel_ins(place_batch_kins(PB_EVALS, False))
+    batches = (("mix", mix, main_mesh), ("lean", lean, main_mesh),
+               ("lean_b1", lean, b1_mesh))
+    k_pad = pad_steps(PB_PLACE)
+    steps = {n: sharded.make_place_batch(m, k_pad) for n, _, m in batches}
+    torch.cuda.synchronize()
+    # the main path: the three batches' first routed calls
+    drive = {}
+    for name, stacked, _ in batches:
+        a = place_batch_counts()
+        steps[name](stacked)
+        torch.cuda.synchronize()
+        b = place_batch_counts()
+        drive[name] = {k: b[k] - a[k] for k in b}
+    launches = {k: sum(d[k] for d in drive.values()) for k in a}
+    half = PB_EVALS // 2
+    want = {"mix": {"b1": 0, "kernel": half, "plain_evals": half},
+            "lean": {"b1": 0, "kernel": PB_EVALS, "plain_evals": 0},
+            "lean_b1": {"b1": PB_EVALS, "kernel": 0, "plain_evals": 0}}
+    for name, counts in drive.items():
+        got = {k: counts[k] for k in want[name]}
+        check(got == want[name],
+              f"place batch {name}: launches {counts}, want {want[name]}")
+        check(counts["clusters"] == counts["kernel"] * n_cards,
+              f"place batch {name}: {counts['clusters']} cluster launches "
+              f"for {counts['kernel']} sharded calls over {n_cards} cards")
+    # the mix's routed time is its plain evals': timed once
+    checks = [place_batch_check(n, x, m, dev, 1 if n == "mix" else
+                                PB_REPEATS) for n, x, m in batches]
+    pb = place_batch_bound(PB_EVALS, PB_NODES, PB_PLACE)
+    res = {
+        "dry_run": {k: v for k, v in dry.items() if k != "outs"},
+        "dry_run_s": dry_s, "cards": n_cards, "drive": drive,
+        "launches": launches, "batches": checks,
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "near_ties": sum(c["near_ties"] for c in checks),
+        "bound_ms": pb["bound_ms"], "bound_by": pb["bound_by"],
+        "bound": pb, "phase_s": time.perf_counter() - t_phase,
+    }
+    for c in checks:
+        log(f"place batch {c['batch']} over {c['mesh']}: "
+            f"{c['ms_median']:.3f} ms a batch of {c['evals']} (routed, "
+            f"median of {len(c['ms'])}; placing its leaves "
+            f"{c['place_ms']:.3f} ms) beside {c['plain_ms']:.1f} ms plain; "
+            f"{drive[c['batch']]['kernel_calls']} kernel calls, "
+            f"{drive[c['batch']]['plain_evals']} plain evals; max abs err "
+            f"{c['max_abs_err']}, {c['near_ties']} near-ties; bound "
+            f"{pb['bound_ms'] * 1e3:.1f} us ({pb['bound_by']})")
+    log(f"place batch: {json.dumps(res)}")
+    record["place_batch"] = res
+    return res
+
+
+def place_batch_alone(argv: list) -> int:
+    """``chip_smoke.py --place-batch-phase``: phase 18 alone on the card,
+    over four cards (mesh (2, 2), the dry run at 4) when the host has
+    four or more, else over the one card's virtual positions. Builds the
+    kernels first; prints the card's line; writes
+    chiprun_out/place_batch_phase.json."""
+    if argv:
+        print(f"chip_smoke: --place-batch-phase takes no arguments, got "
+              f"{argv}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: --place-batch-phase needs an NVIDIA card",
+              file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"card: {card}")
+    ck.load_libraries()
+    cards = ([torch.device("cuda", i) for i in range(4)]
+             if torch.cuda.device_count() >= 4 else None)
+    res = run_place_batch_phase(torch.device("cuda"), {}, cards)
+    res["card"] = card
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "place_batch_phase.json").write_text(json.dumps(res,
+                                                               indent=1))
+    return 0
+
+
 def mesh_phase_alone(argv: list) -> int:
     """``chip_smoke.py --mesh-phase [--device cpu] [--nodes N] [--allocs
     M]``: the warm start over a mesh (``run_mesh_warm_start``), phase
     11's window-off arm, then phase 17, on the state of
-    ``c2m.generate(N, M)`` (10,000 nodes and 100k allocs unless given).
+    ``c2m.generate(N, M)`` (10,000 nodes and 100k allocs unless given),
+    then phase 18 (over four cards when the host has four or more;
+    ``--nodes`` also sizes its batches on the CPU).
     On the card the kernels are built first. ``--device cpu`` rehearses
     it on the CPU at the cluster sizes given (``--nodes`` also sizes part
     A's clusters), with host-clock times and B1's and the sharded
@@ -5064,6 +5335,12 @@ def mesh_phase_alone(argv: list) -> int:
     if args.device == "cuda":
         res = run()
         res["warm_start"] = warm_start
+        n = torch.cuda.device_count()
+        cards = ([torch.device("cuda", i) for i in range(4)] if n >= 4
+                 else None)
+        res["place_batch"] = run_place_batch_phase(dev, {}, cards)
+        res["kernel_entry"]["place_batch_launches"] = \
+            res["place_batch"]["launches"]["kernel"]
         out_dir = Path(__file__).resolve().parent / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "mesh_phase.json").write_text(json.dumps(res, indent=1))
@@ -5092,14 +5369,16 @@ def mesh_phase_alone(argv: list) -> int:
         return out, (time.perf_counter() - t0) * 1e3
 
     global MESH_LIVE_NODES, MESH_LIVE_ALLOCS, MESH_SCALE_NODES
-    global MESH_SCALE_ALLOCS
+    global MESH_SCALE_ALLOCS, PB_NODES
     MESH_LIVE_NODES, MESH_LIVE_ALLOCS = args.nodes, args.allocs
+    PB_NODES = args.nodes
     MESH_SCALE_NODES, MESH_SCALE_ALLOCS = 10 * args.nodes, 10 * args.allocs
     with patch.patch.object(ck, "fused_wave_place", counted), \
             patch.patch.object(coalesce, "fused_wave_place", counted), \
             patch.patch.object(ck, "sharded_wave_place", counted_sharded), \
             patch.patch.object(sharded, "sharded_wave_place",
                                counted_sharded), \
+            patch.patch.object(sharded, "fused_wave_place", counted), \
             patch.patch(f"{__name__}.event_ms", host_ms), \
             patch.patch(f"{__name__}.cluster_launches",
                         lambda: clusters[0]), \
@@ -5107,6 +5386,7 @@ def mesh_phase_alone(argv: list) -> int:
                         lambda fn, reps: host_ms(fn)[1]), \
             patch.patch.object(torch.cuda, "synchronize", lambda *a: None):
         run()
+        run_place_batch_phase(dev, {})
     return 0
 
 if __name__ == "__main__":

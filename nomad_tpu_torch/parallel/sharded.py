@@ -40,12 +40,16 @@ before it, and an inactive step's outputs are the constants the
 composite computes for it.
 
 ``make_place_batch`` is the batched placement over an (evals, nodes)
-mesh: evals split over ``evals``, nodes over ``nodes``, each evals row
-merging across its own node shards.
+mesh: evals split over ``evals``, nodes over ``nodes``. Each eval is a
+placement problem of its own: in the fused envelope a one-member wave
+through ``sharded_wave_place`` over its evals row's node shards, or
+through B1 (``fused_wave_place``) on a row of one shard; outside it the
+wave body as torch ops.
 """
 
 from __future__ import annotations
 
+import threading
 import weakref
 from typing import List, NamedTuple, Optional, Sequence
 
@@ -54,6 +58,8 @@ import torch
 
 from nomad_tpu_torch.device import DeviceLike
 from nomad_tpu_torch.ops.cuda_kernel import (
+    fused_wave_place,
+    raise_on_wave_error,
     sharded_wave_place,
     wave_active_steps,
 )
@@ -73,6 +79,8 @@ from nomad_tpu_torch.ops.kernel import (
     _member_view,
     _score,
     _spread_onehot,
+    fused_pack_len,
+    fused_wave_supported,
     topk_ordered,
 )
 from nomad_tpu_torch.parallel import mesh as _mesh
@@ -803,51 +811,207 @@ def unstack_kernel_outs(out: KernelOut) -> List[KernelOut]:
 # Batched placement over an (evals, nodes) mesh.
 # ---------------------------------------------------------------------------
 
-def _eval_by_eval(shards: List[KernelIn], k_steps: int,
-                  f: KernelFeatures) -> KernelOut:
-    """Each eval of the shards runs the wave body as a one-member wave
-    of ``k_steps`` steps."""
-    b = int(shards[0].n_steps.shape[0])
+class _PlaceBatchStats:
+    """``make_place_batch``'s routes, counted per eval as it is sent:
+    ``fused_calls`` calls of B1 (``fused_wave_place``: an eval on an evals
+    row of one node shard), ``sharded_calls`` calls of the sharded kernel
+    (``sharded_wave_place``: a row of two or more), ``plain_evals`` evals
+    through the wave body as torch ops (outside the fused envelope, or
+    every eval of a ``plain`` step). On CPU shards the two wrappers run
+    their plain versions and are counted the same."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.fused_calls = 0
+        self.sharded_calls = 0
+        self.plain_evals = 0
+
+    def note(self, fused: int = 0, sharded: int = 0, plain: int = 0) -> None:
+        with self._lock:
+            self.fused_calls += fused
+            self.sharded_calls += sharded
+            self.plain_evals += plain
+
+    def reset(self) -> None:
+        with self._lock:
+            self.fused_calls = self.sharded_calls = self.plain_evals = 0
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"fused_calls": self.fused_calls,
+                    "sharded_calls": self.sharded_calls,
+                    "kernel_calls": self.fused_calls + self.sharded_calls,
+                    "plain_evals": self.plain_evals}
+
+
+#: process-wide make_place_batch route counts
+place_batch_stats = _PlaceBatchStats()
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def eval_features(kin: KernelIn,
+                  features: KernelFeatures = FULL_FEATURES) -> list:
+    """For each eval of a batched KernelIn, ``features`` without the
+    spread, device, core and bandwidth work its planes make neutral: no
+    active spread stanza; no device ask and no device affinity; no core
+    ask (over finite shares a core, so the cpu total is the cpu ask); no
+    bandwidth ask. The dropped work adds nothing to a score, masks no
+    node and exhausts none, so the eval places as under ``features``;
+    ``fused_wave_supported`` then says whether it fits the kernels."""
+    spread = _host(kin.spread_active).reshape(
+        _host(kin.n_steps).shape[0], -1).any(axis=-1)
+    dev = (_host(kin.ask_dev) > 0).any(axis=-1) | _host(
+        kin.has_dev_affinity).astype(bool)
+    cores = (_host(kin.ask_cores) != 0) | ~np.isfinite(
+        _host(kin.shares_per_core)).all(axis=-1)
+    net = _host(kin.ask_mbits) > 0
+    return [features._replace(
+        n_spreads=features.n_spreads if spread[e] else 0,
+        with_devices=features.with_devices and bool(dev[e]),
+        with_cores=features.with_cores and bool(cores[e]),
+        with_network=features.with_network and bool(net[e]))
+        for e in range(len(spread))]
+
+
+def _one_eval(shards: List[KernelIn], e: int) -> List[KernelIn]:
+    """Eval ``e`` of each shard as a one-member wave's planes: its own
+    leaves unbatched (x[e] of a contiguous placed leaf is contiguous),
+    ``n_steps`` with its member axis."""
+    return [KernelIn(*[x[e:e + 1] if name == "n_steps" else x[e]
+                       for name, x in zip(KernelIn._fields, s)])
+            for s in shards]
+
+
+def _plain_eval(one: List[KernelIn], k_steps: int,
+                f: KernelFeatures) -> KernelOut:
+    """One eval through the wave body as torch ops: a one-member wave of
+    ``k_steps`` steps, its member axis stripped."""
     step_member = np.zeros(k_steps, np.int32)
     step_local = np.arange(k_steps, dtype=np.int32)
-    outs = []
-    for e in range(b):
-        one = [KernelIn(*[x[e:e + 1] if name == "n_steps" else x[e]
-                          for name, x in zip(KernelIn._fields, s)])
-               for s in shards]
-        out = _sharded_wave(one, step_member, step_local, k_steps, f)
-        outs.append(KernelOut(out.chosen, out.scores, out.found,
-                              out.topk_idx, out.topk_scores,
-                              *[getattr(out, name)[0]
-                                for name in KernelOut._fields[5:]]))
-    return KernelOut(*[torch.stack([getattr(o, name) for o in outs])
-                       for name in KernelOut._fields])
+    out = _sharded_wave(one, step_member, step_local, k_steps, f)
+    return KernelOut(out.chosen, out.scores, out.found, out.topk_idx,
+                     out.topk_scores,
+                     *[getattr(out, name)[0]
+                       for name in KernelOut._fields[5:]])
+
+
+def _kernel_out(got, k_steps: int) -> KernelOut:
+    """A one-member wave's FusedWaveOut as the eval's KernelOut, on its
+    device: ``unpack_fused_wave``'s layout (chosen and scores over the
+    steps, then the eight metrics, one each) read by slicing, so nothing
+    comes back to the host."""
+    packed = got.packed
+    chosen = packed[:k_steps].to(torch.int32)
+    metrics = packed[2 * k_steps:2 * k_steps + len(FUSED_METRIC_FIELDS)]
+    return KernelOut(chosen, packed[k_steps:2 * k_steps], chosen >= 0,
+                     got.topk_idx, got.topk_scores,
+                     *metrics.to(torch.int32).unbind(0))
 
 
 def make_place_batch(
-    mesh: Mesh, k_steps: int, features: KernelFeatures = FULL_FEATURES
+    mesh: Mesh, k_steps: int, features: KernelFeatures = FULL_FEATURES,
+    plain: bool = False,
 ):
     """The batched, sharded placement step for ``mesh``.
 
     Returns ``fn(kin_batched) -> KernelOut`` (batched, on the mesh's
     first device): B evals split over the ``evals`` axis (B must divide
-    by it), each eval's node planes over ``nodes``; each evals-row of
-    the mesh runs its evals one at a time through the wave body.
+    by it), each eval's node planes over ``nodes``. Each eval is a
+    placement problem of its own (its own planes, its own carry), never
+    one member of a joint wave with another. An eval whose planes fit
+    the fused envelope (``eval_features``) runs as a one-member wave of
+    ``k_steps`` steps: through ``sharded_wave_place`` on an evals row of
+    two or more node shards, through ``fused_wave_place`` (B1) on a row
+    of one; on CUDA shards those are the hand kernels, on CPU shards
+    their plain versions. Every other eval runs the wave body as torch
+    ops. Every row's kernel calls are enqueued on its cards before any
+    eval that reads the host; a sharded call's error word is read once at
+    the end, and a set one raises. ``plain`` runs every eval through the
+    torch-op body under ``features``: the plain version the route is
+    held against.
     """
     shardings = batched_in_shardings(mesh)
     e_par = mesh.axis_size(_B)
+    rows = mesh.node_rows()
 
     def fn(kin: KernelIn) -> KernelOut:
         b = int(tuple(kin.n_steps.shape)[0])
         if b % e_par:
             raise ValueError(f"a batch of {b} evals does not split over "
                              f"{e_par} {_B!r} shards")
+        b_loc = b // e_par
+        feats = [features] * b if plain else eval_features(kin, features)
         placed, _ = place_args(kin, shardings)
-        outs = [_eval_by_eval(_shards_of(placed, row), k_steps, features)
-                for row in mesh.node_rows()]
-        root = outs[0].chosen.device
-        return KernelOut(*[torch.cat([getattr(o, name).to(root)
-                                      for o in outs])
+        row_shards = [_shards_of(placed, row) for row in rows]
+        if plain:
+            outs, errs = [[None] * b_loc for _ in rows], []
+        else:
+            outs, errs = _launch_rows(row_shards, feats, b_loc, k_steps)
+        for r, shards in enumerate(row_shards):
+            for e in range(b_loc):
+                if outs[r][e] is None:
+                    outs[r][e] = _plain_eval(_one_eval(shards, e), k_steps,
+                                             feats[r * b_loc + e])
+                    place_batch_stats.note(plain=1)
+        root = outs[0][0].chosen.device
+        _raise_on_errors(errs, k_steps, root)
+        return KernelOut(*[torch.stack([getattr(o, name).to(root)
+                                        for row in outs for o in row])
                            for name in KernelOut._fields])
 
     return fn
+
+
+def _launch_rows(row_shards: list, feats: list, b_loc: int,
+                 k_steps: int) -> tuple:
+    """Send every eval in the fused envelope to its row's kernel, row
+    after row, reading nothing back. Returns the KernelOuts by row (None
+    where an eval is left to the torch-op body) and the sharded calls'
+    packed buffers, whose error words are still to be read."""
+    outs: list = [[None] * b_loc for _ in row_shards]
+    errs = []
+    maps: dict = {}
+    for r, shards in enumerate(row_shards):
+        for e in range(b_loc):
+            f = feats[r * b_loc + e]
+            if not fused_wave_supported(f):
+                continue
+            one = _one_eval(shards, e)
+            if len(one) == 1:
+                dev = one[0].cap_cpu.device
+                sm_sl = maps.get(dev)
+                if sm_sl is None:
+                    # the step maps on the card once: a copy from the
+                    # host inside the loop would wait on the launches
+                    sm_sl = maps[dev] = (
+                        torch.zeros(k_steps, dtype=torch.int32, device=dev),
+                        torch.arange(k_steps, dtype=torch.int32,
+                                     device=dev))
+                got = fused_wave_place(one[0], *sm_sl, k_steps, f)
+                place_batch_stats.note(fused=1)
+            else:
+                got = sharded_wave_place(
+                    one, np.zeros(k_steps, np.int32),
+                    np.arange(k_steps, dtype=np.int32), k_steps, f)
+                place_batch_stats.note(sharded=1)
+                if got.packed.device.type == "cuda":
+                    errs.append(got.packed)
+            outs[r][e] = _kernel_out(got, k_steps)
+    return outs, errs
+
+
+def _raise_on_errors(errs: list, k_steps: int, root: torch.device) -> None:
+    """Read every sharded call's error word in one readback; raise on the
+    first set one (``raise_on_wave_error``)."""
+    if not errs:
+        return
+    at = fused_pack_len(k_steps, 1)
+    words = torch.stack([p[at].to(root) for p in errs]).cpu().numpy()
+    for p, w in zip(errs, words):
+        if w != 0:
+            raise_on_wave_error(p.cpu().numpy(), k_steps, 1)

@@ -129,6 +129,10 @@ class RaftNode:
         self.id = node_id
         self.peers = [p for p in peers if p != node_id]
         self.transport = transport
+        # the handler answers from the first RPC on, while the node
+        # still recovers its state: until the end of __init__ a vote is
+        # not granted and any other RPC finds no node here
+        self._ready = False
         transport.set_handler(self._handle_rpc)
         self.fsm_apply = fsm_apply
         # optional batched FSM doorway: the apply loop hands a whole
@@ -314,6 +318,7 @@ class RaftNode:
         # retry after a dropped response must not re-apply the command)
         self._forward_results: Dict[str, Any] = {}
         self._forward_order: List[str] = []
+        self._ready = True
 
     # --- lifecycle ------------------------------------------------------
 
@@ -1427,6 +1432,10 @@ class RaftNode:
     # --- RPC handlers ---------------------------------------------------
 
     def _handle_rpc(self, method: str, req: Dict) -> Dict:
+        if not self._ready:
+            if method == "request_vote":
+                return {"term": 0, "granted": False}
+            raise ConnectionError(f"{self.id} is still recovering")
         if method == "request_vote":
             return self._on_request_vote(req)
         if method == "append_entries":

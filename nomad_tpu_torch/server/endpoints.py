@@ -215,11 +215,11 @@ def node_deregister(server, node_id: str) -> Dict:
     node = snap.node_by_id(node_id)
     if node is None:
         raise KeyError(f"node '{node_id}' not found")
-    evals = server._create_node_evals(node_id, snap)
+    eval_ids = server._create_node_evals(node_id, node.modify_index)
     index = server.raft_apply(
-        fsm_msgs.NODE_DEREGISTER, {"node_id": node_id, "evals": evals}
+        fsm_msgs.NODE_DEREGISTER, {"node_id": node_id, "evals": eval_ids}
     )
-    return {"eval_ids": [e.id for e in evals], "index": index}
+    return {"eval_ids": eval_ids, "index": index}
 
 
 def node_evaluate(server, node_id: str) -> Dict:
@@ -228,6 +228,5 @@ def node_evaluate(server, node_id: str) -> Dict:
     node = snap.node_by_id(node_id)
     if node is None:
         raise KeyError(f"node '{node_id}' not found")
-    evals = server._create_node_evals(node_id, snap)
-    index = server.raft_apply(fsm_msgs.EVAL_UPDATE, {"evals": evals})
-    return {"eval_ids": [e.id for e in evals], "index": index}
+    eval_ids = server._create_node_evals(node_id, node.modify_index)
+    return {"eval_ids": eval_ids, "index": server.state.latest_index()}

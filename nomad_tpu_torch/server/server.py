@@ -52,6 +52,10 @@ LOG = logging.getLogger(__name__)
 #: Server._tune_interpreter_gc)
 _GC_FROZEN = False
 
+#: seconds between the leader's releases of the evals that failed plans
+#: blocked (Nomad's failedEvalUnblockInterval, leader.go: one minute)
+FAILED_EVAL_UNBLOCK_INTERVAL = 60.0
+
 
 class ServerConfig:
     def __init__(
@@ -438,6 +442,8 @@ class Server:
         self._warmup_lock = threading.Lock()
         self.warmup_stats = None
         self.warmup_passes: List[dict] = []
+        # evals released by the failed-eval unblock loop while leading
+        self.failed_evals_unblocked = 0
 
     # --- lifecycle ------------------------------------------------------
 
@@ -808,6 +814,8 @@ class Server:
             loops = [
                 ("reap-failed-evals", self.reap_failed_evals_once, 0.2),
                 ("reap-dup-blocked", self.reap_dup_blocked_once, 0.2),
+                ("unblock-failed-evals", self.unblock_failed_evals_once,
+                 FAILED_EVAL_UNBLOCK_INTERVAL),
                 ("timetable-witness", self._witness_time, 0.5),
                 ("schedule-gc", self.schedule_core_gc, self.config.gc_interval),
             ]
@@ -2006,6 +2014,15 @@ class Server:
         sched.deployment_gc(force=True)
         sched.csi_volume_claim_gc(force=True)
         sched.one_time_token_gc(force=True)
+
+    def unblock_failed_evals_once(self) -> int:
+        """Release the evals blocked after their plans were rejected
+        too often (leader.go periodicUnblockFailedEvals, one tick of it;
+        the loop's first tick comes as leadership is established, as every
+        leader loop's does). Returns how many were released."""
+        n = self.blocked_evals.unblock_failed()
+        self.failed_evals_unblocked += n
+        return n
 
     def reap_dup_blocked_once(self) -> int:
         """Cancel duplicate blocked evals (leader.go

@@ -15,7 +15,8 @@ scheduler's context, stack, generic, testing and package init, the
 server's worker, server and heartbeat timers) are held by the parity
 tests instead. Of ``server/server.py``, the methods that wire the raft
 log into the server (``RAFT_WIRING``) must equal the reference's the
-same way, method by method; of ``telemetry/exporter.py``, every function
+same way, method by method (deliberate differences in
+``WIRING_PATCHES``); of ``telemetry/exporter.py``, every function
 but ``prometheus_text`` (``EXPORTER_FUNCTIONS``). The web UI's static
 assets, which ``api/http`` serves, are the reference's bytes.
 ``plugins/device`` is not a copy: its ``CudaDevicePlugin`` is held by
@@ -79,10 +80,29 @@ COPIES = (
 PATCHES = {
     # the leader's own fsync counts toward the commit when it ends after
     # the followers' acks, not only in a single-voter cluster
+    # a RequestVote that reaches a node still recovering its state is
+    # not granted (the reference's handler raises AttributeError there,
+    # which ends the candidate's vote thread); any other RPC finds no
+    # node until the state exists
     "raft/node": ((
         "            if not self.peers:\n"
         "                self._advance_commit_locked()\n",
-        "            self._advance_commit_locked()\n"),),
+        "            self._advance_commit_locked()\n"), (
+        "        self.transport = transport\n"
+        "        transport.set_handler(self._handle_rpc)\n",
+        "        self.transport = transport\n"
+        "        self._ready = False\n"
+        "        transport.set_handler(self._handle_rpc)\n"), (
+        "        self._forward_order: List[str] = []\n",
+        "        self._forward_order: List[str] = []\n"
+        "        self._ready = True\n"), (
+        "    def _handle_rpc(self, method: str, req: Dict) -> Dict:\n",
+        "    def _handle_rpc(self, method: str, req: Dict) -> Dict:\n"
+        "        if not self._ready:\n"
+        "            if method == \"request_vote\":\n"
+        "                return {\"term\": 0, \"granted\": False}\n"
+        "            raise ConnectionError(f\"{self.id} is still recovering\")\n"
+        )),
     # an eval already ready or pending is not enqueued a second time
     "server/eval_broker": ((
         "        if outstanding and outstanding != ev.id:\n",
@@ -91,10 +111,32 @@ PATCHES = {
         "self._pending.get(ns_job, ())):\n"
         "            return\n"
         "        if outstanding:\n"),),
-    # ``job plan`` dry-runs its scheduler on the server's device
+    # ``job plan`` dry-runs its scheduler on the server's device; node
+    # evaluate and purge pass the node's index to ``_create_node_evals``,
+    # which applies the evals itself, and return the ids it gives (the
+    # reference passes a snapshot and applies the ids again as evals)
     "server/endpoints": ((
         "    h = Harness(state=shadow)\n",
-        "    h = Harness(state=shadow, device=server.device)\n"),),
+        "    h = Harness(state=shadow, device=server.device)\n"), (
+        "    evals = server._create_node_evals(node_id, snap)\n"
+        "    index = server.raft_apply(\n"
+        "        fsm_msgs.NODE_DEREGISTER, {\"node_id\": node_id, "
+        "\"evals\": evals}\n"
+        "    )\n"
+        "    return {\"eval_ids\": [e.id for e in evals], \"index\": index}\n",
+        "    eval_ids = server._create_node_evals(node_id, node.modify_index)\n"
+        "    index = server.raft_apply(\n"
+        "        fsm_msgs.NODE_DEREGISTER, {\"node_id\": node_id, "
+        "\"evals\": eval_ids}\n"
+        "    )\n"
+        "    return {\"eval_ids\": eval_ids, \"index\": index}\n"), (
+        "    evals = server._create_node_evals(node_id, snap)\n"
+        "    index = server.raft_apply(fsm_msgs.EVAL_UPDATE, "
+        "{\"evals\": evals})\n"
+        "    return {\"eval_ids\": [e.id for e in evals], \"index\": index}\n",
+        "    eval_ids = server._create_node_evals(node_id, node.modify_index)\n"
+        "    return {\"eval_ids\": eval_ids, "
+        "\"index\": server.state.latest_index()}\n")),
     # the agent names its server's device (None is the card) and its
     # workers' batch size (1, the reference's, places each eval alone:
     # no wave reaches B1)
@@ -218,6 +260,21 @@ RAFT_WIRING = (
     "snapshot_min_index",
 )
 
+#: deliberate differences of a ``RAFT_WIRING`` method, as ``PATCHES``:
+#: the leader also runs Nomad's periodicUnblockFailedEvals, which the
+#: reference's leader lacks (an eval blocked after its plans were
+#: rejected too often then stays blocked)
+WIRING_PATCHES = {
+    "establish_leadership": ((
+        "                (\"reap-dup-blocked\", self.reap_dup_blocked_once, "
+        "0.2),\n",
+        "                (\"reap-dup-blocked\", self.reap_dup_blocked_once, "
+        "0.2),\n"
+        "                (\"unblock-failed-evals\", "
+        "self.unblock_failed_evals_once,\n"
+        "                 FAILED_EVAL_UNBLOCK_INTERVAL),\n"),),
+}
+
 
 def _method(text: str, cls: str, name: str) -> str:
     tree = ast.parse(text)
@@ -232,6 +289,9 @@ def _method(text: str, cls: str, name: str) -> str:
 def test_server_raft_wiring_matches_reference(name):
     ref = (ROOT / "nomad_tpu" / "server" / "server.py").read_text()
     port = (ROOT / "nomad_tpu_torch" / "server" / "server.py").read_text()
+    for was, now in WIRING_PATCHES.get(name, ()):
+        assert ref.count(was) == 1, f"{name}: patched code not found once"
+        ref = ref.replace(was, now)
     assert _method(port, "Server", name) == _method(
         _PACKAGE.sub("nomad_tpu_torch", ref), "Server", name), (
         f"Server.{name} drifted from the reference")

@@ -1266,3 +1266,46 @@ def test_cuda_warm_pass_racing_live_waves(layout, cuda_device):
         t.join(timeout=120)
     assert not t.is_alive()
     assert passes and set(passes) == {(2, 0)}
+
+
+#: make_place_batch's card check: one eval of each variant, own clusters
+#: on one node axis of 256 rows
+PLACE_BATCH_MIX = ("kitchen_sink", "spread", "lean", "devices",
+                   "penalty_preferred", "cores", "distinct", "network")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 4), (8, 1)], ids=["2x4", "8x1"])
+def test_cuda_place_batch_route_matches_plain(shape, cuda_device):
+    """``make_place_batch`` over a virtual (evals, nodes) mesh on the
+    card: each eval in the fused envelope is one call of the sharded
+    kernel (rows of four shards) or of B1 (rows of one), the others the
+    torch-op body; every eval equals the plain step's, which runs each
+    through the torch-op body."""
+    from nomad_tpu_torch.parallel import mesh as pm
+    from nomad_tpu_torch.parallel import sharded
+
+    kins = [tp.wave_members(20 + i, v, 200, b=1, lib="port", n_pad=256)[0][0]
+            for i, v in enumerate(PLACE_BATCH_MIX)]
+    stacked = sharded.stack_kernel_ins(kins)
+    mesh = pm.make_mesh(8, evals_parallel=shape[0],
+                        devices=[cuda_device] * 8)
+    k_pad = tk.pad_steps(tp.K)
+    fused = sum(tk.fused_wave_supported(f)
+                for f in sharded.eval_features(stacked))
+    l0, s0 = ck.launches, ck.sharded_launches
+    got = sharded.make_place_batch(mesh, k_pad)(stacked)
+    torch.cuda.synchronize()
+    assert (ck.launches - l0, ck.sharded_launches - s0) == (
+        (fused, 0) if shape[1] == 1 else (0, fused))
+    want = sharded.make_place_batch(mesh, k_pad, plain=True)(stacked)
+    assert got.chosen.device == want.chosen.device == mesh.devices.flat[0]
+    for name in ("chosen", "found", "topk_idx") + tk.FUSED_METRIC_FIELDS:
+        np.testing.assert_array_equal(getattr(got, name).cpu().numpy(),
+                                      getattr(want, name).cpu().numpy(),
+                                      err_msg=name)
+    for name in ("scores", "topk_scores"):
+        np.testing.assert_allclose(getattr(got, name).cpu().numpy(),
+                                   getattr(want, name).cpu().numpy(),
+                                   rtol=0, atol=ATOL, err_msg=name)
+    assert got.found.any()

@@ -3,7 +3,8 @@
 A subprocess blocks ``jax`` and ``nomad_tpu`` in ``sys.modules`` and
 still imports the port and runs one small wave (and the same wave over a
 four-entry CPU mesh, and a batched placement over a 2x2 mesh: the
-port's ``parallel/mesh.py`` and ``parallel/sharded.py``), one profiled warmup
+port's ``parallel/mesh.py`` and ``parallel/sharded.py``; then
+``entry.dryrun_multichip`` over four CPU entries), one profiled warmup
 entry (the kernel profiler, the warmup and the device state), one batched
 schedule-apply loop (``backend="kernel_topk"``), a service and a system
 eval through ``Harness(device="cpu")``, imports the worker processes'
@@ -61,6 +62,9 @@ assert all((a.chosen == b.chosen).all() for a, b in zip(outs, mesh_outs))
 batch = make_place_batch(make_mesh(devices=[torch.device("cpu")] * 4), 4,
                          LEAN_FEATURES)(stack_kernel_ins(kins))
 assert batch.found[:, :3].all(), batch.found
+from nomad_tpu_torch import entry as _entry
+_dry = _entry.dryrun_multichip(4, devices=[torch.device("cpu")] * 4)
+assert _dry["placed"] == 8 and _dry["routes"]["kernel_calls"] == 2, _dry
 from nomad_tpu_torch import telemetry
 from nomad_tpu_torch.ops import warmup
 from nomad_tpu_torch.tensors.device_state import default_device_state

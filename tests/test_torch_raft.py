@@ -11,7 +11,7 @@ modules; every ``Server`` places on ``device="cpu"``. Then what the port
 adds: a linearizable read through the port's ``ReadPlane`` on the leader
 (the lease's fast path, then the barrier once the lease has lapsed), its
 ``NoLeaderError`` on a follower, a follower's default-mode read fenced
-to the leader's commit index, and the three reference defects the port
+to the leader's commit index, and the six reference defects the port
 repairs, each shown on both packages.
 """
 
@@ -1085,8 +1085,8 @@ class TestReadPlaneOnCluster:
 
 
 class TestReferenceDefects:
-    """Three behaviors of the reference that the port repairs (ROADMAP C),
-    each on both packages: the port's code, then the reference's."""
+    """Behaviors of the reference that the port repairs (ROADMAP C), each
+    on both packages: the port's code, then the reference's."""
 
     @pytest.mark.parametrize("package", ["port", "jax"])
     def test_an_eval_enqueued_twice_is_handed_out_once(self, package):
@@ -1220,3 +1220,134 @@ class TestReferenceDefects:
         finally:
             for s in servers:
                 s.shutdown()
+
+    @pytest.mark.parametrize("package", ["port", "jax"])
+    def test_an_eval_blocked_by_rejected_plans_is_released(
+            self, package, monkeypatch):
+        """An eval blocked after its plans were rejected too often
+        (triggered by max-plan-attempts). The port's leader releases it
+        to the broker on its failed-eval unblock loop (Nomad's
+        periodicUnblockFailedEvals; the interval patched to 50 ms); the
+        reference's leader has no such loop, and the eval stays
+        blocked."""
+        if package == "port":
+            from nomad_tpu_torch.server import server as server_mod
+
+            monkeypatch.setattr(server_mod, "FAILED_EVAL_UNBLOCK_INTERVAL",
+                                0.05)
+            srv = Server(ServerConfig(num_workers=0, heartbeat_ttl=60.0,
+                                      device="cpu"))
+            ev = mock.eval()
+        else:
+            from nomad_tpu import mock as ref_mock
+            from nomad_tpu.server.server import Server as RefServer
+            from nomad_tpu.server.server import ServerConfig as RefConfig
+
+            srv = RefServer(RefConfig(num_workers=0, heartbeat_ttl=60.0))
+            ev = ref_mock.eval()
+        srv.start()
+        try:
+            ev.status = "blocked"
+            ev.triggered_by = "max-plan-attempts"
+            # the leader's own core GC evals wait in the broker too
+            ready = srv.eval_broker.stats()["total_ready"]
+            srv.blocked_evals.block(ev)
+            assert srv.blocked_evals.stats()["total_blocked"] == 1
+            deadline = time.monotonic() + 0.5
+            while time.monotonic() < deadline and \
+                    srv.blocked_evals.stats()["total_blocked"]:
+                time.sleep(0.01)
+            if package == "port":
+                assert srv.blocked_evals.stats()["total_blocked"] == 0
+                assert srv.eval_broker.stats()["total_ready"] == ready + 1
+                assert srv.failed_evals_unblocked == 1
+            else:
+                assert srv.blocked_evals.stats()["total_blocked"] == 1
+                assert srv.eval_broker.stats()["total_ready"] == ready
+        finally:
+            srv.shutdown()
+
+    @pytest.mark.parametrize("package", ["port", "jax"])
+    def test_a_request_vote_while_the_node_recovers(self, package):
+        """A RequestVote that reaches a node whose handler is registered
+        but whose state is not built yet (here: at once, from inside
+        ``set_handler``). The port's node answers not granted; the
+        reference's handler raises AttributeError, which in a live
+        cluster ends the candidate's vote thread (``_request_vote_from``
+        catches only ConnectionError)."""
+        if package == "port":
+            node_cls, transport_cls, registry = (
+                RaftNode, InmemTransport, TransportRegistry())
+        else:
+            from nomad_tpu.raft import node as ref_node
+            from nomad_tpu.raft import transport as ref_transport
+
+            node_cls, transport_cls, registry = (
+                ref_node.RaftNode, ref_transport.InmemTransport,
+                ref_transport.TransportRegistry())
+        candidate = transport_cls("n1", registry)
+        vote = {"term": 1, "candidate": "n1", "last_log_index": 0,
+                "last_log_term": 0}
+        replies = []
+
+        class EagerTransport(transport_cls):
+            def set_handler(self, handler):
+                super().set_handler(handler)
+                try:
+                    replies.append(candidate.send("n0", "request_vote",
+                                                  dict(vote)))
+                except Exception as e:          # noqa: BLE001
+                    replies.append(e)
+
+        node_cls(node_id="n0", peers=["n0", "n1"],
+                 transport=EagerTransport("n0", registry),
+                 fsm_apply=lambda t, r: 0, config=FAST)
+        if package == "port":
+            assert replies == [{"term": 0, "granted": False}]
+            # once built, the node votes
+            assert candidate.send("n0", "request_vote", dict(vote)) == {
+                "term": 1, "granted": True}
+        else:
+            assert isinstance(replies[0], AttributeError)
+
+    @pytest.mark.parametrize("package", ["port", "jax"])
+    def test_node_evaluate_and_purge_with_allocations(self, package):
+        """``Node.Evaluate`` and ``Node.Deregister`` (HTTP evaluate and
+        purge) for a node with an allocation. The port's endpoints pass
+        the node's index to ``_create_node_evals``, which applies the
+        evals, and return its ids: one eval for the alloc's job each
+        time, and the purge removes the node. The reference's pass a
+        snapshot and apply the ids again as evals: AttributeError."""
+        if package == "port":
+            from nomad_tpu_torch.server import endpoints
+
+            srv, m = Server(cpu_config()), mock
+        else:
+            from nomad_tpu import mock as m
+            from nomad_tpu.server import endpoints
+            from nomad_tpu.server.server import Server as RefServer
+            from nomad_tpu.server.server import ServerConfig as RefConfig
+
+            srv = RefServer(RefConfig(num_workers=1, heartbeat_ttl=60.0))
+        try:
+            node = m.node()
+            srv.state.upsert_node(node)
+            alloc = m.alloc(node_id=node.id)
+            srv.state.upsert_job(alloc.job)
+            srv.state.upsert_allocs([alloc])
+            if package == "jax":
+                with pytest.raises(AttributeError, match="modify_index"):
+                    endpoints.node_evaluate(srv, node.id)
+                with pytest.raises(AttributeError, match="'id'"):
+                    endpoints.node_deregister(srv, node.id)
+                return
+            for call in (endpoints.node_evaluate, endpoints.node_deregister):
+                res = call(srv, node.id)
+                snap = srv.state.snapshot()
+                evals = [snap.eval_by_id(i) for i in res["eval_ids"]]
+                assert [e.job_id for e in evals] == [alloc.job_id]
+                assert evals[0].node_id == node.id
+                assert res["index"] >= evals[0].modify_index
+            assert srv.state.snapshot().node_by_id(node.id) is None
+        finally:
+            srv.planner.close()

@@ -729,19 +729,21 @@ def test_endpoints_return_alike_on_twin_servers(twin_servers):
     both("job_revert", job.namespace, job.id, 0, seed=5)
     ref_allocs, port_allocs = tw.allocs()
     assert ref_allocs == port_allocs
-    # a reference defect both packages share (ROADMAP C): node_evaluate
-    # hands ``_create_node_evals`` a snapshot for its index, and that
-    # method applies the evals itself and returns their ids, which
-    # node_evaluate then applies again as evals
+    # a reference defect the port repairs (ROADMAP C): the reference's
+    # node_evaluate hands ``_create_node_evals`` a snapshot for its
+    # index, and that method applies the evals itself and returns their
+    # ids, which node_evaluate then applies again as evals; the port's
+    # passes the node's index and returns the ids
     node = next(iter(ref_allocs.values()))[0]
-    errors = []
-    for endpoints, server in ((ref_endpoints, tw.ref),
-                              (port_endpoints, tw.port)):
-        with pytest.raises(AttributeError) as e:
-            endpoints.node_evaluate(server, node)
-        errors.append(str(e.value))
-    assert errors[0] == errors[1]
-    assert "'str' object has no attribute 'modify_index'" in errors[0]
+    with pytest.raises(AttributeError) as e:
+        ref_endpoints.node_evaluate(tw.ref, node)
+    assert "'str' object has no attribute 'modify_index'" in str(e.value)
+    res = port_endpoints.node_evaluate(tw.port, node)
+    snap = tw.port.state.snapshot()
+    evals = [snap.eval_by_id(i) for i in res["eval_ids"]]
+    assert [ev.job_id for ev in evals] == [job.id]
+    assert evals[0].triggered_by == "node-update"
+    assert evals[0].node_modify_index == snap.node_by_id(node).modify_index
 
 
 @pytest.fixture()
