@@ -7,7 +7,7 @@ The quickest proof that the port (``nomad_tpu_torch``) starts and is right
 on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
 
 1. card and build: the card's name and power limit (nvidia-smi), then the
-   four kernel libraries built from csrc/ at once (one nvcc each) with
+   five kernel libraries built from csrc/ at once (one nvcc each) with
    ptxas's register/spill report;
 2. kernel against its plain torch version at the live shape: a C2M
    cluster of 10k nodes (N=16384) with 100k resident allocs, waves of 32
@@ -17,9 +17,19 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
    thread's round is split by the host clock into building its member and
    waiting in the launch (park and wave), beside 32 member builds on one
    thread with no other running;
-4. one wave with a spread member runs the torch composite on the card;
+4. the composite on the card: the joint kernel (``csrc/joint_wave.cu``)
+   for the waves outside B1's envelope. One wave of each union (a spread
+   member among 31 shuffle members; 32 members asking devices, cores or
+   bandwidth; 32 asking all four with the kitchen sink's planes) through
+   ``launch_wave`` into phase 3's resident usage, each held exactly
+   against the plain version on the same inputs: one joint launch and
+   one fused fallback a wave, no torch-op wave, no B1 launch, no node
+   over capacity. Then each wave's kernel alone against its plain
+   version (max abs error 0.0, no near-tie), its CUDA-event ms beside
+   the plain version's and its bound;
 5. scale: two waves at 100k nodes (N=131072) with 1M allocs, kernel
-   against plain;
+   against plain; then the joint kernel's spread and everything waves
+   there, the same way;
 6. times: CUDA-event time of the kernel and of the plain version at the
    live shape, and the bound;
 7. B3, the lean full-width batch kernel, against its plain version on the
@@ -204,9 +214,12 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     ``torch.cuda.device_count()`` instances; a job holding the card
     blocks a second that asks for it (no alloc, the ``devices``
     dimension exhausted) until it is stopped; then the second runs and
-    prints ``CUDA_VISIBLE_DEVICES``, which must read ``0``. The device
-    asks' route (the single-eval launcher's torch composite: no B1
-    launch, fallback or failure) is counted. One ``client: {...}`` line: start, restore and
+    prints ``CUDA_VISIBLE_DEVICES``, which must read ``0``. The second
+    also spreads over datacenters. The device asks' route is counted:
+    the single-eval launcher, no B1 launch, fallback or failure; the
+    holder's through the candidate set (torch ops), the reader's two
+    evals through the full width, one joint-kernel launch each. One
+    ``client: {...}`` line: start, restore and
     re-registration seconds, evals/s, waves, fill, B1 launches, register
     → placed → running → complete p50/p99 per alloc from the task
     events' times, the service's start and stop seconds, the child's
@@ -231,7 +244,8 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     kernel alone timed at each D beside B1's kernel on the same wave,
     its time an active step, and its plain version once (kitchen sink);
     one spread wave through the joint sharded wave (torch ops) at D=4
-    against the composite; one wave at N=131072 (100k nodes, 1M allocs)
+    against the one-device wave (the joint kernel); one wave at N=131072
+    (100k nodes, 1M allocs)
     at D=8 against B1, and the kernel alone on it beside B1's; the mesh
     of the real cards (one card: B1, one counted fallback; more: the
     same parity gate, one kernel launch a card, and the kernel alone
@@ -268,15 +282,16 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     (32 evals x 10 placements, 10,000 nodes, N=16384, each eval its own
     planes): the dry run's mix (a spread on every even eval) and an
     all-lean batch over a (2, 4) mesh, where each eval in the fused
-    envelope is one sharded-kernel call, and the all-lean batch over a
-    (2, 1) mesh, where it is one B1 call. Counts set to 0 just before the
-    three batches' first routed calls and read just after: 16 / 32 / 32
-    kernel calls, 16 / 0 / 0 plain evals, one cluster launch a card a
-    sharded call. Each batch against the plain step (every eval through
-    the torch-op body) on the card: i32 outputs exact, scores within
-    ATOL, near-ties counted apart; CUDA-event ms a batch beside the plain
-    step's and beside placing its leaves, and ``place_batch_bound``. One
-    ``place batch: {...}`` line. ``chip_smoke.py --place-batch-phase``
+    envelope is one sharded-kernel call, and the all-lean batch and the
+    mix over a (2, 1) mesh, where a lean eval is one B1 call and a spread
+    eval one joint-kernel call. Counts set to 0 just before the four
+    batches' first routed calls and read just after: 16 / 32 / 32 / 32
+    kernel calls (16 of the last joint), 16 / 0 / 0 / 0 plain evals, one
+    cluster launch a card a sharded call. Each batch against the plain
+    step (every eval through the torch-op body) on the card: i32 outputs
+    exact, scores within ATOL, near-ties counted apart; CUDA-event ms a
+    batch beside the plain step's and beside placing its leaves, and
+    ``place_batch_bound``. One ``place batch: {...}`` line. ``chip_smoke.py --place-batch-phase``
     runs it alone (over four cards, a (2, 2) mesh and the dry run at 4,
     when the host has them).
 
@@ -292,7 +307,10 @@ timed burst, read from the agent's scrape, under ``agent_launches``,
 in phase 16's burst of client jobs under ``client_launches``, and in
 phase 17's unsharded reference waves under ``mesh_launches`` and in
 phase 18's batches under ``place_batch_launches``; the warm-up launches
-of phase 12 are counted apart, in its child processes; the sharded
+of phase 12 are counted apart, in its child processes; the joint
+kernel's entry counts its launches in phase 4's waves, in phase 16 part
+B under ``client_launches`` and in phase 18 under
+``place_batch_launches``; the sharded
 kernel's entry counts its calls in phase 17's timed server burst, its
 kernel launches there under ``cluster_launches``, and its calls in
 phase 18's batches under ``place_batch_launches``).
@@ -322,6 +340,7 @@ from nomad_tpu_torch.ops import cuda_kernel as ck
 from nomad_tpu_torch.ops.kernel import (
     FUSED_METRIC_FIELDS,
     LEAN_FEATURES,
+    KernelOut,
     MAX_PENALTY_NODES,
     _upload_kin,
     build_kernel_in,
@@ -410,16 +429,29 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+#: the variants that carry the kitchen sink's planes ("everything" adds a
+#: spread stanza, a device ask, a core ask and a bandwidth ask)
+SINK = ("kitchen_sink", "everything")
+
+
 def variant_features(variant: str):
     f = LEAN_FEATURES._replace(with_topk=True)
-    if variant in ("shuffle", "penalty_preferred", "kitchen_sink"):
+    if variant in ("shuffle", "penalty_preferred") + SINK:
         f = f._replace(with_shuffle=True)
-    if variant in ("penalty_preferred", "kitchen_sink"):
+    if variant in ("penalty_preferred",) + SINK:
         f = f._replace(with_step_penalties=True, with_preferred=True)
-    if variant in ("distinct", "kitchen_sink"):
+    if variant in ("distinct",) + SINK:
         f = f._replace(with_distinct=True)
-    if variant in ("ports", "kitchen_sink"):
+    if variant in ("ports",) + SINK:
         f = f._replace(with_ports=True)
+    if variant == "everything":
+        f = f._replace(n_spreads=1)
+    if variant in ("devices", "everything"):
+        f = f._replace(with_devices=True)
+    if variant in ("cores", "everything"):
+        f = f._replace(with_cores=True)
+    if variant in ("network", "everything"):
+        f = f._replace(with_network=True)
     return f
 
 
@@ -473,16 +505,63 @@ def make_member(base, cluster, variant: str, rng):
         kin = kin._replace(
             job_tg_count=rng.integers(0, 2, n_pad).astype(np.int32),
             job_any_count=rng.integers(0, 3, n_pad).astype(np.int32),
-            distinct_hosts_job=np.asarray(variant == "kitchen_sink"),
+            distinct_hosts_job=np.asarray(variant in SINK),
             distinct_hosts_tg=np.asarray(True))
+    if f.n_spreads:
+        kin = rack_stanza(kin, cluster, rng)
+    if f.with_devices:
+        # two device kinds asked, 0-2 instances of each free on a node
+        dev_free = np.zeros((n_pad, MAX_DEV_REQS), np.float32)
+        dev_free[:n] = rng.integers(0, 3, (n, MAX_DEV_REQS))
+        kin = kin._replace(
+            dev_free=dev_free, ask_dev=np.asarray([1, 0, 1, 0], np.float32),
+            has_dev_affinity=np.asarray(True),
+            dev_aff_score=(rng.random(n_pad) * 0.5).astype(np.float32))
+    if f.with_cores:
+        used_cores = np.zeros(n_pad, np.int32)
+        used_cores[:n] = rng.integers(0, 3, n)
+        kin = kin._replace(used_cores=used_cores,
+                           ask_cores=np.asarray(1, np.int32))
+    if f.with_network:
+        used_mbits = np.zeros(n_pad, np.int32)
+        used_mbits[:n] = rng.integers(0, 900, n)
+        kin = kin._replace(used_mbits=used_mbits,
+                           ask_mbits=np.asarray(100, np.int32))
     return kin, f
+
+
+def rack_buckets(cluster) -> np.ndarray:
+    """Each node's rack as its spread bucket (-1 on the padding)."""
+    racks = np.full(cluster.n_pad, -1, np.int32)
+    racks[:cluster.n_real] = [int(c.split("-")[1]) % SPREAD_BUCKETS
+                              for c in cluster.computed_classes]
+    return racks
+
+
+def rack_stanza(kin, cluster, rng):
+    """One spread stanza over the rack attribute with counts already
+    placed (0-3 a rack): even, or (half the time) desired counts."""
+    s = kin.spread_active.shape[0]
+    active = np.zeros(s, bool)
+    active[0] = True
+    bucket = np.full((s, cluster.n_pad), -1, np.int32)
+    bucket[0] = rack_buckets(cluster)
+    counts = np.zeros((s, SPREAD_BUCKETS), np.float32)
+    counts[0] = rng.integers(0, 4, SPREAD_BUCKETS)
+    desired = np.full((s, SPREAD_BUCKETS), -1.0, np.float32)
+    even = active.copy()
+    if rng.random() < 0.5:
+        even[0] = False
+        desired[0] = rng.integers(1, 6, SPREAD_BUCKETS)
+    return kin._replace(
+        spread_active=active, spread_even=even,
+        spread_weight=active.astype(np.float32), spread_bucket=bucket,
+        spread_counts=counts, spread_desired=desired)
 
 
 def spread_member(base, cluster):
     """A member with one even-spread stanza over the rack attribute."""
-    racks = np.full(cluster.n_pad, -1, np.int32)
-    racks[:cluster.n_real] = [int(c.split("-")[1]) % SPREAD_BUCKETS
-                              for c in cluster.computed_classes]
+    racks = rack_buckets(cluster)
     s = base.spread_active.shape[0]
     active = np.zeros(s, bool)
     active[0] = True
@@ -666,6 +745,11 @@ def main() -> int:
     kline["kernels"][0]["mesh_launches"] = mesh["b1_launches"]
     kline["kernels"][0]["place_batch_launches"] = \
         place_batch["launches"]["b1"]
+    joint = next(k for k in kline["kernels"]
+                 if k["name"] == "joint_wave_place")
+    joint["client_launches"] = client["device_plugin"]["route"][
+        "joint_launches"]
+    joint["place_batch_launches"] = place_batch["launches"]["joint"]
     kline["kernels"].append(mesh["kernel_entry"])
     kline["kernels"][-1]["place_batch_launches"] = \
         place_batch["launches"]["kernel"]
@@ -824,28 +908,8 @@ def run_phases(dev: torch.device, record: dict) -> dict:
     log(f"main path: {json.dumps(main)}")
     record["main"] = main
 
-    # ---- 4. the composite on the card: one wave with a spread member ----
-    coalesce.fused_wave_stats.reset()
-    before = ck.launches
-    members = [spread_member(base, cluster)] + [
-        make_member(base, cluster, "shuffle", rng)
-        for _ in range(B_WAVE - 1)]
-    t0 = time.perf_counter()
-    outs = coalesce.launch_wave([m[0] for m in members],
-                                [K_STEPS] * B_WAVE,
-                                [m[1] for m in members], device=dev,
-                                resident=resident)
-    comp_s = time.perf_counter() - t0
-    fstats = coalesce.fused_wave_stats.snapshot()
-    check(fstats == {"launches": 0, "fallbacks": 1, "failures": 0},
-          f"composite wave stats {fstats}")
-    check(ck.launches == before, "the composite wave launched the kernel")
-    check(all(len(o.chosen) == K_STEPS for o in outs), "composite slices")
-    check(sum(int(np.asarray(o.found).sum()) for o in outs) > 0,
-          "composite wave placed nothing")
-    capacity_ok(cluster, resident, "composite")
-    record["composite"] = {"fallbacks": 1, "wave_s": comp_s}
-    log(f"composite: spread wave in {comp_s:.3f} s, 1 fallback")
+    # ---- 4. the composite on the card: the joint kernel ----
+    joint = run_joint_phase(dev, record, base, cluster, resident, rng)
 
     # ---- 5. scale: 100k nodes, 1M allocs ----
     big = c2m_cluster(100_000, seed=SEED + 1)
@@ -871,6 +935,12 @@ def run_phases(dev: torch.device, record: dict) -> dict:
     record["scale"] = {"nodes": 100_000, "n_pad": big.n_pad,
                        "allocs": 1_000_000, "clipped": bclip,
                        "waves": scale}
+    record["composite"]["scale"] = joint_scale = [
+        joint_wave_check(*joint_wave(bbase, big, union, rng, dev),
+                         f"composite scale/{union}", reps=3)
+        for union in JOINT_SCALE_UNIONS]
+    for res in joint_scale:
+        log(f"composite scale {res['union']}: {json.dumps(res)}")
     ties = live_ties + sum(r["near_ties"] for r in scale)
     steps = live_steps + sum(r["active_steps"] for r in scale)
     log(f"near-ties: {ties} of {steps} active steps")
@@ -919,13 +989,235 @@ def run_phases(dev: torch.device, record: dict) -> dict:
         "bound_by": bound_by,
         "library_ms": None,
         "cluster": cluster_ctas,
-    }]}
+    }, joint_entry(joint, joint_scale)]}
     record["times"] = {"bytes": nbytes, "ops": ops, "active_steps": active,
                        "us_per_active_step": us_per_step,
                        "cluster": cluster_ctas,
                        "n": n, "b": wave.b_pad, "t": wave.t_pad}
     record["kernels"] = kline["kernels"]
     return kline
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the joint kernel, for the waves outside B1's envelope.
+# ---------------------------------------------------------------------------
+
+#: one wave a feature union outside B1's envelope: a spread member among
+#: 31 shuffle members, all 32 asking devices, cores or bandwidth, and all
+#: 32 asking everything at once with the kitchen sink's planes
+JOINT_UNIONS = ("spread", "devices", "cores", "network", "everything")
+JOINT_SCALE_UNIONS = ("spread", "everything")
+#: f32 operations a node a step re-derives under a spread stanza: the
+#: bucket lookup and add of each active stanza, the spread-on test, the
+#: count and the sum, the divide, and the argmax compare
+OPS_PER_NODE_SPREAD = 6
+
+
+def joint_wave(base, cluster, union: str, rng, dev) -> tuple:
+    """``(kins, features, wave, union)``: a wave of ``union`` (see
+    JOINT_UNIONS) assembled on ``dev``."""
+    if union == "spread":
+        members = [spread_member(base, cluster)] + [
+            make_member(base, cluster, "shuffle", rng)
+            for _ in range(B_WAVE - 1)]
+    else:
+        members = [make_member(base, cluster, union, rng)
+                   for _ in range(B_WAVE)]
+    kins, feats = [m[0] for m in members], [m[1] for m in members]
+    wave = coalesce.assemble_wave(kins, [K_STEPS] * B_WAVE, feats, dev)
+    return kins, feats, wave, union
+
+
+def spread_steps(wave) -> int:
+    """Active steps of members with an active spread stanza: the steps
+    whose every node's score the kernel re-derives."""
+    sm = wave.step_member.cpu().numpy()
+    spread = active_stanzas(wave).any(axis=-1)
+    n_steps = wave.kin.n_steps.cpu().numpy()
+    ok = sm >= 0
+    m = np.clip(sm, 0, None)
+    return int(np.sum(ok & (wave.step_local.cpu().numpy() < n_steps[m])
+                      & spread[m]))
+
+
+#: the leaves each feature adds to B1's (``ck._LEAVES``)
+JOINT_FEATURE_LEAVES = {
+    "with_devices": ("dev_free", "dev_aff_score", "has_dev_affinity",
+                     "ask_dev"),
+    "with_cores": ("free_cores", "shares_per_core", "used_cores",
+                   "ask_cores"),
+    "with_network": ("used_mbits", "avail_mbits", "ask_mbits"),
+    "n_spreads": ("spread_active", "spread_even", "spread_weight",
+                  "spread_bucket", "spread_counts", "spread_desired"),
+}
+
+
+#: spread leaves with a stanza axis second to last: a stanza's row is
+#: read only where a member has it active
+SPREAD_ROW_LEAVES = ("spread_bucket", "spread_counts", "spread_desired")
+
+
+def active_stanzas(wave) -> np.ndarray:
+    """bool [B, n_spreads]: each member's active spread stanzas."""
+    active = wave.kin.spread_active.cpu().numpy().astype(bool)
+    if active.ndim == 1:
+        active = np.broadcast_to(active, (wave.b_pad,) + active.shape)
+    return active[:, :wave.features.n_spreads]
+
+
+def joint_bound(wave, out) -> tuple:
+    """``(bound_ms, bound_by, bytes, ops)`` of a joint wave: each leaf the
+    wave's features read, once (B1's planes and the device, core,
+    bandwidth and spread planes it asks for, of the spread planes only
+    the rows of the stanzas a member has active), the step maps and the
+    outputs; B1's operations plus each spread step's pass over every
+    node."""
+    n = int(wave.kin.cap_cpu.shape[-1])
+    active = active_stanzas(wave)
+    names = [name for name, _ in ck._LEAVES] + [
+        name for feature, leaves in JOINT_FEATURE_LEAVES.items()
+        if getattr(wave.features, feature) for name in leaves]
+
+    def leaf_bytes(name):
+        x = getattr(wave.kin, name)
+        if name not in SPREAD_ROW_LEAVES:
+            return x.nbytes
+        rows = active.sum() if x.dim() == 3 else active.any(axis=0).sum()
+        return int(rows) * x.shape[-1] * x.element_size()
+
+    nbytes = wave.step_member.nbytes + wave.step_local.nbytes + sum(
+        leaf_bytes(name) for name in names) + sum(x.nbytes for x in out)
+    ops = wave_ops(wave) + spread_steps(wave) * n * OPS_PER_NODE_SPREAD
+    ms, by = bound(nbytes, ops)
+    return ms, by, nbytes, ops
+
+
+def joint_wave_check(kins, feats, wave, union, ctx: str,
+                     reps: int = 10) -> dict:
+    """The joint kernel against its plain version on one wave (exact:
+    max abs error 0.0, no near-tie), then the kernel's CUDA-event ms over
+    ``reps`` launches beside the plain version's one call and the bound.
+    These launches are checks, not the main path."""
+    def kernel():
+        return ck.joint_wave_place(wave.kin, wave.step_member,
+                                   wave.step_local, wave.t_pad,
+                                   wave.features)
+
+    want, plain_ms = event_ms(lambda: ck.fused_wave_place_reference(
+        wave.kin, wave.step_member, wave.step_local, wave.t_pad,
+        wave.features))
+    got = kernel()
+    torch.cuda.synchronize()
+    res = compare(got, want, wave, ctx)
+    check(res["max_abs_err"] == 0.0 and res["near_ties"] == 0,
+          f"{ctx}: the joint kernel differs from its plain version: {res}")
+    check(res["placed"] > 0, f"{ctx}: nothing placed")
+    kernel()
+    ms = cuda_ms(kernel, reps)
+    bound_ms, bound_by, nbytes, ops = joint_bound(wave, got)
+    res.update(union=union, n_pad=int(wave.kin.cap_cpu.shape[-1]), ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, ops=ops, spread_steps=spread_steps(wave),
+               us_per_active_step=ms * 1e3 / res["active_steps"])
+    return res
+
+
+def plain_outs(fout, wave) -> list:
+    """A FusedWaveOut's member slices, as ``launch_wave`` returns them."""
+    host = unpack_fused_wave(fout.packed.cpu().numpy(), wave.t_pad,
+                             wave.b_pad)
+    ti, ts = fout.topk_idx.cpu().numpy(), fout.topk_scores.cpu().numpy()
+    return [KernelOut(
+        chosen=host["chosen"][o:o + K_STEPS],
+        scores=host["scores"][o:o + K_STEPS],
+        found=host["found"][o:o + K_STEPS],
+        topk_idx=ti[o:o + K_STEPS], topk_scores=ts[o:o + K_STEPS],
+        **{name: host[name][i] for name in FUSED_METRIC_FIELDS})
+        for i, o in enumerate(wave.offsets)]
+
+
+def run_joint_phase(dev: torch.device, record: dict, base, cluster,
+                    resident, rng) -> dict:
+    """Phase 4: one wave of each union in JOINT_UNIONS through
+    ``launch_wave`` into phase 3's resident usage (the main path of the
+    joint kernel: its counts set to 0 just before, read just after),
+    each held exactly against the plain version on the same inputs (the
+    resident planes as the wave reads them); then each wave's kernel
+    alone against its plain version, timed."""
+    waves = [joint_wave(base, cluster, union, rng, dev)
+             for union in JOINT_UNIONS]
+    coalesce.fused_wave_stats.reset()
+    coalesce.joint_wave_stats.reset()
+    b1_before = ck.launches
+    ck.joint_launches = 0
+    drive = []
+    for kins, feats, wave, union in waves:
+        ctx = f"composite/{union}"
+        want = plain_outs(ck.fused_wave_place_reference(
+            wave.kin._replace(used_cpu=resident.used_cpu,
+                              used_mem=resident.used_mem,
+                              used_disk=resident.used_disk),
+            wave.step_member, wave.step_local, wave.t_pad, wave.features),
+            wave)
+        got, ms = event_ms(lambda: coalesce.launch_wave(
+            kins, [K_STEPS] * B_WAVE, feats, device=dev, resident=resident))
+        res = compare_waves(got, want, ctx, exact=True)
+        check(res["near_ties"] == 0, f"{ctx}: {res}")
+        check(res["placed"] > 0, f"{ctx}: nothing placed")
+        res.update(union=union, launch_wave_ms=ms)
+        drive.append(res)
+    launches = ck.joint_launches
+    fstats = coalesce.fused_wave_stats.snapshot()
+    jstats = coalesce.joint_wave_stats.snapshot()
+    n = len(waves)
+    check(fstats == {"launches": 0, "fallbacks": n, "failures": 0},
+          f"composite: fused wave stats {fstats}")
+    check(jstats == {"launches": n, "torch_waves": 0} and launches == n,
+          f"composite: joint stats {jstats}, {launches} kernel launches "
+          f"for {n} waves")
+    check(ck.launches == b1_before, "composite: a wave launched B1")
+    capacity_ok(cluster, resident, "composite")
+    checks = [joint_wave_check(kins, feats, wave, union,
+                               f"composite kernel/{union}")
+              for kins, feats, wave, union in waves]
+    for res in drive + checks:
+        log(f"composite {res['union']}: {json.dumps(res)}")
+    joint = {"launches": launches, "fused": fstats, "joint": jstats,
+             "drive": drive, "kernel": checks}
+    record["composite"] = joint
+    log(f"composite: {n} waves through launch_wave, {launches} joint "
+        f"launches, {fstats['fallbacks']} fallbacks, 0 torch-op waves; "
+        + ", ".join(f"{c['union']} {c['ms']:.3f} ms (plain "
+                    f"{c['plain_ms']:.1f})" for c in checks))
+    return joint
+
+
+def joint_entry(joint: dict, scale: list) -> dict:
+    """The joint kernel's entry in the kernels' JSON line: its launches
+    on phase 4's main path, its exactness over every checked wave, and
+    the spread wave's times at the live shape (every union's beside)."""
+    checks = joint["kernel"]
+    spread = next(c for c in checks if c["union"] == "spread")
+    return {
+        "name": "joint_wave_place",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/csrc/joint_wave.cu",
+        "replaces": "nomad_tpu/ops/kernel.py:1060",
+        "launches": joint["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in checks + scale),
+        "ms": spread["ms"],
+        "plain_ms": spread["plain_ms"],
+        "bound_ms": spread["bound_ms"],
+        "bound_by": spread["bound_by"],
+        "library_ms": None,
+        "cluster": ck.JOINT_CLUSTER,
+        "union_ms": {c["union"]: c["ms"] for c in checks},
+        "union_plain_ms": {c["union"]: c["plain_ms"] for c in checks},
+        "union_bound_ms": {c["union"]: c["bound_ms"] for c in checks},
+        "scale_ms": {c["union"]: c["ms"] for c in scale},
+        "scale_plain_ms": {c["union"]: c["plain_ms"] for c in scale},
+        "scale_bound_ms": {c["union"]: c["bound_ms"] for c in scale},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -3740,10 +4032,10 @@ CLIENT_SERIES = (
 
 
 def pinned_job(job_id: str, job_type: str, command: str, args: list,
-               count: int, devices: list = ()):
+               count: int, devices: list = (), spreads: list = ()):
     """A lean job (cpu and memory only, phase 13's node-agent ask) whose
     one raw_exec task runs ``command args``, pinned by its constraint to
-    the nodes of ``CLIENT_CLASS``."""
+    the nodes of ``CLIENT_CLASS``, its group spread as ``spreads`` say."""
     from nomad_tpu_torch import structs
 
     job = mock.simple_job(id=job_id, type=job_type, datacenters=["dc1"])
@@ -3751,6 +4043,7 @@ def pinned_job(job_id: str, job_type: str, command: str, args: list,
         ltarget="${node.class}", rtarget=CLIENT_CLASS, operand="=")]
     tg = job.task_groups[0]
     tg.count = count
+    tg.spreads = list(spreads)
     tg.ephemeral_disk = structs.EphemeralDisk(size_mb=CLIENT_DISK_MB)
     task = tg.tasks[0]
     task.driver = "raw_exec"
@@ -4105,6 +4398,7 @@ def run_device_part(dev: torch.device, card: str, nonce: str) -> dict:
     ``dev`` and a client with ``CudaDevicePlugin`` in this process; one
     job holds the card, a second asking for it is blocked until the first
     is stopped, then runs and sees it as ``CUDA_VISIBLE_DEVICES=0``."""
+    from nomad_tpu_torch import structs
     from nomad_tpu_torch.client.client import (
         Client,
         ClientConfig,
@@ -4120,9 +4414,12 @@ def run_device_part(dev: torch.device, card: str, nonce: str) -> dict:
     ask = [RequestedDevice(name="nvidia/gpu", count=1)]
     holder = pinned_job(f"card-holder-{nonce}", consts.JOB_TYPE_BATCH,
                         "/bin/sleep", [f"600.{nonce}"], 1, ask)
+    # the reader also spreads over datacenters: a spread stanza rules the
+    # candidate set out, so its evals take the full width, the joint kernel
     reader = pinned_job(f"card-reader-{nonce}", consts.JOB_TYPE_BATCH,
                         "/bin/sh", ["-c", 'echo "$CUDA_VISIBLE_DEVICES"',
-                                    f"card-smoke-{nonce}"], 1, ask)
+                                    f"card-smoke-{nonce}"], 1, ask,
+                        [structs.Spread(attribute="${node.datacenter}")])
     with tempfile.TemporaryDirectory(prefix="client_device_") as data:
         srv = Server(ServerConfig(device=dev, num_workers=1,
                                   gc_tuning=False))
@@ -4147,6 +4444,7 @@ def run_device_part(dev: torch.device, card: str, nonce: str) -> dict:
                   f"{ctx}: fingerprinted {groups}, card {card}")
             waves0 = coalesce.fused_wave_stats.snapshot()
             single0 = single_eval_stats.snapshot()
+            joint0 = ck.joint_launches
 
             def job_allocs(job):
                 return srv.state.snapshot().allocs_by_job(job.namespace,
@@ -4197,12 +4495,20 @@ def run_device_part(dev: torch.device, card: str, nonce: str) -> dict:
                      for k in waves1}
             route.update({"single_" + k: single1[k] - single0[k]
                           for k in single1})
+            route["joint_launches"] = ck.joint_launches - joint0
             res["route"] = route
+            # one eval at a time: the holder's through the candidate set
+            # (torch ops), the reader's (blocked, then released) through
+            # the full width, one joint launch each
             check(route["fused_wave_launches"] == 0
                   and route["fused_wave_fallbacks"] == 0
                   and route["fused_wave_failures"] == 0
-                  and route["single_topk"] + route["single_full"] >= 2,
+                  and route["single_topk"] >= 1
+                  and route["single_full"] >= 2
+                  and route["joint_launches"] == (
+                      route["single_full"] if dev.type == "cuda" else 0),
                   f"{ctx}: the device asks' route {route}")
+            log(f"{ctx}: route {route}")
         finally:
             if client is not None:
                 client.shutdown()
@@ -4553,13 +4859,14 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
         row["bound_ms"], row["bound_by"] = bound_ms, bound_by
 
     # the joint sharded wave (a spread member: outside the fused
-    # envelope) against the one-device composite on the card
+    # envelope) against the one-device wave on the card (the joint
+    # kernel)
     members = [spread_member(base, cluster)] + [
         make_member(base, cluster, "shuffle", rng)
         for _ in range(B_WAVE - 1)]
     kins, feats = [m[0] for m in members], [m[1] for m in members]
     f0 = coalesce.fused_wave_stats.snapshot()
-    want, comp_ms, n0 = mesh_wave(kins, feats, dev, None)
+    want, one_ms, n0 = mesh_wave(kins, feats, dev, None)
     got, joint_ms, n1 = mesh_wave(
         kins, feats, dev,
         sharded.wave_mesh(devices=[dev] * MESH_SPREAD_SHARDS))
@@ -4571,7 +4878,7 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
           f"mesh/spread: fused stats {f0} -> {f1}")
     spread = compare_waves(got, want, f"mesh/spread/D={MESH_SPREAD_SHARDS}")
     spread.update(shards=MESH_SPREAD_SHARDS, ms=joint_ms,
-                  composite_ms=comp_ms)
+                  one_device_ms=one_ms)
     log(f"mesh spread: {json.dumps(spread)}")
 
     # the reference's mesh-cell scale: N=131072 at D=8
@@ -5115,9 +5422,10 @@ def place_batch_kins(n_evals: int, mix: bool) -> list:
 
 
 def place_batch_counts() -> dict:
-    """B1's and the sharded kernel's launches so far, and the step's
-    route counts."""
-    return {"b1": ck.launches, "kernel": ck.sharded_launches,
+    """B1's, the joint kernel's and the sharded kernel's launches so far,
+    and the step's route counts."""
+    return {"b1": ck.launches, "joint": ck.joint_launches,
+            "kernel": ck.sharded_launches,
             "clusters": cluster_launches(),
             **sharded.place_batch_stats.snapshot()}
 
@@ -5159,13 +5467,14 @@ def run_place_batch_phase(dev: torch.device, record: dict,
     then ``sharded.make_place_batch`` at full width: the dry run's mix
     and an all-lean batch over ``PB_MESH`` (``PB_CARDS_MESH`` over
     ``cards``), where every eval in the envelope is one call of the
-    sharded kernel, and the all-lean batch over ``PB_B1_MESH``, where it
-    is one call of B1. The counts are set to 0 just before the three
-    batches' first routed calls (the main path) and read just after:
-    each lean eval one kernel call, each spread eval one plain eval, one
-    cluster launch a card a sharded call. Each batch is then held against
-    the plain step and timed beside it. One ``place batch: {...}``
-    line."""
+    sharded kernel, and the all-lean batch and the mix over
+    ``PB_B1_MESH``, where a lean eval is one call of B1 and a spread eval
+    one call of the joint kernel. The counts are set to 0 just before the
+    four batches' first routed calls (the main path) and read just after:
+    each lean eval one kernel call, each spread eval one plain eval over
+    ``PB_MESH`` and one joint call over ``PB_B1_MESH``, one cluster
+    launch a card a sharded call. Each batch is then held against the
+    plain step and timed beside it. One ``place batch: {...}`` line."""
     from nomad_tpu_torch import entry
 
     t_phase = time.perf_counter()
@@ -5199,7 +5508,7 @@ def run_place_batch_phase(dev: torch.device, record: dict,
     mix = sharded.stack_kernel_ins(place_batch_kins(PB_EVALS, True))
     lean = sharded.stack_kernel_ins(place_batch_kins(PB_EVALS, False))
     batches = (("mix", mix, main_mesh), ("lean", lean, main_mesh),
-               ("lean_b1", lean, b1_mesh))
+               ("lean_b1", lean, b1_mesh), ("mix_b1", mix, b1_mesh))
     k_pad = pad_steps(PB_PLACE)
     steps = {n: sharded.make_place_batch(m, k_pad) for n, _, m in batches}
     torch.cuda.synchronize()
@@ -5213,9 +5522,15 @@ def run_place_batch_phase(dev: torch.device, record: dict,
         drive[name] = {k: b[k] - a[k] for k in b}
     launches = {k: sum(d[k] for d in drive.values()) for k in a}
     half = PB_EVALS // 2
-    want = {"mix": {"b1": 0, "kernel": half, "plain_evals": half},
-            "lean": {"b1": 0, "kernel": PB_EVALS, "plain_evals": 0},
-            "lean_b1": {"b1": PB_EVALS, "kernel": 0, "plain_evals": 0}}
+    want = {"mix": {"b1": 0, "joint": 0, "kernel": half,
+                    "plain_evals": half},
+            "lean": {"b1": 0, "joint": 0, "kernel": PB_EVALS,
+                     "plain_evals": 0},
+            "lean_b1": {"b1": PB_EVALS, "joint": 0, "kernel": 0,
+                        "plain_evals": 0},
+            # rows of one shard: the spread evals through the joint kernel
+            "mix_b1": {"b1": half, "joint": half, "kernel": 0,
+                       "plain_evals": 0}}
     for name, counts in drive.items():
         got = {k: counts[k] for k in want[name]}
         check(got == want[name],

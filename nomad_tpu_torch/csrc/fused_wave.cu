@@ -64,7 +64,9 @@
 //   rounds op for op like the torch version on the card (-fmad=false, the
 //   fit scaled by the f32 reciprocal of 18), so a cached score and a fresh
 //   one are the same bits. It lives in csrc/wave_score.cuh, which the
-//   sharded wave (csrc/sharded_wave.cu) shares.
+//   sharded wave (csrc/sharded_wave.cu) shares. The slots, the rank
+//   loader, the top-8 lists and the launch, which hold no scoring rule,
+//   live in csrc/cluster_wave.cuh, shared with the sharded and joint waves.
 //
 // Built by nomad_tpu_torch/ops/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v
@@ -84,7 +86,7 @@
 
 #include <cooperative_groups.h>
 
-#include "wave_score.cuh"
+#include "cluster_wave.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -94,7 +96,6 @@ namespace cg = cooperative_groups;
 #define MAX_P 4                    // MAX_PENALTY_NODES
 #define N_SPECIAL (MAX_P + 2)      // pending commit, penalty nodes, pin
 #define ROW_UNROLL 2               // nodes a thread loads at once (row pass)
-#define RANK_UNROLL 8              // 16-byte permutation loads in flight
 #define ALL_WARPS (FULL_MASK >> (32 - NWARPS))
 #define MAX_DEVICES 64
 
@@ -203,20 +204,6 @@ __device__ __forceinline__ void commit_node(const FusedArgs& a,
   }
 }
 
-// One CTA's argmax for one step, read by every CTA after the step's
-// cluster barrier.
-struct __align__(16) Slot {
-  unsigned k, r;
-  int i;
-  float pin_v;  // the pin's masked step value (meaningful from its owner)
-};
-
-// One CTA's top-8 for one step, read by CTA 0 during the next step.
-struct __align__(16) TopList {
-  unsigned k[TOPK];
-  int i[TOPK];
-};
-
 // A step's penalty nodes (-1 where none) and its preferred node (-1: none).
 __device__ __forceinline__ void load_step_nodes(const FusedArgs& a, int m,
                                                 int j, int* out) {
@@ -273,49 +260,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   // CTA 0's warp 1: the cluster's top-8 of active step t, from the CTAs'
   // lists of parity pp (written before a cluster barrier already passed)
   auto emit_topk = [&](int pp, int t) {
-    unsigned lk[TOPK], ok[TOPK];
-    int li[TOPK], oi[TOPK];
-    list_clear(lk, li);
-    list_clear(ok, oi);
-    if (a.with_topk) {
-      if (lane < CLUSTER) {
-        const TopList* tl = cluster.map_shared_rank(&top_list[pp], lane);
-#pragma unroll
-        for (int q = 0; q < TOPK; ++q) {
-          lk[q] = tl->k[q];
-          li[q] = tl->i[q];
-        }
-      }
-      warp_top(lk, li, ok, oi);
-    }
-    if (lane < TOPK) {
-      unsigned k = PAD_KEY;
-      int i = 0;
-#pragma unroll
-      for (int q = 0; q < TOPK; ++q)
-        if (q == lane) {
-          k = ok[q];
-          i = oi[q];
-        }
-      a.topk_idx[t * TOPK + lane] = a.with_topk ? i : 0;
-      a.topk_scores[t * TOPK + lane] = a.with_topk ? key_score(k) : NEG_INF_F;
-    }
+    unsigned ok[TOPK];
+    int oi[TOPK];
+    cluster_top<CLUSTER>(cluster, &top_list[pp], a.with_topk, lane, ok, oi);
+    write_topk(ok, oi, lane, t, a.with_topk, a.topk_idx, a.topk_scores);
   };
   // the calling warp's sorted top-8 of its nodes (x = warp*32 + lane +
   // k*THREADS) into sh_tk/sh_ti[warp]
   auto warp_list = [&]() {
-    unsigned lk[TOPK], ok[TOPK];
-    int li[TOPK], oi[TOPK];
-    list_clear(lk, li);
-    for (int x = warp * 32 + lane; x < cnt; x += THREADS)
-      list_insert(lk, li, row[x], lo + x);
-    warp_top(lk, li, ok, oi);
-#pragma unroll
-    for (int q = 0; q < TOPK; ++q)
-      if (q == lane) {
-        sh_tk[warp][q] = ok[q];
-        sh_ti[warp][q] = oi[q];
-      }
+    warp_row_top<THREADS>(row, lo, cnt, warp, lane, sh_tk[warp], sh_ti[warp]);
   };
   // a row entry changed: its warp's list is stale
   auto mark = [&](int x) {
@@ -412,33 +365,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int pm = a.bp > 1 ? m : 0;
         if (a.with_shuffle && pm != rank_m) {
           // rank of a node = its position in the permutation
-          const int* perm = leaf_of<int>(a, L_PERM, pm);
-          if ((n & 3) == 0 && ((uintptr_t)perm & 15) == 0) {
-            // 16-byte loads where the row starts 16-byte aligned
-            const int4* p4 = reinterpret_cast<const int4*>(perm);
-            for (int g0 = tid; g0 < n / 4; g0 += RANK_UNROLL * THREADS) {
-              int4 v[RANK_UNROLL];
-#pragma unroll
-              for (int u = 0; u < RANK_UNROLL; ++u) {
-                const int g = g0 + u * THREADS;
-                v[u] = g < n / 4 ? __ldg(p4 + g) : make_int4(-1, -1, -1, -1);
-              }
-#pragma unroll
-              for (int u = 0; u < RANK_UNROLL; ++u) {
-                const int pos = 4 * (g0 + u * THREADS);
-                const int node[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
-#pragma unroll
-                for (int c = 0; c < 4; ++c)
-                  if (node[c] >= lo && node[c] < hi)
-                    rank[node[c] - lo] = (unsigned)(pos + c);
-              }
-            }
-          } else {
-            for (int pos = tid; pos < n; pos += THREADS) {
-              const int node = __ldg(perm + pos);
-              if (node >= lo && node < hi) rank[node - lo] = (unsigned)pos;
-            }
-          }
+          load_ranks<THREADS>(leaf_of<int>(a, L_PERM, pm), n, lo, hi, rank,
+                              tid, [](int g) { return g; });
           rank_m = pm;
         }
         row_m = m;
@@ -645,44 +573,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 static int g_limit[MAX_DEVICES];  // 0: attributes not set yet
 
 static cudaError_t smem_limit(int* limit) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < MAX_DEVICES && g_limit[dev] > 0) {
-    *limit = g_limit[dev];
-    return cudaSuccess;
-  }
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return e;
-  cudaFuncAttributes fa;
-  e = cudaFuncGetAttributes(&fa, fused_wave_kernel);
-  if (e != cudaSuccess) return e;
-  *limit = optin - (int)fa.sharedSizeBytes;
-  e = cudaFuncSetAttribute(fused_wave_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           *limit);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(fused_wave_kernel,
-                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess && dev < MAX_DEVICES) g_limit[dev] = *limit;
-  return e;
+  void (*const kernels[])(const FusedArgs) = {fused_wave_kernel};
+  return cluster_smem_limit(kernels, g_limit, limit);
 }
 
 static cudaLaunchConfig_t launch_config(size_t smem, cudaStream_t stream,
                                         cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER, 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+  return cluster_launch_config<CLUSTER, THREADS>(smem, stream, attr);
 }
 
 extern "C" int fused_wave_cluster(void) { return CLUSTER; }

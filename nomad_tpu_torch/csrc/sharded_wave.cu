@@ -96,7 +96,9 @@
 // - Exactness: the feasibility and score come from csrc/wave_score.cuh,
 //   shared with B1, under B1's build flags (-fmad=false, no fast-math, the
 //   fit scaled by the f32 reciprocal of 18), so a cached score, a fresh
-//   one, B1's and the plain version's on the card are the same bits.
+//   one, B1's and the plain version's on the card are the same bits. The
+//   slots, the rank loader, the top-8 lists and the launch helpers are
+//   B1's too (csrc/cluster_wave.cuh).
 //
 // Built by nomad_tpu_torch/ops/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v
@@ -106,7 +108,7 @@
 
 #include <mutex>
 
-#include "wave_score.cuh"
+#include "cluster_wave.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -116,7 +118,6 @@ namespace cg = cooperative_groups;
 #define MAX_P 4                    // MAX_PENALTY_NODES
 #define N_SPECIAL (MAX_P + 2)      // pending commit, penalty nodes, pin
 #define ROW_UNROLL 2               // rows a thread loads at once (row pass)
-#define RANK_UNROLL 8              // 16-byte permutation loads in flight
 #define ALL_WARPS (FULL_MASK >> (32 - NWARPS))
 #define MAX_CARDS 8
 #define MAX_SHARDS 64              // mesh positions
@@ -153,19 +154,8 @@ struct Shape {
       with_shuffle;
 };
 
-// One CTA's argmax for one step, read by every CTA of its card after the
-// step's cluster barrier.
-struct __align__(16) Slot {
-  unsigned k, r;  // score key, and its rank (global)
-  int i;          // global node index
-  float pin_v;    // the pin's masked step value (meaningful from its owner)
-};
-
-// One CTA's top-8 for one step (global indices).
-struct __align__(16) TopList {
-  unsigned k[TOPK];
-  int i[TOPK];
-};
+// A CTA's Slot and TopList (csrc/cluster_wave.cuh) hold global node
+// indices and ranks.
 
 // One card's result for one step, in a slot of every card's mailbox.
 struct __align__(16) Entry {
@@ -437,19 +427,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (s.with_topk) warp_top(lk, li, ok, oi);
   };
   // the CTAs' top-8 lists of parity pp, merged (a warp of CTA 0)
-  auto cluster_top = [&](int pp, unsigned* ok, int* oi) {
-    unsigned lk[TOPK];
-    int li[TOPK];
-    list_clear(lk, li);
-    if (s.with_topk && lane < CLUSTER) {
-      const TopList* tl = cluster.map_shared_rank(&top_list[pp], lane);
-#pragma unroll
-      for (int q = 0; q < TOPK; ++q) {
-        lk[q] = tl->k[q];
-        li[q] = tl->i[q];
-      }
-    }
-    merged(lk, li, ok, oi);
+  auto cta_top = [&](int pp, unsigned* ok, int* oi) {
+    cluster_top<CLUSTER>(cluster, &top_list[pp], s.with_topk, lane, ok, oi);
   };
   // the root's CTA 0, warp 1: the wave's top-8 of active step t, from the
   // CTAs' lists (one card) or the cards' entries (several) of parity pp,
@@ -458,7 +437,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     unsigned ok[TOPK];
     int oi[TOPK];
     if (!multi) {
-      cluster_top(pp, ok, oi);
+      cta_top(pp, ok, oi);
     } else {
       unsigned lk[TOPK];
       int li[TOPK];
@@ -478,34 +457,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       merged(lk, li, ok, oi);
     }
-    if (lane < TOPK) {
-      unsigned k = PAD_KEY;
-      int i = 0;
-#pragma unroll
-      for (int q = 0; q < TOPK; ++q)
-        if (q == lane) {
-          k = ok[q];
-          i = oi[q];
-        }
-      w.topk_idx[t * TOPK + lane] = s.with_topk ? i : 0;
-      w.topk_scores[t * TOPK + lane] = s.with_topk ? key_score(k) : NEG_INF_F;
-    }
+    write_topk(ok, oi, lane, t, s.with_topk, w.topk_idx, w.topk_scores);
   };
   // the calling warp's sorted top-8 of its rows (x = warp*32 + lane +
   // k*THREADS), on card rows, into sh_tk/sh_ti[warp]
   auto warp_list = [&]() {
-    unsigned lk[TOPK], ok[TOPK];
-    int li[TOPK], oi[TOPK];
-    list_clear(lk, li);
-    for (int x = warp * 32 + lane; x < cnt; x += THREADS)
-      list_insert(lk, li, row[x], lo + x);
-    warp_top(lk, li, ok, oi);
-#pragma unroll
-    for (int q = 0; q < TOPK; ++q)
-      if (q == lane) {
-        sh_tk[warp][q] = ok[q];
-        sh_ti[warp][q] = oi[q];
-      }
+    warp_row_top<THREADS>(row, lo, cnt, warp, lane, sh_tk[warp], sh_ti[warp]);
   };
   // a row entry changed: its warp's list is stale
   auto mark = [&](int x) {
@@ -611,35 +568,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int pm = s.bp > 1 ? m : 0;
         if (s.with_shuffle && pm != rank_m) {
           // rank of a node = its position in the permutation
-          const int* perm = pleaf<int>(s, pos[0], L_PERM, pm);
-          const int n = s.n_glob;
-          if ((n & 3) == 0 && ((uintptr_t)perm & 15) == 0) {
-            // 16-byte loads where the row starts 16-byte aligned
-            const int4* p4 = reinterpret_cast<const int4*>(perm);
-            for (int g0 = tid; g0 < n / 4; g0 += RANK_UNROLL * THREADS) {
-              int4 q4[RANK_UNROLL];
-#pragma unroll
-              for (int u = 0; u < RANK_UNROLL; ++u) {
-                const int g = g0 + u * THREADS;
-                q4[u] = g < n / 4 ? __ldg(p4 + g) : make_int4(-1, -1, -1, -1);
-              }
-#pragma unroll
-              for (int u = 0; u < RANK_UNROLL; ++u) {
-                const int at = 4 * (g0 + u * THREADS);
-                const int node[4] = {q4[u].x, q4[u].y, q4[u].z, q4[u].w};
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                  const int r = row_of(node[e]);
-                  if (r >= lo && r < hi) rank[r - lo] = (unsigned)(at + e);
-                }
-              }
-            }
-          } else {
-            for (int at = tid; at < n; at += THREADS) {
-              const int r = row_of(__ldg(perm + at));
-              if (r >= lo && r < hi) rank[r - lo] = (unsigned)at;
-            }
-          }
+          load_ranks<THREADS>(pleaf<int>(s, pos[0], L_PERM, pm), s.n_glob,
+                              lo, hi, rank, tid, row_of);
           rank_m = pm;
         }
         row_m = m;
@@ -789,7 +719,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (multi && cta == 0 && warp == 1) {
         unsigned ok[TOPK];
         int oi[TOPK];
-        cluster_top(par, ok, oi);
+        cta_top(par, ok, oi);
 #pragma unroll
         for (int q = 0; q < TOPK; ++q)
           if (q == lane) {
@@ -973,54 +903,14 @@ __global__ void __launch_bounds__(THREADS, 1)
 static int g_limit[MAX_DEVICES];  // 0: attributes not set yet
 
 static cudaError_t smem_limit(int* limit) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < MAX_DEVICES && g_limit[dev] > 0) {
-    *limit = g_limit[dev];
-    return cudaSuccess;
-  }
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return e;
-  void (*kernels[2])(const Wave) = {sharded_wave_kernel<false>,
-                                     sharded_wave_kernel<true>};
-  size_t static_smem = 0;
-  for (auto kernel : kernels) {
-    cudaFuncAttributes fa;
-    e = cudaFuncGetAttributes(&fa, kernel);
-    if (e != cudaSuccess) return e;
-    if (fa.sharedSizeBytes > static_smem) static_smem = fa.sharedSizeBytes;
-  }
-  *limit = optin - (int)static_smem;
-  for (auto kernel : kernels) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             *limit);
-    if (e != cudaSuccess) return e;
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed,
-                             1);
-    if (e != cudaSuccess) return e;
-  }
-  if (dev < MAX_DEVICES) g_limit[dev] = *limit;
-  return cudaSuccess;
+  void (*const kernels[])(const Wave) = {sharded_wave_kernel<false>,
+                                         sharded_wave_kernel<true>};
+  return cluster_smem_limit(kernels, g_limit, limit);
 }
 
 static cudaLaunchConfig_t launch_config(size_t smem, cudaStream_t stream,
                                         cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER, 1, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+  return cluster_launch_config<CLUSTER, THREADS>(smem, stream, attr);
 }
 
 // One card of the mesh; the first is the root. Mirrored by

@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-Counterpart of ``nomad_tpu/ops/pallas_kernel.py``, and of the one XLA
-program on a main path that became a kernel. Four kernels, each built at
+Counterpart of ``nomad_tpu/ops/pallas_kernel.py``, and of the XLA
+programs on a main path that became kernels. Five kernels, each built at
 first use by ``ops/build.py`` from ``csrc/`` and launched through a plain
 C entry point loaded with ctypes:
 
@@ -17,6 +17,13 @@ C entry point loaded with ctypes:
   full-width pass, the exact candidate top-k and rest max, and the K-step
   candidate scan. Plain version: ``topk_place_batch_reference``, the torch
   ``candidate_pass`` then ``cand_scan_reference``.
+- ``joint_wave_place`` (``csrc/joint_wave.cu``; the XLA programs
+  ``nomad_tpu/ops/kernel.py`` ``place_taskgroups_joint_jit`` :1060-1279
+  and ``place_taskgroup_jit`` :565-723): the joint wave under any feature
+  union (spreads, devices, reserved cores, bandwidth), for the waves
+  outside B1's envelope; ``joint_eval_place`` runs one eval through it as
+  ``place_taskgroup`` does. Plain versions: ``fused_wave_place_reference``
+  and ``place_taskgroup``.
 - ``sharded_wave_place`` (``csrc/sharded_wave.cu``; the XLA program
   ``nomad_tpu/parallel/sharded.py`` ``_fused_sharded_core`` :291-505,
   under ``fused_sharded_entry`` :507): the fused wave over a mesh of node
@@ -25,7 +32,7 @@ C entry point loaded with ctypes:
   packed the same way.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
-the plain version only for CPU tensors. ``launches``,
+the plain version only for CPU tensors. ``launches``, ``joint_launches``,
 ``place_batch_launches``, ``topk_place_batch_launches`` and
 ``sharded_launches`` count kernel calls and nothing else.
 """
@@ -42,6 +49,7 @@ import torch
 
 from nomad_tpu_torch.ops.build import BuiltLibrary, build_library
 from nomad_tpu_torch.ops.kernel import (
+    FUSED_METRIC_FIELDS,
     KIN_UNBATCHED_RANKS,
     MAX_PENALTY_NODES,
     NEG_INF,
@@ -49,14 +57,22 @@ from nomad_tpu_torch.ops.kernel import (
     FusedWaveOut,
     KernelFeatures,
     KernelIn,
+    KernelOut,
     fused_pack_len,
     fused_wave_supported,
+    joint_wave_supported,
     pack_fused_wave,
     _argmax_first,
     _as_host_ints,
     _rows,
+    place_taskgroup,
     place_taskgroups_joint,
     topk_ordered,
+)
+from nomad_tpu_torch.tensors.schema import (
+    MAX_DEV_REQS,
+    MAX_SPREADS,
+    SPREAD_BUCKETS,
 )
 
 #: CUDA kernel launches made by ``fused_wave_place`` (plain int; the
@@ -117,6 +133,7 @@ class _FusedArgs(ctypes.Structure):
 
 #: C entry point of each library under csrc/
 _ENTRY = {"fused_wave": "fused_wave_launch",
+          "joint_wave": "joint_wave_launch",
           "place_batch": "place_batch_launch",
           "topk_place_batch": "topk_place_batch_launch",
           "sharded_wave": "sharded_wave_launch"}
@@ -348,6 +365,265 @@ def fused_wave_apply(kin: KernelIn, used_cpu: torch.Tensor,
     out = fused_wave_place(kin2, step_member, step_local, t_steps, features)
     return (out, used_cpu + out.a_cpu, used_mem + out.a_mem,
             used_disk + out.a_disk)
+
+
+# ---------------------------------------------------------------------------
+# The joint wave under any feature union.
+# ---------------------------------------------------------------------------
+
+#: CUDA kernel launches made by ``joint_wave_place`` and
+#: ``joint_eval_place`` (csrc/joint_wave.cu)
+joint_launches = 0
+
+#: CTAs in the cluster that runs one joint wave (CLUSTER in
+#: csrc/joint_wave.cu); it sizes each CTA's spread-count scratch
+JOINT_CLUSTER = 16
+
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+#: every KernelIn leaf in its field order (csrc/joint_wave.cu ``JLeaf``),
+#: with the dtype it must have
+_JOINT_LEAVES = tuple((name, {
+    "cap_cpu": _F32, "cap_mem": _F32, "cap_disk": _F32, "free_cores": _I32,
+    "shares_per_core": _F32, "free_dyn": _I32, "base_mask": _BOOL,
+    "used_cpu": _F32, "used_mem": _F32, "used_disk": _F32,
+    "used_cores": _I32, "used_mbits": _I32, "avail_mbits": _I32,
+    "port_conflict": _BOOL, "dev_free": _F32, "dev_aff_score": _F32,
+    "has_dev_affinity": _BOOL, "job_tg_count": _I32, "penalty": _BOOL,
+    "aff_score": _F32, "node_perm": _I32, "step_penalty": _I32,
+    "step_preferred": _I32, "job_any_count": _I32,
+    "distinct_hosts_job": _BOOL, "distinct_hosts_tg": _BOOL,
+    "spread_active": _BOOL, "spread_even": _BOOL, "spread_weight": _F32,
+    "spread_bucket": _I32, "spread_counts": _F32, "spread_desired": _F32,
+    "ask_cpu": _F32, "ask_mem": _F32, "ask_disk": _F32, "ask_cores": _I32,
+    "ask_dyn_ports": _I32, "ask_has_reserved_ports": _BOOL, "ask_dev": _F32,
+    "ask_mbits": _I32, "desired_count": _I32, "algorithm_spread": _BOOL,
+    "n_steps": _I32,
+}[name]) for name in KernelIn._fields)
+
+
+def _joint_shapes(n: int, k: int) -> dict:
+    """The single-problem shape of every leaf with more than one axis or
+    a fixed width (the rest are [N] node planes or scalars)."""
+    s = MAX_SPREADS
+    return {"dev_free": (n, MAX_DEV_REQS), "ask_dev": (MAX_DEV_REQS,),
+            "step_penalty": (k, MAX_PENALTY_NODES), "step_preferred": (k,),
+            "spread_active": (s,), "spread_even": (s,),
+            "spread_weight": (s,), "spread_bucket": (s, n),
+            "spread_counts": (s, SPREAD_BUCKETS),
+            "spread_desired": (s, SPREAD_BUCKETS)}
+
+
+class _JointArgs(ctypes.Structure):
+    """Mirror of ``struct JointArgs`` in csrc/joint_wave.cu."""
+
+    _fields_ = [
+        ("leaf", ctypes.c_void_p * len(_JOINT_LEAVES)),
+        ("stride", ctypes.c_int64 * len(_JOINT_LEAVES)),
+        ("step_member", ctypes.c_void_p),
+        ("step_local", ctypes.c_void_p),
+        ("packed", ctypes.c_void_p),
+        ("topk_idx", ctypes.c_void_p),
+        ("topk_scores", ctypes.c_void_p),
+        ("a_cpu", ctypes.c_void_p),
+        ("a_mem", ctypes.c_void_p),
+        ("a_disk", ctypes.c_void_p),
+        ("a_dyn", ctypes.c_void_p),
+        ("a_cores", ctypes.c_void_p),
+        ("a_mbits", ctypes.c_void_p),
+        ("a_dev", ctypes.c_void_p),
+        ("jtc", ctypes.c_void_p),
+        ("jac", ctypes.c_void_p),
+        ("pc", ctypes.c_void_p),
+        ("spc", ctypes.c_void_p),
+        ("n", ctypes.c_int), ("b", ctypes.c_int), ("t", ctypes.c_int),
+        ("k", ctypes.c_int), ("p", ctypes.c_int), ("bp", ctypes.c_int),
+        ("ns", ctypes.c_int),
+        ("with_topk", ctypes.c_int), ("with_ports", ctypes.c_int),
+        ("with_distinct", ctypes.c_int), ("with_step_pen", ctypes.c_int),
+        ("with_pref", ctypes.c_int), ("with_shuffle", ctypes.c_int),
+        ("with_devices", ctypes.c_int), ("with_cores", ctypes.c_int),
+        ("with_network", ctypes.c_int), ("single", ctypes.c_int),
+    ]
+
+
+def joint_wave_place(kin: KernelIn, step_member, step_local, t_steps: int,
+                     features: KernelFeatures) -> FusedWaveOut:
+    """One joint wave under any feature union: stacked KernelIn of torch
+    tensors + step maps -> FusedWaveOut, packed as a fused wave. CUDA
+    tensors launch csrc/joint_wave.cu (or raise); CPU tensors run the
+    plain version, ``fused_wave_place_reference``."""
+    dev = kin.cap_cpu.device
+    if dev.type == "cpu":
+        return fused_wave_place_reference(kin, step_member, step_local,
+                                          t_steps, features)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _joint_launch(kin, step_member, step_local, t_steps, features)
+
+
+def joint_wave_apply(kin: KernelIn, used_cpu: torch.Tensor,
+                     used_mem: torch.Tensor, used_disk: torch.Tensor,
+                     step_member, step_local, t_steps: int,
+                     features: KernelFeatures):
+    """``fused_wave_apply`` through ``joint_wave_place``: the wave with
+    the given shared used planes, and NEW tensors ``used_* + a_*``."""
+    kin2 = kin._replace(used_cpu=used_cpu, used_mem=used_mem,
+                        used_disk=used_disk)
+    out = joint_wave_place(kin2, step_member, step_local, t_steps, features)
+    return (out, used_cpu + out.a_cpu, used_mem + out.a_mem,
+            used_disk + out.a_disk)
+
+
+def wave_kernel_out(got: FusedWaveOut, k_steps: int) -> KernelOut:
+    """A one-member wave's FusedWaveOut as its eval's KernelOut, on its
+    device: ``unpack_fused_wave``'s layout (chosen and scores over the
+    steps, then the eight metrics, one each) read by slicing, so nothing
+    comes back to the host."""
+    packed = got.packed
+    chosen = packed[:k_steps].to(torch.int32)
+    metrics = packed[2 * k_steps:2 * k_steps + len(FUSED_METRIC_FIELDS)]
+    return KernelOut(chosen, packed[k_steps:2 * k_steps], chosen >= 0,
+                     got.topk_idx, got.topk_scores,
+                     *metrics.to(torch.int32).unbind(0))
+
+
+def joint_eval_place(kin: KernelIn, k_steps: int,
+                     features: KernelFeatures) -> KernelOut:
+    """One eval's ``k_steps`` placements under any feature union, as
+    ``place_taskgroup`` places them: ``kin`` is one eval's planes (torch
+    tensors, ``n_steps`` a scalar). On the card a one-member wave of
+    csrc/joint_wave.cu whose f32 carries add each placement to the used
+    planes in turn, the reference's order (or raise); on the CPU the plain
+    version, ``place_taskgroup``. The KernelOut stays on the device."""
+    if kin.n_steps.dim() != 0:
+        raise ValueError("joint_eval_place takes one eval: n_steps must be "
+                         "a scalar")
+    dev = kin.cap_cpu.device
+    if dev.type == "cpu":
+        return place_taskgroup(kin, k_steps, features)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    one = kin._replace(n_steps=kin.n_steps.reshape(1))
+    sm = torch.zeros(k_steps, dtype=torch.int32, device=dev)
+    sl = torch.arange(k_steps, dtype=torch.int32, device=dev)
+    got = _joint_launch(one, sm, sl, k_steps, features, single=True)
+    return wave_kernel_out(got, k_steps)
+
+
+_JOINT_PLANS: dict = {}   # (device, n, b, shuffle) -> joint_wave_plan
+
+
+def _check_joint_fits(dev: torch.device, n: int, b: int,
+                      shuffle: bool) -> None:
+    """Raise unless one cluster can hold the wave: each CTA keeps its
+    node range's row keys and partial sums (and shuffle ranks) in shared
+    memory."""
+    key = (dev.index, n, b, bool(shuffle))
+    plan = _JOINT_PLANS.get(key)
+    if plan is None:
+        load_library("joint_wave")
+        lib = _LIBS["joint_wave"][2]
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            err = lib.joint_wave_plan(
+                ctypes.c_int(n), ctypes.c_int(b), ctypes.c_int(int(shuffle)),
+                out)
+        if err != 0:
+            raise RuntimeError(f"joint_wave_plan failed: cudaError {err}")
+        if out[0] != JOINT_CLUSTER:
+            raise RuntimeError(f"csrc/joint_wave.cu runs clusters of "
+                               f"{out[0]} CTAs; JOINT_CLUSTER says "
+                               f"{JOINT_CLUSTER}")
+        plan = _JOINT_PLANS[key] = tuple(out)
+    cluster, smem, limit, clusters = plan
+    if smem > limit:
+        raise ValueError(
+            f"N={n} does not fit the joint wave: each of the {cluster} CTAs "
+            f"keeps {-(-n // cluster)} nodes' scores in shared memory, "
+            f"{smem} B with B={b}, over the limit of {limit} B a block may "
+            "take on this card")
+    if clusters == 0:
+        raise RuntimeError(f"the card runs no cluster of {cluster} CTAs with "
+                           f"{smem} B of shared memory each")
+
+
+def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
+                  f: KernelFeatures, single: bool = False) -> FusedWaveOut:
+    global joint_launches
+    dev = kin.cap_cpu.device
+    b = int(kin.n_steps.shape[0])
+    n = int(kin.cap_cpu.shape[-1])
+    k = int(kin.step_preferred.shape[-1])
+    ns = int(f.n_spreads)
+    if not joint_wave_supported(f):
+        raise ValueError(f"n_spreads={ns}: want 0..{MAX_SPREADS}")
+    if n >= 1 << 24:
+        raise ValueError("node ids are packed as f32: N must stay below 2**24")
+    if single and b != 1:
+        raise ValueError("a single eval is a one-member wave")
+    sm = torch.as_tensor(step_member, dtype=torch.int32, device=dev)
+    sl = torch.as_tensor(step_local, dtype=torch.int32, device=dev)
+    if sm.shape != (t_steps,) or sl.shape != (t_steps,):
+        raise ValueError("step_member/step_local must be i32[t_steps]")
+    shapes = _joint_shapes(n, k)
+    args = _JointArgs()
+    for slot, (name, dtype) in enumerate(_JOINT_LEAVES):
+        x = getattr(kin, name)
+        if x.dtype != dtype:
+            raise ValueError(f"{name} has dtype {x.dtype}; want {dtype}")
+        args.stride[slot] = stride = _member_stride(name, x, b, dev)
+        want = shapes.get(name)
+        if want is None:
+            want = (n,) if getattr(KIN_UNBATCHED_RANKS, name) == 1 else ()
+        got = tuple(x.shape[1:] if stride else x.shape)
+        if name != "n_steps" and got != want:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}; want "
+                             f"{want}, or a leading member axis of {b}")
+        args.leaf[slot] = x.data_ptr()
+    _check_joint_fits(dev, n, b, f.with_shuffle)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    out = FusedWaveOut(
+        packed=f32(fused_pack_len(t_steps, b)),
+        topk_idx=i32(t_steps, TOPK), topk_scores=f32(t_steps, TOPK),
+        a_cpu=f32(n), a_mem=f32(n), a_disk=f32(n))
+    scratch = dict(
+        a_dyn=i32(n if f.with_ports else 1),
+        a_cores=i32(n if f.with_cores else 1),
+        a_mbits=i32(n if f.with_network else 1),
+        a_dev=f32(n * MAX_DEV_REQS if f.with_devices else 1),
+        jtc=i32(b, n),
+        jac=i32(b, n) if f.with_distinct else i32(1),
+        pc=(torch.empty((b, n), dtype=torch.bool, device=dev)
+            if f.with_ports else i32(1)),
+        spc=f32(JOINT_CLUSTER * b * MAX_SPREADS * SPREAD_BUCKETS
+                if ns else 1),
+    )
+    args.step_member = sm.data_ptr()
+    args.step_local = sl.data_ptr()
+    for name in FusedWaveOut._fields:
+        setattr(args, name, getattr(out, name).data_ptr())
+    for name, x in scratch.items():
+        setattr(args, name, x.data_ptr())
+    args.n, args.b, args.t, args.k = n, b, t_steps, k
+    args.p, args.ns = MAX_PENALTY_NODES, ns
+    args.bp = b if kin.node_perm.dim() == 2 else 1
+    for name in ("with_topk", "with_ports", "with_distinct", "with_shuffle",
+                 "with_devices", "with_cores", "with_network"):
+        setattr(args, name, int(getattr(f, name)))
+    args.with_step_pen = int(f.with_step_penalties)
+    args.with_pref = int(f.with_preferred)
+    args.single = int(single)
+
+    _call("joint_wave", args, dev, "joint_wave_kernel")
+    with _LAUNCH_LOCK:
+        joint_launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,12 @@ Counterpart of ``nomad_tpu/ops/kernel.py``. Two halves:
   are recognisable by ``is`` and ship once per wave.
 - Device half (torch): ``place_taskgroups_joint``, the composite wave
   over the full feature set (spreads, devices, cores and network
-  included). It is the plain version of the CUDA fused-wave kernel
-  (ops/cuda_kernel.py) and serves waves outside the fused envelope.
-  JAX's ``lax.scan`` over steps is a Python loop here and ``vmap`` over
-  members is a written-out member axis.
+  included), and ``place_taskgroup``, one eval. They are the plain
+  versions of the CUDA wave kernels (ops/cuda_kernel.py: B1 inside the
+  fused envelope, the joint kernel under any union) and of the single
+  eval's full-width route through the joint kernel. JAX's ``lax.scan``
+  over steps is a Python loop here and ``vmap`` over members is a
+  written-out member axis.
 
 Semantics (Go reference -> tensor formulation) are those of the JAX
 module: resource fit as mask algebra, ScoreFitBinPack/ScoreFitSpread
@@ -1021,9 +1023,16 @@ def fused_wave_supported(f: KernelFeatures) -> bool:
     """Whether a wave's (canonical) feature union fits the fused kernel's
     envelope: ports, penalties, preferred pins, distinct_hosts, shuffle
     and top-k are in; spreads, devices, cores and bandwidth are not
-    (those waves run the composite, counted as fallbacks)."""
+    (those waves are counted as fallbacks, the reference's meaning, and
+    run the joint kernel, ``joint_wave_supported``)."""
     return (f.n_spreads == 0 and not f.with_devices
             and not f.with_cores and not f.with_network)
+
+
+def joint_wave_supported(f: KernelFeatures) -> bool:
+    """Whether the joint kernel (csrc/joint_wave.cu) takes a feature
+    union: every union, up to MAX_SPREADS spread stanzas."""
+    return 0 <= f.n_spreads <= MAX_SPREADS
 
 
 def fused_pack_len(t_steps: int, b: int) -> int:
@@ -1331,7 +1340,11 @@ def _place_topk(kin: KernelIn, k_steps: int, features: KernelFeatures,
 
 def _place_full(kin: KernelIn, k_steps: int, features: KernelFeatures,
                 dev: torch.device):
-    return place_taskgroup(_upload_kin(kin, dev), k_steps, features)
+    # on the card the joint kernel as a one-member wave, on the CPU its
+    # plain version, place_taskgroup
+    from nomad_tpu_torch.ops.cuda_kernel import joint_eval_place
+
+    return joint_eval_place(_upload_kin(kin, dev), k_steps, features)
 
 
 def _read_single(out: KernelOut, ok: Optional[torch.Tensor], k: int):
@@ -1372,11 +1385,13 @@ def default_kernel_launch(kin: KernelIn, k_steps: int,
     the candidate-set placement runs when its preconditions hold (no
     spread stanzas, binpack scoring), and the full-width placement runs
     otherwise or where the candidate set's bound broke (``valid`` False),
-    the reference's rule, counted in ``single_eval_stats``. The result
-    comes back as host numpy in one packed readback, top-k planes
-    included. Shared planes resident on ``dev`` are not uploaded again,
-    and both placements are profiled under the ``single_topk`` and
-    ``single_full`` keys ``(n_pad, k_steps, features)``."""
+    the reference's rule, counted in ``single_eval_stats``. On the card
+    the full-width placement is one launch of the joint kernel
+    (``ops/cuda_kernel.joint_eval_place``). The result comes back as host
+    numpy in one packed readback, top-k planes included. Shared planes
+    resident on ``dev`` are not uploaded again, and both placements are
+    profiled under the ``single_topk`` and ``single_full`` keys
+    ``(n_pad, k_steps, features)``."""
     from nomad_tpu_torch.telemetry.kernel_profile import profiler
 
     dev = resolve_device(device)

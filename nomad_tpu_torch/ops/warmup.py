@@ -102,7 +102,7 @@ def _features_from_dict(d: Dict):
 def manifest_from_profiler(profiler=None) -> List[Dict]:
     """Flatten the kernel profiler's (kernel, key) launches into JSON-able
     manifest entries. Fused-wave keys fold into the same ``joint`` entries
-    as the composite's: the launcher keys both alike, and warmup derives
+    as the joint kernel's: the launcher keys both alike, and warmup derives
     from an entry's features which of the two its waves run. Sharded
     keys (the wave key and the mesh's devices) fold into the same
     mesh-agnostic entries, their devices dropped: the next start warms
@@ -395,10 +395,11 @@ def _warm_fused(e: Dict, dev: torch.device) -> bool:
 
 
 def _warm_joint(e: Dict, dev: torch.device) -> bool:
-    """The torch composite for a joint entry outside the fused envelope."""
-    from nomad_tpu_torch.ops.cuda_kernel import fused_wave_place_reference
+    """The joint kernel (csrc/joint_wave.cu; on the CPU its plain version)
+    for a joint entry that B1 does not take, as ``launch_wave`` runs it."""
+    from nomad_tpu_torch.ops.cuda_kernel import joint_wave_place
 
-    return _warm_wave("joint", fused_wave_place_reference, e, dev)
+    return _warm_wave("joint", joint_wave_place, e, dev)
 
 
 def _warm_sharded(kernel: str, e: Dict, mesh, fused: bool) -> bool:
@@ -536,7 +537,7 @@ def warmup_entries(entries: List[Dict], device: DeviceLike = None,
     def one_device(e: Dict) -> bool:
         if e.get("kernel") == "joint":
             # B1 when the switch is on and the entry fits its envelope,
-            # else the composite
+            # else the joint kernel
             return (fused_wave_enabled() and _warm_fused(e, dev)) \
                 or _warm_joint(e, dev)
         if e.get("kernel") in ("single_topk", "single_full"):

@@ -36,9 +36,12 @@ A wave given a device mesh (``mesh=``; a coalescer passes its server's
 ``Server.wave_mesh``) runs with its node axis split over the mesh's devices
 (``parallel/sharded``): the fused sharded wave (on the card, the hand
 kernel ``csrc/sharded_wave.cu``) when the union is in the fused envelope
-and each shard holds at least TOPK rows, else the joint sharded wave
-(counted as a fused fallback). ``configure_fused_wave(False)`` sends
-every wave to the composite, or to the joint sharded wave, uncounted.
+and each shard holds at least TOPK rows, else the joint sharded wave as
+torch ops (counted as a fused fallback). On one device a wave whose union
+leaves the fused envelope runs the joint kernel (``csrc/joint_wave.cu``,
+any union), counted as a fused fallback, the reference's meaning, and in
+``joint_wave_stats``. ``configure_fused_wave(False)`` sends every wave to
+the joint kernel, or to the joint sharded wave, uncounted as fallbacks.
 A mesh that does not divide the node axis, or has one device, runs the
 wave on ``device`` and counts a sharded fallback in
 ``sharded_wave_stats``. The results equal the
@@ -47,7 +50,7 @@ one-device wave's bit for bit.
 The fault points ``wave.launch`` and ``wave.d2h.drain`` and the tracer
 spans ``wave.assemble``, ``wave.park``, ``wave.launch`` and
 ``kernel.d2h`` sit where the JAX launcher has them, and the kernel
-profiler (``telemetry/kernel_profile``) times each wave's B1, composite
+profiler (``telemetry/kernel_profile``) times each wave's B1, joint
 or sharded dispatch under its bucket key and meters its uploads and
 readbacks.
 """
@@ -67,7 +70,8 @@ from nomad_tpu_torch.device import DeviceLike, resolve_device
 from nomad_tpu_torch.ops.cuda_kernel import (
     fused_wave_apply,
     fused_wave_place,
-    fused_wave_place_reference,
+    joint_wave_apply,
+    joint_wave_place,
     raise_on_wave_error,
 )
 from nomad_tpu_torch.ops.kernel import (
@@ -112,12 +116,12 @@ def _percentile(values, q: float) -> float:
 
 class _FusedWaveStats:
     """Fused-dispatch accounting. ``launches`` counts waves that ran the
-    fused kernel; ``fallbacks`` counts waves that ran the composite
-    because their feature union left the envelope (spreads, devices,
-    cores, network). Steady live traffic fits the envelope. ``failures``
-    counts waves whose launch raised: the error reaches every member
-    (a worker nacks their evals), and no other version runs in its
-    place."""
+    fused kernel; ``fallbacks`` counts waves whose feature union left the
+    envelope (spreads, devices, cores, network), the reference's
+    meaning: they run the joint kernel (``joint_wave_stats``). Steady
+    live traffic fits the envelope. ``failures`` counts waves whose
+    launch raised: the error reaches every member (a worker nacks their
+    evals), and no other version runs in its place."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -152,6 +156,40 @@ class _FusedWaveStats:
 #: process-wide fused-wave stats (coalescers are per batch and too
 #: short-lived to carry their own history)
 fused_wave_stats = _FusedWaveStats()
+
+
+class _JointWaveStats:
+    """The port's own count of the waves outside B1's one-device route:
+    ``launches`` waves that ran the joint kernel (``csrc/joint_wave.cu``,
+    one launch each), ``torch_waves`` waves that ran torch ops instead
+    (the plain version on CPU tensors, the joint sharded wave over a
+    mesh). On one card ``torch_waves`` stays 0."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.launches = 0
+        self.torch_waves = 0
+
+    def note(self, kernel: bool) -> None:
+        with self._lock:
+            if kernel:
+                self.launches += 1
+            else:
+                self.torch_waves += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0
+            self.torch_waves = 0
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"launches": self.launches,
+                    "torch_waves": self.torch_waves}
+
+
+#: process-wide joint-wave stats
+joint_wave_stats = _JointWaveStats()
 
 
 class _ShardedWaveStats:
@@ -201,14 +239,15 @@ sharded_wave_stats = _ShardedWaveStats()
 
 #: The fused-wave switch (the JAX package's knob). On (the default): a
 #: wave whose feature union fits the fused envelope runs B1, or the fused
-#: sharded kernel over a mesh; the rest run the composite (the joint
+#: sharded kernel over a mesh; the rest run the joint kernel (the joint
 #: sharded wave over a mesh), counted as fallbacks. Off: every wave runs
-#: the composite, and nothing counts as a fallback.
+#: the joint kernel (or the joint sharded wave), and nothing counts as a
+#: fallback.
 _FUSED_WAVE = True
 
 
 def configure_fused_wave(on: bool) -> None:
-    """Turn the fused wave on or off process-wide (a composite arm of a
+    """Turn the fused wave on or off process-wide (a joint-kernel arm of a
     benchmark flips this)."""
     global _FUSED_WAVE
     _FUSED_WAVE = bool(on)
@@ -703,26 +742,18 @@ def assemble_sharded_wave(kins: List[KernelIn], k_steps: List[int],
 
 
 def _dispatch(stacked, sm, sl, t_pad, feats, resident, fused):
-    """The fused kernel when ``fused`` (the union fits its envelope), else
-    the composite. With ``resident`` the wave reads its used planes and
-    commits ``used + a_*`` back into it."""
+    """B1 when ``fused`` (the union fits its envelope), else the joint
+    kernel (on CPU tensors, each its plain version). With ``resident`` the
+    wave reads its used planes and commits ``used + a_*`` back into it."""
     if resident is None:
-        if fused:
-            return fused_wave_place(stacked, sm, sl, t_pad, feats)
-        return fused_wave_place_reference(stacked, sm, sl, t_pad, feats)
+        place = fused_wave_place if fused else joint_wave_place
+        return place(stacked, sm, sl, t_pad, feats)
+    apply = fused_wave_apply if fused else joint_wave_apply
     with resident.lock:
         r = resident
-        if fused:
-            fout, r.used_cpu, r.used_mem, r.used_disk = fused_wave_apply(
-                stacked, r.used_cpu, r.used_mem, r.used_disk, sm, sl,
-                t_pad, feats)
-        else:
-            fout = fused_wave_place_reference(stacked._replace(
-                used_cpu=r.used_cpu, used_mem=r.used_mem,
-                used_disk=r.used_disk), sm, sl, t_pad, feats)
-            r.used_cpu = r.used_cpu + fout.a_cpu
-            r.used_mem = r.used_mem + fout.a_mem
-            r.used_disk = r.used_disk + fout.a_disk
+        fout, r.used_cpu, r.used_mem, r.used_disk = apply(
+            stacked, r.used_cpu, r.used_mem, r.used_disk, sm, sl, t_pad,
+            feats)
         r.commits += 1
     return fout
 
@@ -844,8 +875,10 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
             _INFLIGHT_STARTS.pop(token, None)
     if fused:
         fused_wave_stats.note_launch()
-    elif want_fused:
-        fused_wave_stats.note_fallback()
+    else:
+        joint_wave_stats.note(kernel=not sharded and dev.type == "cuda")
+        if want_fused:
+            fused_wave_stats.note_fallback()
     elapsed = time.perf_counter() - t_launch
     wave_latency_ewma.update(elapsed)
     wave_stats.observe_wave_latency(elapsed)

@@ -43,8 +43,9 @@ composite computes for it.
 mesh: evals split over ``evals``, nodes over ``nodes``. Each eval is a
 placement problem of its own: in the fused envelope a one-member wave
 through ``sharded_wave_place`` over its evals row's node shards, or
-through B1 (``fused_wave_place``) on a row of one shard; outside it the
-wave body as torch ops.
+through B1 (``fused_wave_place``) on a row of one shard; outside it
+through the joint hand kernel (``joint_wave_place``) on a row of one
+shard, else the wave body as torch ops.
 """
 
 from __future__ import annotations
@@ -59,13 +60,14 @@ import torch
 from nomad_tpu_torch.device import DeviceLike
 from nomad_tpu_torch.ops.cuda_kernel import (
     fused_wave_place,
+    joint_wave_place,
     raise_on_wave_error,
     sharded_wave_place,
     wave_active_steps,
+    wave_kernel_out,
 )
 from nomad_tpu_torch.ops.kernel import (
     FULL_FEATURES,
-    FUSED_METRIC_FIELDS,
     NEG_INF,
     TOPK,
     JointOut,
@@ -813,34 +815,43 @@ def unstack_kernel_outs(out: KernelOut) -> List[KernelOut]:
 
 class _PlaceBatchStats:
     """``make_place_batch``'s routes, counted per eval as it is sent:
-    ``fused_calls`` calls of B1 (``fused_wave_place``: an eval on an evals
-    row of one node shard), ``sharded_calls`` calls of the sharded kernel
-    (``sharded_wave_place``: a row of two or more), ``plain_evals`` evals
-    through the wave body as torch ops (outside the fused envelope, or
-    every eval of a ``plain`` step). On CPU shards the two wrappers run
-    their plain versions and are counted the same."""
+    ``fused_calls`` calls of B1 (``fused_wave_place``: an eval in the
+    fused envelope on an evals row of one node shard), ``joint_calls``
+    calls of the joint kernel (``joint_wave_place``: any other eval on a
+    row of one), ``sharded_calls`` calls of the sharded kernel
+    (``sharded_wave_place``: an eval in the envelope on a row of two or
+    more), ``plain_evals`` evals through the wave body as torch ops
+    (outside the envelope on a row of two or more, or every eval of a
+    ``plain`` step). On CPU shards the three wrappers run their plain
+    versions and are counted the same."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.fused_calls = 0
+        self.joint_calls = 0
         self.sharded_calls = 0
         self.plain_evals = 0
 
-    def note(self, fused: int = 0, sharded: int = 0, plain: int = 0) -> None:
+    def note(self, fused: int = 0, joint: int = 0, sharded: int = 0,
+             plain: int = 0) -> None:
         with self._lock:
             self.fused_calls += fused
+            self.joint_calls += joint
             self.sharded_calls += sharded
             self.plain_evals += plain
 
     def reset(self) -> None:
         with self._lock:
-            self.fused_calls = self.sharded_calls = self.plain_evals = 0
+            self.fused_calls = self.joint_calls = 0
+            self.sharded_calls = self.plain_evals = 0
 
     def snapshot(self) -> dict:
         with self._lock:
             return {"fused_calls": self.fused_calls,
+                    "joint_calls": self.joint_calls,
                     "sharded_calls": self.sharded_calls,
-                    "kernel_calls": self.fused_calls + self.sharded_calls,
+                    "kernel_calls": (self.fused_calls + self.joint_calls
+                                     + self.sharded_calls),
                     "plain_evals": self.plain_evals}
 
 
@@ -900,19 +911,6 @@ def _plain_eval(one: List[KernelIn], k_steps: int,
                        for name in KernelOut._fields[5:]])
 
 
-def _kernel_out(got, k_steps: int) -> KernelOut:
-    """A one-member wave's FusedWaveOut as the eval's KernelOut, on its
-    device: ``unpack_fused_wave``'s layout (chosen and scores over the
-    steps, then the eight metrics, one each) read by slicing, so nothing
-    comes back to the host."""
-    packed = got.packed
-    chosen = packed[:k_steps].to(torch.int32)
-    metrics = packed[2 * k_steps:2 * k_steps + len(FUSED_METRIC_FIELDS)]
-    return KernelOut(chosen, packed[k_steps:2 * k_steps], chosen >= 0,
-                     got.topk_idx, got.topk_scores,
-                     *metrics.to(torch.int32).unbind(0))
-
-
 def make_place_batch(
     mesh: Mesh, k_steps: int, features: KernelFeatures = FULL_FEATURES,
     plain: bool = False,
@@ -923,15 +921,17 @@ def make_place_batch(
     first device): B evals split over the ``evals`` axis (B must divide
     by it), each eval's node planes over ``nodes``. Each eval is a
     placement problem of its own (its own planes, its own carry), never
-    one member of a joint wave with another. An eval whose planes fit
-    the fused envelope (``eval_features``) runs as a one-member wave of
-    ``k_steps`` steps: through ``sharded_wave_place`` on an evals row of
-    two or more node shards, through ``fused_wave_place`` (B1) on a row
-    of one; on CUDA shards those are the hand kernels, on CPU shards
-    their plain versions. Every other eval runs the wave body as torch
-    ops. Every row's kernel calls are enqueued on its cards before any
-    eval that reads the host; a sharded call's error word is read once at
-    the end, and a set one raises. ``plain`` runs every eval through the
+    one member of a joint wave with another. Each eval runs as a
+    one-member wave of ``k_steps`` steps under the features its planes
+    need (``eval_features``): on an evals row of one node shard through
+    ``fused_wave_place`` (B1) when they fit the fused envelope, else
+    through ``joint_wave_place``; on a row of two or more through
+    ``sharded_wave_place`` when they fit the envelope, else the wave body
+    as torch ops. On CUDA shards the wrappers launch the hand kernels, on
+    CPU shards they run their plain versions. Every row's kernel calls
+    are enqueued on its cards before any eval that reads the host; a
+    sharded call's error word is read once at the end, and a set one
+    raises. ``plain`` runs every eval through the
     torch-op body under ``features``: the plain version the route is
     held against.
     """
@@ -969,17 +969,19 @@ def make_place_batch(
 
 def _launch_rows(row_shards: list, feats: list, b_loc: int,
                  k_steps: int) -> tuple:
-    """Send every eval in the fused envelope to its row's kernel, row
-    after row, reading nothing back. Returns the KernelOuts by row (None
-    where an eval is left to the torch-op body) and the sharded calls'
-    packed buffers, whose error words are still to be read."""
+    """Send every eval to its row's kernel (on a row of two or more
+    shards, only an eval in the fused envelope), row after row, reading
+    nothing back. Returns the KernelOuts by row (None where an eval is
+    left to the torch-op body) and the sharded calls' packed buffers,
+    whose error words are still to be read."""
     outs: list = [[None] * b_loc for _ in row_shards]
     errs = []
     maps: dict = {}
     for r, shards in enumerate(row_shards):
         for e in range(b_loc):
             f = feats[r * b_loc + e]
-            if not fused_wave_supported(f):
+            fused = fused_wave_supported(f)
+            if not fused and len(shards) > 1:
                 continue
             one = _one_eval(shards, e)
             if len(one) == 1:
@@ -992,8 +994,9 @@ def _launch_rows(row_shards: list, feats: list, b_loc: int,
                         torch.zeros(k_steps, dtype=torch.int32, device=dev),
                         torch.arange(k_steps, dtype=torch.int32,
                                      device=dev))
-                got = fused_wave_place(one[0], *sm_sl, k_steps, f)
-                place_batch_stats.note(fused=1)
+                place = fused_wave_place if fused else joint_wave_place
+                got = place(one[0], *sm_sl, k_steps, f)
+                place_batch_stats.note(fused=int(fused), joint=int(not fused))
             else:
                 got = sharded_wave_place(
                     one, np.zeros(k_steps, np.int32),
@@ -1001,7 +1004,7 @@ def _launch_rows(row_shards: list, feats: list, b_loc: int,
                 place_batch_stats.note(sharded=1)
                 if got.packed.device.type == "cuda":
                     errs.append(got.packed)
-            outs[r][e] = _kernel_out(got, k_steps)
+            outs[r][e] = wave_kernel_out(got, k_steps)
     return outs, errs
 
 

@@ -64,6 +64,7 @@ def reset() -> None:
     # imported here: both modules import telemetry.trace at load time
     from nomad_tpu_torch.parallel.coalesce import (
         fused_wave_stats,
+        joint_wave_stats,
         sharded_wave_stats,
         upload_stats,
         wave_stats,
@@ -78,5 +79,6 @@ def reset() -> None:
     wave_stats.reset()
     sharded_wave_stats.reset()
     fused_wave_stats.reset()
+    joint_wave_stats.reset()
     upload_stats.reset()
     default_device_state.reset_stats()

@@ -45,6 +45,14 @@ COMPOSITE_VARIANTS = (
     ("network", 383),
 )
 
+#: the joint kernel's variants: each composite feature alone, then all
+#: four with the kitchen sink's (ports, penalties, pins, distinct_hosts,
+#: shuffle)
+JOINT_VARIANTS = COMPOSITE_VARIANTS + (("everything", 383),)
+
+#: the variants that carry the kitchen sink's planes
+_SINK = ("kitchen_sink", "everything")
+
 
 def _lib(lib):
     """(kernel module, synthetic module) of the reference or the port;
@@ -58,21 +66,21 @@ def _lib(lib):
 
 def variant_features(variant, lib="ref"):
     f = _lib(lib)[0].LEAN_FEATURES._replace(with_topk=True)
-    if variant in ("shuffle", "penalty_preferred", "kitchen_sink"):
+    if variant in ("shuffle", "penalty_preferred") + _SINK:
         f = f._replace(with_shuffle=True)
-    if variant in ("penalty_preferred", "kitchen_sink"):
+    if variant in ("penalty_preferred",) + _SINK:
         f = f._replace(with_step_penalties=True, with_preferred=True)
-    if variant in ("distinct", "kitchen_sink"):
+    if variant in ("distinct",) + _SINK:
         f = f._replace(with_distinct=True)
-    if variant in ("ports", "kitchen_sink"):
+    if variant in ("ports",) + _SINK:
         f = f._replace(with_ports=True)
-    if variant == "spread":
+    if variant in ("spread", "everything"):
         f = f._replace(n_spreads=4, with_shuffle=True)
-    if variant == "devices":
+    if variant in ("devices", "everything"):
         f = f._replace(with_devices=True)
-    if variant == "cores":
+    if variant in ("cores", "everything"):
         f = f._replace(with_cores=True)
-    if variant == "network":
+    if variant in ("network", "everything"):
         f = f._replace(with_network=True)
     return f
 
@@ -95,8 +103,8 @@ def wave_members(seed, variant, n_nodes, b=B, k=K, lib="ref", n_pad=None):
     kins = []
     for _ in range(b):
         ev = smod.synthetic_eval(cluster, desired_count=k,
-                            with_spread=variant == "spread")
-        if variant == "spread":
+                            with_spread=variant in ("spread", "everything"))
+        if variant in ("spread", "everything"):
             sp = ev.spreads[0]
             sp.counts = rng.integers(0, 4, sp.counts.shape).astype(
                 np.float32)
@@ -105,7 +113,7 @@ def wave_members(seed, variant, n_nodes, b=B, k=K, lib="ref", n_pad=None):
                 sp.desired = rng.integers(1, 6, sp.desired.shape).astype(
                     np.float32)
         kwargs = {"node_perm": rng.permutation(n_pad).astype(np.int32)}
-        if variant in ("penalty_preferred", "kitchen_sink"):
+        if variant in ("penalty_preferred",) + _SINK:
             pen = np.full((kp, kmod.MAX_PENALTY_NODES), -1, np.int32)
             pen[0, 0] = rng.integers(0, n_nodes)
             pen[1, 0] = rng.integers(0, n_nodes)
@@ -119,31 +127,31 @@ def wave_members(seed, variant, n_nodes, b=B, k=K, lib="ref", n_pad=None):
             used_cpu=uc, used_mem=um,
             ask_cpu=np.float32(rng.choice([250, 500, 900])),
             ask_mem=np.float32(rng.choice([128, 256, 700])))
-        if variant in ("ports", "kitchen_sink"):
+        if variant in ("ports",) + _SINK:
             kin = kin._replace(
                 port_conflict=(rng.random(n_pad) < 0.3),
                 ask_has_reserved_ports=np.asarray(True),
                 ask_dyn_ports=np.asarray(2, np.int32))
-        if variant in ("distinct", "kitchen_sink"):
+        if variant in ("distinct",) + _SINK:
             kin = kin._replace(
                 job_tg_count=rng.integers(0, 2, n_pad).astype(np.int32),
                 job_any_count=rng.integers(0, 3, n_pad).astype(np.int32),
-                distinct_hosts_job=np.asarray(variant == "kitchen_sink"),
+                distinct_hosts_job=np.asarray(variant in _SINK),
                 distinct_hosts_tg=np.asarray(True))
-        if variant == "devices":
+        if variant in ("devices", "everything"):
             kin = kin._replace(
                 dev_free=rng.integers(0, 3, (n_pad, 4)).astype(np.float32),
                 ask_dev=np.asarray([1, 0, 1, 0], np.float32),
                 has_dev_affinity=np.asarray(True),
                 dev_aff_score=(rng.random(n_pad) * 0.5).astype(np.float32))
-        if variant == "cores":
+        if variant in ("cores", "everything"):
             kin = kin._replace(
                 used_cores=rng.integers(0, 3, n_pad).astype(np.int32),
                 ask_cores=np.asarray(1, np.int32),
                 aff_score=np.where(rng.random(n_pad) < 0.2,
                                    rng.random(n_pad), 0.0).astype(
                                        np.float32))
-        if variant == "network":
+        if variant in ("network", "everything"):
             kin = kin._replace(
                 used_mbits=rng.integers(0, 900, n_pad).astype(np.int32),
                 ask_mbits=np.asarray(100, np.int32),
@@ -265,6 +273,147 @@ def check_case(case, x, chosen, found, topk_idx, nodes_feasible, k=K):
         assert not found[step(1, 0):step(2, 0)].any()
         assert nodes_feasible[1] == 0
         assert found[step(0, 0):step(1, 0)].all()
+
+
+#: waves built around what the joint kernel's design leans on: a bump
+#: that moves the even-spread min (every node's boost changes), a
+#: desired-count stanza, nodes with no bucket, a step penalty and a pin
+#: on a spread wave, a per-node cpu total under a core ask, a device ask
+#: that exhausts nodes
+JOINT_CASES = ("even_min_moves", "desired_counts", "missing_buckets",
+               "spread_penalty_pin", "cores_total", "devices_exhausted")
+
+_JOINT_CASE_VARIANT = {"even_min_moves": "spread",
+                       "desired_counts": "spread",
+                       "missing_buckets": "spread",
+                       "spread_penalty_pin": "spread",
+                       "cores_total": "cores",
+                       "devices_exhausted": "devices"}
+
+
+def joint_case(case, lib="ref", n_nodes=200, n_pad=None):
+    """``(kins, features, info)``: a wave of ``B`` members x ``K`` steps
+    built for ``case``; ``info`` holds what ``check_joint_case`` reads
+    (the nodes the case turns on). Every member asks ASK_CPU/ASK_MEM."""
+    kins, feats = wave_members(12, _JOINT_CASE_VARIANT[case], n_nodes,
+                               lib=lib, n_pad=n_pad)
+    kins = [k._replace(ask_cpu=np.float32(ASK_CPU),
+                       ask_mem=np.float32(ASK_MEM)) for k in kins]
+    rng = np.random.default_rng(77)
+    real = np.arange(n_nodes)
+    info = {}
+    if feats.n_spreads:
+        bucket = np.array(kins[0].spread_bucket)
+        racks = np.unique(bucket[0][bucket[0] >= 0])
+        info["bucket"] = bucket[0]
+
+        def stanza(k, counts, even=True, desired=None):
+            c = np.zeros_like(k.spread_counts)
+            c[0] = counts
+            d = np.full_like(k.spread_desired, -1.0)
+            if desired is not None:
+                d[0] = desired
+            ev = np.array(k.spread_even)
+            ev[0] = even
+            return k._replace(spread_counts=c, spread_desired=d,
+                              spread_even=ev)
+
+    if case == "even_min_moves":
+        # r0 the one least-filled bucket, r1 the fullest: r0's first
+        # placement moves the min, and with it every bucket's boost
+        counts = np.zeros(kins[0].spread_counts.shape[-1], np.float32)
+        counts[racks] = 2.0
+        counts[racks[0]], counts[racks[1]] = 1.0, 3.0
+        kins = [stanza(k, counts) for k in kins]
+        info["r0"] = int(racks[0])
+    elif case == "desired_counts":
+        # r0 wants 10 and holds none; every other bucket is at its 1
+        counts = np.zeros(kins[0].spread_counts.shape[-1], np.float32)
+        counts[racks] = 1.0
+        counts[racks[0]] = 0.0
+        desired = np.ones_like(counts)
+        desired[racks[0]] = 10.0
+        kins = [stanza(k, counts, even=False, desired=desired)
+                for k in kins]
+        info["r0"] = int(racks[0])
+    elif case == "missing_buckets":
+        counts = np.zeros(kins[0].spread_counts.shape[-1], np.float32)
+        gone = rng.choice(real, n_nodes * 3 // 10, replace=False)
+        bucket = np.array(kins[0].spread_bucket)
+        bucket[0][gone] = -1
+        kins = [stanza(k, counts)._replace(spread_bucket=bucket)
+                for k in kins]
+        info["bucket"] = bucket[0]
+    elif case == "spread_penalty_pin":
+        # x is every member's best; member 0's step 0 penalises it and
+        # its step 2 is pinned on it
+        feats = feats._replace(with_step_penalties=True,
+                               with_preferred=True)
+        counts = np.zeros(kins[0].spread_counts.shape[-1], np.float32)
+        x = int(real[n_nodes // 3:][info["bucket"][n_nodes // 3:n_nodes]
+                                    >= 0][0])
+        kp = kins[0].step_preferred.shape[0]
+        kins = [_room(stanza(k, counts), [x], 3)._replace(
+            step_penalty=np.full_like(k.step_penalty, -1),
+            step_preferred=np.full(kp, -1, np.int32)) for k in kins]
+        pen = np.array(kins[0].step_penalty)
+        pen[0, 0] = x
+        pref = np.full(kp, -1, np.int32)
+        pref[2] = x
+        kins[0] = kins[0]._replace(step_penalty=pen, step_preferred=pref)
+        info["x"] = x
+    elif case == "cores_total":
+        # a core of 500 or 1000 MHz; 900 MHz free everywhere: the cpu
+        # ask plus one core fits only where a core is 500
+        spc = np.array(kins[0].shares_per_core)
+        spc[real] = np.where(real % 2 == 0, 500.0, 1000.0)
+        kins = [k._replace(
+            shares_per_core=spc, used_cores=np.zeros_like(k.used_cores),
+            used_cpu=np.where(np.arange(len(spc)) < n_nodes,
+                              k.cap_cpu - 900.0, 0.0).astype(np.float32))
+            for k in kins]
+        info["spc"] = spc
+    elif case == "devices_exhausted":
+        # one instance of each asked device on 40 nodes, none elsewhere:
+        # each of those takes one placement, then is exhausted
+        held = np.zeros(kins[0].dev_free.shape, np.float32)
+        hosts = rng.choice(real, 40, replace=False)
+        held[hosts, 0] = held[hosts, 2] = 1.0
+        kins = [k._replace(dev_free=held) for k in kins]
+        info["hosts"] = np.sort(hosts)
+    return kins, feats, info
+
+
+def check_joint_case(case, info, chosen, found, topk_idx, metrics, k=K):
+    """Assert that a wave's outputs (numpy, from either implementation;
+    ``metrics`` by FUSED_METRIC_FIELDS name) show the situation ``case``
+    was built for."""
+    step = lambda m, j: m * k + j                       # noqa: E731
+    first = chosen[:step(1, 0)]
+    if case == "even_min_moves":
+        assert info["bucket"][chosen[step(0, 0)]] == info["r0"]
+    elif case == "desired_counts":
+        assert (info["bucket"][first] == info["r0"]).all()
+    elif case == "missing_buckets":
+        assert found[:step(1, 0)].all()
+        assert (info["bucket"][first] >= 0).all()
+        assert (info["bucket"][topk_idx[step(0, 0)]] >= 0).all()
+    elif case == "spread_penalty_pin":
+        assert chosen[step(0, 0)] != info["x"]
+        assert chosen[step(0, 2)] == info["x"]
+    elif case == "cores_total":
+        placed = chosen[found]
+        assert len(placed) == B * k
+        assert (info["spc"][placed] == 500.0).all()
+        n_big = int((info["spc"] == 1000.0).sum())
+        assert (metrics["exhausted_cpu"] == n_big).all()
+        assert (metrics["exhausted_cores"] == 0).all()
+    elif case == "devices_exhausted":
+        placed = chosen[found]
+        assert len(placed) == B * k == len(set(placed.tolist()))
+        assert set(placed.tolist()) <= set(info["hosts"].tolist())
+        assert (metrics["exhausted_devices"]
+                == metrics["nodes_evaluated"] - len(info["hosts"])).all()
 
 
 #: score tolerance: XLA-CPU and torch round ``pow`` and division in

@@ -1280,8 +1280,9 @@ def test_cuda_place_batch_route_matches_plain(shape, cuda_device):
     """``make_place_batch`` over a virtual (evals, nodes) mesh on the
     card: each eval in the fused envelope is one call of the sharded
     kernel (rows of four shards) or of B1 (rows of one), the others the
-    torch-op body; every eval equals the plain step's, which runs each
-    through the torch-op body."""
+    torch-op body (rows of four) or one call of the joint kernel (rows of
+    one); every eval equals the plain step's, which runs each through the
+    torch-op body."""
     from nomad_tpu_torch.parallel import mesh as pm
     from nomad_tpu_torch.parallel import sharded
 
@@ -1293,11 +1294,12 @@ def test_cuda_place_batch_route_matches_plain(shape, cuda_device):
     k_pad = tk.pad_steps(tp.K)
     fused = sum(tk.fused_wave_supported(f)
                 for f in sharded.eval_features(stacked))
-    l0, s0 = ck.launches, ck.sharded_launches
+    l0, s0, j0 = ck.launches, ck.sharded_launches, ck.joint_launches
     got = sharded.make_place_batch(mesh, k_pad)(stacked)
     torch.cuda.synchronize()
-    assert (ck.launches - l0, ck.sharded_launches - s0) == (
-        (fused, 0) if shape[1] == 1 else (0, fused))
+    assert (ck.launches - l0, ck.sharded_launches - s0,
+            ck.joint_launches - j0) == (
+        (fused, 0, len(kins) - fused) if shape[1] == 1 else (0, fused, 0))
     want = sharded.make_place_batch(mesh, k_pad, plain=True)(stacked)
     assert got.chosen.device == want.chosen.device == mesh.devices.flat[0]
     for name in ("chosen", "found", "topk_idx") + tk.FUSED_METRIC_FIELDS:
@@ -1309,3 +1311,216 @@ def test_cuda_place_batch_route_matches_plain(shape, cuda_device):
                                    getattr(want, name).cpu().numpy(),
                                    rtol=0, atol=ATOL, err_msg=name)
     assert got.found.any()
+
+
+# ---------------------------------------------------------------------------
+# The joint kernel (csrc/joint_wave.cu): every feature union, bit for bit
+# against its plain versions (the composite; place_taskgroup for one eval).
+# ---------------------------------------------------------------------------
+
+def _joint_pair(kins, feats, dev, k=tp.K):
+    """One wave through ``joint_wave_place`` (one launch) and its plain
+    version on the card; exact: the kernel rounds as the torch ops do."""
+    stacked, sm, sl, t_pad = tp.stack_wave(kins, k)
+    kin = kernel_in_from_numpy(stacked, device=dev)
+    before = ck.joint_launches
+    got = ck.joint_wave_place(kin, sm, sl, t_pad, feats)
+    assert ck.joint_launches == before + 1
+    want = ck.fused_wave_place_reference(kin, sm, sl, t_pad, feats)
+    torch.cuda.synchronize()
+    return _assert_fused(got, want, t_pad, len(kins), atol=0.0), got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,n_nodes",
+                         tp.JOINT_VARIANTS + tp.FUSED_VARIANTS,
+                         ids=[v for v, _ in tp.JOINT_VARIANTS
+                              + tp.FUSED_VARIANTS])
+def test_cuda_joint_kernel_matches_plain_version(variant, n_nodes,
+                                                 cuda_device):
+    kins, feats = tp.wave_members(8, variant, n_nodes, lib="port")
+    g, _ = _joint_pair(kins, feats, cuda_device)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", tp.JOINT_CASES)
+def test_cuda_joint_case_matches_plain(case, cuda_device):
+    kins, feats, info = tp.joint_case(case, lib="port")
+    g, got = _joint_pair(kins, feats, cuda_device)
+    tp.check_joint_case(case, info, g["chosen"], g["found"],
+                        got.topk_idx.cpu().numpy(), g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_nodes,n_pad", ((300, 512), (1000, 16384),
+                                           (2100, 131072), (2100, 262144)),
+                         ids=("n512", "n16384", "n131072", "n262144"))
+def test_cuda_joint_kernel_widths(n_nodes, n_pad, cuda_device):
+    """The everything wave (four spread stanzas, shuffle) over padded node
+    axes up to N=262144, the widest that fits, where a CTA keeps 16384
+    nodes' keys, sums, counts and ranks; members in an interleaved step
+    order, so each member's counts leave and come back."""
+    kins, feats = tp.wave_members(26, "everything", n_nodes, lib="port",
+                                  n_pad=n_pad)
+    stacked, _, _, _ = tp.stack_wave(kins)
+    order = np.array([0, 1, 0, 2, 1, 3, 0, 3, 2, 1, 3, 2, 0, 1, 2, 3],
+                     np.int32)
+    local = np.zeros_like(order)
+    for m in range(tp.B):
+        local[order == m] = np.arange(tp.K)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    got = ck.joint_wave_place(kin, order, local, len(order), feats)
+    want = ck.fused_wave_place_reference(kin, order, local, len(order),
+                                         feats)
+    torch.cuda.synchronize()
+    g = _assert_fused(got, want, len(order), tp.B, atol=0.0)
+    assert g["found"].any()
+
+
+def _assert_single(got, want):
+    for name in ("chosen", "found", "topk_idx") + tk.FUSED_METRIC_FIELDS:
+        np.testing.assert_array_equal(getattr(got, name).cpu().numpy(),
+                                      getattr(want, name).cpu().numpy(),
+                                      err_msg=name)
+    for name in ("scores", "topk_scores"):
+        np.testing.assert_array_equal(getattr(got, name).cpu().numpy(),
+                                      getattr(want, name).cpu().numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,n_nodes", tp.JOINT_VARIANTS,
+                         ids=[v for v, _ in tp.JOINT_VARIANTS])
+def test_cuda_joint_eval_matches_place_taskgroup(variant, n_nodes,
+                                                 cuda_device):
+    """One eval through ``joint_eval_place`` (a one-member wave whose f32
+    carries add each placement in turn) against ``place_taskgroup`` on
+    the card, bit for bit; 12 placements over 20 nodes land several on
+    one node, where the two carry orders would round apart."""
+    kins, feats = tp.wave_members(41, variant, n_nodes, lib="port")
+    few, _ = tp.wave_members(42, variant, 20, k=12, lib="port")
+    for kin, k in [(x, tp.K) for x in kins] + [(few[0], 12)]:
+        one = kernel_in_from_numpy(kin, device=cuda_device)
+        before = ck.joint_launches
+        got = ck.joint_eval_place(one, k, feats)
+        assert ck.joint_launches == before + 1
+        want = tk.place_taskgroup(one, k, feats)
+        _assert_single(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_default_launch_full_route_is_one_launch(cuda_device):
+    """``default_kernel_launch`` of a spread eval on the card: the
+    full-width route, one joint launch, the CPU route's outputs."""
+    kins, feats = tp.wave_members(43, "spread", 200, lib="port")
+    feats = tk.canonical_features(feats)
+    before = ck.joint_launches
+    got = tk.default_kernel_launch(kins[0], tp.K, feats, device=cuda_device)
+    assert ck.joint_launches == before + 1
+    want = tk.default_kernel_launch(kins[0], tp.K, feats, device="cpu")
+    for name in ("chosen", "found", "topk_idx") + tk.FUSED_METRIC_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(got, name)),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_cuda_launch_wave_outside_the_envelope_is_one_joint_launch(
+        cuda_device):
+    """A spread wave through ``launch_wave`` with resident usage: one
+    joint launch, one fused fallback (the reference's count), no torch-op
+    wave, the committed usage the plain wave's."""
+    kins, feats = tp.wave_members(44, "everything", 383, lib="port")
+    kins = [k._replace(**{f: getattr(kins[0], f)
+                          for f in pc._SHAREABLE_FIELDS}) for k in kins]
+    used = [np.asarray(getattr(kins[0], f)) for f in
+            ("used_cpu", "used_mem", "used_disk")]
+    res = pc.ResidentUsage(*used, device=cuda_device)
+    pc.fused_wave_stats.reset()
+    pc.joint_wave_stats.reset()
+    before = (ck.launches, ck.joint_launches)
+    got = pc.launch_wave(kins, [tp.K] * tp.B, [feats] * tp.B,
+                         device=cuda_device, resident=res)
+    assert (ck.launches, ck.joint_launches) == (before[0], before[1] + 1)
+    assert pc.fused_wave_stats.snapshot() == {
+        "launches": 0, "fallbacks": 1, "failures": 0}
+    assert pc.joint_wave_stats.snapshot() == {"launches": 1,
+                                              "torch_waves": 0}
+    cpu = pc.ResidentUsage(*used, device="cpu")
+    want = pc.launch_wave(kins, [tp.K] * tp.B, [feats] * tp.B,
+                          device="cpu", resident=cpu)
+    for g, w in zip(got, want):
+        for name in ("chosen", "found", "topk_idx") + tk.FUSED_METRIC_FIELDS:
+            np.testing.assert_array_equal(np.asarray(getattr(g, name)),
+                                          np.asarray(getattr(w, name)))
+    np.testing.assert_allclose(res.used_cpu.cpu().numpy(),
+                               cpu.used_cpu.numpy(), rtol=0, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_cuda_joint_failure_raises_instead_of_torch_ops(cuda_device,
+                                                        monkeypatch):
+    """A joint launch the C side refuses, then a joint build that fails:
+    each raises through ``launch_wave`` and counts a failure, and no
+    torch-op wave runs in its place."""
+    kins, feats = tp.wave_members(45, "spread", 200, lib="port")
+    ck.load_library("joint_wave")
+    plain = []
+    monkeypatch.setattr(ck, "fused_wave_place_reference",
+                        lambda *a, **k: plain.append(1))
+    pc.fused_wave_stats.reset()
+    pc.joint_wave_stats.reset()
+    _, built, lib = ck._LIBS["joint_wave"]
+    monkeypatch.setitem(ck._LIBS, "joint_wave",
+                        (lambda *a: 1, built, lib))
+    with pytest.raises(RuntimeError, match="joint_wave_kernel launch"):
+        pc.launch_wave(kins, [tp.K] * tp.B, [feats] * tp.B,
+                       device=cuda_device)
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.delitem(ck._LIBS, "joint_wave")
+    monkeypatch.setattr(ck, "build_library", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        pc.launch_wave(kins, [tp.K] * tp.B, [feats] * tp.B,
+                       device=cuda_device)
+    assert pc.fused_wave_stats.snapshot()["failures"] == 2
+    assert pc.joint_wave_stats.snapshot() == {"launches": 0,
+                                              "torch_waves": 0}
+    assert not plain
+
+
+@pytest.mark.gpu
+def test_cuda_joint_wrapper_raises_when_row_does_not_fit(cuda_device):
+    """2**19 nodes with spreads and shuffle over one cluster do not fit a
+    CTA's shared memory: the wrapper says so before launching."""
+    kins, feats = tp.wave_members(27, "spread", 1000, b=1, lib="port",
+                                  n_pad=1 << 19)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    before = ck.joint_launches
+    with pytest.raises(ValueError, match="limit of [0-9]+ B"):
+        ck.joint_wave_place(kin, sm, sl, t_pad, feats)
+    assert ck.joint_launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_warmup_launches_the_joint_kernel(cuda_device):
+    """A one-device ``joint`` entry outside B1's envelope warms with one
+    launch of the joint kernel, and the live key it marks warm is the one
+    ``launch_wave`` uses."""
+    from nomad_tpu_torch.ops import warmup
+    from nomad_tpu_torch.telemetry.kernel_profile import profiler
+
+    feats = tk.canonical_features(tp.variant_features("spread", lib="port"))
+    entry = {"kernel": "joint", "wave": 4, "steps": 16, "nodes": 256,
+             "shared": True, "neutral_shared": True, "job_shared": True,
+             "features": dict(feats._asdict())}
+    before = ck.joint_launches
+    assert warmup.warmup_entries([entry], device=cuda_device) == (1, 0)
+    assert ck.joint_launches == before + 1
+    assert ("joint", (4, 16, 256, True, True, True, feats)) in \
+        profiler._seen

@@ -101,7 +101,8 @@ def test_route_matches_reference(mixed, shape):
     """Each eval through its route against JAX's ``make_place_batch`` on
     the same mesh shape, and against the port's plain step; the
     envelope's evals count as kernel calls (the sharded wave on rows of
-    several shards, B1 on rows of one), the rest as plain evals."""
+    several shards, B1 on rows of one), the rest as joint-kernel calls
+    on rows of one and as plain evals on rows of several."""
     k_pad = pad_steps(K)
     refs = _ref_outs(mixed, shape, k_pad)
     stacked = _port(mixed)
@@ -118,9 +119,11 @@ def test_route_matches_reference(mixed, shape):
         _assert_outs(got, want, exact=True, ctx=f"eval {i} ({MIX[i]})")
     kernel = sum(IN_ENVELOPE)
     routed = {k: after[k] - before[k] for k in after}
-    assert routed["fused_calls"] == (kernel if shape[1] == 1 else 0)
-    assert routed["sharded_calls"] == (0 if shape[1] == 1 else kernel)
-    assert routed["plain_evals"] == len(MIX) - kernel
+    one = shape[1] == 1
+    assert routed["fused_calls"] == (kernel if one else 0)
+    assert routed["joint_calls"] == (len(MIX) - kernel if one else 0)
+    assert routed["sharded_calls"] == (0 if one else kernel)
+    assert routed["plain_evals"] == (0 if one else len(MIX) - kernel)
     assert all(np.asarray(o.found)[:K].any() for o in outs)
 
 
@@ -212,7 +215,8 @@ def test_dryrun_multichip_matches_reference(n_devices):
     for i, (got, ref) in enumerate(zip(res["outs"], refs)):
         _assert_outs(got, ref, exact=False, ctx=f"eval {i}")
     # odd evals are lean: the sharded wave; even ones carry a spread
-    assert res["routes"] == {"fused_calls": 0, "sharded_calls": batch // 2,
+    assert res["routes"] == {"fused_calls": 0, "joint_calls": 0,
+                             "sharded_calls": batch // 2,
                              "kernel_calls": batch // 2,
                              "plain_evals": batch // 2}
     assert res["placed"] == 8 and res["sharded_waves"] > 0

@@ -40,6 +40,7 @@ from nomad_tpu.structs import consts
 from nomad_tpu.structs import eval_plan as ref_eval_plan
 from nomad_tpu.structs.eval_plan import Evaluation
 from nomad_tpu_torch.convert import structs_from_reference
+from nomad_tpu_torch.ops import cuda_kernel as ck
 from nomad_tpu_torch.parallel import c2m
 from nomad_tpu_torch.parallel import coalesce as pc
 from nomad_tpu_torch.server import plan_apply as port_plan_apply
@@ -459,7 +460,14 @@ def test_b1_failure_nacks_the_wave(monkeypatch):
         raise RuntimeError("injected B1 failure")
 
     monkeypatch.setattr(pc, "fused_wave_place", broken)
-    plain = _counting(monkeypatch, "fused_wave_place_reference")
+    plain = []
+    real_plain = ck.fused_wave_place_reference
+
+    def counted_plain(*a, **k):
+        plain.append(1)
+        return real_plain(*a, **k)
+
+    monkeypatch.setattr(ck, "fused_wave_place_reference", counted_plain)
     pc.fused_wave_stats.reset()
     srv = _c2m_server(num_workers=1, worker_batch_size=4,
                       eval_delivery_limit=1)
