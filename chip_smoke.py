@@ -7,7 +7,7 @@ The quickest proof that the port (``nomad_tpu_torch``) starts and is right
 on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
 
 1. card and build: the card's name and power limit (nvidia-smi), then the
-   five kernel libraries built from csrc/ at once (one nvcc each) with
+   six kernel libraries built from csrc/ at once (one nvcc each) with
    ptxas's register/spill report;
 2. kernel against its plain torch version at the live shape: a C2M
    cluster of 10k nodes (N=16384) with 100k resident allocs, waves of 32
@@ -26,7 +26,13 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
    one fused fallback a wave, no torch-op wave, no B1 launch, no node
    over capacity. Then each wave's kernel alone against its plain
    version (max abs error 0.0, no near-tie), its CUDA-event ms beside
-   the plain version's and its bound;
+   the plain version's and its bound. Then the node ceiling: a C2M
+   cluster of 300k nodes (N=524288, more than B1's or the joint kernel's
+   cluster holds in shared memory) with 1M allocs, a shuffle wave and an
+   everything wave through ``launch_wave``: the joint kernel's global-row
+   instantiation, one launch and one fused fallback each, no failure,
+   exact against the plain version, and the kernel's time beside the
+   plain version's and the bound;
 5. scale: two waves at 100k nodes (N=131072) with 1M allocs, kernel
    against plain; then the joint kernel's spread and everything waves
    there, the same way;
@@ -243,13 +249,22 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     launch and no B1 launch, its time by CUDA events beside B1's; the
     kernel alone timed at each D beside B1's kernel on the same wave,
     its time an active step, and its plain version once (kitchen sink);
-    one spread wave through the joint sharded wave (torch ops) at D=4
-    against the one-device wave (the joint kernel); one wave at N=131072
-    (100k nodes, 1M allocs)
-    at D=8 against B1, and the kernel alone on it beside B1's; the mesh
+    phase 4's five waves outside the fused envelope (spread, devices,
+    cores, bandwidth, everything) through the joint sharded kernel
+    (``ck.joint_sharded_wave_place``, ``csrc/joint_sharded_wave.cu``) at
+    D=4: through ``launch_wave`` over the mesh (one call, one cluster
+    launch, no torch-op wave) against the one-device wave (the joint
+    kernel), exact, then the kernel alone against its plain version and
+    the one-device joint kernel, exact, timed beside the joint kernel;
+    one wave at N=131072 (100k nodes, 1M allocs) at D=8 against B1, and
+    the kernel alone on it beside B1's, and the spread and everything
+    waves there through the joint sharded kernel the same way (held
+    against the one-device joint kernel, whose plain version phase 5
+    holds at that width); the mesh
     of the real cards (one card: B1, one counted fallback; more: the
-    same parity gate, one kernel launch a card, and the kernel alone
-    timed over the cards beside B1's). Part B, the
+    same parity gate, one kernel launch a card, the kernel alone timed
+    over the cards beside B1's, and the everything wave through the
+    joint sharded kernel over the cards). Part B, the
     resident state split over 4 shards (``configure_mesh``): two waves
     of phase 11's store's own planes with 320 allocs stopped between
     them; the generation advances by the sharded scatter, equals a fresh
@@ -269,8 +284,12 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     or failure, no B1 launch, every job placed, none over capacity, the
     exporter's sharded series equal to the waves and
     ``nomad_tpu_wave_sharded_mesh_devices 4``, evals/s and wave p50
-    beside phase 11's window-off arm. One ``mesh: {...}`` line, and the
-    sharded kernel's entry in the kernels' JSON line.
+    beside phase 11's window-off arm; then its spread arm, 64 burst jobs
+    spread over the datacenters: every wave sharded, every one outside
+    the envelope one call of the joint sharded kernel and one cluster
+    launch, no torch-op wave, no B1 launch, no failure, every job placed,
+    none over capacity. One ``mesh: {...}`` line, and the sharded
+    kernels' entries in the kernels' JSON line.
     ``chip_smoke.py --mesh-phase`` runs phase 12's three fresh
     processes over a mesh (``run_mesh_warm_start``), then phase 11's
     window-off arm and this phase alone, then phase 18 (over four cards
@@ -284,10 +303,12 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     all-lean batch over a (2, 4) mesh, where each eval in the fused
     envelope is one sharded-kernel call, and the all-lean batch and the
     mix over a (2, 1) mesh, where a lean eval is one B1 call and a spread
-    eval one joint-kernel call. Counts set to 0 just before the four
-    batches' first routed calls and read just after: 16 / 32 / 32 / 32
-    kernel calls (16 of the last joint), 16 / 0 / 0 / 0 plain evals, one
-    cluster launch a card a sharded call. Each batch against the plain
+    eval one joint-kernel call; over (2, 4) a spread eval is one call of
+    the joint sharded kernel. Counts set to 0 just before the four
+    batches' first routed calls and read just after: 32 kernel calls in
+    each (16 of the mix's joint sharded calls over (2, 4), 16 joint calls
+    over (2, 1)), no plain eval, one cluster launch a card a sharded
+    call. Each batch against the plain
     step (every eval through the torch-op body) on the card: i32 outputs
     exact, scores within ATOL, near-ties counted apart; CUDA-event ms a
     batch beside the plain step's and beside placing its leaves, and
@@ -313,7 +334,10 @@ B under ``client_launches`` and in phase 18 under
 ``place_batch_launches``; the sharded
 kernel's entry counts its calls in phase 17's timed server burst, its
 kernel launches there under ``cluster_launches``, and its calls in
-phase 18's batches under ``place_batch_launches``).
+phase 18's batches under ``place_batch_launches``; the joint sharded
+kernel's counts its calls in phase 17 part C's spread arm, its kernel
+launches there under ``cluster_launches``, and its calls in phase 18's
+batches under ``place_batch_launches``).
 A full
 record goes to chiprun_out/chip_smoke.json.
 """
@@ -753,6 +777,9 @@ def main() -> int:
     kline["kernels"].append(mesh["kernel_entry"])
     kline["kernels"][-1]["place_batch_launches"] = \
         place_batch["launches"]["kernel"]
+    kline["kernels"].append(mesh["joint_kernel_entry"])
+    kline["kernels"][-1]["place_batch_launches"] = \
+        place_batch["launches"]["joint_sharded"]
     record["card"] = smi
     record["total_s"] = time.perf_counter() - t_start
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
@@ -1172,7 +1199,9 @@ def run_joint_phase(dev: torch.device, record: dict, base, cluster,
     n = len(waves)
     check(fstats == {"launches": 0, "fallbacks": n, "failures": 0},
           f"composite: fused wave stats {fstats}")
-    check(jstats == {"launches": n, "torch_waves": 0} and launches == n,
+    check(jstats == {"launches": n, "sharded_launches": 0,
+                     "global_rows": 0, "torch_waves": 0}
+          and launches == n,
           f"composite: joint stats {jstats}, {launches} kernel launches "
           f"for {n} waves")
     check(ck.launches == b1_before, "composite: a wave launched B1")
@@ -1182,14 +1211,86 @@ def run_joint_phase(dev: torch.device, record: dict, base, cluster,
               for kins, feats, wave, union in waves]
     for res in drive + checks:
         log(f"composite {res['union']}: {json.dumps(res)}")
+    ceiling = run_ceiling_waves(dev, rng)
     joint = {"launches": launches, "fused": fstats, "joint": jstats,
-             "drive": drive, "kernel": checks}
+             "drive": drive, "kernel": checks, "ceiling": ceiling}
     record["composite"] = joint
     log(f"composite: {n} waves through launch_wave, {launches} joint "
         f"launches, {fstats['fallbacks']} fallbacks, 0 torch-op waves; "
         + ", ".join(f"{c['union']} {c['ms']:.3f} ms (plain "
                     f"{c['plain_ms']:.1f})" for c in checks))
     return joint
+
+
+#: phase 4's waves past one cluster's shared memory: a cluster padded to
+#: N=524288, a lean union (shuffle: B1 keeps 8 B a node) and everything
+CEILING_NODES = 300_000
+CEILING_ALLOCS = 1_000_000
+CEILING_PAD = 1 << 19
+CEILING_UNIONS = ("shuffle", "everything")
+
+
+def run_ceiling_waves(dev: torch.device, rng) -> list:
+    """Phase 4's waves over a node axis padded to N=524288, which neither
+    B1's cluster nor the joint kernel's holds in shared memory: each
+    through ``launch_wave`` (its counts set to 0 just before, read just
+    after: one joint launch of the global-row instantiation, one fused
+    fallback, no failure, no B1 launch), exact against the plain version;
+    then the kernel alone, timed beside the plain version and the
+    bound."""
+    big = c2m_cluster(CEILING_NODES, seed=SEED + 4)
+    uc, um, ud, _ = c2m_pack_usage(big, CEILING_ALLOCS, seed=SEED + 4)
+    bbase = base_kin(big, (uc, um, ud))
+    check(big.n_pad == CEILING_PAD,
+          f"ceiling: N={big.n_pad}, want {CEILING_PAD}")
+    out = []
+    for union in CEILING_UNIONS:
+        kins, feats, wave, _ = joint_wave(bbase, big, union, rng, dev)
+        ctx = f"ceiling/{union}"
+        shuffle = wave.features.with_shuffle
+        check(not ck.fused_wave_fits(dev, big.n_pad, wave.b_pad, shuffle)
+              and ck.joint_rows_global(dev, big.n_pad, wave.b_pad, shuffle),
+              f"{ctx}: the wave fits a cluster's shared memory")
+        fout, plain_ms = event_ms(lambda: ck.fused_wave_place_reference(
+            wave.kin, wave.step_member, wave.step_local, wave.t_pad,
+            wave.features))
+        want = plain_outs(fout, wave)
+        del fout
+        coalesce.fused_wave_stats.reset()
+        coalesce.joint_wave_stats.reset()
+        b0, j0, g0 = ck.launches, ck.joint_launches, ck.joint_global_calls
+        got, ms = event_ms(lambda: coalesce.launch_wave(
+            kins, [K_STEPS] * B_WAVE, feats, device=dev))
+        fstats = coalesce.fused_wave_stats.snapshot()
+        jstats = coalesce.joint_wave_stats.snapshot()
+        launched = (ck.launches - b0, ck.joint_launches - j0,
+                    ck.joint_global_calls - g0)
+        check(fstats == {"launches": 0, "fallbacks": 1, "failures": 0}
+              and jstats == {"launches": 1, "sharded_launches": 0,
+                             "global_rows": 1, "torch_waves": 0}
+              and launched == (0, 1, 1),
+              f"{ctx}: fused {fstats}, joint {jstats}, B1 / joint / "
+              f"global-row launches {launched}")
+        res = compare_waves(got, want, ctx, exact=True)
+        check(res["near_ties"] == 0 and res["placed"] > 0, f"{ctx}: {res}")
+        del got, want
+
+        def kernel():
+            return ck.joint_wave_place(wave.kin, wave.step_member,
+                                       wave.step_local, wave.t_pad,
+                                       wave.features)
+
+        one = kernel()
+        kms = cuda_ms(kernel, 3)
+        bound_ms, bound_by, nbytes, ops = joint_bound(wave, one)
+        res.update(union=union, n_pad=big.n_pad, launch_wave_ms=ms,
+                   ms=kms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes, ops=ops,
+                   us_per_active_step=kms * 1e3 / active_steps(wave))
+        log(f"ceiling {union}: {json.dumps(res)}")
+        out.append(res)
+        del kins, wave, one
+    return out
 
 
 def joint_entry(joint: dict, scale: list) -> dict:
@@ -1204,7 +1305,8 @@ def joint_entry(joint: dict, scale: list) -> dict:
         "source": "nomad_tpu_torch/csrc/joint_wave.cu",
         "replaces": "nomad_tpu/ops/kernel.py:1060",
         "launches": joint["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in checks + scale),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in checks + scale + joint["ceiling"]),
         "ms": spread["ms"],
         "plain_ms": spread["plain_ms"],
         "bound_ms": spread["bound_ms"],
@@ -1217,6 +1319,14 @@ def joint_entry(joint: dict, scale: list) -> dict:
         "scale_ms": {c["union"]: c["ms"] for c in scale},
         "scale_plain_ms": {c["union"]: c["plain_ms"] for c in scale},
         "scale_bound_ms": {c["union"]: c["bound_ms"] for c in scale},
+        # N=524288: the global-row instantiation through launch_wave
+        "global_rows_ms": {c["union"]: c["ms"] for c in joint["ceiling"]},
+        "global_rows_plain_ms": {c["union"]: c["plain_ms"]
+                                 for c in joint["ceiling"]},
+        "global_rows_bound_ms": {c["union"]: c["bound_ms"]
+                                 for c in joint["ceiling"]},
+        "global_rows_launch_wave_ms": {c["union"]: c["launch_wave_ms"]
+                                       for c in joint["ceiling"]},
     }
 
 
@@ -4581,6 +4691,50 @@ MESH_CHURN = 320                # part B: allocs stopped between the waves
 MESH_WARM_REPEATS = 3           # part A: warm repeats of the first wave
 MESH_KERNEL_SHARDS = 4          # part A: the kernel against its plain version
 MESH_TIMED_VARIANT = "kitchen_sink"  # part A: the kernel's and plain's times
+MESH_SPREAD_JOBS = 64           # part C: the spread arm's burst
+
+
+def spread_burst_job(rng, i: int, prefix: str = "mesh-spread"):
+    """A burst job (``c2m.burst_job``) whose group spreads over the
+    datacenters: its waves leave the fused envelope."""
+    from nomad_tpu_torch import structs
+
+    job = c2m.burst_job(rng, i, prefix=prefix)
+    job.task_groups[0].spreads = [structs.Spread(
+        attribute="${node.datacenter}", weight=50)]
+    return job
+
+
+def traced_burst(srv, jobs, ctx: str) -> dict:
+    """One server burst under the tracer: its host seconds, and each
+    span's count, total and exclusive ms (``tracer.stage_totals``): the
+    scheduler's stages (``eval.schedule``, ``sched.*``), the wave's
+    (``wave.park``, ``wave.assemble``, ``wave.launch``, ``kernel.d2h``)
+    and the plan's (``plan.*``), on every thread."""
+    from nomad_tpu_torch.telemetry.trace import tracer
+
+    tracer.enable()
+    tracer.reset()
+    try:
+        t0 = time.perf_counter()
+        for job in jobs:
+            srv.job_register(job)
+        burst_s = server_converged(srv, jobs,
+                                   time.time() + SERVER_DEADLINE_S) - t0
+        totals = tracer.stage_totals()
+    finally:
+        tracer.disable()
+        tracer.reset()
+    check_server_burst(srv, jobs, ctx)
+    top = sorted(totals.items(), key=lambda kv: -kv[1]["exclusive_s"])[:8]
+    log(f"{ctx}: {len(jobs)} jobs in {burst_s:.3f} s; exclusive ms by "
+        "span: " + ", ".join(f"{name} {v['exclusive_s'] * 1e3:.1f} "
+                             f"({v['count']})" for name, v in top))
+    return {"jobs": len(jobs), "burst_s": burst_s,
+            "spans": {name: {"count": v["count"],
+                             "total_ms": v["total_s"] * 1e3,
+                             "exclusive_ms": v["exclusive_s"] * 1e3}
+                      for name, v in totals.items()}}
 
 
 def event_ms(fn):
@@ -4660,6 +4814,12 @@ def cluster_launches() -> int:
     return ck.sharded_kernel_launches()
 
 
+def joint_cluster_launches() -> int:
+    """The joint sharded kernel's launches so far, every card's, as the C
+    side counts them (one a card a wave)."""
+    return ck.joint_sharded_kernel_launches()
+
+
 def mesh_wave(kins, features, dev: torch.device, mesh) -> tuple:
     """One launch_wave (over ``mesh``, or B1 on ``dev`` when None): its
     outputs, CUDA-event ms, and the B1 launches, the sharded kernel's
@@ -4713,6 +4873,30 @@ def mesh_kernel_ms(kins, features, dev: torch.device, shards: int) -> float:
     return cuda_ms(lambda: ck.sharded_wave_place(*args), 10)
 
 
+def lean_joint_check(kins, features, dev: torch.device, shards: int,
+                     ctx: str) -> dict:
+    """The joint sharded kernel on a wave the sharded kernel takes (a
+    fused-envelope union, TOPK rows a shard or more) over the same D
+    virtual shards: held against the sharded kernel's output, exact, and
+    both kernels' CUDA-event ms (ten calls after one each): what routing
+    every mesh wave to the joint sharded kernel would cost."""
+    args = kernel_shards(kins, features, dev, shards)
+    want = ck.sharded_wave_place(*args)
+    got = ck.joint_sharded_wave_place(*args)
+    ck.raise_on_wave_error(got.packed.cpu().numpy(), args[3],
+                           int(args[0][0].n_steps.shape[0]))
+    flat = coalesce.assemble_wave(kins, [K_STEPS] * len(kins), features,
+                                  dev)
+    res = compare(whole(got), whole(want), flat, ctx)
+    check(res["max_abs_err"] == 0.0 and res["near_ties"] == 0,
+          f"{ctx}: the joint sharded kernel differs from the sharded "
+          f"kernel: {res}")
+    return {"shards": shards, "max_abs_err": res["max_abs_err"],
+            "joint_ms": cuda_ms(lambda: ck.joint_sharded_wave_place(*args),
+                                10),
+            "sharded_ms": cuda_ms(lambda: ck.sharded_wave_place(*args), 10)}
+
+
 def b1_kernel_ms(kins, features, dev: torch.device) -> float:
     """B1's CUDA-event ms on the same wave, unsharded (ten calls after
     one): the sharded kernel's yardstick in the same call."""
@@ -4764,6 +4948,73 @@ def mesh_kernel_check(kins, features, dev: torch.device, shards: int,
         res["us_per_active_step"] = res["ms"] * 1e3 / res["active_steps"]
         res["b1_us_per_active_step"] = (res["b1_ms"] * 1e3
                                         / res["active_steps"])
+    return res
+
+
+def joint_mesh_check(kins, features, dev: torch.device, shards: int,
+                     ctx: str, devices=None, plain: bool = True) -> dict:
+    """A wave outside the fused envelope over D virtual shards of ``dev``
+    (or over ``devices``): through ``launch_wave`` (one call of the joint
+    sharded kernel, one cluster launch a card, no other kernel, no
+    torch-op wave) against the one-device wave (the joint kernel), exact;
+    then the kernel alone (``ck.joint_sharded_wave_place``) against its
+    plain version and against the one-device joint kernel on the same
+    inputs, exact, and its CUDA-event ms (ten calls) beside the joint
+    kernel's, the plain version's (one call) and the bound (the one-device
+    wave's bytes and operations, ``joint_bound``). Without ``plain`` the
+    kernel is held against the one-device joint kernel alone (itself held
+    against its plain version at that width in phase 5)."""
+    devices = devices or [dev] * shards
+    mesh = sharded.wave_mesh(devices=devices)
+    cards = len(set(devices))
+    j0 = coalesce.joint_wave_stats.snapshot()
+    calls, clusters = ck.joint_sharded_launches, joint_cluster_launches()
+    want, one_ms, n0 = mesh_wave(kins, features, dev, None)
+    got, ms, n1 = mesh_wave(kins, features, dev, mesh)
+    j1 = coalesce.joint_wave_stats.snapshot()
+    launched = (ck.joint_sharded_launches - calls,
+                joint_cluster_launches() - clusters)
+    check(n0["b1"] == n1["b1"] == n1["kernel"] == 0 and n1["sharded"] == 1
+          and launched == (1, cards)
+          and j1["sharded_launches"] - j0["sharded_launches"] == 1
+          and j1["torch_waves"] == j0["torch_waves"],
+          f"{ctx}: launches {n0} {n1}, joint sharded calls and cluster "
+          f"launches {launched}, joint stats {j0} -> {j1}")
+    res = compare_waves(got, want, ctx, exact=True)
+    check(res["near_ties"] == 0 and res["placed"] > 0, f"{ctx}: {res}")
+    res.update(launch_wave_ms=ms, one_device_launch_wave_ms=one_ms)
+    args = kernel_shards(kins, features, dev, shards, devices)
+    out = ck.joint_sharded_wave_place(*args)
+    ck.raise_on_wave_error(out.packed.cpu().numpy(), args[3],
+                           int(args[0][0].n_steps.shape[0]))
+    others, plain_ms = [], None
+    if plain:
+        want, plain_ms = event_ms(
+            lambda: ck.joint_sharded_wave_place_reference(*args))
+        others.append((whole(want), "its plain version"))
+    flat = coalesce.assemble_wave(kins, [K_STEPS] * len(kins), features,
+                                  dev)
+    fargs = (flat.kin, flat.step_member, flat.step_local, flat.t_pad,
+             flat.features)
+    one = ck.joint_wave_place(*fargs)
+    torch.cuda.synchronize()
+    for other, name in others + [(one, "the joint kernel")]:
+        r = compare(whole(out), other, flat, f"{ctx} vs {name}")
+        check(r["max_abs_err"] == 0.0 and r["near_ties"] == 0,
+              f"{ctx}: the joint sharded kernel differs from {name}: {r}")
+    res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
+    res["kernel_ms"] = cuda_ms(lambda: ck.joint_sharded_wave_place(*args),
+                               10)
+    res["joint_ms"] = cuda_ms(lambda: ck.joint_wave_place(*fargs), 10)
+    res["plain_ms"] = plain_ms
+    res["bound_ms"], res["bound_by"], res["bytes"], res["ops"] = \
+        joint_bound(flat, one)
+    res["active_steps"] = sharded_active_steps(args)
+    res["us_per_active_step"] = (res["kernel_ms"] * 1e3
+                                 / res["active_steps"])
+    res.update(shards=shards, cards=cards,
+               n_pad=int(flat.kin.cap_cpu.shape[-1]),
+               cluster_launches=launched[1])
     return res
 
 
@@ -4826,6 +5077,9 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
             f"mesh kernel/{variant}/D={MESH_KERNEL_SHARDS}",
             time_it=variant == MESH_TIMED_VARIANT)
         res["variant"] = variant
+        res["lean_joint"] = [lean_joint_check(
+            kins, feats, dev, d, f"mesh lean joint/{variant}/D={d}")
+            for d in MESH_SHARDS]
         if variant == MESH_TIMED_VARIANT:
             # the kernel alone at every D (the D=4 time above is the
             # JSON line's), each beside B1's kernel on the same wave
@@ -4858,28 +5112,22 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
         row["b1_ms_median"] = float(np.median(row["b1_ms"]))
         row["bound_ms"], row["bound_by"] = bound_ms, bound_by
 
-    # the joint sharded wave (a spread member: outside the fused
-    # envelope) against the one-device wave on the card (the joint
-    # kernel)
-    members = [spread_member(base, cluster)] + [
-        make_member(base, cluster, "shuffle", rng)
-        for _ in range(B_WAVE - 1)]
-    kins, feats = [m[0] for m in members], [m[1] for m in members]
+    # the joint sharded kernel: each union outside the fused envelope
+    # (phase 4's waves) at D=4, against the one-device wave (the joint
+    # kernel) and its plain version
     f0 = coalesce.fused_wave_stats.snapshot()
-    want, one_ms, n0 = mesh_wave(kins, feats, dev, None)
-    got, joint_ms, n1 = mesh_wave(
-        kins, feats, dev,
-        sharded.wave_mesh(devices=[dev] * MESH_SPREAD_SHARDS))
+    joint = []
+    for union in JOINT_UNIONS:
+        kins, feats, _, _ = joint_wave(base, cluster, union, rng, dev)
+        res = joint_mesh_check(kins, feats, dev, MESH_SPREAD_SHARDS,
+                               f"mesh joint/{union}/D={MESH_SPREAD_SHARDS}")
+        res["union"] = union
+        joint.append(res)
+        log(f"mesh joint {union}: {json.dumps(res)}")
     f1 = coalesce.fused_wave_stats.snapshot()
-    check(n0["b1"] == n1["b1"] == n1["kernel"] == 0 and n1["sharded"] == 1,
-          f"mesh/spread: launches {n0} {n1}")
-    check(f1["fallbacks"] - f0["fallbacks"] == 2
+    check(f1["fallbacks"] - f0["fallbacks"] == 2 * len(JOINT_UNIONS)
           and f1["failures"] == f0["failures"],
-          f"mesh/spread: fused stats {f0} -> {f1}")
-    spread = compare_waves(got, want, f"mesh/spread/D={MESH_SPREAD_SHARDS}")
-    spread.update(shards=MESH_SPREAD_SHARDS, ms=joint_ms,
-                  one_device_ms=one_ms)
-    log(f"mesh spread: {json.dumps(spread)}")
+          f"mesh/joint: fused stats {f0} -> {f1}")
 
     # the reference's mesh-cell scale: N=131072 at D=8
     big = c2m_cluster(MESH_SCALE_NODES, seed=SEED + 1)
@@ -4907,6 +5155,15 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
     scale["us_per_active_step"] = (scale["kernel_ms"] * 1e3
                                    / scale["active_steps"])
     log(f"mesh scale: {json.dumps(scale)}")
+    joint_scale = []
+    for union in JOINT_SCALE_UNIONS:
+        kins, feats, _, _ = joint_wave(bbase, big, union, rng, dev)
+        res = joint_mesh_check(
+            kins, feats, dev, MESH_SCALE_SHARDS,
+            f"mesh joint scale/{union}/D={MESH_SCALE_SHARDS}", plain=False)
+        res["union"] = union
+        joint_scale.append(res)
+        log(f"mesh joint scale {union}: {json.dumps(res)}")
     del big, bbase, members, kins
 
     # the real cards: one card makes a mesh of one device, which runs
@@ -4938,14 +5195,25 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
         real["active_steps"] = sharded_active_steps(args)
         real["us_per_active_step"] = (real["kernel_ms"] * 1e3
                                       / real["active_steps"])
+        # and the joint sharded kernel over the cards, beside the joint
+        # kernel on the first
+        kins, feats, _, _ = joint_wave(base, cluster, "everything", rng,
+                                       dev)
+        real["joint"] = joint_mesh_check(
+            kins, feats, dev, cards.size,
+            f"mesh joint/cards/D={cards.size}",
+            devices=list(cards.devices.flat))
     log(f"mesh cards: {json.dumps(real)}")
+    joint_all = joint + joint_scale + (
+        [real["joint"]] if "joint" in real else [])
     return {"per_d": [rows[d] for d in MESH_SHARDS], "cold": cold,
-            "spread": spread, "scale": scale, "cards": real,
-            "kernel": kernel, "b1_launches": b1,
+            "joint": joint, "joint_scale": joint_scale, "scale": scale,
+            "cards": real, "kernel": kernel, "b1_launches": b1,
             "near_ties": sum(r["near_ties"] for r in parity + kernel)
-            + spread["near_ties"] + scale["near_ties"],
+            + scale["near_ties"],
             "max_abs_err": max(r["max_abs_err"] for r in
                                parity + kernel + [scale, real]),
+            "joint_max_abs_err": max(r["max_abs_err"] for r in joint_all),
             "variants": len(VARIANTS)}
 
 
@@ -5074,7 +5342,9 @@ def mesh_part_b(dev: torch.device, state, rng) -> dict:
 def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
     """Part C: phase 11's window-off server over the restored state, its
     waves split over a 4-shard virtual mesh: the warm-up, then the timed
-    burst, every count set to 0 just before it."""
+    burst, every count set to 0 just before it; then the spread arm,
+    MESH_SPREAD_JOBS jobs spread over the datacenters, whose waves run the
+    joint sharded kernel, with no torch-op wave."""
     from nomad_tpu_torch.telemetry.exporter import prometheus_text
 
     ctx = "mesh server"
@@ -5167,10 +5437,54 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
         e2e_p50, e2e_p99 = e2e.quantiles((0.5, 0.99))
         scrape = prometheus_values(prometheus_text())
         check_server_burst(srv, jobs, ctx)
+        # the burst's waves, once its last chunk is reaped
+        time.sleep(1.0)
+        waves1, requests1 = w.batch_launches, w.batch_requests
+
+        # the spread arm: jobs spread over the datacenters, whose waves
+        # run the joint sharded kernel; its counts set to 0 just before
+        # and read just after
+        sjobs = [spread_burst_job(rng, i) for i in range(MESH_SPREAD_JOBS)]
+        coalesce.fused_wave_stats.reset()
+        coalesce.joint_wave_stats.reset()
+        coalesce.sharded_wave_stats.reset()
+        coalesce.wave_stats.reset()
+        single_eval_stats.reset()
+        ck.joint_sharded_launches = 0
+        ck.launches = ck.sharded_launches = 0
+        jc0 = joint_cluster_launches()
+        t0 = time.perf_counter()
+        for job in sjobs:
+            srv.job_register(job)
+        spread_s = server_converged(srv, sjobs,
+                                    time.time() + SERVER_DEADLINE_S) - t0
+        res["spread"] = {
+            "jobs": MESH_SPREAD_JOBS, "burst_s": spread_s,
+            "evals_per_s": MESH_SPREAD_JOBS / spread_s,
+            "joint_sharded_calls": ck.joint_sharded_launches,
+            "cluster_launches": joint_cluster_launches() - jc0,
+            "b1": ck.launches, "sharded_kernel_calls": ck.sharded_launches,
+            "joint": coalesce.joint_wave_stats.snapshot(),
+            "fused": coalesce.fused_wave_stats.snapshot(),
+            "sharded": coalesce.sharded_wave_stats.snapshot(),
+            "wave_stats": coalesce.wave_stats.snapshot(),
+            "single_evals": single_eval_stats.snapshot()}
+        check_server_burst(srv, sjobs, f"{ctx} spread")
+        # the spread arm's waves, once its last chunk is reaped
+        time.sleep(1.0)
+        res["spread"]["waves"] = w.batch_launches - waves1
+        # where a burst's time goes: as many spread jobs again under the
+        # tracer, then as many lean ones, each span's totals
+        res["spread"]["traced"] = traced_burst(
+            srv, [spread_burst_job(rng, i, "mesh-spread-traced")
+                  for i in range(MESH_SPREAD_JOBS)], f"{ctx} traced spread")
+        res["spread"]["traced_lean"] = traced_burst(
+            srv, [c2m.burst_job(rng, i, prefix="mesh-lean-traced")
+                  for i in range(MESH_SPREAD_JOBS)], f"{ctx} traced lean")
     finally:
         srv.shutdown()
-    waves = w.batch_launches - waves0
-    requests = w.batch_requests - requests0
+    waves = waves1 - waves0
+    requests = requests1 - requests0
     check(default_device_state.mesh is None,
           f"{ctx}: the resident state kept the server's mesh")
     check(sstats["launches"] == waves >= 1 and sstats["fallbacks"] == 0
@@ -5188,6 +5502,15 @@ def mesh_part_c(dev: torch.device, srv, rng, window_off: dict) -> dict:
           "card")
     check(dstate["errors"] == 0 and dstate["mesh_devices"]
           == MESH_SERVER_SHARDS, f"{ctx}: device state {dstate}")
+    sp = res["spread"]
+    check(sp["joint_sharded_calls"] >= 1
+          and sp["joint"]["sharded_launches"] == sp["joint_sharded_calls"]
+          == sp["cluster_launches"]
+          and sp["joint"]["torch_waves"] == 0 and sp["b1"] == 0
+          and sp["fused"]["failures"] == 0
+          and sp["sharded"]["launches"] == sp["waves"]
+          and sp["sharded"]["fallbacks"] == 0,
+          f"{ctx} spread: {sp}")
     series = {k: scrape.get(f"nomad_tpu_wave_sharded_{k}") for k in (
         "launches_total", "fallbacks_total", "mesh_devices")}
     check(series == {"launches_total": waves, "fallbacks_total": 0,
@@ -5284,6 +5607,66 @@ def run_mesh_phase(dev: torch.device, record: dict, state_bytes: bytes,
         "scale_b1_ms": scale["b1_kernel_ms"],
         "scale_us_per_active_step": scale["us_per_active_step"],
     }
+    # the joint sharded kernel's entry: its calls in part C's spread arm
+    # (the main path), the spread wave's times at D=4, every union's and
+    # the scale waves' beside
+    jspread = next(r for r in part_a["joint"] if r["union"] == "spread")
+    jentry = {
+        "name": "joint_sharded_wave_place",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/csrc/joint_sharded_wave.cu",
+        "replaces": "nomad_tpu/parallel/sharded.py:207",
+        "launches": part_c["spread"]["joint_sharded_calls"],
+        "max_abs_err": part_a["joint_max_abs_err"],
+        "ms": jspread["kernel_ms"],
+        "plain_ms": jspread["plain_ms"],
+        "bound_ms": jspread["bound_ms"],
+        "bound_by": jspread["bound_by"],
+        "library_ms": None,
+        "shards": MESH_SPREAD_SHARDS,
+        "joint_ms": jspread["joint_ms"],
+        "cluster_launches": part_c["spread"]["cluster_launches"],
+        "active_steps": jspread["active_steps"],
+        "us_per_active_step": jspread["us_per_active_step"],
+        "union_ms": {r["union"]: r["kernel_ms"] for r in part_a["joint"]},
+        "union_joint_ms": {r["union"]: r["joint_ms"]
+                           for r in part_a["joint"]},
+        "union_plain_ms": {r["union"]: r["plain_ms"]
+                           for r in part_a["joint"]},
+        "union_bound_ms": {r["union"]: r["bound_ms"]
+                           for r in part_a["joint"]},
+        "union_launch_wave_ms": {r["union"]: r["launch_wave_ms"]
+                                 for r in part_a["joint"]},
+        "scale_ms": {r["union"]: r["kernel_ms"]
+                     for r in part_a["joint_scale"]},
+        "scale_joint_ms": {r["union"]: r["joint_ms"]
+                           for r in part_a["joint_scale"]},
+        "scale_bound_ms": {r["union"]: r["bound_ms"]
+                           for r in part_a["joint_scale"]},
+    }
+    if "joint" in part_a["cards"]:
+        jentry["cards_ms"] = part_a["cards"]["joint"]["kernel_ms"]
+        jentry["cards_joint_ms"] = part_a["cards"]["joint"]["joint_ms"]
+    log(f"mesh joint kernel: " + ", ".join(
+        f"{u} {jentry['union_ms'][u]:.3f} ms (joint "
+        f"{jentry['union_joint_ms'][u]:.3f}, plain "
+        f"{jentry['union_plain_ms'][u]:.1f})" for u in jentry["union_ms"])
+        + f" at D={MESH_SPREAD_SHARDS}; N=131072 at D={MESH_SCALE_SHARDS} "
+        + ", ".join(f"{u} {ms:.3f} ms" for u, ms in
+                    jentry["scale_ms"].items())
+        + f"; part C's spread arm {part_c['spread']['joint_sharded_calls']} "
+        f"calls in {part_c['spread']['waves']} waves, "
+        f"{part_c['spread']['evals_per_s']:.1f} evals/s")
+    # the joint sharded kernel on the sharded kernel's own waves: the
+    # time each envelope wave would take if every mesh wave ran it
+    lean = {r["variant"]: r["lean_joint"] for r in part_a["kernel"]}
+    ratios = [x["joint_ms"] / x["sharded_ms"] for rows in lean.values()
+              for x in rows]
+    log("mesh lean waves, joint sharded / sharded kernel ms: " + "; ".join(
+        f"{v} " + ", ".join(f"D={x['shards']} {x['joint_ms']:.3f}/"
+                            f"{x['sharded_ms']:.3f}" for x in rows)
+        for v, rows in lean.items())
+        + f"; ratio {min(ratios):.3f}-{max(ratios):.3f}")
     log(f"mesh kernel: {timed['ms']:.3f} ms a live wave at "
         f"D={MESH_KERNEL_SHARDS} ({MESH_TIMED_VARIANT}; B1 "
         f"{timed['b1_ms']:.3f} ms), {timed['us_per_active_step']:.2f} us "
@@ -5301,10 +5684,13 @@ def run_mesh_phase(dev: torch.device, record: dict, state_bytes: bytes,
             "shards", "waves", "sharded_launches", "ms_median",
             "b1_ms_median", "max_abs_err", "near_ties", "bound_ms",
             "bound_by", "ms", "b1_ms")} for r in part_a["per_d"]],
-        "cold": part_a["cold"], "spread": part_a["spread"],
+        "cold": part_a["cold"], "joint": part_a["joint"],
+        "joint_scale": part_a["joint_scale"],
         "scale": part_a["scale"], "cards": part_a["cards"],
         "near_ties": part_a["near_ties"], "kernel": part_a["kernel"],
-        "kernel_entry": entry, "launch_wave_ratio_d4": ratio,
+        "kernel_entry": entry, "joint_kernel_entry": jentry,
+        "lean_joint": lean, "lean_joint_ratio": [min(ratios), max(ratios)],
+        "launch_wave_ratio_d4": ratio,
         # the multi-chip dry run's shape (__graft_entry__.dryrun_multichip
         # at 8 devices) and the live wave's
         "place_batch_bound": [place_batch_bound(4, 256, 4),
@@ -5422,11 +5808,14 @@ def place_batch_kins(n_evals: int, mix: bool) -> list:
 
 
 def place_batch_counts() -> dict:
-    """B1's, the joint kernel's and the sharded kernel's launches so far,
-    and the step's route counts."""
+    """B1's, the joint kernel's, the sharded kernel's and the joint
+    sharded kernel's calls so far, the two sharded kernels' cluster
+    launches, and the step's route counts."""
     return {"b1": ck.launches, "joint": ck.joint_launches,
             "kernel": ck.sharded_launches,
+            "joint_sharded": ck.joint_sharded_launches,
             "clusters": cluster_launches(),
+            "joint_clusters": joint_cluster_launches(),
             **sharded.place_batch_stats.snapshot()}
 
 
@@ -5467,14 +5856,14 @@ def run_place_batch_phase(dev: torch.device, record: dict,
     then ``sharded.make_place_batch`` at full width: the dry run's mix
     and an all-lean batch over ``PB_MESH`` (``PB_CARDS_MESH`` over
     ``cards``), where every eval in the envelope is one call of the
-    sharded kernel, and the all-lean batch and the mix over
-    ``PB_B1_MESH``, where a lean eval is one call of B1 and a spread eval
-    one call of the joint kernel. The counts are set to 0 just before the
-    four batches' first routed calls (the main path) and read just after:
-    each lean eval one kernel call, each spread eval one plain eval over
-    ``PB_MESH`` and one joint call over ``PB_B1_MESH``, one cluster
-    launch a card a sharded call. Each batch is then held against the
-    plain step and timed beside it. One ``place batch: {...}`` line."""
+    sharded kernel and every spread eval one call of the joint sharded
+    kernel, and the all-lean batch and the mix over ``PB_B1_MESH``, where
+    a lean eval is one call of B1 and a spread eval one call of the joint
+    kernel. The counts are set to 0 just before the four batches' first
+    routed calls (the main path) and read just after: each eval one
+    kernel call and no plain eval, one cluster launch a card a sharded
+    call. Each batch is then held against the plain step and timed beside
+    it. One ``place batch: {...}`` line."""
     from nomad_tpu_torch import entry
 
     t_phase = time.perf_counter()
@@ -5484,8 +5873,8 @@ def run_place_batch_phase(dev: torch.device, record: dict,
     else:
         dry = entry.dryrun_multichip(8, devices=[dev] * 8)
     dry_s = time.perf_counter() - t0
-    check(dry["routes"]["kernel_calls"] == dry["batch"] // 2
-          and dry["routes"]["plain_evals"] == dry["batch"] // 2,
+    check(dry["routes"]["kernel_calls"] == dry["batch"]
+          and dry["routes"]["plain_evals"] == 0,
           f"place batch: the dry run's routes {dry['routes']}")
     log(f"place batch: dry run over {dry['mesh']} in {dry_s:.1f} s: "
         f"routes {dry['routes']}, {dry['placed']} live allocs, "
@@ -5522,25 +5911,28 @@ def run_place_batch_phase(dev: torch.device, record: dict,
         drive[name] = {k: b[k] - a[k] for k in b}
     launches = {k: sum(d[k] for d in drive.values()) for k in a}
     half = PB_EVALS // 2
+    # rows of several shards: the spread evals through the joint sharded
+    # kernel; rows of one: through the joint kernel
     want = {"mix": {"b1": 0, "joint": 0, "kernel": half,
-                    "plain_evals": half},
+                    "joint_sharded": half, "plain_evals": 0},
             "lean": {"b1": 0, "joint": 0, "kernel": PB_EVALS,
-                     "plain_evals": 0},
+                     "joint_sharded": 0, "plain_evals": 0},
             "lean_b1": {"b1": PB_EVALS, "joint": 0, "kernel": 0,
-                        "plain_evals": 0},
-            # rows of one shard: the spread evals through the joint kernel
+                        "joint_sharded": 0, "plain_evals": 0},
             "mix_b1": {"b1": half, "joint": half, "kernel": 0,
-                       "plain_evals": 0}}
+                       "joint_sharded": 0, "plain_evals": 0}}
     for name, counts in drive.items():
         got = {k: counts[k] for k in want[name]}
         check(got == want[name],
               f"place batch {name}: launches {counts}, want {want[name]}")
-        check(counts["clusters"] == counts["kernel"] * n_cards,
-              f"place batch {name}: {counts['clusters']} cluster launches "
-              f"for {counts['kernel']} sharded calls over {n_cards} cards")
-    # the mix's routed time is its plain evals': timed once
-    checks = [place_batch_check(n, x, m, dev, 1 if n == "mix" else
-                                PB_REPEATS) for n, x, m in batches]
+        check(counts["clusters"] == counts["kernel"] * n_cards
+              and counts["joint_clusters"]
+              == counts["joint_sharded"] * n_cards,
+              f"place batch {name}: {counts['clusters']} / "
+              f"{counts['joint_clusters']} cluster launches for "
+              f"{counts['kernel']} / {counts['joint_sharded']} sharded and "
+              f"joint sharded calls over {n_cards} cards")
+    checks = [place_batch_check(n, x, m, dev) for n, x, m in batches]
     pb = place_batch_bound(PB_EVALS, PB_NODES, PB_PLACE)
     res = {
         "dry_run": {k: v for k, v in dry.items() if k != "outs"},
@@ -5656,27 +6048,47 @@ def mesh_phase_alone(argv: list) -> int:
         res["place_batch"] = run_place_batch_phase(dev, {}, cards)
         res["kernel_entry"]["place_batch_launches"] = \
             res["place_batch"]["launches"]["kernel"]
+        res["joint_kernel_entry"]["place_batch_launches"] = \
+            res["place_batch"]["launches"]["joint_sharded"]
         out_dir = Path(__file__).resolve().parent / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "mesh_phase.json").write_text(json.dumps(res, indent=1))
-        print(json.dumps({"kernels": [res["kernel_entry"]]}))
+        print(json.dumps({"kernels": [res["kernel_entry"],
+                                      res["joint_kernel_entry"]]}))
         return 0
     # the CPU rehearsal: the kernels' plain versions counted as their
     # launches, host-clock times, the scale wave at ten times the live
     # size
     plain = ck.fused_wave_place
     plain_sharded = ck.sharded_wave_place
+    plain_joint = ck.joint_wave_place
+    plain_joint_sharded = ck.joint_sharded_wave_place
 
     def counted(*a, **k):
         ck.launches += 1
         return plain(*a, **k)
 
-    clusters = [0]
+    def counted_joint(*a, **k):
+        ck.joint_launches += 1
+        return plain_joint(*a, **k)
+
+    clusters = [0, 0]
 
     def counted_sharded(*a, **k):
         ck.sharded_launches += 1
         clusters[0] += len({s.cap_cpu.device for s in a[0]})
         return plain_sharded(*a, **k)
+
+    def counted_joint_sharded(*a, **k):
+        ck.joint_sharded_launches += 1
+        clusters[1] += len({s.cap_cpu.device for s in a[0]})
+        return plain_joint_sharded(*a, **k)
+
+    def joint_stats_note(kernel, sharded=False, global_rows=False):
+        # the plain versions stand in for the kernels: count them so
+        real_note(True, sharded, global_rows)
+
+    real_note = coalesce.joint_wave_stats.note
 
     def host_ms(fn):
         t0 = time.perf_counter()
@@ -5694,9 +6106,21 @@ def mesh_phase_alone(argv: list) -> int:
             patch.patch.object(sharded, "sharded_wave_place",
                                counted_sharded), \
             patch.patch.object(sharded, "fused_wave_place", counted), \
+            patch.patch.object(ck, "joint_wave_place", counted_joint), \
+            patch.patch.object(coalesce, "joint_wave_place",
+                               counted_joint), \
+            patch.patch.object(sharded, "joint_wave_place", counted_joint), \
+            patch.patch.object(ck, "joint_sharded_wave_place",
+                               counted_joint_sharded), \
+            patch.patch.object(sharded, "joint_sharded_wave_place",
+                               counted_joint_sharded), \
+            patch.patch.object(coalesce.joint_wave_stats, "note",
+                               joint_stats_note), \
             patch.patch(f"{__name__}.event_ms", host_ms), \
             patch.patch(f"{__name__}.cluster_launches",
                         lambda: clusters[0]), \
+            patch.patch(f"{__name__}.joint_cluster_launches",
+                        lambda: clusters[1]), \
             patch.patch(f"{__name__}.cuda_ms",
                         lambda fn, reps: host_ms(fn)[1]), \
             patch.patch.object(torch.cuda, "synchronize", lambda *a: None):

@@ -1,11 +1,12 @@
 // The parts of the cluster wave kernels that hold no scoring rule.
 //
-// csrc/fused_wave.cu (B1), csrc/joint_wave.cu and csrc/sharded_wave.cu each
-// run a wave as one cluster of CTAs that own node ranges and meet once a
-// step. They share, from here: the CTA's argmax slot and top-8 list, the
-// permutation-rank loader, a warp's top-8 of its row entries, the cluster's
-// top-8 from its CTAs' lists and its write-out, and on the host the dynamic
-// shared memory a block may take and the cluster launch configuration.
+// csrc/fused_wave.cu (B1), csrc/joint_wave.cu, csrc/sharded_wave.cu and
+// csrc/joint_sharded_wave.cu each run a wave as one cluster of CTAs (a
+// card) that own node ranges and meet once a step. They share, from here:
+// the CTA's argmax slot and top-8 list, the permutation-rank loader, a
+// warp's top-8 of its row entries, the cluster's top-8 from its CTAs'
+// lists and its write-out, and on the host the dynamic shared memory a
+// block may take and the cluster launch configuration.
 // Every device function here is force-inlined, so each kernel compiles as
 // it did with the code written out in place.
 

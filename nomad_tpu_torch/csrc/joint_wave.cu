@@ -60,8 +60,17 @@
 // Shared memory: 13 B a node of the CTA's range with shuffle (row key,
 // rank, partial sum, count) and 36 B a member, so N=262144 (16384 nodes a
 // CTA) takes 212992 B + 36 B a member of the ~219 KiB a block may take
-// beside the ~7.5 KiB static part; N=524288 does not fit, and the wrapper
-// raises before launching.
+// beside the ~7.5 KiB static part. A wave whose ranges do not fit (a node
+// axis padded to 524288 and more: B1 does not hold it either) takes the
+// second instantiation, kGlobal: the same step with its CTAs' rows in a
+// per-launch global scratch of the same 13 B a node (6.8 MB at N=524288,
+// which stays in the 50 MB L2), chosen by the wrapper before the launch
+// (ops/cuda_kernel.joint_rows_global). Every wave that fits keeps the
+// shared-memory instantiation.
+//
+// The node arithmetic (feasibility, the partial sums, the commit, the
+// metrics, the boost table) lives in csrc/joint_node.cuh, shared with the
+// joint sharded kernel (csrc/joint_sharded_wave.cu).
 //
 // Built by nomad_tpu_torch/ops/build.py with B1's flags (-fmad=false, no
 // fast-math), so every score rounds op for op as the torch version does on
@@ -69,409 +78,51 @@
 
 #include <cooperative_groups.h>
 
-#include "cluster_wave.cuh"
+#include "joint_node.cuh"
 
 namespace cg = cooperative_groups;
 
 #define CLUSTER 16
 #define THREADS 512
 #define NWARPS (THREADS / 32)
-#define MAX_P 4                    // MAX_PENALTY_NODES
-#define N_SPECIAL (MAX_P + 2)      // pending commit, penalty nodes, pin
-#define ALL_WARPS (FULL_MASK >> (32 - NWARPS))
 #define MAX_DEVICES 64
-#define MAX_S 4                    // MAX_SPREADS
-#define SB 128                     // SPREAD_BUCKETS
-#define MAX_D 4                    // MAX_DEV_REQS
-#define N_MET 8                    // FUSED_METRIC_FIELDS
-#define BUMP_LANE 16               // warp 0's lanes that bump the counts
+#define ALL_WARPS (FULL_MASK >> (32 - NWARPS))
 
 static_assert(NWARPS >= MAX_S, "one warp a stanza builds the boost table");
-static_assert(SB == 4 * 32, "a warp holds a stanza's buckets, four a lane");
-static_assert(BUMP_LANE >= N_SPECIAL && BUMP_LANE + MAX_S <= 32, "lanes");
-
-// Leaf order: ops/kernel.KernelIn's field order, mirrored by
-// nomad_tpu_torch/ops/cuda_kernel._JOINT_LEAVES.
-enum JLeaf {
-  J_CAP_CPU, J_CAP_MEM, J_CAP_DISK, J_FREE_CORES, J_SPC, J_FREE_DYN,
-  J_BASE, J_USED_CPU, J_USED_MEM, J_USED_DISK, J_USED_CORES, J_USED_MBITS,
-  J_AVAIL_MBITS, J_PC, J_DEV_FREE, J_DEV_AFF, J_HAS_DEV_AFF, J_JTC,
-  J_PENALTY, J_AFF, J_PERM, J_STEP_PEN, J_STEP_PREF, J_JAC, J_DHJ, J_DHT,
-  J_SP_ACTIVE, J_SP_EVEN, J_SP_WEIGHT, J_SP_BUCKET, J_SP_COUNTS,
-  J_SP_DESIRED, J_ASK_CPU, J_ASK_MEM, J_ASK_DISK, J_ASK_CORES, J_ASK_DYN,
-  J_ASK_RES, J_ASK_DEV, J_ASK_MBITS, J_DESIRED, J_ALG, J_NSTEPS,
-  J_N_LEAVES
-};
-
-struct JointArgs {
-  const void* leaf[J_N_LEAVES];
-  long long stride[J_N_LEAVES];  // member stride in elements; 0 = shared
-  const int* step_member;        // i32 [T]
-  const int* step_local;         // i32 [T]
-  float* packed;                 // f32 [2T + 8B]
-  int* topk_idx;                 // i32 [T, TOPK]
-  float* topk_scores;            // f32 [T, TOPK]
-  float* a_cpu;                  // f32 [N] (outputs: the wave's carry)
-  float* a_mem;
-  float* a_disk;
-  int* a_dyn;                    // i32 [N] scratch (with_ports)
-  int* a_cores;                  // i32 [N] scratch (with_cores)
-  int* a_mbits;                  // i32 [N] scratch (with_network)
-  float* a_dev;                  // f32 [N, MAX_D] scratch (with_devices)
-  int* jtc;                      // i32 [B, N] scratch
-  int* jac;                      // i32 [B, N] scratch (with_distinct)
-  unsigned char* pc;             // bool [B, N] scratch (with_ports)
-  float* spc;                    // f32 [CLUSTER, B, MAX_S, SB] (ns > 0)
-  int n, b, t, k, p, bp, ns;
-  int with_topk, with_ports, with_distinct, with_step_pen, with_pref,
-      with_shuffle, with_devices, with_cores, with_network, single;
-};
-
-template <typename T>
-__device__ __forceinline__ const T* leaf_of(const JointArgs& a, int leaf,
-                                            int m) {
-  return reinterpret_cast<const T*>(a.leaf[leaf]) + m * a.stride[leaf];
-}
-
-// A member's scalars, its device ask and its stanzas' flags.
-struct JMember {
-  float ask_cpu, ask_mem, ask_disk;
-  float ask_dev[MAX_D];
-  float sp_weight[MAX_S];
-  int ask_cores, ask_dyn, ask_mbits, desired;
-  int has_res, alg_spread, dhj, dht, dev_aff_on;
-  int spread;                      // an active stanza among the first ns
-  int sp_active[MAX_S], sp_even[MAX_S];
-};
-
-__device__ __forceinline__ JMember load_member(const JointArgs& a, int m) {
-  JMember v;
-  v.ask_cpu = *leaf_of<float>(a, J_ASK_CPU, m);
-  v.ask_mem = *leaf_of<float>(a, J_ASK_MEM, m);
-  v.ask_disk = *leaf_of<float>(a, J_ASK_DISK, m);
-  v.ask_cores = *leaf_of<int>(a, J_ASK_CORES, m);
-  v.ask_dyn = *leaf_of<int>(a, J_ASK_DYN, m);
-  v.ask_mbits = *leaf_of<int>(a, J_ASK_MBITS, m);
-  v.desired = *leaf_of<int>(a, J_DESIRED, m);
-  v.has_res = *leaf_of<unsigned char>(a, J_ASK_RES, m) != 0;
-  v.alg_spread = *leaf_of<unsigned char>(a, J_ALG, m) != 0;
-  v.dhj = *leaf_of<unsigned char>(a, J_DHJ, m) != 0;
-  v.dht = *leaf_of<unsigned char>(a, J_DHT, m) != 0;
-  v.dev_aff_on = *leaf_of<unsigned char>(a, J_HAS_DEV_AFF, m) != 0;
-  const float* dev = leaf_of<float>(a, J_ASK_DEV, m);
-#pragma unroll
-  for (int q = 0; q < MAX_D; ++q) v.ask_dev[q] = dev[q];
-  v.spread = 0;
-#pragma unroll
-  for (int s = 0; s < MAX_S; ++s) {
-    v.sp_active[s] =
-        s < a.ns && leaf_of<unsigned char>(a, J_SP_ACTIVE, m)[s] != 0;
-    v.sp_even[s] = leaf_of<unsigned char>(a, J_SP_EVEN, m)[s] != 0;
-    v.sp_weight[s] = leaf_of<float>(a, J_SP_WEIGHT, m)[s];
-    v.spread |= v.sp_active[s];
-  }
-  return v;
-}
-
-// One node as member m sees it. With `single` the f32 carries hold the
-// used planes themselves (used_* and dev are read from them, a_* stay 0).
-struct JNode {
-  float cap_cpu, cap_mem, cap_disk, used_cpu, used_mem, used_disk, aff;
-  float dev_aff, spc;
-  float a_cpu, a_mem, a_disk;
-  float dev[MAX_D], a_dev[MAX_D];
-  int free_dyn, a_dyn, free_cores, used_cores, a_cores;
-  int used_mbits, a_mbits, avail_mbits, jtc, jac;
-  bool base, pc, pen;
-};
-
-__device__ __forceinline__ JNode load_node(const JointArgs& a, int m, int i,
-                                           bool input_counts) {
-  JNode d;
-  const long long mi = (long long)m * a.n + i;
-  d.cap_cpu = __ldg(leaf_of<float>(a, J_CAP_CPU, m) + i);
-  d.cap_mem = __ldg(leaf_of<float>(a, J_CAP_MEM, m) + i);
-  d.cap_disk = __ldg(leaf_of<float>(a, J_CAP_DISK, m) + i);
-  d.aff = __ldg(leaf_of<float>(a, J_AFF, m) + i);
-  d.base = __ldg(leaf_of<unsigned char>(a, J_BASE, m) + i) != 0;
-  d.pen = __ldg(leaf_of<unsigned char>(a, J_PENALTY, m) + i) != 0;
-  if (a.single) {
-    d.used_cpu = a.a_cpu[i];
-    d.used_mem = a.a_mem[i];
-    d.used_disk = a.a_disk[i];
-    d.a_cpu = d.a_mem = d.a_disk = 0.0f;
-  } else {
-    d.used_cpu = __ldg(leaf_of<float>(a, J_USED_CPU, m) + i);
-    d.used_mem = __ldg(leaf_of<float>(a, J_USED_MEM, m) + i);
-    d.used_disk = __ldg(leaf_of<float>(a, J_USED_DISK, m) + i);
-    d.a_cpu = a.a_cpu[i];
-    d.a_mem = a.a_mem[i];
-    d.a_disk = a.a_disk[i];
-  }
-  d.free_dyn = a.with_ports ? __ldg(leaf_of<int>(a, J_FREE_DYN, m) + i) : 0;
-  d.a_dyn = a.with_ports ? a.a_dyn[i] : 0;
-  d.spc = a.with_cores ? __ldg(leaf_of<float>(a, J_SPC, m) + i) : 0.0f;
-  d.free_cores =
-      a.with_cores ? __ldg(leaf_of<int>(a, J_FREE_CORES, m) + i) : 0;
-  d.used_cores =
-      a.with_cores ? __ldg(leaf_of<int>(a, J_USED_CORES, m) + i) : 0;
-  d.a_cores = a.with_cores ? a.a_cores[i] : 0;
-  d.used_mbits =
-      a.with_network ? __ldg(leaf_of<int>(a, J_USED_MBITS, m) + i) : 0;
-  d.avail_mbits =
-      a.with_network ? __ldg(leaf_of<int>(a, J_AVAIL_MBITS, m) + i) : 0;
-  d.a_mbits = a.with_network ? a.a_mbits[i] : 0;
-  d.dev_aff = a.with_devices ? __ldg(leaf_of<float>(a, J_DEV_AFF, m) + i)
-                             : 0.0f;
-#pragma unroll
-  for (int q = 0; q < MAX_D; ++q) {
-    d.dev[q] = 0.0f;
-    d.a_dev[q] = 0.0f;
-    if (a.with_devices) {
-      if (a.single) {
-        d.dev[q] = a.a_dev[(long long)i * MAX_D + q];
-      } else {
-        d.dev[q] = __ldg(leaf_of<float>(a, J_DEV_FREE, m) +
-                         (long long)i * MAX_D + q);
-        d.a_dev[q] = a.a_dev[(long long)i * MAX_D + q];
-      }
-    }
-  }
-  if (input_counts) {
-    d.jtc = __ldg(leaf_of<int>(a, J_JTC, m) + i);
-    d.jac = a.with_distinct ? __ldg(leaf_of<int>(a, J_JAC, m) + i) : 0;
-    d.pc = a.with_ports &&
-           __ldg(leaf_of<unsigned char>(a, J_PC, m) + i) != 0;
-  } else {
-    d.jtc = a.jtc[mi];
-    d.jac = a.with_distinct ? a.jac[mi] : 0;
-    d.pc = a.with_ports && a.pc[mi] != 0;
-  }
-  return d;
-}
-
-// ask_cpu_total (ops/kernel._feasible): per node under a core ask.
-__device__ __forceinline__ float ask_cpu_total(const JointArgs& a,
-                                               const JMember& v,
-                                               const JNode& d) {
-  return a.with_cores ? v.ask_cpu + (float)v.ask_cores * d.spc : v.ask_cpu;
-}
-
-// The fit planes of ops/kernel._feasible, with the current carries (the
-// metrics pass calls it before any carry exists); bit q of the result is
-// fit_cpu, fit_mem, fit_disk, fit_cores, fit_ports, fit_dev, fit_bw,
-// distinct_ok.
-__device__ __forceinline__ unsigned node_fits(const JointArgs& a,
-                                              const JMember& v,
-                                              const JNode& d) {
-  const float act = ask_cpu_total(a, v, d);
-  const float ucpu = d.used_cpu + d.a_cpu;
-  const float umem = d.used_mem + d.a_mem;
-  const float udisk = d.used_disk + d.a_disk;
-  unsigned f = 0;
-  f |= ((d.cap_cpu - ucpu) >= act) << 0;
-  f |= ((d.cap_mem - umem) >= v.ask_mem) << 1;
-  f |= ((d.cap_disk - udisk) >= v.ask_disk) << 2;
-  f |= (!a.with_cores || v.ask_cores <= 0 ||
-        (d.free_cores - (d.used_cores + d.a_cores)) >= v.ask_cores) << 3;
-  bool ports = true;
-  if (a.with_ports) {
-    const bool fit_dyn =
-        v.ask_dyn <= 0 || (d.free_dyn - d.a_dyn) >= v.ask_dyn;
-    ports = !(d.pc && v.has_res) && fit_dyn;
-  }
-  f |= ports << 4;
-  bool dev = true;
-  if (a.with_devices) {
-#pragma unroll
-    for (int q = 0; q < MAX_D; ++q)
-      dev = dev && (v.ask_dev[q] <= 0.0f ||
-                    (d.dev[q] - d.a_dev[q]) >= v.ask_dev[q]);
-  }
-  f |= dev << 5;
-  f |= (!a.with_network || v.ask_mbits <= 0 ||
-        ((d.used_mbits + d.a_mbits) + v.ask_mbits) <= d.avail_mbits) << 6;
-  f |= (!a.with_distinct ||
-        !((v.dhj && d.jac > 0) || (v.dht && d.jtc > 0))) << 7;
-  return f;
-}
-
-#define ALL_FITS 0xffu
-
-// The score's planes before the spread term (ops/kernel._score in its
-// operation order): their sum and their count; a count of 0 marks an
-// infeasible node.
-__device__ __forceinline__ void node_rest(const JointArgs& a,
-                                          const JMember& v, const JNode& d,
-                                          bool pen, float& sum,
-                                          unsigned& cnt) {
-  if (!d.base || node_fits(a, v, d) != ALL_FITS) {
-    sum = 0.0f;
-    cnt = 0;
-    return;
-  }
-  const float util_cpu = (d.used_cpu + d.a_cpu) + ask_cpu_total(a, v, d);
-  const float util_mem = (d.used_mem + d.a_mem) + v.ask_mem;
-  const float fc = d.cap_cpu > 0.0f ? 1.0f - util_cpu / d.cap_cpu : 0.0f;
-  const float fm = d.cap_mem > 0.0f ? 1.0f - util_mem / d.cap_mem : 0.0f;
-  const float total = powf(10.0f, fc) + powf(10.0f, fm);
-  const float binpack = fminf(fmaxf(20.0f - total, 0.0f), 18.0f);
-  const float spreadfit = fminf(fmaxf(total - 2.0f, 0.0f), 18.0f);
-  // torch scales by the f32 reciprocal of 18 on the card (wave_score.cuh)
-  float s = (v.alg_spread ? spreadfit : binpack) * (1.0f / 18.0f);
-  unsigned c = 1;
-  if (a.with_devices && v.dev_aff_on) {
-    s = s + d.dev_aff;
-    c += 1;
-  }
-  const float collisions = (float)d.jtc;
-  if (collisions > 0.0f) {
-    const float denom = fmaxf((float)v.desired, 1.0f);
-    s = s + (-(collisions + 1.0f) / denom);
-    c += 1;
-  }
-  if (pen) {
-    s = s + -1.0f;
-    c += 1;
-  }
-  if (d.aff != 0.0f) {
-    s = s + d.aff;
-    c += 1;
-  }
-  sum = s;
-  cnt = c;
-}
-
-// The row key of a node: the parts before the spread term, and the
-// node's spread sum (0.0f without an active stanza).
-__device__ __forceinline__ unsigned final_key(float sum, unsigned cnt,
-                                              float spread) {
-  if (cnt == 0) return score_key(NEG_INF_F);
-  float s = sum, c = (float)cnt;
-  if (spread != 0.0f) {
-    s = s + spread;
-    c = c + 1.0f;
-  }
-  return score_key(s / c);
-}
-
-// Member m's bucket of node i in stanza s (-1: no bucket; buckets past SB
-// clamp to the last, as the one-hot does), read from L2 at every use.
-__device__ __forceinline__ int node_bucket(const JointArgs& a, int m, int i,
-                                           int s) {
-  const int bk =
-      __ldg(leaf_of<int>(a, J_SP_BUCKET, m) + (long long)s * a.n + i);
-  return bk < 0 ? -1 : min(bk, SB - 1);
-}
-
-// counts[s][bucket of node i] += 1 for member m's active stanzas.
-__device__ __forceinline__ void bump_stanza(const JointArgs& a,
-                                            const JMember& v, int m, int i,
-                                            int s, float (*counts)[SB]) {
-  if (i < 0 || !v.sp_active[s]) return;
-  const int bk = node_bucket(a, m, i, s);
-  if (bk >= 0) counts[s][bk] += 1.0f;
-}
-
-// Commit one placement of member m on node i (the plain version's one-hot
-// update at that node), in memory and in `d`.
-__device__ __forceinline__ void commit_node(const JointArgs& a,
-                                            const JMember& v, int m, int i,
-                                            JNode& d) {
-  const long long mi = (long long)m * a.n + i;
-  const float act = ask_cpu_total(a, v, d);
-  if (a.single) {
-    d.used_cpu = d.used_cpu + act;
-    d.used_mem = d.used_mem + v.ask_mem;
-    d.used_disk = d.used_disk + v.ask_disk;
-    a.a_cpu[i] = d.used_cpu;
-    a.a_mem[i] = d.used_mem;
-    a.a_disk[i] = d.used_disk;
-  } else {
-    d.a_cpu = d.a_cpu + act;
-    d.a_mem = d.a_mem + v.ask_mem;
-    d.a_disk = d.a_disk + v.ask_disk;
-    a.a_cpu[i] = d.a_cpu;
-    a.a_mem[i] = d.a_mem;
-    a.a_disk[i] = d.a_disk;
-  }
-  d.jtc += 1;
-  a.jtc[mi] = d.jtc;
-  if (a.with_ports) {
-    d.a_dyn += v.ask_dyn;
-    a.a_dyn[i] = d.a_dyn;
-    if (v.has_res) {
-      d.pc = true;
-      a.pc[mi] = 1;
-    }
-  }
-  if (a.with_distinct) {
-    d.jac += 1;
-    a.jac[mi] = d.jac;
-  }
-  if (a.with_cores) {
-    d.a_cores += v.ask_cores;
-    a.a_cores[i] = d.a_cores;
-  }
-  if (a.with_network) {
-    d.a_mbits += v.ask_mbits;
-    a.a_mbits[i] = d.a_mbits;
-  }
-  if (a.with_devices) {
-#pragma unroll
-    for (int q = 0; q < MAX_D; ++q) {
-      if (a.single) {
-        d.dev[q] = d.dev[q] - v.ask_dev[q];
-        a.a_dev[(long long)i * MAX_D + q] = d.dev[q];
-      } else {
-        d.a_dev[q] = d.a_dev[q] + v.ask_dev[q];
-        a.a_dev[(long long)i * MAX_D + q] = d.a_dev[q];
-      }
-    }
-  }
-}
-
-// Pre-wave metric counts of one node (input planes and counts; carries
-// unread): evaluated, feasible, and exhausted on cpu, mem, disk, ports,
-// devices and cores (FUSED_METRIC_FIELDS order).
-__device__ __forceinline__ void count_metrics(const JointArgs& a,
-                                              const JMember& v, JNode d,
-                                              int* c) {
-  d.a_cpu = d.a_mem = d.a_disk = 0.0f;
-  d.a_dyn = d.a_cores = d.a_mbits = 0;
-#pragma unroll
-  for (int q = 0; q < MAX_D; ++q) d.a_dev[q] = 0.0f;
-  const unsigned f = node_fits(a, v, d);
-  c[0] += d.base;
-  c[1] += d.base && f == ALL_FITS;
-  c[2] += d.base && !(f & 1u);
-  c[3] += d.base && !(f & 2u);
-  c[4] += d.base && !(f & 4u);
-  c[5] += d.base && !(f & 16u);
-  c[6] += d.base && !(f & 32u);
-  c[7] += d.base && !(f & 8u);
-}
-
-__device__ __forceinline__ void load_step_nodes(const JointArgs& a, int m,
-                                                int j, int* out) {
-  const int* sp = leaf_of<int>(a, J_STEP_PEN, m) + (long long)j * a.p;
-#pragma unroll
-  for (int q = 0; q < MAX_P; ++q)
-    out[q] = (a.with_step_pen && q < a.p) ? __ldg(sp + q) : -1;
-  out[MAX_P] = a.with_pref ? __ldg(leaf_of<int>(a, J_STEP_PREF, m) + j) : -1;
-}
 
 // Shared memory beyond the static part, in words of the CTA's range
 // (rounded to four): row keys, shuffle ranks, partial sums, then the
 // counts (bytes), the metric partial sums and a flag per member.
+__host__ __device__ inline size_t joint_chunk4(int n) {
+  const size_t chunk = (size_t)((n + CLUSTER - 1) / CLUSTER);
+  return (chunk + 3) & ~(size_t)3;
+}
+
 __host__ __device__ inline size_t joint_smem_bytes(int n, int b,
                                                    int with_shuffle) {
-  const size_t chunk = (size_t)((n + CLUSTER - 1) / CLUSTER);
-  const size_t c4 = (chunk + 3) & ~(size_t)3;
-  return c4 * 4 * (2 + (with_shuffle ? 1 : 0)) + c4 +
+  return joint_row_bytes(joint_chunk4(n), with_shuffle) +
          (size_t)b * (N_MET + 1) * sizeof(int);
 }
 
+// The global-row instantiation: its CTAs keep their ranges' rows in
+// `rows`, a scratch of joint_global_bytes, and only the metric partial
+// sums and the flags in shared memory.
+__host__ __device__ inline size_t joint_global_smem(int b) {
+  return (size_t)b * (N_MET + 1) * sizeof(int);
+}
+
+__host__ __device__ inline size_t joint_cta_rows(int n, int with_shuffle) {
+  return (joint_row_bytes(joint_chunk4(n), with_shuffle) + 15) &
+         ~(size_t)15;
+}
+
+__host__ inline size_t joint_global_bytes(int n, int with_shuffle) {
+  return CLUSTER * joint_cta_rows(n, with_shuffle);
+}
+
+// kGlobal: the CTAs' rows live in the global scratch `a.rows` (a wave
+// whose ranges do not fit shared memory); else in shared memory.
+template <bool kGlobal>
 __global__ void __launch_bounds__(THREADS, 1)
     joint_wave_kernel(const JointArgs a) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
@@ -493,11 +144,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int c4 = (chunk + 3) & ~3;
   const int lo = min(cta * chunk, n), hi = min(lo + chunk, n);
   const int cnt = hi - lo;
-  unsigned* row = reinterpret_cast<unsigned*>(dyn_smem);
+  unsigned char* rbase =
+      kGlobal ? a.rows + (size_t)cta * joint_cta_rows(n, a.with_shuffle)
+              : dyn_smem;
+  unsigned* row = reinterpret_cast<unsigned*>(rbase);
   unsigned* rank = row + c4;
   float* rsum = reinterpret_cast<float*>(rank + (a.with_shuffle ? c4 : 0));
   unsigned char* rcnt = reinterpret_cast<unsigned char*>(rsum + c4);
-  int* part = reinterpret_cast<int*>(rcnt + c4);
+  int* part = kGlobal ? reinterpret_cast<int*>(dyn_smem)
+                      : reinterpret_cast<int*>(rcnt + c4);
   int* seen = part + a.b * N_MET;
   float* my_spc = a.spc + (long long)cta * a.b * MAX_S * SB;
 
@@ -731,53 +386,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       // a spread member: the step's boost per (stanza, bucket), one warp a
       // stanza (ops/kernel._spread_score on the bucket axis)
       if (mspread) {
-        if (warp < a.ns && sh_member.sp_active[warp]) {
-          const int s = warp;
-          float cb[4];
-          float mn = INFINITY, mx = -INFINITY;
-          bool any = false;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            cb[q] = counts[s][lane + 32 * q];
-            if (cb[q] > 0.0f) {
-              mn = fminf(mn, cb[q]);
-              mx = fmaxf(mx, cb[q]);
-              any = true;
-            }
-          }
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            mn = fminf(mn, __shfl_xor_sync(FULL_MASK, mn, off));
-            mx = fmaxf(mx, __shfl_xor_sync(FULL_MASK, mx, off));
-          }
-          any = __any_sync(FULL_MASK, any);
-          const bool even = sh_member.sp_even[s];
-          const float w = sh_member.sp_weight[s];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int bk = lane + 32 * q;
-            const float c = cb[q];
-            float val;
-            if (even) {
-              // evenSpreadScoreBoost (spread.go:193)
-              if (!any)
-                val = 0.0f;
-              else if (c != mn)
-                val = mn > 0.0f ? (mn - c) / fmaxf(mn, 1.0f) : -1.0f;
-              else if (mn == mx)
-                val = -1.0f;
-              else if (mn == 0.0f)
-                val = 1.0f;
-              else
-                val = (mx - mn) / fmaxf(mn, 1.0f);
-            } else {
-              // the desired-count path (spread.go:158-183)
-              const float des = desired[s][bk];
-              val = des > 0.0f ? ((des - (c + 1.0f)) / des) * w : -1.0f;
-            }
-            boost[s][bk] = val;
-          }
-        }
+        if (warp < a.ns && sh_member.sp_active[warp])
+          build_boost(sh_member, warp, lane, counts, desired, boost);
         __syncthreads();
       }
 
@@ -924,7 +534,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 static int g_limit[MAX_DEVICES];  // 0: attributes not set yet
 
 static cudaError_t smem_limit(int* limit) {
-  void (*const kernels[])(const JointArgs) = {joint_wave_kernel};
+  void (*const kernels[])(const JointArgs) = {joint_wave_kernel<false>,
+                                              joint_wave_kernel<true>};
   return cluster_smem_limit(kernels, g_limit, limit);
 }
 
@@ -935,38 +546,53 @@ static cudaLaunchConfig_t launch_config(size_t smem, cudaStream_t stream,
 
 extern "C" int joint_wave_cluster(void) { return CLUSTER; }
 
-// out[0] cluster size, out[1] dynamic shared memory the wave needs,
-// out[2] the most a block may take, out[3] clusters of that shape the card
-// can hold at once (0: the launch would be refused).
+// out[0] cluster size, out[1] dynamic shared memory the wave needs with its
+// rows in shared memory, out[2] the most a block may take, out[3] clusters
+// of the instantiation the wave takes that the card can hold at once (0:
+// the launch would be refused), out[4] the global-row scratch it needs (0:
+// its rows fit shared memory).
 extern "C" int joint_wave_plan(int n, int b, int with_shuffle, int* out) {
   int limit = 0;
   cudaError_t e = smem_limit(&limit);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = joint_smem_bytes(n, b, with_shuffle);
+  const bool global = smem > (size_t)limit;
+  const size_t take = global ? joint_global_smem(b) : smem;
   out[0] = CLUSTER;
   out[1] = (int)smem;
   out[2] = limit;
   out[3] = 0;
-  if (smem > (size_t)limit) return 0;
+  out[4] = global ? (int)joint_global_bytes(n, with_shuffle) : 0;
+  if (take > (size_t)limit) return 0;
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = launch_config(smem, 0, attr);
+  cudaLaunchConfig_t cfg = launch_config(take, 0, attr);
   int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, joint_wave_kernel, &cfg);
+  void (*kernel)(const JointArgs) =
+      global ? joint_wave_kernel<true> : joint_wave_kernel<false>;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   out[3] = clusters;
   return (int)e;
 }
 
+// With args->rows set, the global-row instantiation (the caller's scratch
+// holds joint_global_bytes); else the shared-memory one, which the wave
+// must fit.
 extern "C" int joint_wave_launch(const JointArgs* args, void* stream) {
   if (args->p > MAX_P || args->ns > MAX_S || args->ns < 0)
     return (int)cudaErrorInvalidValue;
   int limit = 0;
   cudaError_t e = smem_limit(&limit);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = joint_smem_bytes(args->n, args->b, args->with_shuffle);
+  const bool global = args->rows != nullptr;
+  const size_t smem =
+      global ? joint_global_smem(args->b)
+             : joint_smem_bytes(args->n, args->b, args->with_shuffle);
   if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg = launch_config(smem, (cudaStream_t)stream, attr);
-  e = cudaLaunchKernelEx(&cfg, joint_wave_kernel, *args);
+  void (*kernel)(const JointArgs) =
+      global ? joint_wave_kernel<true> : joint_wave_kernel<false>;
+  e = cudaLaunchKernelEx(&cfg, kernel, *args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -98,7 +98,9 @@
 //   fit scaled by the f32 reciprocal of 18), so a cached score, a fresh
 //   one, B1's and the plain version's on the card are the same bits. The
 //   slots, the rank loader, the top-8 lists and the launch helpers are
-//   B1's too (csrc/cluster_wave.cuh).
+//   B1's too (csrc/cluster_wave.cuh); the acquire and release accesses,
+//   the bounded wait and the host's ordering and joining of the cards are
+//   shared with the joint sharded kernel (csrc/card_exchange.cuh).
 //
 // Built by nomad_tpu_torch/ops/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xptxas -v
@@ -108,6 +110,7 @@
 
 #include <mutex>
 
+#include "card_exchange.cuh"
 #include "cluster_wave.cuh"
 
 namespace cg = cooperative_groups;
@@ -286,32 +289,6 @@ __device__ __forceinline__ Entry* mail_entry(unsigned char* mail, int n_cards,
 __device__ __forceinline__ unsigned* mail_mtag(unsigned char* mail,
                                                int n_cards) {
   return reinterpret_cast<unsigned*>(mail + 2 * n_cards * sizeof(Entry));
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.sys.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.sys.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait until *tag reads `want`, for at most spin_ns: false past the bound.
-__device__ __noinline__ bool wait_tag(const unsigned* tag, unsigned want,
-                                      long long spin_ns) {
-  if (ld_acquire(tag) == want) return true;
-  const unsigned long long t0 = now_ns();
-  while (ld_acquire(tag) != want)
-    if (now_ns() - t0 > (unsigned long long)spin_ns) return false;
-  return true;
 }
 
 // Dynamic shared memory a CTA takes: the card's position table, the
@@ -892,12 +869,6 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ---- the host side ----
 
-#define CK(x)                                   \
-  do {                                          \
-    const cudaError_t e_ = (x);                 \
-    if (e_ != cudaSuccess) return e_;           \
-  } while (0)
-
 // The dynamic shared memory a block may take on the current device, after
 // setting the kernel's attributes there (once per device).
 static int g_limit[MAX_DEVICES];  // 0: attributes not set yet
@@ -953,19 +924,7 @@ static cudaError_t run_wave(const ShardedArgs& a, cudaEvent_t* ev,
   // over several cards: each mailbox zeroed on its card's stream, then
   // every card after every other card's earlier work, since a card's
   // mailbox takes peer stores from the first step on
-  if (multi) {
-    for (int d = 0; d < nc; ++d) {
-      CK(cudaSetDevice(a.card[d].ordinal));
-      CK(cudaMemsetAsync(a.card[d].mail, 0, mail_bytes(nc, s.b), stream(d)));
-      CK(cudaEventCreateWithFlags(&ev[d], cudaEventDisableTiming));
-      CK(cudaEventRecord(ev[d], stream(d)));
-    }
-    for (int d = 0; d < nc; ++d) {
-      CK(cudaSetDevice(a.card[d].ordinal));
-      for (int e = 0; e < nc; ++e)
-        if (e != d) CK(cudaStreamWaitEvent(stream(d), ev[e], 0));
-    }
-  }
+  if (multi) CK(order_cards(a.card, nc, mail_bytes(nc, s.b), ev));
   for (int d = 0; d < nc; ++d) {
     const Card& k = a.card[d];
     CK(cudaSetDevice(k.ordinal));
@@ -1002,35 +961,6 @@ static cudaError_t run_wave(const ShardedArgs& a, cudaEvent_t* ev,
   return cudaSuccess;
 }
 
-// Over several cards, after the launches: every card's stream waits on
-// the end of each of the `launched` first cards' kernels, so no card's
-// later work, nor the allocator, has a mailbox back before its last peer
-// store. Enqueued after every launch, so no kernel waits on another's.
-// Where a wait cannot be enqueued, the host waits for the kernels.
-static cudaError_t join_cards(const ShardedArgs& a, int launched,
-                              cudaEvent_t* done) {
-  auto stream = [&](int d) { return (cudaStream_t)a.card[d].stream; };
-  cudaError_t first = cudaSuccess;
-  auto keep = [&](cudaError_t e) {
-    if (first == cudaSuccess) first = e;
-    return e == cudaSuccess;
-  };
-  for (int d = 0; d < launched && first == cudaSuccess; ++d)
-    if (keep(cudaSetDevice(a.card[d].ordinal)) &&
-        keep(cudaEventCreateWithFlags(&done[d], cudaEventDisableTiming)))
-      keep(cudaEventRecord(done[d], stream(d)));
-  for (int d = 0; d < a.n_cards && first == cudaSuccess; ++d) {
-    keep(cudaSetDevice(a.card[d].ordinal));
-    for (int e = 0; e < launched && first == cudaSuccess; ++e)
-      if (e != d) keep(cudaStreamWaitEvent(stream(d), done[e], 0));
-  }
-  if (first != cudaSuccess)
-    for (int d = 0; d < launched; ++d)
-      if (cudaSetDevice(a.card[d].ordinal) == cudaSuccess)
-        cudaStreamSynchronize(stream(d));
-  return first;
-}
-
 extern "C" int sharded_wave_launch(const ShardedArgs* args) {
   const ShardedArgs& a = *args;
   const Shape& s = a.s;
@@ -1051,7 +981,7 @@ extern "C" int sharded_wave_launch(const ShardedArgs* args) {
   // also after a launch failed on a later card: the earlier cards' kernels
   // still store into every card's mailbox
   if (a.n_cards > 1 && launched > 0) {
-    const cudaError_t ej = join_cards(a, launched, done);
+    const cudaError_t ej = join_cards(a.card, a.n_cards, launched, done);
     if (e == cudaSuccess) e = ej;
   }
   // an event destroyed while pending is released once it completes

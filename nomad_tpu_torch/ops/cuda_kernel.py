@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
 Counterpart of ``nomad_tpu/ops/pallas_kernel.py``, and of the XLA
-programs on a main path that became kernels. Five kernels, each built at
+programs on a main path that became kernels. Six kernels, each built at
 first use by ``ops/build.py`` from ``csrc/`` and launched through a plain
 C entry point loaded with ctypes:
 
@@ -21,8 +21,11 @@ C entry point loaded with ctypes:
   ``nomad_tpu/ops/kernel.py`` ``place_taskgroups_joint_jit`` :1060-1279
   and ``place_taskgroup_jit`` :565-723): the joint wave under any feature
   union (spreads, devices, reserved cores, bandwidth), for the waves
-  outside B1's envelope; ``joint_eval_place`` runs one eval through it as
-  ``place_taskgroup`` does. Plain versions: ``fused_wave_place_reference``
+  outside B1's envelope and for the waves too wide for B1's cluster
+  (``fused_wave_fits``); ``joint_eval_place`` runs one eval through it as
+  ``place_taskgroup`` does. A wave whose node ranges do not fit its
+  shared memory runs its global-row instantiation
+  (``joint_rows_global``). Plain versions: ``fused_wave_place_reference``
   and ``place_taskgroup``.
 - ``sharded_wave_place`` (``csrc/sharded_wave.cu``; the XLA program
   ``nomad_tpu/parallel/sharded.py`` ``_fused_sharded_core`` :291-505,
@@ -30,11 +33,19 @@ C entry point loaded with ctypes:
   shards, one C call a wave and one cluster launch a card. Plain version:
   ``sharded_wave_place_reference``, ``parallel/sharded._sharded_wave``
   packed the same way.
+- ``joint_sharded_wave_place`` (``csrc/joint_sharded_wave.cu``; the XLA
+  program ``nomad_tpu/parallel/sharded.py`` ``joint_sharded_entry`` :207,
+  GSPMD over ``place_taskgroups_joint``): the joint wave under any feature
+  union over a mesh of node shards of any width, one C call a wave and
+  one cluster launch a card. Plain version:
+  ``joint_sharded_wave_place_reference``, ``_sharded_wave`` packed.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
-the plain version only for CPU tensors. ``launches``, ``joint_launches``,
-``place_batch_launches``, ``topk_place_batch_launches`` and
-``sharded_launches`` count kernel calls and nothing else.
+the plain version only for CPU tensors. ``launches``, ``joint_launches``
+(of those ``joint_global_calls``, the global-row instantiation's),
+``place_batch_launches``, ``topk_place_batch_launches``,
+``sharded_launches`` and ``joint_sharded_launches`` count kernel calls
+and nothing else.
 """
 
 from __future__ import annotations
@@ -136,10 +147,12 @@ _ENTRY = {"fused_wave": "fused_wave_launch",
           "joint_wave": "joint_wave_launch",
           "place_batch": "place_batch_launch",
           "topk_place_batch": "topk_place_batch_launch",
-          "sharded_wave": "sharded_wave_launch"}
+          "sharded_wave": "sharded_wave_launch",
+          "joint_sharded_wave": "joint_sharded_wave_launch"}
 #: the entry points' arguments: (args, stream) unless listed (the sharded
-#: wave carries each card's stream in its args)
-_ARGTYPES = {"sharded_wave": [ctypes.c_void_p]}
+#: waves carry each card's stream in their args)
+_ARGTYPES = {"sharded_wave": [ctypes.c_void_p],
+             "joint_sharded_wave": [ctypes.c_void_p]}
 _LIBS: dict = {}          # name -> (entry point, BuiltLibrary, CDLL)
 _LIB_LOCK = threading.Lock()
 #: name -> lock held while that library is built and loaded
@@ -237,10 +250,10 @@ def fused_wave_cluster_size() -> int:
 _PLANS: dict = {}         # (device, n, b, shuffle) -> fused_wave_plan's out
 
 
-def _check_cluster_fits(dev: torch.device, n: int, b: int,
-                        shuffle: bool) -> None:
-    """Raise unless one cluster can hold the wave: each CTA keeps its
-    node range's score row (and shuffle ranks) in shared memory."""
+def _fused_plan(dev: torch.device, n: int, b: int, shuffle: bool) -> tuple:
+    """``fused_wave_plan`` on the card, once per shape: (cluster, shared
+    memory the wave needs, the most a block may take, clusters the card
+    holds at once)."""
     key = (dev.index, n, b, bool(shuffle))
     plan = _PLANS.get(key)
     if plan is None:
@@ -253,7 +266,16 @@ def _check_cluster_fits(dev: torch.device, n: int, b: int,
         if err != 0:
             raise RuntimeError(f"fused_wave_plan failed: cudaError {err}")
         plan = _PLANS[key] = tuple(out)
-    cluster, smem, limit, clusters = plan
+    return plan
+
+
+def _check_cluster_fits(dev: torch.device, n: int, b: int,
+                        shuffle: bool) -> None:
+    """Raise unless one cluster can hold the wave: each CTA keeps its
+    node range's score row (and shuffle ranks) in shared memory (the wave
+    launcher sends a wave that does not fit to the joint kernel,
+    ``fused_wave_fits``)."""
+    cluster, smem, limit, clusters = _fused_plan(dev, n, b, shuffle)
     if smem > limit:
         raise ValueError(
             f"N={n} does not fit the fused wave: each of the {cluster} CTAs "
@@ -413,6 +435,32 @@ def _joint_shapes(n: int, k: int) -> dict:
             "spread_desired": (s, SPREAD_BUCKETS)}
 
 
+def _joint_strides(kin: KernelIn, b: int, n: int, n_glob: int, k: int,
+                   ctx: str = "") -> list:
+    """The member stride of each leaf (``_JOINT_LEAVES`` order), its
+    dtype, device, contiguity and shape checked: node planes hold ``n``
+    rows (a mesh position's), ``node_perm`` all ``n_glob`` nodes; ``ctx``
+    prefixes a refusal."""
+    dev = kin.cap_cpu.device
+    shapes = _joint_shapes(n, k)
+    strides = []
+    for name, dtype in _JOINT_LEAVES:
+        x = getattr(kin, name)
+        if x.dtype != dtype:
+            raise ValueError(f"{ctx}{name} has dtype {x.dtype}; want "
+                             f"{dtype}")
+        stride = _member_stride(name, x, b, dev)
+        want = (n_glob,) if name == "node_perm" else shapes.get(name)
+        if want is None:
+            want = (n,) if getattr(KIN_UNBATCHED_RANKS, name) == 1 else ()
+        got = tuple(x.shape[1:] if stride else x.shape)
+        if name != "n_steps" and got != want:
+            raise ValueError(f"{ctx}{name} has shape {tuple(x.shape)}; "
+                             f"want {want}, or a leading member axis of {b}")
+        strides.append(stride)
+    return strides
+
+
 class _JointArgs(ctypes.Structure):
     """Mirror of ``struct JointArgs`` in csrc/joint_wave.cu."""
 
@@ -443,7 +491,11 @@ class _JointArgs(ctypes.Structure):
         ("with_pref", ctypes.c_int), ("with_shuffle", ctypes.c_int),
         ("with_devices", ctypes.c_int), ("with_cores", ctypes.c_int),
         ("with_network", ctypes.c_int), ("single", ctypes.c_int),
+        ("rows", ctypes.c_void_p),
     ]
+
+
+assert ctypes.sizeof(_JointArgs) == 896, "csrc/joint_node.cuh's JointArgs"
 
 
 def joint_wave_place(kin: KernelIn, step_member, step_local, t_steps: int,
@@ -513,17 +565,17 @@ def joint_eval_place(kin: KernelIn, k_steps: int,
 _JOINT_PLANS: dict = {}   # (device, n, b, shuffle) -> joint_wave_plan
 
 
-def _check_joint_fits(dev: torch.device, n: int, b: int,
-                      shuffle: bool) -> None:
-    """Raise unless one cluster can hold the wave: each CTA keeps its
-    node range's row keys and partial sums (and shuffle ranks) in shared
-    memory."""
+def _joint_plan(dev: torch.device, n: int, b: int, shuffle: bool) -> tuple:
+    """``joint_wave_plan`` on the card, once per shape: (cluster, shared
+    memory with the rows in shared memory, the most a block may take,
+    clusters the card holds at once, global-row scratch bytes; 0: the
+    rows fit shared memory)."""
     key = (dev.index, n, b, bool(shuffle))
     plan = _JOINT_PLANS.get(key)
     if plan is None:
         load_library("joint_wave")
         lib = _LIBS["joint_wave"][2]
-        out = (ctypes.c_int * 4)()
+        out = (ctypes.c_int * 5)()
         with torch.cuda.device(dev):
             err = lib.joint_wave_plan(
                 ctypes.c_int(n), ctypes.c_int(b), ctypes.c_int(int(shuffle)),
@@ -535,21 +587,53 @@ def _check_joint_fits(dev: torch.device, n: int, b: int,
                                f"{out[0]} CTAs; JOINT_CLUSTER says "
                                f"{JOINT_CLUSTER}")
         plan = _JOINT_PLANS[key] = tuple(out)
-    cluster, smem, limit, clusters = plan
-    if smem > limit:
-        raise ValueError(
-            f"N={n} does not fit the joint wave: each of the {cluster} CTAs "
-            f"keeps {-(-n // cluster)} nodes' scores in shared memory, "
-            f"{smem} B with B={b}, over the limit of {limit} B a block may "
-            "take on this card")
+    return plan
+
+
+def _check_joint_fits(dev: torch.device, n: int, b: int,
+                      shuffle: bool) -> int:
+    """The global-row scratch the wave needs (0: its CTAs keep their
+    ranges' rows in shared memory); raise unless the card runs the
+    instantiation the wave takes."""
+    cluster, smem, limit, clusters, rows = _joint_plan(dev, n, b, shuffle)
     if clusters == 0:
-        raise RuntimeError(f"the card runs no cluster of {cluster} CTAs with "
-                           f"{smem} B of shared memory each")
+        raise RuntimeError(
+            f"the card runs no cluster of {cluster} CTAs of the joint wave "
+            f"at N={n}, B={b} ({smem} B of shared memory with the rows in "
+            f"it, {limit} B a block may take)")
+    return rows
+
+
+def fused_wave_fits(dev: torch.device, n: int, b: int,
+                    shuffle: bool) -> bool:
+    """Whether B1's cluster holds a wave of ``n`` nodes and ``b`` members
+    in shared memory, by its plan on the card. A wave that does not fit
+    runs the joint kernel, whose plan then takes its global-row
+    instantiation (``joint_rows_global``). CPU tensors run the plain
+    versions, which hold any width: B1's route."""
+    if dev.type != "cuda":
+        return True
+    _, smem, limit, _ = _fused_plan(dev, n, b, shuffle)
+    return smem <= limit
+
+
+def joint_rows_global(dev: torch.device, n: int, b: int,
+                      shuffle: bool) -> bool:
+    """Whether the joint kernel keeps a wave's rows in its global-row
+    scratch (its CTAs' ranges do not fit shared memory), by its plan on
+    the card; never on CPU tensors."""
+    return dev.type == "cuda" and _joint_plan(dev, n, b, shuffle)[4] > 0
+
+
+#: launches of the joint kernel's global-row instantiation (a wave or a
+#: single eval too wide for its shared memory), counted with
+#: ``joint_launches``
+joint_global_calls = 0
 
 
 def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
                   f: KernelFeatures, single: bool = False) -> FusedWaveOut:
-    global joint_launches
+    global joint_launches, joint_global_calls
     dev = kin.cap_cpu.device
     b = int(kin.n_steps.shape[0])
     n = int(kin.cap_cpu.shape[-1])
@@ -565,22 +649,11 @@ def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
     sl = torch.as_tensor(step_local, dtype=torch.int32, device=dev)
     if sm.shape != (t_steps,) or sl.shape != (t_steps,):
         raise ValueError("step_member/step_local must be i32[t_steps]")
-    shapes = _joint_shapes(n, k)
     args = _JointArgs()
-    for slot, (name, dtype) in enumerate(_JOINT_LEAVES):
-        x = getattr(kin, name)
-        if x.dtype != dtype:
-            raise ValueError(f"{name} has dtype {x.dtype}; want {dtype}")
-        args.stride[slot] = stride = _member_stride(name, x, b, dev)
-        want = shapes.get(name)
-        if want is None:
-            want = (n,) if getattr(KIN_UNBATCHED_RANKS, name) == 1 else ()
-        got = tuple(x.shape[1:] if stride else x.shape)
-        if name != "n_steps" and got != want:
-            raise ValueError(f"{name} has shape {tuple(x.shape)}; want "
-                             f"{want}, or a leading member axis of {b}")
-        args.leaf[slot] = x.data_ptr()
-    _check_joint_fits(dev, n, b, f.with_shuffle)
+    for slot, stride in enumerate(_joint_strides(kin, b, n, n, k)):
+        args.stride[slot] = stride
+        args.leaf[slot] = getattr(kin, _JOINT_LEAVES[slot][0]).data_ptr()
+    rows = _check_joint_fits(dev, n, b, f.with_shuffle)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -604,6 +677,10 @@ def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
         spc=f32(JOINT_CLUSTER * b * MAX_SPREADS * SPREAD_BUCKETS
                 if ns else 1),
     )
+    if rows:
+        # the global-row instantiation: every CTA's range of row keys,
+        # ranks, partial sums and counts (13 B a node with shuffle)
+        scratch["rows"] = torch.empty(rows, dtype=torch.uint8, device=dev)
     args.step_member = sm.data_ptr()
     args.step_local = sl.data_ptr()
     for name in FusedWaveOut._fields:
@@ -623,6 +700,7 @@ def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
     _call("joint_wave", args, dev, "joint_wave_kernel")
     with _LAUNCH_LOCK:
         joint_launches += 1
+        joint_global_calls += int(rows > 0)
     return out
 
 
@@ -1084,6 +1162,264 @@ def _sharded_launch(shards, step_member, step_local, t_steps: int,
     # card's stream; over several cards the C call has made that stream
     # wait on the end of every card's kernel (also where it failed after
     # launching on some), so a mailbox has taken its last peer store
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The joint wave over a mesh of node shards.
+# ---------------------------------------------------------------------------
+
+#: kernel calls made by ``joint_sharded_wave_place``: one C call a wave,
+#: which launches csrc/joint_sharded_wave.cu's kernel once on every card of
+#: the mesh (``joint_sharded_kernel_launches`` counts those)
+joint_sharded_launches = 0
+
+_JOINT_ENTRY_BYTES = 96   # sizeof(JEntry): one card's result for one step
+
+
+class _JCard(ctypes.Structure):
+    """Mirror of ``struct JCard`` in csrc/joint_sharded_wave.cu."""
+
+    _fields_ = [
+        ("ordinal", ctypes.c_int), ("n_pos", ctypes.c_int),
+        ("stream", ctypes.c_void_p), ("table", ctypes.c_void_p),
+        ("mail", ctypes.c_void_p), ("spc", ctypes.c_void_p),
+    ]
+
+
+class _JShardedArgs(ctypes.Structure):
+    """Mirror of ``struct JShardedArgs`` in csrc/joint_sharded_wave.cu."""
+
+    _fields_ = [
+        ("n_glob", ctypes.c_int), ("n_loc", ctypes.c_int),
+        ("n_cards", ctypes.c_int), ("b", ctypes.c_int), ("t", ctypes.c_int),
+        ("p", ctypes.c_int), ("ns", ctypes.c_int),
+        ("with_shuffle", ctypes.c_int),
+        ("card", ctypes.c_void_p), ("packed", ctypes.c_void_p),
+        ("topk_idx", ctypes.c_void_p), ("topk_scores", ctypes.c_void_p),
+        ("spin_ns", ctypes.c_int64),
+    ]
+
+
+def _joint_mail_bytes(n_cards: int, b: int) -> int:
+    """A card's mailbox (``joint_mail_bytes``): every card's step entry by
+    parity, then each card's metric tag, error flag and eight partial
+    sums a member."""
+    return 2 * n_cards * _JOINT_ENTRY_BYTES + 4 * n_cards * (2 + 8 * b)
+
+
+#: (ordinal, n_pos, n_loc, b, shuffle) -> joint_sharded_wave_plan's out
+#: (shared with no lock, as _SHARDED_PLANS)
+_JOINT_SHARDED_PLANS: dict = {}
+
+
+def _joint_sharded_plan(ordinal: int, n_pos: int, n_loc: int, b: int,
+                        shuffle: bool) -> tuple:
+    """``joint_sharded_wave_plan`` on card ``ordinal``, once per shape;
+    the first also holds the library's struct sizes against their
+    mirrors."""
+    key = (ordinal, n_pos, n_loc, b, bool(shuffle))
+    plan = _JOINT_SHARDED_PLANS.get(key)
+    if plan is None:
+        load_library("joint_sharded_wave")
+        lib = _LIBS["joint_sharded_wave"][2]
+        sizes = (ctypes.c_int * 4)()
+        lib.joint_sharded_sizes(sizes)
+        want = (ctypes.sizeof(_JointArgs), ctypes.sizeof(_JCard),
+                ctypes.sizeof(_JShardedArgs), _JOINT_ENTRY_BYTES)
+        if tuple(sizes) != want:
+            raise RuntimeError(f"csrc/joint_sharded_wave.cu's structs are "
+                               f"{tuple(sizes)} B; their mirrors {want}")
+        out = (ctypes.c_int * 4)()
+        with torch.cuda.device(ordinal):
+            err = lib.joint_sharded_wave_plan(
+                ctypes.c_int(n_pos), ctypes.c_int(n_loc), ctypes.c_int(b),
+                ctypes.c_int(int(shuffle)), out)
+        if err != 0:
+            raise RuntimeError(f"joint_sharded_wave_plan failed: cudaError "
+                               f"{err}")
+        if out[0] != SHARDED_CLUSTER:
+            raise RuntimeError(f"csrc/joint_sharded_wave.cu runs clusters "
+                               f"of {out[0]} CTAs; want {SHARDED_CLUSTER}")
+        plan = _JOINT_SHARDED_PLANS[key] = tuple(out)
+    return plan
+
+
+def joint_sharded_kernel_launches() -> int:
+    """Kernel launches csrc/joint_sharded_wave.cu has made in this
+    process, every card's: one a card a wave."""
+    load_library("joint_sharded_wave")
+    fn = _LIBS["joint_sharded_wave"][2].joint_sharded_wave_kernel_launches
+    fn.restype = ctypes.c_ulonglong
+    return int(fn())
+
+
+#: the plain torch version of ``joint_sharded_wave_place``: the body of
+#: ``sharded_wave_place_reference`` takes any feature union
+joint_sharded_wave_place_reference = sharded_wave_place_reference
+
+
+def joint_sharded_wave_place(shards, step_member, step_local, t_steps: int,
+                             features: KernelFeatures) -> FusedWaveOut:
+    """One joint wave over a mesh of node shards under any feature union
+    (spreads, devices, reserved cores, bandwidth), laid out as for
+    ``sharded_wave_place``: ``shards[s]`` a stacked KernelIn on position
+    s's device whose node planes (``spread_bucket`` and ``dev_free``
+    included) hold the global rows ``[s * n_loc, (s + 1) * n_loc)``; the
+    step maps host arrays. Returns a FusedWaveOut whose ``packed`` buffer
+    (one error word longer on the card, ``raise_on_wave_error``) and top-k
+    planes lie on ``shards[0]``'s device and whose carries are lists, one
+    tensor a shard on its device. CUDA shards run
+    csrc/joint_sharded_wave.cu in one C call, one cluster launch a card
+    (or raise); CPU shards run the plain version."""
+    if not joint_wave_supported(features):
+        raise ValueError(f"n_spreads={features.n_spreads}: want "
+                         f"0..{MAX_SPREADS}")
+    types = {s.cap_cpu.device.type for s in shards}
+    if types == {"cpu"}:
+        return joint_sharded_wave_place_reference(
+            shards, step_member, step_local, t_steps, features)
+    if types != {"cuda"}:
+        raise ValueError(f"shards on {sorted(types)}: want every shard on "
+                         "the CPU or every shard on a CUDA card")
+    return _joint_sharded_launch(shards, step_member, step_local, t_steps,
+                                 features)
+
+
+def _joint_sharded_launch(shards, step_member, step_local, t_steps: int,
+                          f: KernelFeatures) -> FusedWaveOut:
+    global joint_sharded_launches
+    first = shards[0]
+    n_shards = len(shards)
+    b = int(first.n_steps.shape[0])
+    n_loc = int(first.cap_cpu.shape[-1])
+    n_glob = n_loc * n_shards
+    k = int(first.step_preferred.shape[-1])
+    ns = int(f.n_spreads)
+    if n_glob >= 1 << 24:
+        raise ValueError("node ids are packed as f32: N must stay below 2**24")
+    if n_shards > MAX_POSITIONS:
+        raise ValueError(f"a mesh of {n_shards} positions: the joint sharded "
+                         f"wave takes at most {MAX_POSITIONS}")
+    strides = [_joint_strides(s, b, n_loc, n_glob, k, f"shard {i}: ")
+               for i, s in enumerate(shards)]
+    if any(st != strides[0] for st in strides):
+        raise ValueError("the shards' leaves differ in their member axes")
+    maps = np.stack([_host_i32(step_member, t_steps),
+                     _host_i32(step_local, t_steps)])
+    root = first.cap_cpu.device
+    cards = [_card_of(s.cap_cpu.device) for s in shards]
+    groups = group_positions([c[0] for c in cards])
+    if len(groups) > MAX_SHARDED_CARDS:
+        raise ValueError(f"a mesh over {len(groups)} cards: the joint "
+                         f"sharded wave spans at most {MAX_SHARDED_CARDS}")
+    for ordinal, positions in groups:
+        check_sharded_plan(_joint_sharded_plan(ordinal, len(positions), n_loc,
+                                               b, f.with_shuffle),
+                           len(positions) * n_loc, b)
+    multi = len(groups) > 1
+    if multi:
+        _enable_peers(tuple(ordinal for ordinal, _ in groups))
+    bp = b if first.node_perm.dim() == 2 else 1
+
+    def buf(n, dtype, dev):
+        return torch.empty(max(n, 1), dtype=dtype, device=dev)
+
+    out = FusedWaveOut(
+        # the packed layout, then the error word (raise_on_wave_error)
+        packed=buf(fused_pack_len(t_steps, b) + 1, torch.float32, root),
+        topk_idx=torch.empty((t_steps, TOPK), dtype=torch.int32,
+                             device=root),
+        topk_scores=torch.empty((t_steps, TOPK), dtype=torch.float32,
+                                device=root),
+        a_cpu=[None] * n_shards, a_mem=[None] * n_shards,
+        a_disk=[None] * n_shards)
+    flags = dict(with_topk=f.with_topk, with_ports=f.with_ports,
+                 with_distinct=f.with_distinct,
+                 with_step_pen=f.with_step_penalties,
+                 with_pref=f.with_preferred, with_shuffle=f.with_shuffle,
+                 with_devices=f.with_devices, with_cores=f.with_cores,
+                 with_network=f.with_network)
+    keep = []       # every buffer the call reads or writes
+    rows = (_JCard * len(groups))()
+    for c, (ordinal, positions) in enumerate(groups):
+        dev = shards[positions[0]].cap_cpu.device
+        n_pos = len(positions)
+        table = (_JointArgs * n_pos)()
+        # one buffer a card for each carry and scratch, a slice a position
+        carry = torch.empty((3, n_pos, n_loc), dtype=torch.float32,
+                            device=dev)
+        rows_b = b * n_loc
+
+        def per_pos(on, count, dtype, size):
+            # (buffer, bytes a position; 0: unused)
+            return (buf(on * n_pos * count, dtype, dev), on * size * count)
+
+        scratch = dict(
+            a_dyn=per_pos(f.with_ports, n_loc, torch.int32, 4),
+            a_cores=per_pos(f.with_cores, n_loc, torch.int32, 4),
+            a_mbits=per_pos(f.with_network, n_loc, torch.int32, 4),
+            a_dev=per_pos(f.with_devices, n_loc * MAX_DEV_REQS,
+                          torch.float32, 4),
+            jtc=per_pos(1, rows_b, torch.int32, 4),
+            jac=per_pos(f.with_distinct, rows_b, torch.int32, 4),
+            pc=per_pos(f.with_ports, rows_b, torch.uint8, 1))
+        spc = (torch.empty(SHARDED_CLUSTER * b * MAX_SPREADS * SPREAD_BUCKETS,
+                           dtype=torch.float32, device=dev) if ns else None)
+        keep += [carry, spc] + [x for x, _ in scratch.values()]
+        g0s = np.full(MAX_POSITIONS, -1, dtype=np.int32)
+        for lp, p in enumerate(positions):
+            kin, row = shards[p], table[lp]
+            for slot, (name, _) in enumerate(_JOINT_LEAVES):
+                row.leaf[slot] = getattr(kin, name).data_ptr()
+                row.stride[slot] = strides[p][slot]
+            for q, name in enumerate(("a_cpu", "a_mem", "a_disk")):
+                getattr(out, name)[p] = x = carry[q, lp]
+                setattr(row, name, x.data_ptr())
+            for name, (x, step) in scratch.items():
+                setattr(row, name, x.data_ptr() + lp * step)
+            row.n, row.b, row.t, row.k = n_loc, b, t_steps, k
+            row.p, row.bp, row.ns = MAX_PENALTY_NODES, bp, ns
+            for name, on in flags.items():
+                setattr(row, name, int(on))
+            g0s[lp] = p * n_loc
+        # the table, the first global rows and the step maps go up from
+        # pinned memory on the card's current stream (a copy, not a launch)
+        parts = [bytes(table), g0s.tobytes(), maps.tobytes()]
+        staged = torch.empty(sum(len(x) for x in parts), dtype=torch.uint8,
+                             pin_memory=dev.type == "cuda")
+        at = 0
+        for x in parts:
+            ctypes.memmove(staged.data_ptr() + at, x, len(x))
+            at += len(x)
+        dev_table = staged.to(dev, non_blocking=True)
+        mail = (buf(_joint_mail_bytes(len(groups), b), torch.uint8, dev)
+                if multi else None)
+        keep += [dev_table, mail]
+        rows[c] = _JCard(ordinal, n_pos, cards[positions[0]][1],
+                         dev_table.data_ptr(),
+                         mail.data_ptr() if multi else None,
+                         spc.data_ptr() if ns else None)
+
+    args = _JShardedArgs()
+    args.n_glob, args.n_loc, args.n_cards = n_glob, n_loc, len(groups)
+    args.b, args.t, args.p, args.ns = b, t_steps, MAX_PENALTY_NODES, ns
+    args.with_shuffle = int(f.with_shuffle)
+    args.card = ctypes.addressof(rows)
+    for name in ("packed", "topk_idx", "topk_scores"):
+        setattr(args, name, getattr(out, name).data_ptr())
+    args.spin_ns = int(SPIN_S * 1e9)
+
+    load_library("joint_sharded_wave")
+    err = _LIBS["joint_sharded_wave"][0](ctypes.byref(args))
+    if err != 0:
+        raise RuntimeError(f"joint_sharded_wave launch failed: cudaError "
+                           f"{err}")
+    with _LAUNCH_LOCK:
+        joint_sharded_launches += 1
+    # buffers freed here are reused only by work queued later on their
+    # card's stream; over several cards the C call has made that stream
+    # wait on the end of every card's kernel (join_cards)
     return out
 
 

@@ -384,12 +384,18 @@ def _warm_wave(kernel: str, fn, e: Dict, dev: torch.device) -> bool:
 
 
 def _warm_fused(e: Dict, dev: torch.device) -> bool:
-    """B1 for a joint entry whose features fit the fused envelope (the
-    kernel itself, never ``launch_wave``: its launches are not waves)."""
-    from nomad_tpu_torch.ops.cuda_kernel import fused_wave_place
+    """B1 for a joint entry whose features fit the fused envelope and
+    whose node axis B1's cluster holds (``launch_wave``'s rule; the kernel
+    itself, never ``launch_wave``: its launches are not waves)."""
+    from nomad_tpu_torch.ops.cuda_kernel import (
+        fused_wave_fits,
+        fused_wave_place,
+    )
     from nomad_tpu_torch.ops.kernel import fused_wave_supported
 
-    if not fused_wave_supported(_features_from_dict(e["features"])):
+    feats = _features_from_dict(e["features"])
+    if not fused_wave_supported(feats) or not fused_wave_fits(
+            dev, int(e["nodes"]), int(e["wave"]), feats.with_shuffle):
         return False
     return _warm_wave("fused_wave", fused_wave_place, e, dev)
 
@@ -449,9 +455,10 @@ def _warm_fused_sharded(e: Dict, mesh) -> bool:
 
 
 def _warm_joint_sharded(e: Dict, mesh) -> bool:
-    """The joint sharded wave for a joint entry the sharded kernel does
-    not take; skipped where the mesh does not split the node axis (the
-    live wave then runs on one device)."""
+    """The joint sharded kernel (csrc/joint_sharded_wave.cu; on CPU shards
+    its plain version) for a joint entry the sharded kernel does not take,
+    as ``launch_wave`` runs it; skipped where the mesh does not split the
+    node axis (the live wave then runs on one device)."""
     from nomad_tpu_torch.parallel.coalesce import mesh_splits
 
     if not mesh_splits(mesh, int(e["nodes"])):

@@ -36,12 +36,16 @@ A wave given a device mesh (``mesh=``; a coalescer passes its server's
 ``Server.wave_mesh``) runs with its node axis split over the mesh's devices
 (``parallel/sharded``): the fused sharded wave (on the card, the hand
 kernel ``csrc/sharded_wave.cu``) when the union is in the fused envelope
-and each shard holds at least TOPK rows, else the joint sharded wave as
-torch ops (counted as a fused fallback). On one device a wave whose union
-leaves the fused envelope runs the joint kernel (``csrc/joint_wave.cu``,
-any union), counted as a fused fallback, the reference's meaning, and in
-``joint_wave_stats``. ``configure_fused_wave(False)`` sends every wave to
-the joint kernel, or to the joint sharded wave, uncounted as fallbacks.
+and each shard holds at least TOPK rows, else the joint sharded wave (on
+the card, the hand kernel ``csrc/joint_sharded_wave.cu``, any union and
+any shard width), counted as a fused fallback. On one device a wave whose
+union leaves the fused envelope, or whose node axis B1's cluster does not
+hold in shared memory (``fused_wave_fits``), runs the joint kernel
+(``csrc/joint_wave.cu``, any union; its global-row instantiation past its
+own shared memory), counted as a fused fallback, the reference's meaning,
+and in ``joint_wave_stats``. ``configure_fused_wave(False)`` sends every
+wave to the joint kernel, or to the joint sharded kernel, uncounted as
+fallbacks.
 A mesh that does not divide the node axis, or has one device, runs the
 wave on ``device`` and counts a sharded fallback in
 ``sharded_wave_stats``. The results equal the
@@ -69,14 +73,15 @@ import torch
 from nomad_tpu_torch.device import DeviceLike, resolve_device
 from nomad_tpu_torch.ops.cuda_kernel import (
     fused_wave_apply,
+    fused_wave_fits,
     fused_wave_place,
+    joint_rows_global,
     joint_wave_apply,
     joint_wave_place,
     raise_on_wave_error,
 )
 from nomad_tpu_torch.ops.kernel import (
     TOPK,
-    FusedWaveOut,
     KernelFeatures,
     KernelIn,
     KernelOut,
@@ -84,7 +89,6 @@ from nomad_tpu_torch.ops.kernel import (
     fused_wave_supported,
     neutral_step_planes,
     pad_steps,
-    pack_fused_wave,
     unpack_fused_wave,
     upload_leaf,
 )
@@ -160,31 +164,46 @@ fused_wave_stats = _FusedWaveStats()
 
 class _JointWaveStats:
     """The port's own count of the waves outside B1's one-device route:
-    ``launches`` waves that ran the joint kernel (``csrc/joint_wave.cu``,
-    one launch each), ``torch_waves`` waves that ran torch ops instead
-    (the plain version on CPU tensors, the joint sharded wave over a
-    mesh). On one card ``torch_waves`` stays 0."""
+    ``launches`` one-device waves that ran the joint kernel
+    (``csrc/joint_wave.cu``, one launch each), of those ``global_rows``
+    the waves too wide for B1's and its own shared memory, which its
+    global-row instantiation runs (by the card's plan; never on CPU
+    tensors, whose plain versions hold any width);
+    ``sharded_launches`` mesh waves that ran the joint sharded kernel
+    (``csrc/joint_sharded_wave.cu``, one C call each); ``torch_waves``
+    waves that ran torch ops instead (the plain versions on CPU tensors).
+    On the card ``torch_waves`` stays 0."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.launches = 0
+        self.sharded_launches = 0
+        self.global_rows = 0
         self.torch_waves = 0
 
-    def note(self, kernel: bool) -> None:
+    def note(self, kernel: bool, sharded: bool = False,
+             global_rows: bool = False) -> None:
         with self._lock:
-            if kernel:
-                self.launches += 1
-            else:
+            if not kernel:
                 self.torch_waves += 1
+            elif sharded:
+                self.sharded_launches += 1
+            else:
+                self.launches += 1
+            self.global_rows += int(global_rows)
 
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
+            self.sharded_launches = 0
+            self.global_rows = 0
             self.torch_waves = 0
 
     def snapshot(self) -> dict:
         with self._lock:
             return {"launches": self.launches,
+                    "sharded_launches": self.sharded_launches,
+                    "global_rows": self.global_rows,
                     "torch_waves": self.torch_waves}
 
 
@@ -197,7 +216,10 @@ class _ShardedWaveStats:
     ``nomad_tpu_wave_sharded_*`` series by telemetry/exporter.py; reset
     with telemetry.reset()).
 
-    ``launches`` counts waves whose node axis was split over a mesh;
+    ``launches`` counts waves whose node axis was split over a mesh (on
+    the card through the sharded kernel, ``csrc/sharded_wave.cu``, or for
+    a union outside the fused envelope or shards under TOPK rows the joint
+    sharded kernel, ``csrc/joint_sharded_wave.cu``);
     ``fallbacks`` counts waves that had a mesh but ran on one device (a
     mesh of one device, or a node axis its device count does not
     divide): on a healthy mesh server this sits at zero. ``mesh_devices``
@@ -766,22 +788,17 @@ def mesh_splits(mesh, n_nodes: int) -> bool:
 
 
 def _dispatch_sharded(stacked, sm, sl, t_pad, feats, mesh, layout, fused):
-    """The fused sharded wave when ``fused``, else the joint sharded wave
-    packed as a fused wave's outputs (its carries gathered whole)."""
+    """The fused sharded wave when ``fused``, else the joint sharded wave:
+    on CUDA shards their hand kernels (``csrc/sharded_wave.cu``,
+    ``csrc/joint_sharded_wave.cu``), each packed as a fused wave with its
+    carries node-sharded."""
     from nomad_tpu_torch.parallel.sharded import (
         fused_sharded_entry,
         joint_sharded_entry,
     )
 
-    if fused:
-        return fused_sharded_entry(mesh, *layout)[0](
-            stacked, sm, sl, t_pad, feats)
-    out = joint_sharded_entry(mesh, *layout)[0](
-        stacked, sm, sl, t_pad, feats)
-    return FusedWaveOut(
-        packed=pack_fused_wave(out, t_pad, int(out.nodes_evaluated.shape[0])),
-        topk_idx=out.topk_idx, topk_scores=out.topk_scores,
-        a_cpu=out.a_cpu, a_mem=out.a_mem, a_disk=out.a_disk)
+    entry = fused_sharded_entry if fused else joint_sharded_entry
+    return entry(mesh, *layout)[0](stacked, sm, sl, t_pad, feats)
 
 
 def launch_wave(kins: List[KernelIn], k_steps: List[int],
@@ -797,6 +814,15 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     identity is uploaded once per wave; the per-member result comes back
     in one packed device-to-host copy. An error from the kernel
     propagates to every member.
+
+    Which kernel a wave takes on the card: on one device B1
+    (``csrc/fused_wave.cu``) for a union in the fused envelope whose node
+    axis its cluster holds, else the joint kernel (``csrc/joint_wave.cu``;
+    its global-row instantiation for a node axis too wide for its shared
+    memory). Over a mesh, the sharded kernel (``csrc/sharded_wave.cu``) for
+    a union in the envelope with TOPK rows a shard or more, else the joint
+    sharded kernel (``csrc/joint_sharded_wave.cu``). CPU tensors run each
+    kernel's plain version.
 
     ``mesh``: split the node axis over this mesh's devices (see the
     module doc; None runs on ``device``). A sharded wave commits into no
@@ -832,11 +858,14 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     # the bucket identity of the launch: a repeat of this key is no
     # miss (the profiler counts first launches per key)
     wave_key = (b_pad, t_pad, n_nodes, *layout, feats)
-    # a sharded fused wave also needs TOPK rows a shard for its local
-    # top-k merge
+    # B1 takes a one-device wave its cluster holds in shared memory (a
+    # wider one runs the joint kernel's global-row instantiation); a
+    # sharded fused wave also needs TOPK rows a shard for its local top-k
+    # merge (a narrower one runs the joint sharded kernel)
     want_fused = _FUSED_WAVE
     fused = want_fused and fused_wave_supported(feats) and (
-        not sharded or n_nodes // mesh_size >= TOPK)
+        n_nodes // mesh_size >= TOPK if sharded
+        else fused_wave_fits(dev, n_nodes, b_pad, feats.with_shuffle))
     if sharded:
         sharded_wave_stats.note_launch(mesh_size)
     elif mesh is not None:
@@ -876,7 +905,11 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     if fused:
         fused_wave_stats.note_launch()
     else:
-        joint_wave_stats.note(kernel=not sharded and dev.type == "cuda")
+        root = mesh.devices.flat[0] if sharded else dev
+        joint_wave_stats.note(
+            kernel=root.type == "cuda", sharded=sharded,
+            global_rows=not sharded and joint_rows_global(
+                dev, n_nodes, b_pad, feats.with_shuffle))
         if want_fused:
             fused_wave_stats.note_fallback()
     elapsed = time.perf_counter() - t_launch

@@ -7,13 +7,16 @@ Which route runs where:
 
 - the fused sharded wave (``fused_sharded_entry``) on CUDA shards is one
   call of the hand kernel ``ops/cuda_kernel.sharded_wave_place``
-  (``csrc/sharded_wave.cu``): a step launch on every card and a merge
-  launch on the first, a step, with no Python between the steps;
-- on CPU shards it runs ``_sharded_wave``, the kernel's plain version
-  (which ``chip_smoke.py`` also holds the kernel against on the card);
+  (``csrc/sharded_wave.cu``): one cluster launch a card, the cards
+  trading each step's result through mailboxes;
 - the joint sharded wave (``joint_sharded_entry``: spreads, devices,
-  cores and network, outside the fused envelope) runs ``_sharded_wave``
-  on any device, as the one-device composite runs beside B1.
+  cores and network, outside the fused envelope, and shards of any
+  width) on CUDA shards is one call of the hand kernel
+  ``ops/cuda_kernel.joint_sharded_wave_place``
+  (``csrc/joint_sharded_wave.cu``), as the joint kernel runs beside B1 on
+  one device;
+- on CPU shards both run ``_sharded_wave``, the kernels' plain version
+  (which ``chip_smoke.py`` also holds the kernels against on the card).
 
 ``_sharded_wave`` is torch ops:
 
@@ -44,8 +47,8 @@ mesh: evals split over ``evals``, nodes over ``nodes``. Each eval is a
 placement problem of its own: in the fused envelope a one-member wave
 through ``sharded_wave_place`` over its evals row's node shards, or
 through B1 (``fused_wave_place``) on a row of one shard; outside it
-through the joint hand kernel (``joint_wave_place``) on a row of one
-shard, else the wave body as torch ops.
+through the joint hand kernels, ``joint_sharded_wave_place`` over the
+row's shards or ``joint_wave_place`` on a row of one.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ import torch
 from nomad_tpu_torch.device import DeviceLike
 from nomad_tpu_torch.ops.cuda_kernel import (
     fused_wave_place,
+    joint_sharded_wave_place,
     joint_wave_place,
     raise_on_wave_error,
     sharded_wave_place,
@@ -683,16 +687,6 @@ def _sharded_wave(shards: List[KernelIn], step_member, step_local,
     return out
 
 
-def _run_wave(mesh: Mesh, kin: KernelIn, shardings: KernelIn, step_member,
-              step_local, t_steps: int, features: KernelFeatures):
-    """Place ``kin`` (leaves not yet placed) and run the wave body over
-    the first evals row's node shards."""
-    placed, _ = place_args(kin, shardings)
-    row = mesh.node_rows()[0]
-    return _sharded_wave(_shards_of(placed, row), step_member, step_local,
-                         t_steps, features)
-
-
 # keyed by the live mesh OBJECT (weakly): a freed mesh's entry evicts
 # itself. Each mesh maps sharing-layout flags -> the entry (the sharing
 # groups change which leaves carry the member axis, so every layout has
@@ -707,9 +701,13 @@ def joint_sharded_entry(mesh: Mesh, shared: bool = False,
     """(fn, KernelIn-of-NamedSharding, replicated) for the joint wave
     with the node axis split over ``mesh``'s nodes axis under the given
     sharing layout: ``fn(kin, step_member, step_local, t_steps,
-    features) -> JointOut`` takes any feature union (spreads, devices,
-    cores and network included). Its outputs lie on the mesh's first
-    device, the carries gathered whole. Cached per (mesh, layout)."""
+    features) -> FusedWaveOut`` takes any feature union (spreads, devices,
+    cores and network included) and any shard width
+    (``ops/cuda_kernel.joint_sharded_wave_place``: the hand kernel on CUDA
+    shards, ``_sharded_wave`` on CPU ones). Its ``packed`` buffer and top-k
+    planes lie on the mesh's first device, its carries node-sharded
+    (placed leaves of ``node_axis_sharding(mesh)``), as
+    ``fused_sharded_entry``'s. Cached per (mesh, layout)."""
     layouts = _joint_sharded_cache.get(mesh)
     if layouts is None:
         layouts = _joint_sharded_cache[mesh] = {}
@@ -721,12 +719,12 @@ def joint_sharded_entry(mesh: Mesh, shared: bool = False,
         mesh, shared, neutral_shared, job_shared)
 
     def fn(kin, step_member, step_local, t_steps, features):
-        out = _run_wave(mesh, kin, kin_shardings, step_member, step_local,
-                        t_steps, features)
-        root = out.chosen.device
-        whole = {name: torch.cat([p.to(root) for p in getattr(out, name)])
-                 for name in ("a_cpu", "a_mem", "a_disk")}
-        return out._replace(**whole)
+        placed, _ = place_args(kin, kin_shardings)
+        shards = _shards_of(placed, mesh.node_rows()[0])
+        out = joint_sharded_wave_place(shards, step_member, step_local,
+                                       t_steps, features)
+        return out._replace(**{name: _to_positions(getattr(out, name), mesh)
+                               for name in ("a_cpu", "a_mem", "a_disk")})
 
     entry = (fn, kin_shardings, repl)
     layouts[key] = entry
@@ -818,12 +816,12 @@ class _PlaceBatchStats:
     ``fused_calls`` calls of B1 (``fused_wave_place``: an eval in the
     fused envelope on an evals row of one node shard), ``joint_calls``
     calls of the joint kernel (``joint_wave_place``: any other eval on a
-    row of one), ``sharded_calls`` calls of the sharded kernel
-    (``sharded_wave_place``: an eval in the envelope on a row of two or
-    more), ``plain_evals`` evals through the wave body as torch ops
-    (outside the envelope on a row of two or more, or every eval of a
-    ``plain`` step). On CPU shards the three wrappers run their plain
-    versions and are counted the same."""
+    row of one), ``sharded_calls`` calls of the sharded kernels on a row
+    of two or more (``sharded_wave_place`` for an eval in the envelope,
+    ``joint_sharded_wave_place`` for any other), ``plain_evals`` evals
+    through the wave body as torch ops (every eval of a ``plain`` step).
+    On CPU shards the four wrappers run their plain versions and are
+    counted the same."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -926,14 +924,14 @@ def make_place_batch(
     need (``eval_features``): on an evals row of one node shard through
     ``fused_wave_place`` (B1) when they fit the fused envelope, else
     through ``joint_wave_place``; on a row of two or more through
-    ``sharded_wave_place`` when they fit the envelope, else the wave body
-    as torch ops. On CUDA shards the wrappers launch the hand kernels, on
-    CPU shards they run their plain versions. Every row's kernel calls
-    are enqueued on its cards before any eval that reads the host; a
-    sharded call's error word is read once at the end, and a set one
-    raises. ``plain`` runs every eval through the
-    torch-op body under ``features``: the plain version the route is
-    held against.
+    ``sharded_wave_place`` when they fit the envelope, else through
+    ``joint_sharded_wave_place``. On CUDA shards the wrappers launch the
+    hand kernels, on CPU shards they run their plain versions. Every
+    row's kernel calls are enqueued on its cards before any eval that
+    reads the host; a sharded call's error word is read once at the end,
+    and a set one raises. ``plain`` runs every eval through the torch-op
+    body under ``features``: the plain version the route is held
+    against.
     """
     shardings = batched_in_shardings(mesh)
     e_par = mesh.axis_size(_B)
@@ -949,15 +947,14 @@ def make_place_batch(
         placed, _ = place_args(kin, shardings)
         row_shards = [_shards_of(placed, row) for row in rows]
         if plain:
-            outs, errs = [[None] * b_loc for _ in rows], []
+            outs = [[_plain_eval(_one_eval(shards, e), k_steps,
+                                 feats[r * b_loc + e])
+                     for e in range(b_loc)]
+                    for r, shards in enumerate(row_shards)]
+            place_batch_stats.note(plain=b)
+            errs = []
         else:
             outs, errs = _launch_rows(row_shards, feats, b_loc, k_steps)
-        for r, shards in enumerate(row_shards):
-            for e in range(b_loc):
-                if outs[r][e] is None:
-                    outs[r][e] = _plain_eval(_one_eval(shards, e), k_steps,
-                                             feats[r * b_loc + e])
-                    place_batch_stats.note(plain=1)
         root = outs[0][0].chosen.device
         _raise_on_errors(errs, k_steps, root)
         return KernelOut(*[torch.stack([getattr(o, name).to(root)
@@ -969,11 +966,9 @@ def make_place_batch(
 
 def _launch_rows(row_shards: list, feats: list, b_loc: int,
                  k_steps: int) -> tuple:
-    """Send every eval to its row's kernel (on a row of two or more
-    shards, only an eval in the fused envelope), row after row, reading
-    nothing back. Returns the KernelOuts by row (None where an eval is
-    left to the torch-op body) and the sharded calls' packed buffers,
-    whose error words are still to be read."""
+    """Send every eval to its row's kernel, row after row, reading nothing
+    back. Returns the KernelOuts by row and the sharded calls' packed
+    buffers, whose error words are still to be read."""
     outs: list = [[None] * b_loc for _ in row_shards]
     errs = []
     maps: dict = {}
@@ -981,8 +976,6 @@ def _launch_rows(row_shards: list, feats: list, b_loc: int,
         for e in range(b_loc):
             f = feats[r * b_loc + e]
             fused = fused_wave_supported(f)
-            if not fused and len(shards) > 1:
-                continue
             one = _one_eval(shards, e)
             if len(one) == 1:
                 dev = one[0].cap_cpu.device
@@ -998,9 +991,10 @@ def _launch_rows(row_shards: list, feats: list, b_loc: int,
                 got = place(one[0], *sm_sl, k_steps, f)
                 place_batch_stats.note(fused=int(fused), joint=int(not fused))
             else:
-                got = sharded_wave_place(
-                    one, np.zeros(k_steps, np.int32),
-                    np.arange(k_steps, dtype=np.int32), k_steps, f)
+                place = (sharded_wave_place if fused
+                         else joint_sharded_wave_place)
+                got = place(one, np.zeros(k_steps, np.int32),
+                            np.arange(k_steps, dtype=np.int32), k_steps, f)
                 place_batch_stats.note(sharded=1)
                 if got.packed.device.type == "cuda":
                     errs.append(got.packed)

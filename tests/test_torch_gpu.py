@@ -187,11 +187,14 @@ def test_cuda_kernel_reads_perm_at_any_offset(cuda_device):
 
 @pytest.mark.gpu
 def test_cuda_wrapper_raises_when_row_does_not_fit(cuda_device):
-    """Each CTA keeps its node range's scores and ranks in shared memory:
-    2**19 nodes over one cluster do not fit, and the wrapper says so
-    before launching."""
+    """Each of B1's CTAs keeps its node range's scores and ranks in shared
+    memory: 2**19 nodes over one cluster do not fit, and B1's wrapper says
+    so before launching. ``launch_wave`` sends such a wave (~300k real
+    nodes, padded to 524288) to the joint kernel's global-row
+    instantiation instead, counted as a fused fallback: exact against the
+    plain version, no failure."""
     assert ck.fused_wave_cluster_size() == 16
-    kins, feats = tp.wave_members(25, "shuffle", 1000, b=1, lib="port",
+    kins, feats = tp.wave_members(25, "shuffle", 300_000, lib="port",
                                   n_pad=1 << 19)
     stacked, sm, sl, t_pad = tp.stack_wave(kins)
     kin = kernel_in_from_numpy(stacked, device=cuda_device)
@@ -199,6 +202,32 @@ def test_cuda_wrapper_raises_when_row_does_not_fit(cuda_device):
     with pytest.raises(ValueError, match="limit of [0-9]+ B"):
         ck.fused_wave_place(kin, sm, sl, t_pad, feats)
     assert ck.launches == before
+    assert not ck.fused_wave_fits(cuda_device, 1 << 19, tp.B, True)
+    assert ck.joint_rows_global(cuda_device, 1 << 19, tp.B, True)
+    pc.fused_wave_stats.reset()
+    pc.joint_wave_stats.reset()
+    j0, g0 = ck.joint_launches, ck.joint_global_calls
+    got = pc.launch_wave(kins, [tp.K] * tp.B, [feats] * tp.B,
+                         device=cuda_device)
+    assert (ck.launches, ck.joint_launches - j0,
+            ck.joint_global_calls - g0) == (before, 1, 1)
+    assert pc.fused_wave_stats.snapshot() == {
+        "launches": 0, "fallbacks": 1, "failures": 0}
+    assert pc.joint_wave_stats.snapshot() == {
+        "launches": 1, "sharded_launches": 0, "global_rows": 1,
+        "torch_waves": 0}
+    want = ck.fused_wave_place_reference(kin, sm, sl, t_pad, feats)
+    g = tk.unpack_fused_wave(want.packed.cpu().numpy(), t_pad, tp.B)
+    top_i, top_s = want.topk_idx.cpu().numpy(), want.topk_scores.cpu().numpy()
+    for i, o in enumerate(got):
+        at = slice(i * tp.K, (i + 1) * tp.K)
+        np.testing.assert_array_equal(o.chosen, g["chosen"][at])
+        np.testing.assert_array_equal(o.scores, g["scores"][at])
+        np.testing.assert_array_equal(np.asarray(o.topk_idx), top_i[at])
+        np.testing.assert_array_equal(np.asarray(o.topk_scores), top_s[at])
+        for name in tk.FUSED_METRIC_FIELDS:
+            assert getattr(o, name) == g[name][i], name
+    assert g["found"].any()
 
 
 def _lean_on(scenario, seed, device, k=tp.LEAN_K, b=tp.LEAN_B,
@@ -925,7 +954,8 @@ def test_cuda_sharded_wave_is_one_launch_a_card(cuda_device):
 
 
 def _two_clusters_on_one_card(monkeypatch, dev, groups, same_stream=False,
-                              root_second=False, fail_second=False):
+                              root_second=False, fail_second=False,
+                              lib_name="sharded_wave", card=None):
     """Run the several-card path on one card: the wrapper sees the mesh's
     positions grouped as ``groups`` on two "cards" that are one device
     and two streams (one stream with ``same_stream``), so two clusters
@@ -939,12 +969,13 @@ def _two_clusters_on_one_card(monkeypatch, dev, groups, same_stream=False,
     stream and the second."""
     s0 = torch.cuda.current_stream(dev)
     s1 = s0 if same_stream else torch.cuda.Stream(dev)
-    fn, built, lib = ck._LIBS["sharded_wave"]
+    fn, built, lib = ck._LIBS[lib_name]
 
     def launch(ref):
         s1.wait_stream(s0)
         if fail_second:
-            cards = ctypes.cast(ref._obj.card, ctypes.POINTER(ck._Card))
+            cards = ctypes.cast(ref._obj.card,
+                                ctypes.POINTER(card or ck._Card))
             cards[1].n_pos = 1 << 20
         return fn(ref)
 
@@ -952,7 +983,7 @@ def _two_clusters_on_one_card(monkeypatch, dev, groups, same_stream=False,
     stream = {p: (first if c == 0 else second).cuda_stream
               for c, (_, ps) in enumerate(groups) for p in ps}
     order = iter(range(len(stream)))
-    monkeypatch.setitem(ck._LIBS, "sharded_wave", (launch, built, lib))
+    monkeypatch.setitem(ck._LIBS, lib_name, (launch, built, lib))
     monkeypatch.setattr(ck, "_card_of",
                         lambda d: (d.index or 0, stream[next(order)]))
     monkeypatch.setattr(ck, "group_positions", lambda cards: groups)
@@ -1279,10 +1310,10 @@ PLACE_BATCH_MIX = ("kitchen_sink", "spread", "lean", "devices",
 def test_cuda_place_batch_route_matches_plain(shape, cuda_device):
     """``make_place_batch`` over a virtual (evals, nodes) mesh on the
     card: each eval in the fused envelope is one call of the sharded
-    kernel (rows of four shards) or of B1 (rows of one), the others the
-    torch-op body (rows of four) or one call of the joint kernel (rows of
-    one); every eval equals the plain step's, which runs each through the
-    torch-op body."""
+    kernel (rows of four shards) or of B1 (rows of one), the others one
+    call of the joint sharded kernel (rows of four) or of the joint
+    kernel (rows of one); no eval runs torch ops; every eval equals the
+    plain step's, which runs each through the torch-op body."""
     from nomad_tpu_torch.parallel import mesh as pm
     from nomad_tpu_torch.parallel import sharded
 
@@ -1295,11 +1326,14 @@ def test_cuda_place_batch_route_matches_plain(shape, cuda_device):
     fused = sum(tk.fused_wave_supported(f)
                 for f in sharded.eval_features(stacked))
     l0, s0, j0 = ck.launches, ck.sharded_launches, ck.joint_launches
+    js0, p0 = ck.joint_sharded_launches, sharded.place_batch_stats.plain_evals
     got = sharded.make_place_batch(mesh, k_pad)(stacked)
     torch.cuda.synchronize()
     assert (ck.launches - l0, ck.sharded_launches - s0,
-            ck.joint_launches - j0) == (
-        (fused, 0, len(kins) - fused) if shape[1] == 1 else (0, fused, 0))
+            ck.joint_launches - j0, ck.joint_sharded_launches - js0) == (
+        (fused, 0, len(kins) - fused, 0) if shape[1] == 1
+        else (0, fused, 0, len(kins) - fused))
+    assert sharded.place_batch_stats.plain_evals == p0
     want = sharded.make_place_batch(mesh, k_pad, plain=True)(stacked)
     assert got.chosen.device == want.chosen.device == mesh.devices.flat[0]
     for name in ("chosen", "found", "topk_idx") + tk.FUSED_METRIC_FIELDS:
@@ -1446,8 +1480,9 @@ def test_cuda_launch_wave_outside_the_envelope_is_one_joint_launch(
     assert (ck.launches, ck.joint_launches) == (before[0], before[1] + 1)
     assert pc.fused_wave_stats.snapshot() == {
         "launches": 0, "fallbacks": 1, "failures": 0}
-    assert pc.joint_wave_stats.snapshot() == {"launches": 1,
-                                              "torch_waves": 0}
+    assert pc.joint_wave_stats.snapshot() == {
+        "launches": 1, "sharded_launches": 0, "global_rows": 0,
+        "torch_waves": 0}
     cpu = pc.ResidentUsage(*used, device="cpu")
     want = pc.launch_wave(kins, [tp.K] * tp.B, [feats] * tp.B,
                           device="cpu", resident=cpu)
@@ -1488,23 +1523,44 @@ def test_cuda_joint_failure_raises_instead_of_torch_ops(cuda_device,
         pc.launch_wave(kins, [tp.K] * tp.B, [feats] * tp.B,
                        device=cuda_device)
     assert pc.fused_wave_stats.snapshot()["failures"] == 2
-    assert pc.joint_wave_stats.snapshot() == {"launches": 0,
-                                              "torch_waves": 0}
+    assert pc.joint_wave_stats.snapshot() == {
+        "launches": 0, "sharded_launches": 0, "global_rows": 0,
+        "torch_waves": 0}
     assert not plain
 
 
 @pytest.mark.gpu
-def test_cuda_joint_wrapper_raises_when_row_does_not_fit(cuda_device):
+@pytest.mark.parametrize("variant", ["spread", "everything"])
+def test_cuda_joint_wrapper_raises_when_row_does_not_fit(variant,
+                                                         cuda_device):
     """2**19 nodes with spreads and shuffle over one cluster do not fit a
-    CTA's shared memory: the wrapper says so before launching."""
-    kins, feats = tp.wave_members(27, "spread", 1000, b=1, lib="port",
+    CTA's shared memory: the wrapper runs the kernel's global-row
+    instantiation (each CTA's keys, sums, counts and ranks in a global
+    scratch), bit for bit the plain version, members interleaved so each
+    one's counts leave and come back; one full-width single eval too."""
+    kins, feats = tp.wave_members(27, variant, 300_000, lib="port",
                                   n_pad=1 << 19)
-    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    stacked, _, _, _ = tp.stack_wave(kins)
+    order = np.array([0, 1, 0, 2, 1, 3, 0, 3, 2, 1, 3, 2, 0, 1, 2, 3],
+                     np.int32)
+    local = np.zeros_like(order)
+    for m in range(tp.B):
+        local[order == m] = np.arange(tp.K)
     kin = kernel_in_from_numpy(stacked, device=cuda_device)
-    before = ck.joint_launches
-    with pytest.raises(ValueError, match="limit of [0-9]+ B"):
-        ck.joint_wave_place(kin, sm, sl, t_pad, feats)
-    assert ck.joint_launches == before
+    before = (ck.joint_launches, ck.joint_global_calls)
+    got = ck.joint_wave_place(kin, order, local, len(order), feats)
+    assert (ck.joint_launches, ck.joint_global_calls) == (
+        before[0] + 1, before[1] + 1)
+    want = ck.fused_wave_place_reference(kin, order, local, len(order),
+                                         feats)
+    torch.cuda.synchronize()
+    g = _assert_fused(got, want, len(order), tp.B, atol=0.0)
+    assert g["found"].any()
+    one = kernel_in_from_numpy(kins[0], device=cuda_device)
+    calls = ck.joint_global_calls
+    _assert_single(ck.joint_eval_place(one, tp.K, feats),
+                   tk.place_taskgroup(one, tp.K, feats))
+    assert ck.joint_global_calls == calls + 1
 
 
 @pytest.mark.gpu
@@ -1524,3 +1580,265 @@ def test_cuda_warmup_launches_the_joint_kernel(cuda_device):
     assert ck.joint_launches == before + 1
     assert ("joint", (4, 16, 256, True, True, True, feats)) in \
         profiler._seen
+
+
+# ---------------------------------------------------------------------------
+# The joint sharded kernel (csrc/joint_sharded_wave.cu): every feature union
+# over a mesh of positions, bit for bit against its plain version and the
+# one-device joint kernel.
+# ---------------------------------------------------------------------------
+
+def _joint_sharded_check(stacked, sm, sl, t_pad, feats, devices):
+    """The joint sharded kernel over ``devices`` against its plain version
+    on the same shards and against the one-device joint kernel on the
+    whole wave: equal bit for bit. One C call, one cluster launch a card,
+    no other kernel launched by the call."""
+    root = devices[0]
+    parts = _shards_on(stacked, devices)
+    before = (ck.launches, ck.joint_launches, ck.sharded_launches)
+    calls = ck.joint_sharded_launches
+    clusters = ck.joint_sharded_kernel_launches()
+    got = _whole(ck.joint_sharded_wave_place(parts, sm, sl, t_pad, feats),
+                 root)
+    assert ck.joint_sharded_launches == calls + 1
+    assert (ck.launches, ck.joint_launches, ck.sharded_launches) == before
+    assert ck.joint_sharded_kernel_launches() - clusters == len(set(devices))
+    b = len(stacked.n_steps)
+    ck.raise_on_wave_error(got.packed.cpu().numpy(), t_pad, b)
+    plain = _whole(ck.joint_sharded_wave_place_reference(
+        parts, sm, sl, t_pad, feats), root)
+    kin = kernel_in_from_numpy(stacked, device=root)
+    one = ck.joint_wave_place(kin, torch.from_numpy(sm).to(root),
+                              torch.from_numpy(sl).to(root), t_pad, feats)
+    torch.cuda.synchronize()
+    _assert_fused(got, plain, t_pad, b, atol=0.0)
+    return _assert_fused(got, one, t_pad, b, atol=0.0)
+
+
+JOINT_UNIONS = tuple(v for v, _ in tp.JOINT_VARIANTS) + ("kitchen_sink",)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4, 8, 16])
+@pytest.mark.parametrize("variant", JOINT_UNIONS)
+def test_cuda_joint_sharded_kernel_matches_plain_and_joint(variant, shards,
+                                                          cuda_device):
+    """Every union (each of spreads, devices, cores and bandwidth alone,
+    all four with the kitchen sink's planes, and the fused envelope's
+    kitchen sink) at N=16384 over 2, 4, 8 and 16 virtual shards."""
+    kins, feats = tp.wave_members(12, variant, 10_000, lib="port",
+                                  n_pad=16384)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    g = _joint_sharded_check(stacked, sm, sl, t_pad, feats,
+                             [cuda_device] * shards)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["spread", "everything"])
+def test_cuda_joint_sharded_kernel_at_scale(variant, cuda_device):
+    """N=131072 over eight virtual shards: 8192 rows a CTA."""
+    kins, feats = tp.wave_members(13, variant, 100_000, lib="port",
+                                  n_pad=131072)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    g = _joint_sharded_check(stacked, sm, sl, t_pad, feats,
+                             [cuda_device] * 8)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["spread", "everything"])
+def test_cuda_joint_sharded_kernel_range_crosses_a_position(variant,
+                                                           cuda_device):
+    """N=4004 over four shards: a CTA's range ends one position and
+    begins the next off the warps' grid; each row keeps its own
+    position's planes, buckets, carries and global index."""
+    kins, feats = tp.wave_members(26, variant, 3990, lib="port", n_pad=4004)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    g = _joint_sharded_check(stacked, sm, sl, t_pad, feats,
+                             [cuda_device] * 4)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+def test_cuda_joint_sharded_kernel_members_interleave(cuda_device):
+    """The everything wave with its members' steps interleaved: each
+    member's spread counts go to the CTAs' scratch and come back, and a
+    pending bump lands before the next member's row is built."""
+    kins, feats = tp.wave_members(28, "everything", 2000, lib="port",
+                                  n_pad=4096)
+    stacked, _, _, _ = tp.stack_wave(kins)
+    order = np.array([0, 1, 0, 2, 1, 3, 0, 3, 2, 1, 3, 2, 0, 1, 2, 3],
+                     np.int32)
+    local = np.zeros_like(order)
+    for m in range(tp.B):
+        local[order == m] = np.arange(tp.K)
+    g = _joint_sharded_check(stacked, order, local, len(order), feats,
+                             [cuda_device] * 4)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["spread", "everything"])
+def test_cuda_joint_sharded_kernel_idle_steps_and_no_topk(variant,
+                                                          cuda_device):
+    """Members with fewer steps than the bucket (and one with none): the
+    idle outputs; with top-k off the planes are 0 / NEG_INF."""
+    kins, feats = tp.wave_members(9, variant, 200, lib="port")
+    kins = [k._replace(n_steps=np.asarray(n, np.int32))
+            for k, n in zip(kins, (4, 0, 2, 3))]
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    for f in (feats, feats._replace(with_topk=False)):
+        _joint_sharded_check(stacked, sm, sl, t_pad, f, [cuda_device] * 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pad,shards", ((64, 16), (32, 8), (16, 4)),
+                         ids=("n64-d16", "n32-d8", "n16-d4"))
+def test_cuda_joint_sharded_kernel_narrow_shards(n_pad, shards, cuda_device):
+    """Shards of four rows, under TOPK: the merged top-8 is the plain
+    version's merge of each shard's top four."""
+    kins, feats = tp.wave_members(29, "everything", n_pad - 2, lib="port",
+                                  n_pad=n_pad)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    g = _joint_sharded_check(stacked, sm, sl, t_pad, feats,
+                             [cuda_device] * shards)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("groups", [[(0, [0, 2]), (0, [1, 3])],
+                                    [(0, [0, 1]), (0, [2, 3])]],
+                         ids=["interleaved", "halves"])
+@pytest.mark.parametrize("variant", ["spread", "devices", "everything"])
+def test_cuda_joint_sharded_kernel_exchange_on_one_card(variant, groups,
+                                                        cuda_device,
+                                                        monkeypatch):
+    """The several-card kernel (mailboxes, tags, the buckets handed on
+    with each card's argmax and pin, the root's top-k and metrics from
+    every card) as two clusters on one card: bit for bit the one-device
+    joint kernel, two kernel launches, no error word."""
+    ck.load_library("joint_sharded_wave")
+    s0, s1 = _two_clusters_on_one_card(monkeypatch, cuda_device, groups,
+                                       lib_name="joint_sharded_wave")
+    kins, feats = tp.wave_members(30, variant, 383, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    parts = _shards_on(stacked, [cuda_device] * 4)
+    clusters = ck.joint_sharded_kernel_launches()
+    out = ck.joint_sharded_wave_place(parts, sm, sl, t_pad, feats)
+    _assert_joined(s0, s1)
+    got = _whole(out, cuda_device)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    one = ck.joint_wave_place(kin, torch.from_numpy(sm).to(cuda_device),
+                              torch.from_numpy(sl).to(cuda_device), t_pad,
+                              feats)
+    torch.cuda.synchronize()
+    assert ck.joint_sharded_kernel_launches() - clusters == 2
+    ck.raise_on_wave_error(got.packed.cpu().numpy(), t_pad, tp.B)
+    g = _assert_fused(got, one, t_pad, tp.B, atol=0.0)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+def test_cuda_joint_sharded_kernel_wait_is_bounded(cuda_device, monkeypatch):
+    """Two "cards" on one stream: the first waits for the second, which
+    cannot start before it ends; each wait gives up at the bound and the
+    error word raises."""
+    import time
+
+    ck.load_library("joint_sharded_wave")
+    _two_clusters_on_one_card(monkeypatch, cuda_device,
+                              [(0, [0, 1]), (0, [2, 3])], same_stream=True,
+                              lib_name="joint_sharded_wave")
+    monkeypatch.setattr(ck, "SPIN_S", 0.25)
+    kins, feats = tp.wave_members(31, "everything", 383, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    parts = _shards_on(stacked, [cuda_device] * 4)
+    t0 = time.perf_counter()
+    got = ck.joint_sharded_wave_place(parts, sm, sl, t_pad, feats)
+    packed = got.packed.cpu().numpy()
+    assert time.perf_counter() - t0 < 30
+    with pytest.raises(RuntimeError, match="ran past"):
+        ck.raise_on_wave_error(packed, t_pad, tp.B)
+
+
+@pytest.mark.gpu
+def test_cuda_joint_sharded_kernel_buffers_outlive_every_card(
+        cuda_device, monkeypatch):
+    """The first card's kernel is launched, the second card's launch
+    fails: the stream that frees the second card's mailbox waits for the
+    first card's kernel, which stores into it up to the bound."""
+    ck.load_library("joint_sharded_wave")
+    s0, s1 = _two_clusters_on_one_card(
+        monkeypatch, cuda_device, [(0, [0, 1]), (0, [2, 3])],
+        root_second=True, fail_second=True, lib_name="joint_sharded_wave",
+        card=ck._JCard)
+    monkeypatch.setattr(ck, "SPIN_S", 0.25)
+    kins, feats = tp.wave_members(31, "everything", 383, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    parts = _shards_on(stacked, [cuda_device] * 4)
+    torch.cuda.synchronize()
+    clusters = ck.joint_sharded_kernel_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ck.joint_sharded_wave_place(parts, sm, sl, t_pad, feats)
+    assert ck.joint_sharded_kernel_launches() - clusters == 1
+    n = ck._joint_mail_bytes(2, len(stacked.n_steps))
+    held = [torch.full((n,), 0x5A, dtype=torch.uint8, device=cuda_device)
+            for _ in range(64)]
+    _assert_joined(s0, s1)
+    torch.cuda.synchronize()
+    assert all(bool((x == 0x5A).all()) for x in held)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["cards", "interleaved"])
+@pytest.mark.parametrize("variant", ["spread", "everything"])
+def test_cuda_joint_sharded_kernel_over_several_cards(variant, layout,
+                                                      cuda_device):
+    """A mesh of real cards (every card, or cards 0, 1, 0, 1): one
+    cluster launch a card, each step's result and buckets pushed into
+    every card's mailbox over NVLink; the wave equals the one-device joint
+    kernel's on the first card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards or more; this host has {n}")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    devices = cards if layout == "cards" else [cards[0], cards[1]] * 2
+    kins, feats = tp.wave_members(30, variant, 383, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    g = _joint_sharded_check(stacked, sm, sl, t_pad, feats, devices)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+def test_cuda_launch_wave_spread_over_a_virtual_mesh(cuda_device):
+    """A spread wave through ``launch_wave`` over a virtual mesh of four:
+    one call of the joint sharded kernel and one cluster launch, counted
+    as a fused fallback and a sharded joint launch, no torch-op wave;
+    its members' outputs the one-device wave's."""
+    from nomad_tpu_torch.parallel import sharded
+
+    kins, feats = tp.wave_members(32, "spread", 383, lib="port")
+    steps = [tp.K] * len(kins)
+    mesh = sharded.wave_mesh(devices=[cuda_device] * 4)
+    pc.fused_wave_stats.reset()
+    pc.joint_wave_stats.reset()
+    calls = ck.joint_sharded_launches
+    clusters = ck.joint_sharded_kernel_launches()
+    got = pc.launch_wave(kins, steps, [feats] * len(kins),
+                         device=cuda_device, mesh=mesh)
+    assert ck.joint_sharded_launches - calls == 1
+    assert ck.joint_sharded_kernel_launches() - clusters == 1
+    assert pc.joint_wave_stats.snapshot() == {
+        "launches": 0, "sharded_launches": 1, "global_rows": 0,
+        "torch_waves": 0}
+    assert pc.fused_wave_stats.snapshot() == {
+        "launches": 0, "fallbacks": 1, "failures": 0}
+    want = pc.launch_wave(kins, steps, [feats] * len(kins),
+                          device=cuda_device)
+    for g, w in zip(got, want):
+        for name in ("chosen", "found", "scores", "topk_idx",
+                     "topk_scores") + tk.FUSED_METRIC_FIELDS:
+            np.testing.assert_array_equal(np.asarray(getattr(g, name)),
+                                          np.asarray(getattr(w, name)),
+                                          err_msg=name)

@@ -64,7 +64,8 @@ batch = make_place_batch(make_mesh(devices=[torch.device("cpu")] * 4), 4,
 assert batch.found[:, :3].all(), batch.found
 from nomad_tpu_torch import entry as _entry
 _dry = _entry.dryrun_multichip(4, devices=[torch.device("cpu")] * 4)
-assert _dry["placed"] == 8 and _dry["routes"]["kernel_calls"] == 2, _dry
+assert _dry["placed"] == 8 and _dry["routes"]["kernel_calls"] == 4 \
+    and _dry["routes"]["plain_evals"] == 0, _dry
 from nomad_tpu_torch import telemetry
 from nomad_tpu_torch.ops import warmup
 from nomad_tpu_torch.tensors.device_state import default_device_state

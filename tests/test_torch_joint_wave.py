@@ -150,8 +150,9 @@ def test_launch_wave_counts_an_out_of_envelope_wave():
                           device="cpu")
     assert pc.fused_wave_stats.snapshot() == {
         "launches": 0, "fallbacks": 1, "failures": 0}
-    assert pc.joint_wave_stats.snapshot() == {"launches": 0,
-                                              "torch_waves": 1}
+    assert pc.joint_wave_stats.snapshot() == {
+        "launches": 0, "sharded_launches": 0, "global_rows": 0,
+        "torch_waves": 1}
     chosen = np.concatenate([o.chosen for o in outs])
     np.testing.assert_array_equal(chosen,
                                   np.asarray(ref.chosen)[:len(chosen)])

@@ -275,8 +275,8 @@ def test_batch_must_split_over_the_evals_axis(problems, cpu8):
 # The fused and the joint sharded waves (tests/test_fused_kernel.py)
 # ---------------------------------------------------------------------------
 
-def _ref_entry(entry, stacked, sm, sl, t_pad, feats):
-    mesh = ref_sharded.wave_mesh(8)
+def _ref_entry(entry, stacked, sm, sl, t_pad, feats, d=8):
+    mesh = ref_sharded.wave_mesh(d)
     fn, kin_sh, repl = entry(mesh)
     kin_dev = RefKernelIn(*[jax.device_put(x, s)
                             for x, s in zip(stacked, kin_sh)])
@@ -300,11 +300,17 @@ def _wave_host(out, t_pad, b):
     return host
 
 
-def _assert_wave(got, want, exact_scores: bool, ctx=""):
+#: the joint sharded wave's scores against JAX: one f32 ulp in [1, 2),
+#: 2**-23 (an affinity term lifts a score over 1.0, and in [0.5, 1) it is
+#: two ulps); SCORE_ATOL is that ulp rounded down to 1.19e-7
+ULP_ATOL = 2.0 ** -23
+
+
+def _assert_wave(got, want, exact_scores: bool, ctx="", atol=SCORE_ATOL):
     for name, w in want.items():
         g = got[name]
         if name in ("scores", "topk_scores") and not exact_scores:
-            np.testing.assert_allclose(g, w, rtol=0, atol=SCORE_ATOL,
+            np.testing.assert_allclose(g, w, rtol=0, atol=atol,
                                        err_msg=f"{name} {ctx}")
         else:
             np.testing.assert_array_equal(g, w, err_msg=f"{name} {ctx}")
@@ -357,6 +363,74 @@ def test_joint_sharded_outside_the_fused_envelope(variant, n_nodes, cpu8):
         torch.from_numpy(sl), t_pad, pf)
     _assert_wave(got, _wave_host(one, t_pad, tp.B), exact_scores=True,
                  ctx=f"{variant} vs the one-device composite")
+    assert got["found"].any()
+
+
+def _port_parts(stacked, d):
+    """The port's wave split over ``d`` CPU entries, as
+    ``joint_sharded_entry`` hands it to the kernel's wrapper."""
+    mesh = sharded.wave_mesh(devices=[CPU] * d)
+    placed, _ = sharded.place_args(_port_kin(stacked),
+                                   sharded.joint_in_shardings(mesh)[0])
+    return sharded._shards_of(placed, mesh.node_rows()[0])
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("variant,n_nodes", tp.JOINT_VARIANTS,
+                         ids=[v for v, _ in tp.JOINT_VARIANTS])
+def test_joint_sharded_kernel_plain_version_matches_jax(variant, n_nodes,
+                                                        shards, cpu8):
+    """``ck.joint_sharded_wave_place_reference`` (the plain version the
+    joint sharded kernel is held against on the card) over D CPU entries
+    against JAX's ``joint_sharded_entry`` over D virtual devices, for each
+    union outside the fused envelope: i32 outputs exact, scores within
+    ``ULP_ATOL``; and exactly the port's one-device composite. The packed
+    buffer and the carries are the wrapper's layout."""
+    kins, feats = _members(40 + shards, variant, n_nodes)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    ref = _wave_host(_ref_entry(ref_sharded.joint_sharded_entry, stacked,
+                                sm, sl, t_pad, feats, d=shards), t_pad, tp.B)
+    pf = tp.port_features(feats)
+    parts = _port_parts(stacked, shards)
+    out = ck.joint_sharded_wave_place_reference(parts, sm, sl, t_pad, pf)
+    assert out.packed.numel() == tk.fused_pack_len(t_pad, tp.B)
+    n_loc = parts[0].cap_cpu.shape[-1:]
+    assert [p.shape for p in out.a_cpu] == [n_loc] * shards
+    got = _wave_host(out, t_pad, tp.B)
+    _assert_wave(got, ref, exact_scores=False, ctx=f"{variant} vs JAX",
+                 atol=ULP_ATOL)
+    one = tk.place_taskgroups_joint(
+        _tensors(_port_kin(stacked)), torch.from_numpy(sm),
+        torch.from_numpy(sl), t_pad, pf)
+    _assert_wave(got, _wave_host(one, t_pad, tp.B), exact_scores=True,
+                 ctx=f"{variant} vs the one-device composite")
+    assert got["found"].any()
+    # the wrapper takes CPU shards to the same plain version
+    _assert_wave(_wave_host(ck.joint_sharded_wave_place(
+        parts, sm, sl, t_pad, pf), t_pad, tp.B), got, exact_scores=True)
+
+
+@pytest.mark.parametrize("n_pad,shards", [(32, 8), (16, 4)],
+                         ids=["n32-d8", "n16-d4"])
+def test_joint_sharded_narrow_shards_match_jax(n_pad, shards, cpu8):
+    """Shards of four rows, under TOPK: each offers its top four, and the
+    merged top-8 is JAX's over the whole axis. Against JAX and the
+    one-device composite within ``ULP_ATOL`` (a shard this narrow runs
+    torch's scalar tail, see the module doc)."""
+    kins, feats = tp.wave_members(47, "everything", n_pad - 2, n_pad=n_pad)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    ref = _wave_host(_ref_entry(ref_sharded.joint_sharded_entry, stacked,
+                                sm, sl, t_pad, feats, d=shards), t_pad, tp.B)
+    pf = tp.port_features(feats)
+    got = _wave_host(ck.joint_sharded_wave_place_reference(
+        _port_parts(stacked, shards), sm, sl, t_pad, pf), t_pad, tp.B)
+    _assert_wave(got, ref, exact_scores=False, ctx="narrow vs JAX",
+                 atol=ULP_ATOL)
+    one = tk.place_taskgroups_joint(
+        _tensors(_port_kin(stacked)), torch.from_numpy(sm),
+        torch.from_numpy(sl), t_pad, pf)
+    _assert_wave(got, _wave_host(one, t_pad, tp.B), exact_scores=False,
+                 ctx="narrow vs the one-device composite", atol=ULP_ATOL)
     assert got["found"].any()
 
 

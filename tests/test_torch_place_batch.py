@@ -102,7 +102,8 @@ def test_route_matches_reference(mixed, shape):
     the same mesh shape, and against the port's plain step; the
     envelope's evals count as kernel calls (the sharded wave on rows of
     several shards, B1 on rows of one), the rest as joint-kernel calls
-    on rows of one and as plain evals on rows of several."""
+    on rows of one and as sharded calls (the joint sharded wave) on rows
+    of several: no eval runs the plain body."""
     k_pad = pad_steps(K)
     refs = _ref_outs(mixed, shape, k_pad)
     stacked = _port(mixed)
@@ -122,8 +123,8 @@ def test_route_matches_reference(mixed, shape):
     one = shape[1] == 1
     assert routed["fused_calls"] == (kernel if one else 0)
     assert routed["joint_calls"] == (len(MIX) - kernel if one else 0)
-    assert routed["sharded_calls"] == (0 if one else kernel)
-    assert routed["plain_evals"] == (0 if one else len(MIX) - kernel)
+    assert routed["sharded_calls"] == (0 if one else len(MIX))
+    assert routed["plain_evals"] == 0
     assert all(np.asarray(o.found)[:K].any() for o in outs)
 
 
@@ -214,11 +215,12 @@ def test_dryrun_multichip_matches_reference(n_devices):
     assert len(res["outs"]) == batch
     for i, (got, ref) in enumerate(zip(res["outs"], refs)):
         _assert_outs(got, ref, exact=False, ctx=f"eval {i}")
-    # odd evals are lean: the sharded wave; even ones carry a spread
+    # odd evals are lean: the sharded wave; even ones carry a spread:
+    # the joint sharded wave, also a sharded call
     assert res["routes"] == {"fused_calls": 0, "joint_calls": 0,
-                             "sharded_calls": batch // 2,
-                             "kernel_calls": batch // 2,
-                             "plain_evals": batch // 2}
+                             "sharded_calls": batch,
+                             "kernel_calls": batch,
+                             "plain_evals": 0}
     assert res["placed"] == 8 and res["sharded_waves"] > 0
 
 

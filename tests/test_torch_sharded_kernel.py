@@ -240,6 +240,112 @@ def test_packing_per_shard_pointers_offsets_and_steps(fake_library,
     assert host["found"][active].any()
 
 
+class _FakeJointLibrary:
+    """Stands in for ``joint_sharded_wave_launch``: records the shape, the
+    cards and each card's table (one JointArgs a position, the first
+    global rows, the step maps), launches nothing, returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, ref):
+        a = ref._obj
+        cards = (ck._JCard * a.n_cards).from_address(a.card)
+        got = {"shape": (a.n_glob, a.n_loc, a.n_cards, a.b, a.t, a.p, a.ns,
+                         a.with_shuffle),
+               "packed": a.packed, "cards": []}
+        for c in cards:
+            table = (ck._JointArgs * c.n_pos).from_address(c.table)
+            at = c.table + ctypes.sizeof(table)
+            g0 = list((ctypes.c_int * ck.MAX_POSITIONS).from_address(at))
+            maps = np.ctypeslib.as_array(
+                (ctypes.c_int * (2 * a.t)).from_address(
+                    at + 4 * ck.MAX_POSITIONS)).reshape(2, a.t).copy()
+            got["cards"].append({
+                "n_pos": c.n_pos, "g0": g0[:c.n_pos], "maps": maps,
+                "mail": c.mail, "spc": c.spc,
+                "leaves": [list(p.leaf) for p in table],
+                "strides": [list(p.stride) for p in table],
+                "shape": [(p.n, p.b, p.t, p.k, p.p, p.bp, p.ns, p.single,
+                           p.rows) for p in table],
+                "flags": [(p.with_topk, p.with_ports, p.with_distinct,
+                           p.with_shuffle, p.with_devices, p.with_cores,
+                           p.with_network) for p in table],
+                "a_cpu": [p.a_cpu for p in table],
+                "a_dev": [p.a_dev for p in table],
+                "jtc": [p.jtc for p in table]})
+        self.calls.append(got)
+        return 0
+
+
+def test_joint_packing_one_jointargs_a_position(monkeypatch):
+    """The joint sharded kernel's arguments: each position's JointArgs
+    holds its own shard's leaves (node planes, spread buckets and device
+    planes its rows), the shape with ``n`` its rows, the flags, and its
+    own slices of the card's carries and scratch; the first global rows
+    and the step maps follow the table; a counts scratch where the wave
+    spreads, no mailbox on one card."""
+    fake = _FakeJointLibrary()
+    monkeypatch.setitem(ck._LIBS, "joint_sharded_wave", (fake, None, None))
+    monkeypatch.setattr(ck, "_joint_sharded_plan",
+                        lambda o, n_pos, n_loc, b, sh: (
+                            ck.SHARDED_CLUSTER, 1024, _H100_LIMIT, 1))
+    monkeypatch.setattr(ck, "_card_of", lambda dev: (0, 0))
+    monkeypatch.setattr(ck, "_enable_peers",
+                        lambda c: pytest.fail("one card needs no peers"))
+    kins, feats = _members(6, "everything", 200)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    pf = tp.port_features(feats)
+    shards = _port_shards(stacked, 4)
+    launches = ck.joint_sharded_launches
+    out = ck._joint_sharded_launch(shards, sm, sl, t_pad, pf)
+    assert ck.joint_sharded_launches == launches + 1
+    (call,) = fake.calls
+    n_loc = int(shards[0].cap_cpu.shape[-1])
+    assert call["shape"] == (4 * n_loc, n_loc, 1, tp.B, t_pad,
+                             tk.MAX_PENALTY_NODES, pf.n_spreads, 1)
+    assert call["packed"] == out.packed.data_ptr()
+    assert out.packed.numel() == tk.fused_pack_len(t_pad, tp.B) + 1
+    (card,) = call["cards"]
+    assert card["n_pos"] == 4 and card["mail"] is None
+    assert card["spc"] is not None
+    assert card["g0"] == [p * n_loc for p in range(4)]
+    np.testing.assert_array_equal(card["maps"], np.stack([sm, sl]))
+    for p in range(4):
+        assert card["leaves"][p] == [getattr(shards[p], name).data_ptr()
+                                     for name, _ in ck._JOINT_LEAVES]
+        assert card["strides"][p] == card["strides"][0]
+        assert card["shape"][p] == (n_loc, tp.B, t_pad, tp.K,
+                                    tk.MAX_PENALTY_NODES, tp.B,
+                                    pf.n_spreads, 0, None)
+        assert card["flags"][p] == (1, 1, 1, 1, 1, 1, 1)
+    for (name, _), stride in zip(ck._JOINT_LEAVES, card["strides"][0]):
+        assert stride == getattr(shards[0], name)[0].numel(), name
+    assert card["a_cpu"] == [t.data_ptr() for t in out.a_cpu]
+    jtc, dev = card["jtc"], card["a_dev"]
+    assert [q - jtc[0] for q in jtc] == [4 * p * tp.B * n_loc
+                                         for p in range(4)]
+    assert [q - dev[0] for q in dev] == [4 * p * n_loc * 4
+                                         for p in range(4)]
+
+
+def test_joint_wrapper_takes_cpu_shards_to_its_plain_version():
+    """CPU shards run ``_sharded_wave`` packed, whatever the union; a
+    union past MAX_SPREADS raises."""
+    kins, feats = _members(7, "spread", 200)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    pf = tp.port_features(feats)
+    shards = _port_shards(stacked, 4)
+    launches = ck.joint_sharded_launches
+    got = ck.joint_sharded_wave_place(shards, sm, sl, t_pad, pf)
+    assert ck.joint_sharded_launches == launches
+    want = ck.joint_sharded_wave_place_reference(shards, sm, sl, t_pad, pf)
+    np.testing.assert_array_equal(got.packed.numpy(), want.packed.numpy())
+    with pytest.raises(ValueError, match="n_spreads"):
+        ck.joint_sharded_wave_place(shards, sm, sl, t_pad,
+                                    pf._replace(n_spreads=5))
+
+
 def test_packing_shared_leaves_have_stride_zero(fake_library, monkeypatch):
     """A wave whose three sharing groups ship unbatched (the live stack's
     layout): those leaves' member strides are 0, the stacked ones' their

@@ -46,6 +46,8 @@ from nomad_tpu_torch.parallel.synthetic import synthetic_cluster, synthetic_eval
 from nomad_tpu_torch.telemetry.kernel_profile import profiler
 from nomad_tpu_torch.tensors.device_state import default_device_state
 
+import _torch_parity as tp
+from nomad_tpu_torch.ops import cuda_kernel as ck
 from test_torch_server import Pair, allocs_by_name, eval_rows
 
 
@@ -149,6 +151,62 @@ class TestShardedWaveParity:
         assert coalesce.sharded_wave_stats.snapshot()["launches"] == 1
         assert coalesce.fused_wave_stats.snapshot() == {
             "launches": 0, "fallbacks": 2, "failures": 0}
+
+    def test_spread_wave_runs_the_joint_sharded_kernel(self, wave_mesh,
+                                                       counts, monkeypatch):
+        """A spread wave over the mesh goes through the joint sharded
+        kernel's wrapper (``joint_sharded_wave_place``: its plain version
+        on CPU shards), once, not through the fused sharded one: still one
+        sharded launch and one fused fallback; its members' outputs the
+        one-device wave's and the JAX package's over its eight devices."""
+        ref_kins, ref_feats = tp.wave_members(61, "spread", 200)
+        steps = [tp.K] * len(ref_kins)
+        ref_feats = [ref_feats] * len(ref_kins)
+        kins, feats = _port(ref_kins, ref_feats)
+        calls = []
+        real = sharded.joint_sharded_wave_place
+
+        def counted(*a, **k):
+            calls.append(1)
+            return real(*a, **k)
+
+        monkeypatch.setattr(sharded, "joint_sharded_wave_place", counted)
+        monkeypatch.setattr(sharded, "sharded_wave_place",
+                            lambda *a, **k: pytest.fail("fused sharded"))
+        out = coalesce.launch_wave(kins, steps, feats, device="cpu",
+                                   mesh=wave_mesh)
+        assert calls == [1]
+        assert coalesce.sharded_wave_stats.snapshot()["launches"] == 1
+        assert coalesce.fused_wave_stats.snapshot() == {
+            "launches": 0, "fallbacks": 1, "failures": 0}
+        assert coalesce.joint_wave_stats.snapshot() == {
+            "launches": 0, "sharded_launches": 0, "global_rows": 0,
+            "torch_waves": 1}
+        _assert_same_outs(out, coalesce.launch_wave(kins, steps, feats,
+                                                    device="cpu"))
+        ref_out = ref_coalesce.launch_wave(ref_kins, steps, ref_feats,
+                                           mesh=ref_sharded.wave_mesh(8))
+        _assert_same_outs(out, ref_out, scores_exact=False)
+
+    def test_narrow_shards_run_the_joint_sharded_kernel(self, counts,
+                                                        monkeypatch):
+        """A lean wave of N=64 over sixteen entries, 4 rows a shard,
+        under the fused sharded kernel's TOPK floor: the joint sharded
+        wave takes it (the reference's composite), one fused fallback."""
+        ref_kins, steps, ref_feats = _ref_members(n_nodes=60)
+        kins, feats = _port(ref_kins, ref_feats)
+        calls = []
+        real = sharded.joint_sharded_wave_place
+        monkeypatch.setattr(sharded, "joint_sharded_wave_place",
+                            lambda *a, **k: calls.append(1) or real(*a,
+                                                                    **k))
+        mesh = sharded.wave_mesh(devices=[CPU] * 16)
+        out = coalesce.launch_wave(kins, steps, feats, device="cpu",
+                                   mesh=mesh)
+        assert calls == [1]
+        assert coalesce.fused_wave_stats.snapshot()["fallbacks"] == 1
+        single = coalesce.launch_wave(kins, steps, feats, device="cpu")
+        _assert_same_outs(out, single, scores_exact=False)
 
     def test_coalescer_threads_its_mesh(self, wave_mesh, counts):
         kins, feats = _port(*_ref_members()[::2])
@@ -926,3 +984,109 @@ def test_mesh_adopted_after_start_is_warmed_and_joined(cpu8, counts,
     passes = {p["pass"]: p for p in srv.warmup_passes}
     assert passes["mesh"]["warmed"] == 1 and passes["mesh"]["failed"] == 0
     assert srv.warmup_stats["warmed"] == 2
+
+
+class TestSizeRoute:
+    """A wave whose node axis B1's cluster does not hold in shared memory
+    runs the joint kernel (``launch_wave`` decides it before the launch,
+    by B1's plan on the card), and the joint kernel's plan sends a wave or
+    a single eval too wide for its own shared memory to its global-row
+    instantiation, counted where that launch is made. CPU tensors take
+    B1's route at any width (their plain versions hold it), so the plans'
+    answers are patched here."""
+
+    def test_lean_wave_takes_the_global_rows_route(self, counts,
+                                                   monkeypatch):
+        ref_kins, steps, ref_feats = _ref_members()
+        kins, feats = _port(ref_kins, ref_feats)
+        want = coalesce.launch_wave(kins, steps, feats, device="cpu")
+        assert coalesce.fused_wave_stats.snapshot()["launches"] == 1
+        monkeypatch.setattr(coalesce, "fused_wave_fits",
+                            lambda dev, n, b, shuffle: False)
+        monkeypatch.setattr(coalesce, "joint_rows_global",
+                            lambda dev, n, b, shuffle: True)
+        telemetry.reset()
+        got = coalesce.launch_wave(kins, steps, feats, device="cpu")
+        assert coalesce.fused_wave_stats.snapshot() == {
+            "launches": 0, "fallbacks": 1, "failures": 0}
+        assert coalesce.joint_wave_stats.snapshot() == {
+            "launches": 0, "sharded_launches": 0, "global_rows": 1,
+            "torch_waves": 1}
+        _assert_same_outs(got, want)
+
+    @staticmethod
+    def _launch_args(single: bool):
+        """The joint kernel's launch arguments on CPU tensors: a lean
+        wave as ``launch_wave`` assembles it, or a full-width single eval
+        as ``joint_eval_place`` hands it on."""
+        if not single:
+            ref_kins, steps, ref_feats = _ref_members()
+            kins, feats = _port(ref_kins, ref_feats)
+            wave = coalesce.assemble_wave(kins, steps, feats, CPU)
+            return (wave.kin, wave.step_member, wave.step_local,
+                    wave.t_pad, wave.features), {}
+        kins, feats = tp.wave_members(62, "spread", 200, lib="port")
+        kin = tk._upload_kin(kins[0], CPU)
+        one = kin._replace(n_steps=kin.n_steps.reshape(1))
+        sm = torch.zeros(tp.K, dtype=torch.int32)
+        sl = torch.arange(tp.K, dtype=torch.int32)
+        return (one, sm, sl, tp.K, tk.canonical_features(feats)), {
+            "single": True}
+
+    @staticmethod
+    def _fake_card(monkeypatch, rows: int, fail: bool = False) -> list:
+        """The joint kernel's plan answering ``rows`` bytes of global-row
+        scratch, and a C call that records its arguments (or fails)."""
+        calls = []
+        monkeypatch.setattr(ck, "_joint_plan", lambda dev, n, b, shuffle: (
+            ck.JOINT_CLUSTER, 1024, 2048, 1, rows))
+
+        def call(name, args, dev, what):
+            calls.append((name, args.rows, args.single))
+            if fail:
+                raise RuntimeError(f"{what} launch failed: cudaError 700")
+
+        monkeypatch.setattr(ck, "_call", call)
+        return calls
+
+    @pytest.mark.parametrize("rows", [0, 4096], ids=["shared", "global"])
+    @pytest.mark.parametrize("single", [False, True], ids=["wave", "single"])
+    def test_full_width_single_eval_takes_the_global_rows_route(
+            self, monkeypatch, rows, single):
+        """A wave, and a single eval's full width, whose plan asks for a
+        global-row scratch get one, and the launch counts in
+        ``ck.joint_global_calls`` once the C call returns; one that fits
+        shared memory gets none and is not counted there."""
+        args, kw = self._launch_args(single)
+        calls = self._fake_card(monkeypatch, rows)
+        launches, global_calls = ck.joint_launches, ck.joint_global_calls
+        ck._joint_launch(*args, **kw)
+        ((name, scratch, flag),) = calls
+        assert name == "joint_wave" and flag == int(single)
+        assert (scratch is not None) == (rows > 0)
+        assert ck.joint_launches == launches + 1
+        assert ck.joint_global_calls == global_calls + int(rows > 0)
+
+    def test_a_refused_global_rows_launch_is_not_counted(self, monkeypatch):
+        """A C call that fails raises and moves no count."""
+        args, kw = self._launch_args(False)
+        calls = self._fake_card(monkeypatch, 4096, fail=True)
+        launches, global_calls = ck.joint_launches, ck.joint_global_calls
+        with pytest.raises(RuntimeError, match="cudaError 700"):
+            ck._joint_launch(*args, **kw)
+        assert len(calls) == 1
+        assert (ck.joint_launches, ck.joint_global_calls) == (
+            launches, global_calls)
+
+    def test_cpu_tensors_take_b1s_route_at_any_width(self):
+        """CPU tensors never leave B1's route by size and never take the
+        global rows, and the wrappers count nothing on them."""
+        global_calls = ck.joint_global_calls
+        for n in (1 << 18, 1 << 19, 1 << 20):
+            for shuffle in (False, True):
+                assert ck.fused_wave_fits(CPU, n, 32, shuffle)
+                assert not ck.joint_rows_global(CPU, n, 32, shuffle)
+        kins, feats = tp.wave_members(62, "spread", 200, lib="port")
+        tk.default_kernel_launch(kins[0], tp.K, tk.canonical_features(feats),
+                                 device="cpu")
+        assert ck.joint_global_calls == global_calls

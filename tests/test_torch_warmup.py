@@ -176,6 +176,54 @@ class TestDummyWave:
         d = profiler.summary()["Dispatches"]
         assert d == {"warmup_fused_wave": 1, "warmup_single_full": 1}
 
+    def test_entry_past_b1s_plan_warms_the_joint_kernel(
+            self, clean_telemetry, monkeypatch):
+        """A lean entry whose node axis B1's cluster would not hold (B1's
+        plan answering so, as the card's does past its shared memory)
+        warms the joint kernel, the route ``launch_wave`` takes for it;
+        with the plan as it is on CPU tensors, B1."""
+        kernel_warmup.warmup_stats.reset()
+        entry = {**JOINT, "wave": 4, "steps": 64}
+        assert kernel_warmup.warmup_entries([entry], device="cpu") == (1, 0)
+        asked = []
+
+        def fits(dev, n, b, shuffle):
+            asked.append((n, b))
+            return False
+
+        monkeypatch.setattr(ck, "fused_wave_fits", fits)
+        assert kernel_warmup.warmup_entries([entry], device="cpu") == (1, 0)
+        assert asked == [(entry["nodes"], 4)]
+        assert kernel_warmup.warmup_stats.snapshot() == {
+            "fused_wave": 1, "joint": 1}
+
+    @pytest.mark.parametrize("variant", ["spread", "lean_narrow"])
+    def test_mesh_pass_warms_through_the_joint_sharded_kernel(
+            self, clean_telemetry, monkeypatch, variant):
+        """The mesh pass warms a joint entry the fused sharded kernel does
+        not take (a spread union; a lean one whose shards fall under
+        TOPK rows) through the joint sharded kernel's wrapper, once."""
+        import torch
+
+        from nomad_tpu_torch.parallel import sharded
+
+        calls = []
+        real = sharded.joint_sharded_wave_place
+        monkeypatch.setattr(sharded, "joint_sharded_wave_place",
+                            lambda *a, **k: calls.append(1) or real(*a, **k))
+        feats = LEAN_FEATURES._replace(with_topk=True)
+        if variant == "spread":
+            feats = feats._replace(n_spreads=1)
+        entry = {**JOINT, "wave": 4, "steps": 64, "nodes": 256,
+                 "features": dict(feats._asdict())}
+        shards = 8 if variant == "spread" else 64
+        mesh = sharded.wave_mesh(devices=[torch.device("cpu")] * shards)
+        kernel_warmup.warmup_stats.reset()
+        assert kernel_warmup.warmup_entries(
+            [entry], device="cpu", mesh=mesh, mesh_only=True) == (1, 0)
+        assert calls == [1]
+        assert kernel_warmup.warmup_stats.snapshot() == {"joint_sharded": 1}
+
     def test_failed_entry_is_counted_and_skipped(self, clean_telemetry):
         warmed, failed = kernel_warmup.warmup_entries(
             [{**JOINT, "wave": 4, "steps": 64},
