@@ -26,16 +26,19 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
    one fused fallback a wave, no torch-op wave, no B1 launch, no node
    over capacity. Then each wave's kernel alone against its plain
    version (max abs error 0.0, no near-tie), its CUDA-event ms beside
-   the plain version's and its bound. Then the node ceiling: a C2M
-   cluster of 300k nodes (N=524288, more than B1's or the joint kernel's
-   cluster holds in shared memory) with 1M allocs, a shuffle wave and an
-   everything wave through ``launch_wave``: the joint kernel's global-row
-   instantiation, one launch and one fused fallback each, no failure,
-   exact against the plain version, and the kernel's time beside the
-   plain version's and the bound;
+   the plain version's and its bound, with the plan's cluster count and
+   where its rows live, and the same wave forced onto one cluster (bit
+   for bit the plan's, timed beside it). Then the node ceiling: a C2M
+   cluster of 300k nodes (N=524288, more than B1's cluster holds in
+   shared memory) with 1M allocs, a shuffle wave and an everything wave
+   through ``launch_wave``: the joint kernel over the clusters its plan
+   picks, its rows in shared memory, one launch and one fused fallback
+   each, no failure, exact against the plain version, and the kernel's
+   time beside the plain version's and the bound; forced onto one
+   cluster, the kernel's global-row instantiation, bit for bit the same;
 5. scale: two waves at 100k nodes (N=131072) with 1M allocs, kernel
    against plain; then the joint kernel's spread and everything waves
-   there, the same way;
+   there, the same way (the plan's clusters beside one);
 6. times: CUDA-event time of the kernel and of the plain version at the
    live shape, and the bound;
 7. B3, the lean full-width batch kernel, against its plain version on the
@@ -344,6 +347,7 @@ record goes to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import logging
@@ -370,6 +374,7 @@ from nomad_tpu_torch.ops.kernel import (
     build_kernel_in,
     neutral_planes,
     pad_steps,
+    place_taskgroup_topk,
     single_eval_stats,
     unpack_fused_wave,
 )
@@ -1119,12 +1124,54 @@ def joint_bound(wave, out) -> tuple:
     return ms, by, nbytes, ops
 
 
+@contextlib.contextmanager
+def forced_clusters(clusters: int):
+    """The joint kernel's plan forced to ``clusters`` clusters, laid out
+    as the plan lays them out (its rows in shared memory where they fit,
+    else its global-row instantiation)."""
+    real = ck.joint_clusters
+    ck.joint_clusters = (
+        lambda n, b, shuffle, ns, limit, most: ck.joint_layout(
+            n, b, shuffle, ns, limit, clusters))
+    try:
+        yield
+    finally:
+        ck.joint_clusters = real
+
+
+def joint_plan_of(wave, dev: torch.device):
+    return ck.joint_plan(dev, int(wave.kin.cap_cpu.shape[-1]), wave.b_pad,
+                         wave.features.with_shuffle,
+                         wave.features.n_spreads)
+
+
+def one_cluster_check(kernel, got, wave, ctx: str, reps: int) -> dict:
+    """The same wave forced onto one cluster: bit for bit the plan's
+    outputs (the error word 0 in both), and its CUDA-event ms."""
+    t, b = wave.t_pad, wave.b_pad
+    ck.raise_on_wave_error(got.packed.cpu().numpy(), t, b)
+    with forced_clusters(1):
+        one = kernel()
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(one, f), getattr(got, f))
+                   for f in one._fields)
+        check(same, f"{ctx}: one cluster's wave differs from the plan's")
+        kernel()
+        ms = cuda_ms(kernel, reps)
+        plan = joint_plan_of(wave, wave.kin.cap_cpu.device)
+    return {"one_cluster_ms": ms,
+            "one_cluster_us_per_active_step": ms * 1e3 / active_steps(wave),
+            "one_cluster_global_rows": plan.global_rows > 0}
+
+
 def joint_wave_check(kins, feats, wave, union, ctx: str,
                      reps: int = 10) -> dict:
     """The joint kernel against its plain version on one wave (exact:
     max abs error 0.0, no near-tie), then the kernel's CUDA-event ms over
-    ``reps`` launches beside the plain version's one call and the bound.
-    These launches are checks, not the main path."""
+    ``reps`` launches beside the plain version's one call and the bound,
+    with the plan's cluster count and where its rows live; then the same
+    wave forced onto one cluster (``one_cluster_check``). These launches
+    are checks, not the main path."""
     def kernel():
         return ck.joint_wave_place(wave.kin, wave.step_member,
                                    wave.step_local, wave.t_pad,
@@ -1142,10 +1189,13 @@ def joint_wave_check(kins, feats, wave, union, ctx: str,
     kernel()
     ms = cuda_ms(kernel, reps)
     bound_ms, bound_by, nbytes, ops = joint_bound(wave, got)
+    plan = joint_plan_of(wave, wave.kin.cap_cpu.device)
     res.update(union=union, n_pad=int(wave.kin.cap_cpu.shape[-1]), ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                bytes=nbytes, ops=ops, spread_steps=spread_steps(wave),
-               us_per_active_step=ms * 1e3 / res["active_steps"])
+               us_per_active_step=ms * 1e3 / res["active_steps"],
+               clusters=plan.clusters, rows_shared=plan.global_rows == 0,
+               **one_cluster_check(kernel, got, wave, ctx, reps))
     return res
 
 
@@ -1231,13 +1281,14 @@ CEILING_UNIONS = ("shuffle", "everything")
 
 
 def run_ceiling_waves(dev: torch.device, rng) -> list:
-    """Phase 4's waves over a node axis padded to N=524288, which neither
-    B1's cluster nor the joint kernel's holds in shared memory: each
-    through ``launch_wave`` (its counts set to 0 just before, read just
-    after: one joint launch of the global-row instantiation, one fused
-    fallback, no failure, no B1 launch), exact against the plain version;
-    then the kernel alone, timed beside the plain version and the
-    bound."""
+    """Phase 4's waves over a node axis padded to N=524288, which B1's
+    cluster does not hold in shared memory: each through ``launch_wave``
+    (its counts set to 0 just before, read just after: one joint launch
+    over the clusters the plan picks, its rows in shared memory, one
+    fused fallback, no failure, no B1 launch), exact against the plain
+    version; then the kernel alone, timed beside the plain version and
+    the bound, and forced onto one cluster: the global-row instantiation,
+    bit for bit the same."""
     big = c2m_cluster(CEILING_NODES, seed=SEED + 4)
     uc, um, ud, _ = c2m_pack_usage(big, CEILING_ALLOCS, seed=SEED + 4)
     bbase = base_kin(big, (uc, um, ud))
@@ -1248,9 +1299,11 @@ def run_ceiling_waves(dev: torch.device, rng) -> list:
         kins, feats, wave, _ = joint_wave(bbase, big, union, rng, dev)
         ctx = f"ceiling/{union}"
         shuffle = wave.features.with_shuffle
+        plan = joint_plan_of(wave, dev)
         check(not ck.fused_wave_fits(dev, big.n_pad, wave.b_pad, shuffle)
-              and ck.joint_rows_global(dev, big.n_pad, wave.b_pad, shuffle),
-              f"{ctx}: the wave fits a cluster's shared memory")
+              and plan.clusters > 1 and plan.global_rows == 0,
+              f"{ctx}: B1's cluster holds the wave, or the joint plan "
+              f"{plan} keeps its rows outside shared memory")
         fout, plain_ms = event_ms(lambda: ck.fused_wave_place_reference(
             wave.kin, wave.step_member, wave.step_local, wave.t_pad,
             wave.features))
@@ -1267,8 +1320,8 @@ def run_ceiling_waves(dev: torch.device, rng) -> list:
                     ck.joint_global_calls - g0)
         check(fstats == {"launches": 0, "fallbacks": 1, "failures": 0}
               and jstats == {"launches": 1, "sharded_launches": 0,
-                             "global_rows": 1, "torch_waves": 0}
-              and launched == (0, 1, 1),
+                             "global_rows": 0, "torch_waves": 0}
+              and launched == (0, 1, 0),
               f"{ctx}: fused {fstats}, joint {jstats}, B1 / joint / "
               f"global-row launches {launched}")
         res = compare_waves(got, want, ctx, exact=True)
@@ -1286,7 +1339,11 @@ def run_ceiling_waves(dev: torch.device, rng) -> list:
         res.update(union=union, n_pad=big.n_pad, launch_wave_ms=ms,
                    ms=kms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, bytes=nbytes, ops=ops,
-                   us_per_active_step=kms * 1e3 / active_steps(wave))
+                   us_per_active_step=kms * 1e3 / active_steps(wave),
+                   clusters=plan.clusters, rows_shared=True,
+                   **one_cluster_check(kernel, one, wave, ctx, 3))
+        check(res["one_cluster_global_rows"],
+              f"{ctx}: one cluster's wave kept its rows in shared memory")
         log(f"ceiling {union}: {json.dumps(res)}")
         out.append(res)
         del kins, wave, one
@@ -1313,20 +1370,27 @@ def joint_entry(joint: dict, scale: list) -> dict:
         "bound_by": spread["bound_by"],
         "library_ms": None,
         "cluster": ck.JOINT_CLUSTER,
+        # the plan's clusters of JOINT_CLUSTER CTAs, and each wave forced
+        # onto one cluster (the layout before the plan spread the rows)
+        "clusters": {f"{c['union']}@{c['n_pad']}": c["clusters"]
+                     for c in checks + scale + joint["ceiling"]},
+        "one_cluster_ms": {f"{c['union']}@{c['n_pad']}": c["one_cluster_ms"]
+                           for c in checks + scale + joint["ceiling"]},
         "union_ms": {c["union"]: c["ms"] for c in checks},
         "union_plain_ms": {c["union"]: c["plain_ms"] for c in checks},
         "union_bound_ms": {c["union"]: c["bound_ms"] for c in checks},
         "scale_ms": {c["union"]: c["ms"] for c in scale},
         "scale_plain_ms": {c["union"]: c["plain_ms"] for c in scale},
         "scale_bound_ms": {c["union"]: c["bound_ms"] for c in scale},
-        # N=524288: the global-row instantiation through launch_wave
-        "global_rows_ms": {c["union"]: c["ms"] for c in joint["ceiling"]},
-        "global_rows_plain_ms": {c["union"]: c["plain_ms"]
-                                 for c in joint["ceiling"]},
-        "global_rows_bound_ms": {c["union"]: c["bound_ms"]
-                                 for c in joint["ceiling"]},
-        "global_rows_launch_wave_ms": {c["union"]: c["launch_wave_ms"]
-                                       for c in joint["ceiling"]},
+        # N=524288 through launch_wave: the plan's clusters (one cluster's
+        # global-row instantiation under one_cluster_ms)
+        "ceiling_ms": {c["union"]: c["ms"] for c in joint["ceiling"]},
+        "ceiling_plain_ms": {c["union"]: c["plain_ms"]
+                             for c in joint["ceiling"]},
+        "ceiling_bound_ms": {c["union"]: c["bound_ms"]
+                             for c in joint["ceiling"]},
+        "ceiling_launch_wave_ms": {c["union"]: c["launch_wave_ms"]
+                                   for c in joint["ceiling"]},
     }
 
 
@@ -1729,6 +1793,23 @@ def new_evals(harness, rng, first: int, n: int):
     return jobs, evals
 
 
+def candidate_set_time(kin, k_steps: int, features,
+                       dev: torch.device) -> dict:
+    """The single eval's candidate set (``ops/kernel.place_taskgroup_topk``,
+    torch ops, the route ``default_kernel_launch`` takes first) on one
+    eval's planes on ``dev``: its CUDA-event ms over 10 calls beside its
+    bound, the bytes of the fused envelope's leaves its pass reads once
+    (``wave_bytes``' leaves for one eval)."""
+    one = _upload_kin(kin, dev)
+    place_taskgroup_topk(one, k_steps, features)
+    ms = cuda_ms(lambda: place_taskgroup_topk(one, k_steps, features), 10)
+    nbytes = sum(getattr(one, name).nbytes for name, _ in ck._LEAVES)
+    bound_ms, bound_by = bound(nbytes, 0)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "k_steps": k_steps,
+            "n": int(one.cap_cpu.shape[-1])}
+
+
 def run_sched_phase(dev: torch.device, record: dict) -> dict:
     """Phase 10: the C2M replay state in the port's store, then rounds of
     evals through ``new_scheduler`` with ``LaunchCoalescer.launch`` as the
@@ -1875,6 +1956,8 @@ def run_sched_phase(dev: torch.device, record: dict) -> dict:
           == SCHED_SINGLE, f"single-eval launches {single}")
     over = store_over_capacity(harness.state, coalesce.ClusterCache(dev))
     check(over == 0, f"single evals: {over} nodes over capacity")
+    candidate_set = candidate_set_time(*members[0][2:5], dev)
+    log(f"sched candidate set: {json.dumps(candidate_set)}")
 
     sched = {
         "nodes": SCHED_NODES, "allocs": n_allocs, "n_pad": cluster.n_pad,
@@ -1906,6 +1989,7 @@ def run_sched_phase(dev: torch.device, record: dict) -> dict:
         "single_eval_ms": float(np.mean(single_s)) * 1e3,
         "single_eval_ms_each": [x * 1e3 for x in single_s],
         "single_eval_stats": single,
+        "candidate_set": candidate_set,
         "b1_vs_plain": vs_plain,
     }
     log(f"sched: {json.dumps(sched)}")

@@ -1,5 +1,4 @@
-// The exchange between the cards of a sharded wave, shared by its two
-// kernels.
+// The exchange between the clusters of a wave, shared by three kernels.
 //
 // csrc/sharded_wave.cu (the fused sharded wave) and
 // csrc/joint_sharded_wave.cu (the joint sharded wave) run a wave over
@@ -9,7 +8,11 @@
 // stores, and the bounded wait on another card's tag) and the host side
 // (each mailbox zeroed on its card's stream and every card ordered after
 // the others' earlier work before the launches; every card's stream made
-// to wait on the end of every launched kernel after them). Each kernel
+// to wait on the end of every launched kernel after them).
+// csrc/joint_wave.cu runs one wave as several clusters on one card, which
+// trade each step's result through one mailbox in that card's memory: the
+// same tags and bounded wait at gpu scope (ld_acquire_gpu, st_release_gpu,
+// wait_tag_gpu), so no system-scope fence is paid on one card. Each kernel
 // keeps its own entry layout.
 
 #pragma once
@@ -38,6 +41,26 @@ __device__ __noinline__ bool wait_tag(const unsigned* tag, unsigned want,
   if (ld_acquire(tag) == want) return true;
   const unsigned long long t0 = now_ns();
   while (ld_acquire(tag) != want)
+    if (now_ns() - t0 > (unsigned long long)spin_ns) return false;
+  return true;
+}
+
+// The same at gpu scope: the clusters of one launch on one card.
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_gpu(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __noinline__ bool wait_tag_gpu(const unsigned* tag, unsigned want,
+                                          long long spin_ns) {
+  if (ld_acquire_gpu(tag) == want) return true;
+  const unsigned long long t0 = now_ns();
+  while (ld_acquire_gpu(tag) != want)
     if (now_ns() - t0 > (unsigned long long)spin_ns) return false;
   return true;
 }

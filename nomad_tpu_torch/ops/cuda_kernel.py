@@ -23,10 +23,11 @@ C entry point loaded with ctypes:
   union (spreads, devices, reserved cores, bandwidth), for the waves
   outside B1's envelope and for the waves too wide for B1's cluster
   (``fused_wave_fits``); ``joint_eval_place`` runs one eval through it as
-  ``place_taskgroup`` does. A wave whose node ranges do not fit its
-  shared memory runs its global-row instantiation
-  (``joint_rows_global``). Plain versions: ``fused_wave_place_reference``
-  and ``place_taskgroup``.
+  ``place_taskgroup`` does. One launch a wave of the clusters its plan
+  picks from the node axis and the card (``joint_clusters``); a wave
+  whose node ranges do not fit shared memory even then runs its
+  global-row instantiation (``joint_rows_global``). Plain versions:
+  ``fused_wave_place_reference`` and ``place_taskgroup``.
 - ``sharded_wave_place`` (``csrc/sharded_wave.cu``; the XLA program
   ``nomad_tpu/parallel/sharded.py`` ``_fused_sharded_core`` :291-505,
   under ``fused_sharded_entry`` :507): the fused wave over a mesh of node
@@ -397,9 +398,28 @@ def fused_wave_apply(kin: KernelIn, used_cpu: torch.Tensor,
 #: ``joint_eval_place`` (csrc/joint_wave.cu)
 joint_launches = 0
 
-#: CTAs in the cluster that runs one joint wave (CLUSTER in
-#: csrc/joint_wave.cu); it sizes each CTA's spread-count scratch
+#: CTAs in each cluster of a joint wave (CLUSTER in csrc/joint_wave.cu)
 JOINT_CLUSTER = 16
+#: the most clusters one joint wave spreads its node axis over
+#: (MAX_CLUSTERS in csrc/joint_wave.cu)
+JOINT_MAX_CLUSTERS = 8
+#: the rows a CTA of one cluster keeps before the joint wave takes every
+#: cluster the card holds: with no spread stanza (every step reads cached
+#: rows) and with one (a spread member re-derives its rows each step).
+#: Measured by nomad_tpu_torch/tools/joint_split.py on an NVIDIA H100 80GB
+#: HBM3 at 700 W, every union at N=16384-524288 over 1-7 clusters: on one
+#: cluster a step costs ~0.7 ns more a row a CTA on cached rows and ~1.6
+#: ns on spread rows; the exchange between clusters adds ~2 us a step.
+#: Seven clusters overtake one from ~4400 rows a CTA on cached waves (at
+#: 4096 one cluster is 2.4-5.6% faster) and from ~2000 on a wave of
+#: spread members (at 2048 the two tie); a count between one and the
+#: card's seven was never faster than seven by more than 1.5%.
+JOINT_ROWS_CACHED = 4096
+JOINT_ROWS_SPREAD = 2048
+
+#: how long a cluster waits on another's step (a card's on another card's
+#: in the sharded waves) before the wave fails
+SPIN_S = 5.0
 
 _F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
 #: every KernelIn leaf in its field order (csrc/joint_wave.cu ``JLeaf``),
@@ -518,12 +538,22 @@ def joint_wave_apply(kin: KernelIn, used_cpu: torch.Tensor,
                      step_member, step_local, t_steps: int,
                      features: KernelFeatures):
     """``fused_wave_apply`` through ``joint_wave_place``: the wave with
-    the given shared used planes, and NEW tensors ``used_* + a_*``."""
+    the given shared used planes, and NEW tensors ``used_* + a_*``. A
+    wave whose error word is set (``raise_on_wave_error``) commits
+    nothing: the new tensors are the given planes, chosen on the device
+    in stream order, so a wave queued behind it reads no partial
+    carries."""
     kin2 = kin._replace(used_cpu=used_cpu, used_mem=used_mem,
                         used_disk=used_disk)
     out = joint_wave_place(kin2, step_member, step_local, t_steps, features)
-    return (out, used_cpu + out.a_cpu, used_mem + out.a_mem,
-            used_disk + out.a_disk)
+    n = fused_pack_len(t_steps, int(kin.n_steps.shape[0]))
+    if out.packed.shape[0] == n:   # the plain version: no error word
+        return (out, used_cpu + out.a_cpu, used_mem + out.a_mem,
+                used_disk + out.a_disk)
+    ok = out.packed[n] == 0
+    return (out, torch.where(ok, used_cpu + out.a_cpu, used_cpu),
+            torch.where(ok, used_mem + out.a_mem, used_mem),
+            torch.where(ok, used_disk + out.a_disk, used_disk))
 
 
 def wave_kernel_out(got: FusedWaveOut, k_steps: int) -> KernelOut:
@@ -559,70 +589,139 @@ def joint_eval_place(kin: KernelIn, k_steps: int,
     sm = torch.zeros(k_steps, dtype=torch.int32, device=dev)
     sl = torch.arange(k_steps, dtype=torch.int32, device=dev)
     got = _joint_launch(one, sm, sl, k_steps, features, single=True)
+    if joint_plan(dev, int(kin.cap_cpu.shape[-1]), 1, features.with_shuffle,
+                  int(features.n_spreads)).clusters > 1:
+        # only waits between clusters can set the error word
+        raise_on_wave_error(got.packed.cpu().numpy(), k_steps, 1)
     return wave_kernel_out(got, k_steps)
 
 
-_JOINT_PLANS: dict = {}   # (device, n, b, shuffle) -> joint_wave_plan
+def _joint_mail(clusters: int, b: int) -> int:
+    """The joint wave's mailbox (``joint_mail_bytes``): each cluster's
+    step entry by parity (96 B), then a tag, an error flag and the metric
+    partial sums a cluster."""
+    return 2 * clusters * 96 + 4 * clusters * (2 + len(FUSED_METRIC_FIELDS)
+                                               * b)
 
 
-def _joint_plan(dev: torch.device, n: int, b: int, shuffle: bool) -> tuple:
-    """``joint_wave_plan`` on the card, once per shape: (cluster, shared
-    memory with the rows in shared memory, the most a block may take,
-    clusters the card holds at once, global-row scratch bytes; 0: the
-    rows fit shared memory)."""
-    key = (dev.index, n, b, bool(shuffle))
-    plan = _JOINT_PLANS.get(key)
-    if plan is None:
+def _joint_cta_rows(n: int, clusters: int, shuffle: bool, ns: int) -> int:
+    """A CTA's rows (``joint_cta_rows``): its node range rounded to four,
+    13 B a node with shuffle (9 without) and a bucket byte a stanza."""
+    ctas = clusters * JOINT_CLUSTER
+    c4 = (-(-n // ctas) + 3) & ~3
+    return c4 * 4 * (2 + int(bool(shuffle))) + c4 * (1 + ns)
+
+
+class JointPlan(NamedTuple):
+    """How one joint wave runs (``joint_clusters``)."""
+
+    clusters: int      # clusters of JOINT_CLUSTER CTAs over the node axis
+    smem: int          # dynamic shared memory a CTA takes
+    global_rows: int   # the global-row scratch (0: rows in shared memory)
+    spc: int           # f32 spread-count scratch (0: no stanza)
+    mail: int          # the clusters' mailbox (0: one cluster)
+
+
+def joint_layout(n: int, b: int, shuffle: bool, ns: int, limit: int,
+                 clusters: int) -> JointPlan:
+    """The joint wave's layout on ``clusters`` clusters: its CTAs' rows in
+    shared memory where a CTA's range fits the ``limit`` a block may take,
+    else in a global scratch (``kGlobal``); the scratch a CTA, the
+    spread-count swap and the mailbox scale with clusters x 16.
+
+    Mirrors csrc/joint_wave.cu's ``joint_wave_layout``: the plan must say
+    where the rows live and what the scratch takes without a card, so the
+    CPU tests (tests/test_torch_joint_plan.py) hold it over every width;
+    ``test_cuda_joint_layout_mirrors_the_kernel`` holds this copy to the
+    C side's."""
+    member = b * (len(FUSED_METRIC_FIELDS) + 1) * 4
+    rows = _joint_cta_rows(n, clusters, shuffle, ns)
+    smem, global_rows = rows + member, 0
+    if smem > limit:
+        smem = member
+        global_rows = clusters * JOINT_CLUSTER * ((rows + 15) & ~15)
+        if smem > limit:
+            raise RuntimeError(f"a joint wave of B={b} takes {smem} B of "
+                               f"shared memory a CTA; the card gives "
+                               f"{limit} B")
+    spc = (clusters * JOINT_CLUSTER * b * MAX_SPREADS * SPREAD_BUCKETS
+           if ns else 0)
+    return JointPlan(clusters, smem, global_rows, spc,
+                     _joint_mail(clusters, b) if clusters > 1 else 0)
+
+
+def joint_clusters(n: int, b: int, shuffle: bool, ns: int, limit: int,
+                   max_clusters: int) -> JointPlan:
+    """The joint wave's plan from its widths and the card's figures (the
+    shared memory a block may take, the clusters it holds at once): one
+    cluster while its CTAs' ranges stay at or under ``JOINT_ROWS_CACHED``
+    rows (``JOINT_ROWS_SPREAD`` with a spread stanza), so to N=65536
+    (N=32768) and the live width, N=16384; past that every cluster the
+    card holds at once, at most ``JOINT_MAX_CLUSTERS``. Then
+    ``joint_layout``'s rows: in shared memory wherever those clusters
+    hold them, past that in the global scratch."""
+    if n >= 1 << 24:
+        raise ValueError("node ids are packed as f32: N must stay below 2**24")
+    cap = min(max_clusters, JOINT_MAX_CLUSTERS)
+    if cap < 1:
+        raise RuntimeError(f"the card holds no cluster of {JOINT_CLUSTER} "
+                           f"CTAs of the joint wave")
+    rows = JOINT_ROWS_SPREAD if ns else JOINT_ROWS_CACHED
+    one = -(-n // JOINT_CLUSTER) <= rows
+    return joint_layout(n, b, shuffle, ns, limit, 1 if one else cap)
+
+
+_JOINT_CARDS: dict = {}   # device index -> (limit, clusters)
+
+
+def _joint_card(dev: torch.device) -> tuple:
+    """``joint_wave_plan`` on the card, once per device: (the shared
+    memory a block may take, the clusters it holds at once)."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    card = _JOINT_CARDS.get(key)
+    if card is None:
         load_library("joint_wave")
         lib = _LIBS["joint_wave"][2]
-        out = (ctypes.c_int * 5)()
+        out = (ctypes.c_int * 4)()
         with torch.cuda.device(dev):
-            err = lib.joint_wave_plan(
-                ctypes.c_int(n), ctypes.c_int(b), ctypes.c_int(int(shuffle)),
-                out)
+            err = lib.joint_wave_plan(out)
         if err != 0:
             raise RuntimeError(f"joint_wave_plan failed: cudaError {err}")
-        if out[0] != JOINT_CLUSTER:
-            raise RuntimeError(f"csrc/joint_wave.cu runs clusters of "
-                               f"{out[0]} CTAs; JOINT_CLUSTER says "
-                               f"{JOINT_CLUSTER}")
-        plan = _JOINT_PLANS[key] = tuple(out)
-    return plan
+        if (out[0], out[3]) != (JOINT_CLUSTER, JOINT_MAX_CLUSTERS):
+            raise RuntimeError(f"csrc/joint_wave.cu runs clusters of {out[0]} "
+                               f"CTAs, at most {out[3]}; the wrapper says "
+                               f"{JOINT_CLUSTER}, {JOINT_MAX_CLUSTERS}")
+        card = _JOINT_CARDS[key] = (out[1], out[2])
+    return card
 
 
-def _check_joint_fits(dev: torch.device, n: int, b: int,
-                      shuffle: bool) -> int:
-    """The global-row scratch the wave needs (0: its CTAs keep their
-    ranges' rows in shared memory); raise unless the card runs the
-    instantiation the wave takes."""
-    cluster, smem, limit, clusters, rows = _joint_plan(dev, n, b, shuffle)
-    if clusters == 0:
-        raise RuntimeError(
-            f"the card runs no cluster of {cluster} CTAs of the joint wave "
-            f"at N={n}, B={b} ({smem} B of shared memory with the rows in "
-            f"it, {limit} B a block may take)")
-    return rows
+def joint_plan(dev: torch.device, n: int, b: int, shuffle: bool,
+               ns: int) -> JointPlan:
+    """The plan of a joint wave on card ``dev`` (``joint_clusters`` on
+    the card's figures)."""
+    return joint_clusters(n, b, shuffle, ns, *_joint_card(dev))
 
 
 def fused_wave_fits(dev: torch.device, n: int, b: int,
                     shuffle: bool) -> bool:
     """Whether B1's cluster holds a wave of ``n`` nodes and ``b`` members
     in shared memory, by its plan on the card. A wave that does not fit
-    runs the joint kernel, whose plan then takes its global-row
-    instantiation (``joint_rows_global``). CPU tensors run the plain
-    versions, which hold any width: B1's route."""
+    runs the joint kernel, whose plan spreads it over several clusters
+    (``joint_plan``). CPU tensors run the plain versions, which hold any
+    width: B1's route."""
     if dev.type != "cuda":
         return True
     _, smem, limit, _ = _fused_plan(dev, n, b, shuffle)
     return smem <= limit
 
 
-def joint_rows_global(dev: torch.device, n: int, b: int,
-                      shuffle: bool) -> bool:
+def joint_rows_global(dev: torch.device, n: int, b: int, shuffle: bool,
+                      ns: int) -> bool:
     """Whether the joint kernel keeps a wave's rows in its global-row
-    scratch (its CTAs' ranges do not fit shared memory), by its plan on
-    the card; never on CPU tensors."""
-    return dev.type == "cuda" and _joint_plan(dev, n, b, shuffle)[4] > 0
+    scratch (its CTAs' ranges do not fit shared memory even over the
+    plan's clusters); never on CPU tensors."""
+    return (dev.type == "cuda"
+            and joint_plan(dev, n, b, shuffle, ns).global_rows > 0)
 
 
 #: launches of the joint kernel's global-row instantiation (a wave or a
@@ -631,8 +730,24 @@ def joint_rows_global(dev: torch.device, n: int, b: int,
 joint_global_calls = 0
 
 
+class _JointLaunch(ctypes.Structure):
+    """Mirror of ``struct JLaunch`` in csrc/joint_wave.cu."""
+
+    _fields_ = [
+        ("a", _JointArgs),
+        ("mail", ctypes.c_void_p),
+        ("spin_ns", ctypes.c_int64),
+        ("clusters", ctypes.c_int),
+        ("absent", ctypes.c_int),
+    ]
+
+
 def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
                   f: KernelFeatures, single: bool = False) -> FusedWaveOut:
+    """One launch of csrc/joint_wave.cu over the plan's clusters. The
+    packed buffer carries one error word after ``pack_fused_wave``'s
+    layout (``raise_on_wave_error``): the clusters whose waits on another
+    cluster ran past ``SPIN_S``."""
     global joint_launches, joint_global_calls
     dev = kin.cap_cpu.device
     b = int(kin.n_steps.shape[0])
@@ -649,11 +764,12 @@ def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
     sl = torch.as_tensor(step_local, dtype=torch.int32, device=dev)
     if sm.shape != (t_steps,) or sl.shape != (t_steps,):
         raise ValueError("step_member/step_local must be i32[t_steps]")
-    args = _JointArgs()
+    w = _JointLaunch()
+    args = w.a
     for slot, stride in enumerate(_joint_strides(kin, b, n, n, k)):
         args.stride[slot] = stride
         args.leaf[slot] = getattr(kin, _JOINT_LEAVES[slot][0]).data_ptr()
-    rows = _check_joint_fits(dev, n, b, f.with_shuffle)
+    plan = joint_plan(dev, n, b, f.with_shuffle, ns)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -662,7 +778,8 @@ def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
         return torch.empty(shape, dtype=torch.int32, device=dev)
 
     out = FusedWaveOut(
-        packed=f32(fused_pack_len(t_steps, b)),
+        # the packed layout, then the error word (raise_on_wave_error)
+        packed=f32(fused_pack_len(t_steps, b) + 1),
         topk_idx=i32(t_steps, TOPK), topk_scores=f32(t_steps, TOPK),
         a_cpu=f32(n), a_mem=f32(n), a_disk=f32(n))
     scratch = dict(
@@ -674,13 +791,15 @@ def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
         jac=i32(b, n) if f.with_distinct else i32(1),
         pc=(torch.empty((b, n), dtype=torch.bool, device=dev)
             if f.with_ports else i32(1)),
-        spc=f32(JOINT_CLUSTER * b * MAX_SPREADS * SPREAD_BUCKETS
-                if ns else 1),
+        spc=f32(max(plan.spc, 1)),
     )
-    if rows:
+    if plan.global_rows:
         # the global-row instantiation: every CTA's range of row keys,
-        # ranks, partial sums and counts (13 B a node with shuffle)
-        scratch["rows"] = torch.empty(rows, dtype=torch.uint8, device=dev)
+        # ranks, partial sums, counts and buckets
+        scratch["rows"] = torch.empty(plan.global_rows, dtype=torch.uint8,
+                                      device=dev)
+    mail = (torch.empty(plan.mail, dtype=torch.uint8, device=dev)
+            if plan.mail else None)
     args.step_member = sm.data_ptr()
     args.step_local = sl.data_ptr()
     for name in FusedWaveOut._fields:
@@ -696,11 +815,15 @@ def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
     args.with_step_pen = int(f.with_step_penalties)
     args.with_pref = int(f.with_preferred)
     args.single = int(single)
+    w.mail = mail.data_ptr() if mail is not None else None
+    w.spin_ns = int(SPIN_S * 1e9)
+    w.clusters = plan.clusters
+    w.absent = -1
 
-    _call("joint_wave", args, dev, "joint_wave_kernel")
+    _call("joint_wave", w, dev, "joint_wave_kernel")
     with _LAUNCH_LOCK:
         joint_launches += 1
-        joint_global_calls += int(rows > 0)
+        joint_global_calls += int(plan.global_rows > 0)
     return out
 
 
@@ -720,8 +843,6 @@ SHARDED_CLUSTER = 16
 #: MAX_SHARDS)
 MAX_SHARDED_CARDS = 8
 MAX_POSITIONS = 64
-#: how long a card waits on another card's step before the wave fails
-SPIN_S = 5.0
 _ENTRY_BYTES = 96         # sizeof(Entry): one card's result for one step
 
 #: the node planes the kernel reads at the shard's own rows
@@ -902,17 +1023,19 @@ def sharded_kernel_launches() -> int:
 
 
 def raise_on_wave_error(packed, t_steps: int, b: int) -> None:
-    """Raise where a sharded wave's packed buffer, read back, carries a
-    set error word after ``pack_fused_wave``'s layout: the mask of the
-    cards where a wait on another card's step ran past ``SPIN_S``. Other
+    """Raise where a wave's packed buffer, read back, carries a set error
+    word after ``pack_fused_wave``'s layout: the mask of the cards (a
+    sharded wave) or of the clusters on one card (a joint wave) where a
+    wait on another one's step ran past ``SPIN_S``. The plain versions'
     packed buffers have no such word."""
     n = fused_pack_len(t_steps, b)
     if len(packed) > n and packed[n] != 0:
-        cards = [c for c in range(MAX_SHARDED_CARDS)
-                 if int(packed[n]) >> c & 1]
+        word = int(packed[n])
+        at = [c for c in range(32) if word >> c & 1]
         raise RuntimeError(
-            f"sharded wave failed: a wait on another card's step ran past "
-            f"{SPIN_S} s (cards {cards})")
+            f"wave failed: a wait on another card's or cluster's step ran "
+            f"past {SPIN_S} s (cards {at} of a sharded wave; of a joint "
+            f"wave on one card, its clusters)")
 
 
 def wave_active_steps(step_member, step_local, n_steps, t_steps: int,

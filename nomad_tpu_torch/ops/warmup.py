@@ -402,10 +402,17 @@ def _warm_fused(e: Dict, dev: torch.device) -> bool:
 
 def _warm_joint(e: Dict, dev: torch.device) -> bool:
     """The joint kernel (csrc/joint_wave.cu; on the CPU its plain version)
-    for a joint entry that B1 does not take, as ``launch_wave`` runs it."""
-    from nomad_tpu_torch.ops.cuda_kernel import joint_wave_place
+    for a joint entry that B1 does not take, as ``launch_wave`` runs it:
+    its error word read back and raised on."""
+    from nomad_tpu_torch.ops import cuda_kernel as ck
 
-    return _warm_wave("joint", joint_wave_place, e, dev)
+    def place(kin, sm, sl, t_pad, feats):
+        out = ck.joint_wave_place(kin, sm, sl, t_pad, feats)
+        ck.raise_on_wave_error(out.packed.cpu().numpy(), t_pad,
+                               int(kin.n_steps.shape[0]))
+        return out
+
+    return _warm_wave("joint", place, e, dev)
 
 
 def _warm_sharded(kernel: str, e: Dict, mesh, fused: bool) -> bool:

@@ -41,8 +41,11 @@ the card, the hand kernel ``csrc/joint_sharded_wave.cu``, any union and
 any shard width), counted as a fused fallback. On one device a wave whose
 union leaves the fused envelope, or whose node axis B1's cluster does not
 hold in shared memory (``fused_wave_fits``), runs the joint kernel
-(``csrc/joint_wave.cu``, any union; its global-row instantiation past its
-own shared memory), counted as a fused fallback, the reference's meaning,
+(``csrc/joint_wave.cu``, any union; one launch of the clusters its plan
+picks for the node axis, ``cuda_kernel.joint_plan``, and its global-row
+instantiation past what they hold in shared memory; a wait between its
+clusters past the bound raises through its error word), counted as a
+fused fallback, the reference's meaning,
 and in ``joint_wave_stats``. ``configure_fused_wave(False)`` sends every
 wave to the joint kernel, or to the joint sharded kernel, uncounted as
 fallbacks.
@@ -766,7 +769,9 @@ def assemble_sharded_wave(kins: List[KernelIn], k_steps: List[int],
 def _dispatch(stacked, sm, sl, t_pad, feats, resident, fused):
     """B1 when ``fused`` (the union fits its envelope), else the joint
     kernel (on CPU tensors, each its plain version). With ``resident`` the
-    wave reads its used planes and commits ``used + a_*`` back into it."""
+    wave reads its used planes and commits ``used + a_*`` back into it (a
+    joint wave whose error word is set commits nothing, so the failure
+    ``launch_wave`` raises leaves the planes as they were)."""
     if resident is None:
         place = fused_wave_place if fused else joint_wave_place
         return place(stacked, sm, sl, t_pad, feats)
@@ -893,7 +898,8 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
             with tracer.span("kernel.d2h"):
                 packed = fout.packed.cpu().numpy()
             profiler.add_bytes("d2h", packed.nbytes)
-            # a sharded wave's error word comes back with the outputs
+            # a sharded or joint wave's error word comes back with the
+            # outputs
             raise_on_wave_error(packed, t_pad, b_pad)
         except BaseException:
             fused_wave_stats.note_failure()
@@ -909,7 +915,7 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
         joint_wave_stats.note(
             kernel=root.type == "cuda", sharded=sharded,
             global_rows=not sharded and joint_rows_global(
-                dev, n_nodes, b_pad, feats.with_shuffle))
+                dev, n_nodes, b_pad, feats.with_shuffle, feats.n_spreads))
         if want_fused:
             fused_wave_stats.note_fallback()
     elapsed = time.perf_counter() - t_launch

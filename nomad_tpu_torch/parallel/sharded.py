@@ -990,6 +990,8 @@ def _launch_rows(row_shards: list, feats: list, b_loc: int,
                 place = fused_wave_place if fused else joint_wave_place
                 got = place(one[0], *sm_sl, k_steps, f)
                 place_batch_stats.note(fused=int(fused), joint=int(not fused))
+                if not fused and got.packed.device.type == "cuda":
+                    errs.append(got.packed)
             else:
                 place = (sharded_wave_place if fused
                          else joint_sharded_wave_place)
@@ -1003,8 +1005,8 @@ def _launch_rows(row_shards: list, feats: list, b_loc: int,
 
 
 def _raise_on_errors(errs: list, k_steps: int, root: torch.device) -> None:
-    """Read every sharded call's error word in one readback; raise on the
-    first set one (``raise_on_wave_error``)."""
+    """Read every sharded or joint call's error word in one readback;
+    raise on the first set one (``raise_on_wave_error``)."""
     if not errs:
         return
     at = fused_pack_len(k_steps, 1)

@@ -175,6 +175,42 @@ def stack_wave(kins, k=K):
     return stacked, step_member, step_local, t_pad
 
 
+#: node axes (real nodes, padded width) that no cluster count's CTA ranges
+#: divide evenly: N is not a multiple of C x 16 x 4, and with eight
+#: clusters some CTAs hold no row at all
+BOUNDARY_WIDTHS = ((997, 1000), (3000, 3001))
+#: the cluster counts the boundary waves are laid out for
+BOUNDARY_CLUSTERS = (1, 2, 4, 8)
+
+
+def boundary_wave(clusters, n_nodes, n_pad, lib="ref", seed=60):
+    """The everything wave over ``n_pad`` nodes laid out for ``clusters``
+    clusters of 16 CTAs (the joint kernel's ranges of ceil(N / (16 C))
+    nodes): every member's pin and penalty nodes in the last range that
+    holds real nodes, and stanza 0's buckets runs of nodes that straddle
+    the ranges' edges. ``(kins, features)``."""
+    kins, feats = wave_members(seed, "everything", n_nodes, lib=lib,
+                               n_pad=n_pad)
+    chunk = -(-n_pad // (clusters * 16))
+    tail = np.arange(((n_nodes - 1) // chunk) * chunk, n_nodes)
+    run = chunk // 2 + 3
+    nodes = np.arange(n_pad)
+    bucket = np.where(nodes < n_nodes, (nodes // run) % 128, -1)
+    out = []
+    for i, kin in enumerate(kins):
+        pen = np.full_like(np.asarray(kin.step_penalty), -1)
+        pen[0, 0] = tail[0]
+        pen[1, 0] = tail[-1]
+        pen[2, :2] = tail[-2:]
+        pref = np.full_like(np.asarray(kin.step_preferred), -1)
+        pref[i % K] = tail[-1]
+        sb = np.array(kin.spread_bucket)
+        sb[0] = bucket
+        out.append(kin._replace(step_penalty=pen, step_preferred=pref,
+                                spread_bucket=sb.astype(np.int32)))
+    return out, feats
+
+
 #: waves built around what the fused kernel's incremental design leans
 #: on: a member's cached score row must see the members before it, a step
 #: penalty or a pin must override the cached value, tied scores must keep

@@ -190,9 +190,9 @@ def test_cuda_wrapper_raises_when_row_does_not_fit(cuda_device):
     """Each of B1's CTAs keeps its node range's scores and ranks in shared
     memory: 2**19 nodes over one cluster do not fit, and B1's wrapper says
     so before launching. ``launch_wave`` sends such a wave (~300k real
-    nodes, padded to 524288) to the joint kernel's global-row
-    instantiation instead, counted as a fused fallback: exact against the
-    plain version, no failure."""
+    nodes, padded to 524288) to the joint kernel instead, over the
+    clusters its plan picks with its rows in shared memory, counted as a
+    fused fallback: exact against the plain version, no failure."""
     assert ck.fused_wave_cluster_size() == 16
     kins, feats = tp.wave_members(25, "shuffle", 300_000, lib="port",
                                   n_pad=1 << 19)
@@ -203,18 +203,19 @@ def test_cuda_wrapper_raises_when_row_does_not_fit(cuda_device):
         ck.fused_wave_place(kin, sm, sl, t_pad, feats)
     assert ck.launches == before
     assert not ck.fused_wave_fits(cuda_device, 1 << 19, tp.B, True)
-    assert ck.joint_rows_global(cuda_device, 1 << 19, tp.B, True)
+    assert not ck.joint_rows_global(cuda_device, 1 << 19, tp.B, True, 0)
+    assert ck.joint_plan(cuda_device, 1 << 19, tp.B, True, 0).clusters > 1
     pc.fused_wave_stats.reset()
     pc.joint_wave_stats.reset()
     j0, g0 = ck.joint_launches, ck.joint_global_calls
     got = pc.launch_wave(kins, [tp.K] * tp.B, [feats] * tp.B,
                          device=cuda_device)
     assert (ck.launches, ck.joint_launches - j0,
-            ck.joint_global_calls - g0) == (before, 1, 1)
+            ck.joint_global_calls - g0) == (before, 1, 0)
     assert pc.fused_wave_stats.snapshot() == {
         "launches": 0, "fallbacks": 1, "failures": 0}
     assert pc.joint_wave_stats.snapshot() == {
-        "launches": 1, "sharded_launches": 0, "global_rows": 1,
+        "launches": 1, "sharded_launches": 0, "global_rows": 0,
         "torch_waves": 0}
     want = ck.fused_wave_place_reference(kin, sm, sl, t_pad, feats)
     g = tk.unpack_fused_wave(want.packed.cpu().numpy(), t_pad, tp.B)
@@ -1529,38 +1530,272 @@ def test_cuda_joint_failure_raises_instead_of_torch_ops(cuda_device,
     assert not plain
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("variant", ["spread", "everything"])
-def test_cuda_joint_wrapper_raises_when_row_does_not_fit(variant,
-                                                         cuda_device):
-    """2**19 nodes with spreads and shuffle over one cluster do not fit a
-    CTA's shared memory: the wrapper runs the kernel's global-row
-    instantiation (each CTA's keys, sums, counts and ranks in a global
-    scratch), bit for bit the plain version, members interleaved so each
-    one's counts leave and come back; one full-width single eval too."""
-    kins, feats = tp.wave_members(27, variant, 300_000, lib="port",
-                                  n_pad=1 << 19)
-    stacked, _, _, _ = tp.stack_wave(kins)
+def _force_clusters(monkeypatch, dev, clusters):
+    """Force the joint plan to ``clusters`` clusters ("max": every
+    cluster the card holds at once, at most the kernel's most), laid out
+    as the plan lays them out; returns the count."""
+    if clusters == "max":
+        clusters = min(ck._joint_card(dev)[1], ck.JOINT_MAX_CLUSTERS)
+    monkeypatch.setattr(
+        ck, "joint_clusters",
+        lambda n, b, shuffle, ns, limit, most: ck.joint_layout(
+            n, b, shuffle, ns, limit, clusters))
+    return clusters
+
+
+def _interleaved(b=tp.B, k=tp.K):
+    """Members' steps interleaved, so each one's counts leave and come
+    back."""
     order = np.array([0, 1, 0, 2, 1, 3, 0, 3, 2, 1, 3, 2, 0, 1, 2, 3],
                      np.int32)
     local = np.zeros_like(order)
-    for m in range(tp.B):
-        local[order == m] = np.arange(tp.K)
+    for m in range(b):
+        local[order == m] = np.arange(k)
+    return order, local
+
+
+def _assert_same(got, want):
+    """Two kernel runs' outputs equal bit for bit, the error word 0."""
+    for name in got._fields:
+        g, w = getattr(got, name), getattr(want, name)
+        assert torch.equal(g, w), name
+    assert float(got.packed[-1]) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["spread", "everything"])
+def test_cuda_joint_wrapper_raises_when_row_does_not_fit(variant,
+                                                         cuda_device,
+                                                         monkeypatch):
+    """2**19 nodes with spreads and shuffle do not fit one cluster's
+    shared memory: the plan spreads them over the clusters the card holds
+    (each CTA's keys, sums, counts, buckets and ranks in its shared
+    memory), bit for bit the plain version, members interleaved so each
+    one's counts leave and come back; one full-width single eval too.
+    Forced to one cluster, the kernel's global-row instantiation (the
+    same rows in a global scratch) gives the same bits."""
+    kins, feats = tp.wave_members(27, variant, 300_000, lib="port",
+                                  n_pad=1 << 19)
+    stacked, _, _, _ = tp.stack_wave(kins)
+    order, local = _interleaved()
     kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    plan = ck.joint_plan(cuda_device, 1 << 19, tp.B, True, feats.n_spreads)
+    assert plan.clusters == min(ck._joint_card(cuda_device)[1],
+                                ck.JOINT_MAX_CLUSTERS) > 1
+    assert plan.global_rows == 0
     before = (ck.joint_launches, ck.joint_global_calls)
     got = ck.joint_wave_place(kin, order, local, len(order), feats)
     assert (ck.joint_launches, ck.joint_global_calls) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 1, before[1])
     want = ck.fused_wave_place_reference(kin, order, local, len(order),
                                          feats)
     torch.cuda.synchronize()
     g = _assert_fused(got, want, len(order), tp.B, atol=0.0)
     assert g["found"].any()
     one = kernel_in_from_numpy(kins[0], device=cuda_device)
+    single = ck.joint_eval_place(one, tp.K, feats)
+    _assert_single(single, tk.place_taskgroup(one, tp.K, feats))
+    _force_clusters(monkeypatch, cuda_device, 1)
+    assert ck.joint_rows_global(cuda_device, 1 << 19, tp.B, True,
+                                feats.n_spreads)
     calls = ck.joint_global_calls
-    _assert_single(ck.joint_eval_place(one, tp.K, feats),
-                   tk.place_taskgroup(one, tp.K, feats))
-    assert ck.joint_global_calls == calls + 1
+    _assert_same(ck.joint_wave_place(kin, order, local, len(order), feats),
+                 got)
+    _assert_single(ck.joint_eval_place(one, tp.K, feats), single)
+    assert ck.joint_global_calls == calls + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clusters", [2, 4, "max"])
+@pytest.mark.parametrize("variant,n_nodes",
+                         tp.JOINT_VARIANTS + tp.FUSED_VARIANTS,
+                         ids=[v for v, _ in tp.JOINT_VARIANTS
+                              + tp.FUSED_VARIANTS])
+def test_cuda_joint_clusters_match_one_cluster(variant, n_nodes, clusters,
+                                               cuda_device, monkeypatch):
+    """The wave over several clusters on one card (each step's result,
+    pin and buckets traded through the mailbox): one launch, bit for bit
+    the one-cluster wave and the plain version, the error word 0."""
+    kins, feats = tp.wave_members(8, variant, n_nodes, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    one = ck.joint_wave_place(kin, sm, sl, t_pad, feats)
+    c = _force_clusters(monkeypatch, cuda_device, clusters)
+    assert ck.joint_plan(cuda_device, kin.cap_cpu.shape[-1], tp.B,
+                         feats.with_shuffle, feats.n_spreads).clusters == c
+    before = ck.joint_launches
+    got = ck.joint_wave_place(kin, sm, sl, t_pad, feats)
+    assert ck.joint_launches == before + 1
+    want = ck.fused_wave_place_reference(kin, sm, sl, t_pad, feats)
+    torch.cuda.synchronize()
+    _assert_same(got, one)
+    g = _assert_fused(got, want, t_pad, tp.B, atol=0.0)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clusters", [2, 4, "max"])
+@pytest.mark.parametrize("mode", ["interleaved", "idle", "no_topk",
+                                  "single"])
+def test_cuda_joint_clusters_step_orders(mode, clusters, cuda_device,
+                                         monkeypatch):
+    """The everything wave over several clusters with members'
+    steps interleaved, with idle steps (padding members and local steps
+    past a member's count), without top-k, and one eval's ``single``
+    carries: bit for bit one cluster's and the plain version's."""
+    kins, feats = tp.wave_members(33, "everything", 2100, lib="port",
+                                  n_pad=16384)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    if mode == "interleaved":
+        sm, sl = _interleaved()
+        t_pad = len(sm)
+    elif mode == "idle":
+        sm, sl = sm.copy(), sl.copy()
+        sm[1::5] = -1
+        sl[2::7] = tp.K + 3
+    elif mode == "no_topk":
+        feats = feats._replace(with_topk=False)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    if mode == "single":
+        one = kernel_in_from_numpy(kins[1], device=cuda_device)
+        base = ck.joint_eval_place(one, tp.K, feats)
+        _force_clusters(monkeypatch, cuda_device, clusters)
+        got = ck.joint_eval_place(one, tp.K, feats)
+        _assert_single(got, base)
+        _assert_single(got, tk.place_taskgroup(one, tp.K, feats))
+        return
+    base = ck.joint_wave_place(kin, sm, sl, t_pad, feats)
+    _force_clusters(monkeypatch, cuda_device, clusters)
+    got = ck.joint_wave_place(kin, sm, sl, t_pad, feats)
+    want = ck.fused_wave_place_reference(kin, sm, sl, t_pad, feats)
+    torch.cuda.synchronize()
+    _assert_same(got, base)
+    _assert_fused(got, want, t_pad, tp.B, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clusters", tp.BOUNDARY_CLUSTERS)
+@pytest.mark.parametrize("n_nodes,n_pad", tp.BOUNDARY_WIDTHS,
+                         ids=[f"n{n}" for _, n in tp.BOUNDARY_WIDTHS])
+def test_cuda_joint_clusters_at_range_edges(n_nodes, n_pad, clusters,
+                                            cuda_device, monkeypatch):
+    """The waves laid out at a cluster count's CTA ranges (no range count
+    divides the width, the pin and penalty nodes in the last range,
+    buckets across the ranges' edges), over that many clusters (at most
+    the card's): bit for bit one cluster's and the plain version's."""
+    kins, feats = tp.boundary_wave(clusters, n_nodes, n_pad, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    base = ck.joint_wave_place(kin, sm, sl, t_pad, feats)
+    _force_clusters(monkeypatch, cuda_device,
+                    min(clusters, ck._joint_card(cuda_device)[1]))
+    got = ck.joint_wave_place(kin, sm, sl, t_pad, feats)
+    want = ck.fused_wave_place_reference(kin, sm, sl, t_pad, feats)
+    torch.cuda.synchronize()
+    _assert_same(got, base)
+    assert _assert_fused(got, want, t_pad, tp.B, atol=0.0)["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clusters", [2, "max"])
+def test_cuda_joint_global_rows_over_clusters(clusters, cuda_device,
+                                              monkeypatch):
+    """The global-row instantiation over several clusters: a layout whose
+    shared-memory limit holds only the members' sums puts every CTA's rows
+    in the global scratch. The everything wave with members interleaved
+    and one eval's ``single`` carries: bit for bit one cluster's
+    shared-memory run and the plain version."""
+    kins, feats = tp.wave_members(33, "everything", 2100, lib="port",
+                                  n_pad=16384)
+    stacked, _, _, _ = tp.stack_wave(kins)
+    order, local = _interleaved()
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    one = kernel_in_from_numpy(kins[1], device=cuda_device)
+    base = ck.joint_wave_place(kin, order, local, len(order), feats)
+    base_single = ck.joint_eval_place(one, tp.K, feats)
+    if clusters == "max":
+        clusters = min(ck._joint_card(cuda_device)[1], ck.JOINT_MAX_CLUSTERS)
+
+    def layout(n, b, shuffle, ns, limit, most):
+        member = b * (len(ck.FUSED_METRIC_FIELDS) + 1) * 4
+        return ck.joint_layout(n, b, shuffle, ns, member, clusters)
+
+    monkeypatch.setattr(ck, "joint_clusters", layout)
+    plan = ck.joint_plan(cuda_device, 16384, tp.B, True, feats.n_spreads)
+    assert plan.clusters == clusters and plan.global_rows > 0
+    calls = ck.joint_global_calls
+    got = ck.joint_wave_place(kin, order, local, len(order), feats)
+    single = ck.joint_eval_place(one, tp.K, feats)
+    assert ck.joint_global_calls == calls + 2
+    want = ck.fused_wave_place_reference(kin, order, local, len(order),
+                                         feats)
+    torch.cuda.synchronize()
+    _assert_same(got, base)
+    assert _assert_fused(got, want, len(order), tp.B,
+                         atol=0.0)["found"].any()
+    _assert_single(single, base_single)
+    _assert_single(single, tk.place_taskgroup(one, tp.K, feats))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pad", [1 << 17, 1 << 19])
+def test_cuda_joint_plan_at_scale(n_pad, cuda_device):
+    """At N=131072 and N=524288 the plan takes every cluster the card
+    holds (at most the kernel's most), its rows in shared memory, for
+    every union's stanza count."""
+    most = min(ck._joint_card(cuda_device)[1], ck.JOINT_MAX_CLUSTERS)
+    assert most >= 2
+    for ns in (0, 1, 4):
+        for shuffle in (False, True):
+            p = ck.joint_plan(cuda_device, n_pad, 32, shuffle, ns)
+            assert (p.clusters, p.global_rows) == (most, 0), (ns, p)
+
+
+@pytest.mark.gpu
+def test_cuda_joint_layout_mirrors_the_kernel(cuda_device):
+    """``joint_layout``'s shared memory, global-row scratch and mailbox,
+    and the launch struct, as csrc/joint_wave.cu computes them."""
+    ck.load_library("joint_wave")
+    lib = ck._LIBS["joint_wave"][2]
+    out = (ctypes.c_longlong * 4)()
+    for n, b, shuffle, ns, c in ((16384, 32, 1, 1, 1), (131072, 32, 1, 4, 8),
+                                 (1000, 4, 0, 0, 3), (3001, 1, 1, 2, 8),
+                                 (1 << 19, 32, 1, 4, 7)):
+        lib.joint_wave_layout(n, b, shuffle, ns, c, out)
+        member = b * 9 * 4
+        shared = ck.joint_layout(n, b, shuffle, ns, 1 << 30, c)
+        spilled = ck.joint_layout(n, b, shuffle, ns, member, c)
+        assert (out[0], out[1]) == (shared.smem, spilled.global_rows)
+        assert out[2] == ck._joint_mail(c, b)
+        assert out[3] == ctypes.sizeof(ck._JointLaunch)
+
+
+@pytest.mark.gpu
+def test_cuda_joint_clusters_wait_is_bounded(cuda_device, monkeypatch):
+    """One of two clusters never publishes its entries: the other's wait
+    gives up at the bound, every cluster waits no more, the wave ends,
+    and ``launch_wave`` raises through the error word and counts a
+    failure; nothing hangs."""
+    import time
+
+    ck.load_library("joint_wave")
+    _force_clusters(monkeypatch, cuda_device, 2)
+    monkeypatch.setattr(ck, "SPIN_S", 0.25)
+    fn, built, lib = ck._LIBS["joint_wave"]
+
+    def launch(ref, stream):
+        ref._obj.absent = 1
+        return fn(ref, stream)
+
+    monkeypatch.setitem(ck._LIBS, "joint_wave", (launch, built, lib))
+    kins, feats = tp.wave_members(31, "everything", 383, lib="port")
+    pc.fused_wave_stats.reset()
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="ran past"):
+        pc.launch_wave(kins, [tp.K] * tp.B, [feats] * tp.B,
+                       device=cuda_device)
+    assert time.perf_counter() - t0 < 30
+    assert pc.fused_wave_stats.snapshot()["failures"] == 1
 
 
 @pytest.mark.gpu

@@ -73,6 +73,19 @@ def test_joint_case_matches_reference(case):
                         host)
 
 
+@pytest.mark.parametrize("clusters", tp.BOUNDARY_CLUSTERS)
+@pytest.mark.parametrize("n_nodes,n_pad", tp.BOUNDARY_WIDTHS,
+                         ids=[f"n{n}" for _, n in tp.BOUNDARY_WIDTHS])
+def test_joint_wave_at_the_plans_range_edges(n_nodes, n_pad, clusters):
+    """The waves the card tests run over forced cluster counts, laid out
+    at that count's CTA ranges (a width no range count divides, the pin
+    and penalty nodes in the last range, buckets across the ranges'
+    edges): the port's route held against the reference."""
+    kins, feats = tp.boundary_wave(clusters, n_nodes, n_pad)
+    host, _ = _wave(kins, feats)
+    assert host["found"].any()
+
+
 def _port_kin(kin):
     """A reference KernelIn's numpy leaves as the port's KernelIn."""
     return tk.KernelIn(**kin._asdict())

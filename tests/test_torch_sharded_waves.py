@@ -1004,7 +1004,7 @@ class TestSizeRoute:
         monkeypatch.setattr(coalesce, "fused_wave_fits",
                             lambda dev, n, b, shuffle: False)
         monkeypatch.setattr(coalesce, "joint_rows_global",
-                            lambda dev, n, b, shuffle: True)
+                            lambda dev, n, b, shuffle, ns: True)
         telemetry.reset()
         got = coalesce.launch_wave(kins, steps, feats, device="cpu")
         assert coalesce.fused_wave_stats.snapshot() == {
@@ -1036,13 +1036,15 @@ class TestSizeRoute:
     @staticmethod
     def _fake_card(monkeypatch, rows: int, fail: bool = False) -> list:
         """The joint kernel's plan answering ``rows`` bytes of global-row
-        scratch, and a C call that records its arguments (or fails)."""
+        scratch on one cluster, and a C call that records its arguments
+        (or fails)."""
         calls = []
-        monkeypatch.setattr(ck, "_joint_plan", lambda dev, n, b, shuffle: (
-            ck.JOINT_CLUSTER, 1024, 2048, 1, rows))
+        monkeypatch.setattr(ck, "joint_plan",
+                            lambda dev, n, b, shuffle, ns: ck.JointPlan(
+                                1, 1024, rows, 0, 0))
 
         def call(name, args, dev, what):
-            calls.append((name, args.rows, args.single))
+            calls.append((name, args.a.rows, args.a.single))
             if fail:
                 raise RuntimeError(f"{what} launch failed: cudaError 700")
 
@@ -1085,7 +1087,7 @@ class TestSizeRoute:
         for n in (1 << 18, 1 << 19, 1 << 20):
             for shuffle in (False, True):
                 assert ck.fused_wave_fits(CPU, n, 32, shuffle)
-                assert not ck.joint_rows_global(CPU, n, 32, shuffle)
+                assert not ck.joint_rows_global(CPU, n, 32, shuffle, 4)
         kins, feats = tp.wave_members(62, "spread", 200, lib="port")
         tk.default_kernel_launch(kins[0], tp.K, tk.canonical_features(feats),
                                  device="cpu")
