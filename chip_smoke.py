@@ -263,11 +263,16 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     the kernel alone on it beside B1's, and the spread and everything
     waves there through the joint sharded kernel the same way (held
     against the one-device joint kernel, whose plain version phase 5
-    holds at that width); the mesh
+    holds at that width); phase 4's N=524288 waves (300k nodes; shuffle
+    and everything) at D=4 on the one card, past one cluster's shared
+    memory, the same way (the shuffle wave, in the fused envelope,
+    through the joint sharded kernel and one counted fused fallback
+    too), with the plan's clusters a card; the mesh
     of the real cards (one card: B1, one counted fallback; more: the
     same parity gate, one kernel launch a card, the kernel alone timed
     over the cards beside B1's, and the everything wave through the
-    joint sharded kernel over the cards). Part B, the
+    joint sharded kernel over the cards, at N=16384 and at N=1048576,
+    several clusters a card). Part B, the
     resident state split over 4 shards (``configure_mesh``): two waves
     of phase 11's store's own planes with 320 allocs stopped between
     them; the generation advances by the sharded scatter, equals a fresh
@@ -1137,6 +1142,21 @@ def forced_clusters(clusters: int):
         yield
     finally:
         ck.joint_clusters = real
+
+
+@contextlib.contextmanager
+def forced_sharded_clusters(clusters: int):
+    """The joint sharded kernel's plan forced to ``clusters`` clusters a
+    card, laid out as the plan lays them out."""
+    real = ck.joint_sharded_clusters
+    ck.joint_sharded_clusters = (
+        lambda rows, b, shuffle, ns, limit, most, n_cards:
+        ck.joint_sharded_layout(rows, b, shuffle, ns, limit, clusters,
+                                n_cards))
+    try:
+        yield
+    finally:
+        ck.joint_sharded_clusters = real
 
 
 def joint_plan_of(wave, dev: torch.device):
@@ -4774,6 +4794,11 @@ MESH_SCALE_ALLOCS = 1_000_000
 MESH_CHURN = 320                # part B: allocs stopped between the waves
 MESH_WARM_REPEATS = 3           # part A: warm repeats of the first wave
 MESH_KERNEL_SHARDS = 4          # part A: the kernel against its plain version
+MESH_WIDE_SHARDS = 4            # part A: phase 4's N=524288 on the one card
+MESH_WIDE_NODES = CEILING_NODES
+MESH_WIDE_ALLOCS = CEILING_ALLOCS
+MESH_CARDS_WIDE_NODES = 600_000  # --mesh-phase: N=1048576 over the cards
+MESH_CARDS_WIDE_ALLOCS = 2_000_000
 MESH_TIMED_VARIANT = "kitchen_sink"  # part A: the kernel's and plain's times
 MESH_SPREAD_JOBS = 64           # part C: the spread arm's burst
 
@@ -5037,10 +5062,12 @@ def mesh_kernel_check(kins, features, dev: torch.device, shards: int,
 
 def joint_mesh_check(kins, features, dev: torch.device, shards: int,
                      ctx: str, devices=None, plain: bool = True) -> dict:
-    """A wave outside the fused envelope over D virtual shards of ``dev``
-    (or over ``devices``): through ``launch_wave`` (one call of the joint
-    sharded kernel, one cluster launch a card, no other kernel, no
-    torch-op wave) against the one-device wave (the joint kernel), exact;
+    """A wave the sharded kernel does not take (outside the fused
+    envelope, or past its cluster's shared memory) over D virtual shards
+    of ``dev`` (or over ``devices``): through ``launch_wave`` (one call of
+    the joint sharded kernel, one kernel launch a card of the clusters
+    its plan picks, no other kernel, no torch-op wave) against the
+    one-device wave (the joint kernel), exact;
     then the kernel alone (``ck.joint_sharded_wave_place``) against its
     plain version and against the one-device joint kernel on the same
     inputs, exact, and its CUDA-event ms (ten calls) beside the joint
@@ -5096,9 +5123,15 @@ def joint_mesh_check(kins, features, dev: torch.device, shards: int,
     res["active_steps"] = sharded_active_steps(args)
     res["us_per_active_step"] = (res["kernel_ms"] * 1e3
                                  / res["active_steps"])
+    # the plan every card ran: its clusters, and where its rows lived
+    # (CPU shards: the plain version, no plan)
+    plan = (ck.joint_sharded_plan_of(args[0], args[4])
+            if dev.type == "cuda" else None)
     res.update(shards=shards, cards=cards,
                n_pad=int(flat.kin.cap_cpu.shape[-1]),
-               cluster_launches=launched[1])
+               cluster_launches=launched[1],
+               clusters_per_card=plan.clusters if plan else None,
+               rows_shared=plan is None or plan.global_rows == 0)
     return res
 
 
@@ -5250,6 +5283,46 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
         log(f"mesh joint scale {union}: {json.dumps(res)}")
     del big, bbase, members, kins
 
+    # a card's rows past one cluster's shared memory: phase 4's waves at
+    # N=524288 over D=4 on the one card (the sharded kernel refuses them,
+    # and so did the joint sharded kernel of one cluster a card), through
+    # launch_wave over the mesh: the joint sharded kernel over the
+    # clusters its plan picks, the fused-envelope union (shuffle) too,
+    # each mesh wave one counted fused fallback as the one-device wave is
+    # (the CPU rehearsal's plain versions hold any width: it runs the
+    # everything wave alone, at its own width)
+    on_card = dev.type == "cuda"
+    wide = c2m_cluster(MESH_WIDE_NODES, seed=SEED + 4)
+    wc, wm, wd, _ = c2m_pack_usage(wide, MESH_WIDE_ALLOCS, seed=SEED + 4)
+    wbase = base_kin(wide, (wc, wm, wd))
+    joint_wide = []
+    for union in CEILING_UNIONS if on_card else ("everything",):
+        kins, feats, _, _ = joint_wave(wbase, wide, union, rng, dev)
+        ctx = f"mesh joint wide/{union}/D={MESH_WIDE_SHARDS}"
+        args = kernel_shards(kins, feats, dev, MESH_WIDE_SHARDS)
+        n_loc = int(args[0][0].cap_cpu.shape[-1])
+        check(not on_card or not ck.sharded_wave_fits(
+            [dev] * MESH_WIDE_SHARDS, n_loc, int(args[0][0].n_steps.shape[0]),
+            args[4].with_shuffle), f"{ctx}: the sharded kernel holds it")
+        envelope = ck.fused_wave_supported(args[4])
+        del args
+        f0 = coalesce.fused_wave_stats.snapshot()
+        res = joint_mesh_check(kins, feats, dev, MESH_WIDE_SHARDS, ctx,
+                               plain=False)
+        f1 = coalesce.fused_wave_stats.snapshot()
+        check(f1["fallbacks"] - f0["fallbacks"] == 2
+              and f1["launches"] == f0["launches"]
+              and f1["failures"] == f0["failures"]
+              and (not on_card or res["clusters_per_card"] > 1)
+              and res["rows_shared"],
+              f"{ctx}: fused stats {f0} -> {f1}, plan "
+              f"{res['clusters_per_card']} clusters a card, rows in shared "
+              f"memory {res['rows_shared']}")
+        res.update(union=union, fused_envelope=envelope)
+        joint_wide.append(res)
+        log(f"mesh joint wide {union}: {json.dumps(res)}")
+    del wide, wbase, kins
+
     # the real cards: one card makes a mesh of one device, which runs
     # the wave on it (B1), one counted fallback, as the reference's does
     cards = sharded.wave_mesh(device=dev)
@@ -5287,11 +5360,26 @@ def mesh_part_a(dev: torch.device, rng) -> dict:
             kins, feats, dev, cards.size,
             f"mesh joint/cards/D={cards.size}",
             devices=list(cards.devices.flat))
+        # and at N=1048576, where each card takes several clusters
+        wide = c2m_cluster(MESH_CARDS_WIDE_NODES, seed=SEED + 6)
+        wc, wm, wd, _ = c2m_pack_usage(wide, MESH_CARDS_WIDE_ALLOCS,
+                                       seed=SEED + 6)
+        kins, feats, _, _ = joint_wave(base_kin(wide, (wc, wm, wd)), wide,
+                                       "everything", rng, dev)
+        ctx = f"mesh joint wide/cards/D={cards.size}"
+        real["joint_wide"] = joint_mesh_check(
+            kins, feats, dev, cards.size, ctx,
+            devices=list(cards.devices.flat), plain=False)
+        check(real["joint_wide"]["clusters_per_card"] > 1,
+              f"{ctx}: {real['joint_wide']['clusters_per_card']} cluster a "
+              "card")
+        del wide, kins
     log(f"mesh cards: {json.dumps(real)}")
-    joint_all = joint + joint_scale + (
-        [real["joint"]] if "joint" in real else [])
+    joint_all = joint + joint_scale + joint_wide + [
+        real[k] for k in ("joint", "joint_wide") if k in real]
     return {"per_d": [rows[d] for d in MESH_SHARDS], "cold": cold,
-            "joint": joint, "joint_scale": joint_scale, "scale": scale,
+            "joint": joint, "joint_scale": joint_scale,
+            "joint_wide": joint_wide, "scale": scale,
             "cards": real, "kernel": kernel, "b1_launches": b1,
             "near_ties": sum(r["near_ties"] for r in parity + kernel)
             + scale["near_ties"],
@@ -5727,10 +5815,25 @@ def run_mesh_phase(dev: torch.device, record: dict, state_bytes: bytes,
                            for r in part_a["joint_scale"]},
         "scale_bound_ms": {r["union"]: r["bound_ms"]
                            for r in part_a["joint_scale"]},
+        # N=524288 on the one card (D=4), past one cluster's shared
+        # memory, beside the joint kernel on the same wave
+        "wide_ms": {r["union"]: r["kernel_ms"] for r in part_a["joint_wide"]},
+        "wide_joint_ms": {r["union"]: r["joint_ms"]
+                          for r in part_a["joint_wide"]},
+        "wide_bound_ms": {r["union"]: r["bound_ms"]
+                          for r in part_a["joint_wide"]},
+        # the plan's clusters a card of every wave checked
+        "clusters": {f"{r['union']}@{r['n_pad']}/D={r['shards']}":
+                     r["clusters_per_card"]
+                     for r in part_a["joint"] + part_a["joint_scale"]
+                     + part_a["joint_wide"]},
     }
-    if "joint" in part_a["cards"]:
-        jentry["cards_ms"] = part_a["cards"]["joint"]["kernel_ms"]
-        jentry["cards_joint_ms"] = part_a["cards"]["joint"]["joint_ms"]
+    for key, name in (("joint", "cards"), ("joint_wide", "cards_wide")):
+        if key in part_a["cards"]:
+            jentry[f"{name}_ms"] = part_a["cards"][key]["kernel_ms"]
+            jentry[f"{name}_joint_ms"] = part_a["cards"][key]["joint_ms"]
+            jentry[f"{name}_clusters"] = \
+                part_a["cards"][key]["clusters_per_card"]
     log(f"mesh joint kernel: " + ", ".join(
         f"{u} {jentry['union_ms'][u]:.3f} ms (joint "
         f"{jentry['union_joint_ms'][u]:.3f}, plain "
@@ -5738,6 +5841,11 @@ def run_mesh_phase(dev: torch.device, record: dict, state_bytes: bytes,
         + f" at D={MESH_SPREAD_SHARDS}; N=131072 at D={MESH_SCALE_SHARDS} "
         + ", ".join(f"{u} {ms:.3f} ms" for u, ms in
                     jentry["scale_ms"].items())
+        + f"; N=524288 at D={MESH_WIDE_SHARDS} "
+        + ", ".join(f"{u} {ms:.3f} ms (joint "
+                    f"{jentry['wide_joint_ms'][u]:.3f})"
+                    for u, ms in jentry["wide_ms"].items())
+        + f"; clusters a card {json.dumps(jentry['clusters'])}"
         + f"; part C's spread arm {part_c['spread']['joint_sharded_calls']} "
         f"calls in {part_c['spread']['waves']} waves, "
         f"{part_c['spread']['evals_per_s']:.1f} evals/s")
@@ -5770,6 +5878,7 @@ def run_mesh_phase(dev: torch.device, record: dict, state_bytes: bytes,
             "bound_by", "ms", "b1_ms")} for r in part_a["per_d"]],
         "cold": part_a["cold"], "joint": part_a["joint"],
         "joint_scale": part_a["joint_scale"],
+        "joint_wide": part_a["joint_wide"],
         "scale": part_a["scale"], "cards": part_a["cards"],
         "near_ties": part_a["near_ties"], "kernel": part_a["kernel"],
         "kernel_entry": entry, "joint_kernel_entry": jentry,
@@ -6180,10 +6289,11 @@ def mesh_phase_alone(argv: list) -> int:
         return out, (time.perf_counter() - t0) * 1e3
 
     global MESH_LIVE_NODES, MESH_LIVE_ALLOCS, MESH_SCALE_NODES
-    global MESH_SCALE_ALLOCS, PB_NODES
+    global MESH_SCALE_ALLOCS, PB_NODES, MESH_WIDE_NODES, MESH_WIDE_ALLOCS
     MESH_LIVE_NODES, MESH_LIVE_ALLOCS = args.nodes, args.allocs
     PB_NODES = args.nodes
     MESH_SCALE_NODES, MESH_SCALE_ALLOCS = 10 * args.nodes, 10 * args.allocs
+    MESH_WIDE_NODES, MESH_WIDE_ALLOCS = 30 * args.nodes, 10 * args.allocs
     with patch.patch.object(ck, "fused_wave_place", counted), \
             patch.patch.object(coalesce, "fused_wave_place", counted), \
             patch.patch.object(ck, "sharded_wave_place", counted_sharded), \

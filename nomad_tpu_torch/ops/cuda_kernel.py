@@ -38,15 +38,17 @@ C entry point loaded with ctypes:
   program ``nomad_tpu/parallel/sharded.py`` ``joint_sharded_entry`` :207,
   GSPMD over ``place_taskgroups_joint``): the joint wave under any feature
   union over a mesh of node shards of any width, one C call a wave and
-  one cluster launch a card. Plain version:
+  one launch a card of the clusters its plan picks from the card's rows
+  (``joint_sharded_plan``), its rows in a global scratch past what those
+  clusters' shared memory holds. Plain version:
   ``joint_sharded_wave_place_reference``, ``_sharded_wave`` packed.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version only for CPU tensors. ``launches``, ``joint_launches``
 (of those ``joint_global_calls``, the global-row instantiation's),
 ``place_batch_launches``, ``topk_place_batch_launches``,
-``sharded_launches`` and ``joint_sharded_launches`` count kernel calls
-and nothing else.
+``sharded_launches`` and ``joint_sharded_launches`` (of those
+``joint_sharded_global_calls``) count kernel calls and nothing else.
 """
 
 from __future__ import annotations
@@ -596,12 +598,17 @@ def joint_eval_place(kin: KernelIn, k_steps: int,
     return wave_kernel_out(got, k_steps)
 
 
+#: sizeof(CEntry) and sizeof(JEntry): one cluster's result for one step
+_JOINT_ENTRY_BYTES = 96
+
+
 def _joint_mail(clusters: int, b: int) -> int:
-    """The joint wave's mailbox (``joint_mail_bytes``): each cluster's
-    step entry by parity (96 B), then a tag, an error flag and the metric
-    partial sums a cluster."""
-    return 2 * clusters * 96 + 4 * clusters * (2 + len(FUSED_METRIC_FIELDS)
-                                               * b)
+    """The joint wave's mailbox (``joint_mail_bytes``; the joint sharded
+    wave's a card, ``jsw_mail_bytes``, with a participant a cluster of
+    each card): each cluster's step entry by parity, then a tag, an error
+    flag and the metric partial sums a cluster."""
+    return (2 * clusters * _JOINT_ENTRY_BYTES
+            + 4 * clusters * (2 + len(FUSED_METRIC_FIELDS) * b))
 
 
 def _joint_cta_rows(n: int, clusters: int, shuffle: bool, ns: int) -> int:
@@ -919,17 +926,19 @@ def sharded_smem_bytes(n_pos: int, n_loc: int, b: int,
             + b * 7 * 4)
 
 
-def sharded_row_plan(g0s, n_loc: int) -> list:
-    """How the kernel splits one card's rows among its cluster's CTAs.
-    ``g0s`` are the first global rows of the positions the card holds,
-    ascending; card row r is row ``r % n_loc`` of position ``r // n_loc``.
-    CTA c owns the card rows ``[c*chunk, (c+1)*chunk)``, walked one
-    position segment at a time: returns, for each CTA, its segments
-    ``(position index on the card, first row, end row, g0)``."""
+def sharded_row_plan(g0s, n_loc: int, ctas: int = SHARDED_CLUSTER) -> list:
+    """How the sharded kernels split one card's rows among its ``ctas``
+    CTAs (the sharded kernel's one cluster; the joint sharded kernel's
+    clusters x ``JOINT_CLUSTER``). ``g0s`` are the first global rows of
+    the positions the card holds, ascending; card row r is row ``r %
+    n_loc`` of position ``r // n_loc``. CTA c owns the card rows
+    ``[c*chunk, (c+1)*chunk)``, walked one position segment at a time:
+    returns, for each CTA, its segments ``(position index on the card,
+    first row, end row, g0)``."""
     rows = len(g0s) * n_loc
-    chunk = -(-rows // SHARDED_CLUSTER)
+    chunk = -(-rows // ctas)
     plan = []
-    for c in range(SHARDED_CLUSTER):
+    for c in range(ctas):
         lo = min(c * chunk, rows)
         hi = min(lo + chunk, rows)
         segs = []
@@ -1294,10 +1303,20 @@ def _sharded_launch(shards, step_member, step_local, t_steps: int,
 
 #: kernel calls made by ``joint_sharded_wave_place``: one C call a wave,
 #: which launches csrc/joint_sharded_wave.cu's kernel once on every card of
-#: the mesh (``joint_sharded_kernel_launches`` counts those)
+#: the mesh (``joint_sharded_kernel_launches`` counts those); of them
+#: ``joint_sharded_global_calls`` ran its global-row instantiation
 joint_sharded_launches = 0
+joint_sharded_global_calls = 0
 
-_JOINT_ENTRY_BYTES = 96   # sizeof(JEntry): one card's result for one step
+#: the most participants (cards x clusters a card) that trade one joint
+#: sharded wave's steps (MAX_PARTS in csrc/joint_sharded_wave.cu: one lane
+#: of the polling warp each)
+JOINT_SHARDED_MAX_PARTS = 32
+#: the rows a CTA of one cluster a card keeps before the joint sharded
+#: wave takes every cluster the card holds, with no spread stanza and with
+#: one (``joint_clusters``' switch points, for this kernel)
+JOINT_SHARDED_ROWS_CACHED = 4096
+JOINT_SHARDED_ROWS_SPREAD = 2048
 
 
 class _JCard(ctypes.Structure):
@@ -1307,6 +1326,7 @@ class _JCard(ctypes.Structure):
         ("ordinal", ctypes.c_int), ("n_pos", ctypes.c_int),
         ("stream", ctypes.c_void_p), ("table", ctypes.c_void_p),
         ("mail", ctypes.c_void_p), ("spc", ctypes.c_void_p),
+        ("rows", ctypes.c_void_p),
     ]
 
 
@@ -1317,33 +1337,63 @@ class _JShardedArgs(ctypes.Structure):
         ("n_glob", ctypes.c_int), ("n_loc", ctypes.c_int),
         ("n_cards", ctypes.c_int), ("b", ctypes.c_int), ("t", ctypes.c_int),
         ("p", ctypes.c_int), ("ns", ctypes.c_int),
-        ("with_shuffle", ctypes.c_int),
+        ("with_shuffle", ctypes.c_int), ("clusters", ctypes.c_int),
+        ("absent", ctypes.c_int),
         ("card", ctypes.c_void_p), ("packed", ctypes.c_void_p),
         ("topk_idx", ctypes.c_void_p), ("topk_scores", ctypes.c_void_p),
         ("spin_ns", ctypes.c_int64),
     ]
 
 
-def _joint_mail_bytes(n_cards: int, b: int) -> int:
-    """A card's mailbox (``joint_mail_bytes``): every card's step entry by
-    parity, then each card's metric tag, error flag and eight partial
-    sums a member."""
-    return 2 * n_cards * _JOINT_ENTRY_BYTES + 4 * n_cards * (2 + 8 * b)
+def joint_sharded_layout(rows: int, b: int, shuffle: bool, ns: int,
+                         limit: int, clusters: int,
+                         n_cards: int) -> JointPlan:
+    """The joint sharded wave's layout on each card of ``rows`` rows as
+    ``clusters`` clusters: ``joint_layout``'s rows, counts scratch and
+    global-row scratch over the card's rows (the kernel's CTAs own card
+    rows as the joint kernel's own nodes), and a mailbox a card with a
+    slot for each of the wave's ``n_cards * clusters`` participants,
+    ``_joint_mail``'s layout (0: one participant, no exchange). Mirrors csrc/joint_sharded_wave.cu's
+    ``joint_sharded_layout``
+    (``test_cuda_joint_sharded_layout_mirrors_the_kernel``)."""
+    parts = n_cards * clusters
+    return joint_layout(rows, b, shuffle, ns, limit, clusters)._replace(
+        mail=_joint_mail(parts, b) if parts > 1 else 0)
 
 
-#: (ordinal, n_pos, n_loc, b, shuffle) -> joint_sharded_wave_plan's out
-#: (shared with no lock, as _SHARDED_PLANS)
-_JOINT_SHARDED_PLANS: dict = {}
+def joint_sharded_clusters(rows: int, b: int, shuffle: bool, ns: int,
+                           limit: int, most: int,
+                           n_cards: int) -> JointPlan:
+    """The joint sharded wave's plan, the same on every card, from the
+    most rows a card holds, the wave's widths and the cards' figures (the
+    shared memory a block may take, the clusters each holds at once): one
+    cluster a card while its CTAs' ranges stay at or under
+    ``JOINT_SHARDED_ROWS_CACHED`` rows (``JOINT_SHARDED_ROWS_SPREAD`` with
+    a spread stanza), past that every cluster a card holds, at most
+    ``JOINT_MAX_CLUSTERS`` and at most ``JOINT_SHARDED_MAX_PARTS`` over
+    the cards (a mesh of five cards or more takes fewer a card). Then
+    ``joint_sharded_layout``: the rows in shared memory wherever those
+    clusters hold them, past that in the global scratch."""
+    cap = min(most, JOINT_MAX_CLUSTERS, JOINT_SHARDED_MAX_PARTS // n_cards)
+    if cap < 1:
+        raise RuntimeError(f"the cards hold no cluster of {JOINT_CLUSTER} "
+                           f"CTAs of the joint sharded wave")
+    per_cta = JOINT_SHARDED_ROWS_SPREAD if ns else JOINT_SHARDED_ROWS_CACHED
+    one = -(-rows // JOINT_CLUSTER) <= per_cta
+    return joint_sharded_layout(rows, b, shuffle, ns, limit,
+                                1 if one else cap, n_cards)
 
 
-def _joint_sharded_plan(ordinal: int, n_pos: int, n_loc: int, b: int,
-                        shuffle: bool) -> tuple:
-    """``joint_sharded_wave_plan`` on card ``ordinal``, once per shape;
-    the first also holds the library's struct sizes against their
+_JOINT_SHARDED_CARDS: dict = {}   # ordinal -> (limit, clusters)
+
+
+def _joint_sharded_card(ordinal: int) -> tuple:
+    """``joint_sharded_wave_plan`` on card ``ordinal``, once: (the shared
+    memory a block may take, the clusters it holds at once). The first
+    call also holds the library's struct sizes and bounds against their
     mirrors."""
-    key = (ordinal, n_pos, n_loc, b, bool(shuffle))
-    plan = _JOINT_SHARDED_PLANS.get(key)
-    if plan is None:
+    card = _JOINT_SHARDED_CARDS.get(ordinal)
+    if card is None:
         load_library("joint_sharded_wave")
         lib = _LIBS["joint_sharded_wave"][2]
         sizes = (ctypes.c_int * 4)()
@@ -1353,19 +1403,70 @@ def _joint_sharded_plan(ordinal: int, n_pos: int, n_loc: int, b: int,
         if tuple(sizes) != want:
             raise RuntimeError(f"csrc/joint_sharded_wave.cu's structs are "
                                f"{tuple(sizes)} B; their mirrors {want}")
-        out = (ctypes.c_int * 4)()
+        out = (ctypes.c_int * 5)()
         with torch.cuda.device(ordinal):
-            err = lib.joint_sharded_wave_plan(
-                ctypes.c_int(n_pos), ctypes.c_int(n_loc), ctypes.c_int(b),
-                ctypes.c_int(int(shuffle)), out)
+            err = lib.joint_sharded_wave_plan(out)
         if err != 0:
             raise RuntimeError(f"joint_sharded_wave_plan failed: cudaError "
                                f"{err}")
-        if out[0] != SHARDED_CLUSTER:
+        bounds = (JOINT_CLUSTER, JOINT_MAX_CLUSTERS, JOINT_SHARDED_MAX_PARTS)
+        if (out[0], out[3], out[4]) != bounds:
             raise RuntimeError(f"csrc/joint_sharded_wave.cu runs clusters "
-                               f"of {out[0]} CTAs; want {SHARDED_CLUSTER}")
-        plan = _JOINT_SHARDED_PLANS[key] = tuple(out)
-    return plan
+                               f"of {out[0]} CTAs, at most {out[3]} a card "
+                               f"and {out[4]} a wave; the wrapper says "
+                               f"{bounds}")
+        card = _JOINT_SHARDED_CARDS[ordinal] = (out[1], out[2])
+    return card
+
+
+def joint_sharded_plan(ordinals, rows: int, b: int, shuffle: bool,
+                       ns: int) -> JointPlan:
+    """The plan of a joint sharded wave over the cards ``ordinals`` whose
+    largest share is ``rows`` rows (``joint_sharded_clusters`` on the
+    smallest of the cards' figures)."""
+    figures = [_joint_sharded_card(o) for o in ordinals]
+    return joint_sharded_clusters(rows, b, shuffle, ns,
+                                  min(f[0] for f in figures),
+                                  min(f[1] for f in figures), len(ordinals))
+
+
+def joint_sharded_plan_of(shards, features: KernelFeatures) -> JointPlan:
+    """``joint_sharded_plan`` of a wave over ``shards`` (CUDA KernelIns,
+    one a mesh position), as the wrapper launches it."""
+    return _groups_plan(
+        group_positions([_card_of(s.cap_cpu.device)[0] for s in shards]),
+        shards[0], features)
+
+
+def _groups_plan(groups, first: KernelIn, f: KernelFeatures) -> JointPlan:
+    """The plan over the cards of ``groups`` (``group_positions``), whose
+    largest holds that many positions of ``first``'s rows."""
+    rows = max(len(positions) for _, positions in groups) * int(
+        first.cap_cpu.shape[-1])
+    return joint_sharded_plan([ordinal for ordinal, _ in groups], rows,
+                              int(first.n_steps.shape[0]), f.with_shuffle,
+                              int(f.n_spreads))
+
+
+def sharded_wave_fits(devices, n_loc: int, b: int, shuffle: bool) -> bool:
+    """Whether the sharded kernel holds a wave of ``b`` members over the
+    mesh positions on ``devices`` (``n_loc`` rows each): every card's
+    rows fit one cluster's shared memory by its plan on that card
+    (``check_sharded_plan``'s test). A wave that does not fit runs the
+    joint sharded kernel, whose plan spreads a card's rows over several
+    clusters or a global scratch (``joint_sharded_plan``). CPU shards run
+    the plain versions, which hold any width: the sharded kernel's
+    route."""
+    devices = list(devices)
+    if any(d.type != "cuda" for d in devices):
+        return True
+    for ordinal, positions in group_positions(
+            [_card_of(d)[0] for d in devices]):
+        _, smem, limit, _ = _sharded_plan(ordinal, len(positions), n_loc, b,
+                                          shuffle)
+        if smem > limit:
+            return False
+    return True
 
 
 def joint_sharded_kernel_launches() -> int:
@@ -1393,8 +1494,9 @@ def joint_sharded_wave_place(shards, step_member, step_local, t_steps: int,
     (one error word longer on the card, ``raise_on_wave_error``) and top-k
     planes lie on ``shards[0]``'s device and whose carries are lists, one
     tensor a shard on its device. CUDA shards run
-    csrc/joint_sharded_wave.cu in one C call, one cluster launch a card
-    (or raise); CPU shards run the plain version."""
+    csrc/joint_sharded_wave.cu in one C call, one launch a card of the
+    clusters ``joint_sharded_plan`` picks (or raise); CPU shards run the
+    plain version."""
     if not joint_wave_supported(features):
         raise ValueError(f"n_spreads={features.n_spreads}: want "
                          f"0..{MAX_SPREADS}")
@@ -1409,9 +1511,32 @@ def joint_sharded_wave_place(shards, step_member, step_local, t_steps: int,
                                  features)
 
 
+def _joint_shard_strides(shards, b: int, n_loc: int, n_glob: int,
+                         k: int) -> list:
+    """The member stride of each leaf, equal on every shard: shard 0's
+    leaves checked in full (``_joint_strides``), every other shard's
+    against shard 0's (dtype, shape) and its own device and contiguity,
+    so a wave's check costs one shard's and a comparison a leaf more."""
+    strides = _joint_strides(shards[0], b, n_loc, n_glob, k, "shard 0: ")
+    want = [(getattr(shards[0], name).dtype, getattr(shards[0], name).shape)
+            for name, _ in _JOINT_LEAVES]
+    for i in range(1, len(shards)):
+        dev = shards[i].cap_cpu.device
+        for (name, _), (dtype, shape) in zip(_JOINT_LEAVES, want):
+            x = getattr(shards[i], name)
+            if x.dtype != dtype or x.shape != shape:
+                raise ValueError(
+                    f"shard {i}: {name} is {x.dtype} {tuple(x.shape)}; "
+                    f"shard 0's is {dtype} {tuple(shape)}")
+            if x.device != dev or not x.is_contiguous():
+                raise ValueError(f"shard {i}: {name} must be contiguous on "
+                                 f"the shard's {dev}")
+    return strides
+
+
 def _joint_sharded_launch(shards, step_member, step_local, t_steps: int,
                           f: KernelFeatures) -> FusedWaveOut:
-    global joint_sharded_launches
+    global joint_sharded_launches, joint_sharded_global_calls
     first = shards[0]
     n_shards = len(shards)
     b = int(first.n_steps.shape[0])
@@ -1424,10 +1549,7 @@ def _joint_sharded_launch(shards, step_member, step_local, t_steps: int,
     if n_shards > MAX_POSITIONS:
         raise ValueError(f"a mesh of {n_shards} positions: the joint sharded "
                          f"wave takes at most {MAX_POSITIONS}")
-    strides = [_joint_strides(s, b, n_loc, n_glob, k, f"shard {i}: ")
-               for i, s in enumerate(shards)]
-    if any(st != strides[0] for st in strides):
-        raise ValueError("the shards' leaves differ in their member axes")
+    strides = _joint_shard_strides(shards, b, n_loc, n_glob, k)
     maps = np.stack([_host_i32(step_member, t_steps),
                      _host_i32(step_local, t_steps)])
     root = first.cap_cpu.device
@@ -1436,10 +1558,7 @@ def _joint_sharded_launch(shards, step_member, step_local, t_steps: int,
     if len(groups) > MAX_SHARDED_CARDS:
         raise ValueError(f"a mesh over {len(groups)} cards: the joint "
                          f"sharded wave spans at most {MAX_SHARDED_CARDS}")
-    for ordinal, positions in groups:
-        check_sharded_plan(_joint_sharded_plan(ordinal, len(positions), n_loc,
-                                               b, f.with_shuffle),
-                           len(positions) * n_loc, b)
+    plan = _groups_plan(groups, first, f)
     multi = len(groups) > 1
     if multi:
         _enable_peers(tuple(ordinal for ordinal, _ in groups))
@@ -1487,15 +1606,18 @@ def _joint_sharded_launch(shards, step_member, step_local, t_steps: int,
             jtc=per_pos(1, rows_b, torch.int32, 4),
             jac=per_pos(f.with_distinct, rows_b, torch.int32, 4),
             pc=per_pos(f.with_ports, rows_b, torch.uint8, 1))
-        spc = (torch.empty(SHARDED_CLUSTER * b * MAX_SPREADS * SPREAD_BUCKETS,
-                           dtype=torch.float32, device=dev) if ns else None)
-        keep += [carry, spc] + [x for x, _ in scratch.values()]
+        # the plan's counts scratch, global-row scratch and mailbox a card
+        spc = buf(plan.spc, torch.float32, dev) if plan.spc else None
+        grows = (buf(plan.global_rows, torch.uint8, dev)
+                 if plan.global_rows else None)
+        mail = buf(plan.mail, torch.uint8, dev) if plan.mail else None
+        keep += [carry, spc, grows, mail] + [x for x, _ in scratch.values()]
         g0s = np.full(MAX_POSITIONS, -1, dtype=np.int32)
         for lp, p in enumerate(positions):
             kin, row = shards[p], table[lp]
             for slot, (name, _) in enumerate(_JOINT_LEAVES):
                 row.leaf[slot] = getattr(kin, name).data_ptr()
-                row.stride[slot] = strides[p][slot]
+                row.stride[slot] = strides[slot]
             for q, name in enumerate(("a_cpu", "a_mem", "a_disk")):
                 getattr(out, name)[p] = x = carry[q, lp]
                 setattr(row, name, x.data_ptr())
@@ -1516,18 +1638,17 @@ def _joint_sharded_launch(shards, step_member, step_local, t_steps: int,
             ctypes.memmove(staged.data_ptr() + at, x, len(x))
             at += len(x)
         dev_table = staged.to(dev, non_blocking=True)
-        mail = (buf(_joint_mail_bytes(len(groups), b), torch.uint8, dev)
-                if multi else None)
-        keep += [dev_table, mail]
+        keep.append(dev_table)
         rows[c] = _JCard(ordinal, n_pos, cards[positions[0]][1],
                          dev_table.data_ptr(),
-                         mail.data_ptr() if multi else None,
-                         spc.data_ptr() if ns else None)
+                         *[x.data_ptr() if x is not None else None
+                           for x in (mail, spc, grows)])
 
     args = _JShardedArgs()
     args.n_glob, args.n_loc, args.n_cards = n_glob, n_loc, len(groups)
     args.b, args.t, args.p, args.ns = b, t_steps, MAX_PENALTY_NODES, ns
     args.with_shuffle = int(f.with_shuffle)
+    args.clusters, args.absent = plan.clusters, -1
     args.card = ctypes.addressof(rows)
     for name in ("packed", "topk_idx", "topk_scores"):
         setattr(args, name, getattr(out, name).data_ptr())
@@ -1540,6 +1661,7 @@ def _joint_sharded_launch(shards, step_member, step_local, t_steps: int,
                            f"{err}")
     with _LAUNCH_LOCK:
         joint_sharded_launches += 1
+        joint_sharded_global_calls += int(plan.global_rows > 0)
     # buffers freed here are reused only by work queued later on their
     # card's stream; over several cards the C call has made that stream
     # wait on the end of every card's kernel (join_cards)

@@ -448,15 +448,22 @@ def _warm_sharded(kernel: str, e: Dict, mesh, fused: bool) -> bool:
 def _warm_fused_sharded(e: Dict, mesh) -> bool:
     """The sharded hand kernel for a joint entry, where ``launch_wave``
     would take it: the entry fits the fused envelope, the mesh splits its
-    node axis, and each shard keeps at least TOPK rows for the local
-    top-k merge (the reference's rule, ``nomad_tpu/ops/warmup.py``)."""
-    from nomad_tpu_torch.ops.kernel import TOPK, fused_wave_supported
-    from nomad_tpu_torch.parallel.coalesce import mesh_splits
+    node axis, each shard keeps at least TOPK rows for the local top-k
+    merge (the reference's rule, ``nomad_tpu/ops/warmup.py``) and each
+    card's rows fit the kernel's cluster (``sharded_kernel_fits``); an
+    entry it does not hold warms the joint sharded kernel."""
+    from nomad_tpu_torch.ops.kernel import fused_wave_supported
+    from nomad_tpu_torch.parallel.coalesce import (
+        mesh_splits,
+        sharded_kernel_fits,
+    )
 
-    if not fused_wave_supported(_features_from_dict(e["features"])):
+    feats = _features_from_dict(e["features"])
+    if not fused_wave_supported(feats):
         return False
     n = int(e["nodes"])
-    if not mesh_splits(mesh, n) or n // mesh.size < TOPK:
+    if not mesh_splits(mesh, n) or not sharded_kernel_fits(
+            mesh, n, int(e["wave"]), feats.with_shuffle):
         return False
     return _warm_sharded("fused_wave_sharded", e, mesh, True)
 

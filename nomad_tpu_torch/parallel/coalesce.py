@@ -35,10 +35,11 @@ then never place against each other's uncommitted capacity.
 A wave given a device mesh (``mesh=``; a coalescer passes its server's
 ``Server.wave_mesh``) runs with its node axis split over the mesh's devices
 (``parallel/sharded``): the fused sharded wave (on the card, the hand
-kernel ``csrc/sharded_wave.cu``) when the union is in the fused envelope
-and each shard holds at least TOPK rows, else the joint sharded wave (on
-the card, the hand kernel ``csrc/joint_sharded_wave.cu``, any union and
-any shard width), counted as a fused fallback. On one device a wave whose
+kernel ``csrc/sharded_wave.cu``) when the union is in the fused envelope,
+each shard holds at least TOPK rows and each card's rows fit its cluster
+(``sharded_kernel_fits``), else the joint sharded wave (on the card, the
+hand kernel ``csrc/joint_sharded_wave.cu``, any union and any width),
+counted as a fused fallback. On one device a wave whose
 union leaves the fused envelope, or whose node axis B1's cluster does not
 hold in shared memory (``fused_wave_fits``), runs the joint kernel
 (``csrc/joint_wave.cu``, any union; one launch of the clusters its plan
@@ -82,6 +83,7 @@ from nomad_tpu_torch.ops.cuda_kernel import (
     joint_wave_apply,
     joint_wave_place,
     raise_on_wave_error,
+    sharded_wave_fits,
 )
 from nomad_tpu_torch.ops.kernel import (
     TOPK,
@@ -792,6 +794,17 @@ def mesh_splits(mesh, n_nodes: int) -> bool:
     return mesh is not None and mesh.size >= 2 and n_nodes % mesh.size == 0
 
 
+def sharded_kernel_fits(mesh, n_nodes: int, b: int, shuffle: bool) -> bool:
+    """Whether the sharded kernel takes a wave of ``b`` members over
+    ``mesh``'s node split of ``n_nodes``: TOPK rows a shard or more (its
+    local top-k merge), and every card's rows in its cluster's shared
+    memory (``sharded_wave_fits``). ``launch_wave``'s rule, and the warm
+    mesh pass's."""
+    devices = [mesh.devices.flat[p] for p in mesh.node_rows()[0]]
+    n_loc = n_nodes // len(devices)
+    return n_loc >= TOPK and sharded_wave_fits(devices, n_loc, b, shuffle)
+
+
 def _dispatch_sharded(stacked, sm, sl, t_pad, feats, mesh, layout, fused):
     """The fused sharded wave when ``fused``, else the joint sharded wave:
     on CUDA shards their hand kernels (``csrc/sharded_wave.cu``,
@@ -825,7 +838,8 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     axis its cluster holds, else the joint kernel (``csrc/joint_wave.cu``;
     its global-row instantiation for a node axis too wide for its shared
     memory). Over a mesh, the sharded kernel (``csrc/sharded_wave.cu``) for
-    a union in the envelope with TOPK rows a shard or more, else the joint
+    a union in the envelope with TOPK rows a shard or more whose cards'
+    rows its cluster holds (``sharded_kernel_fits``), else the joint
     sharded kernel (``csrc/joint_sharded_wave.cu``). CPU tensors run each
     kernel's plain version.
 
@@ -864,12 +878,13 @@ def launch_wave(kins: List[KernelIn], k_steps: List[int],
     # miss (the profiler counts first launches per key)
     wave_key = (b_pad, t_pad, n_nodes, *layout, feats)
     # B1 takes a one-device wave its cluster holds in shared memory (a
-    # wider one runs the joint kernel's global-row instantiation); a
-    # sharded fused wave also needs TOPK rows a shard for its local top-k
-    # merge (a narrower one runs the joint sharded kernel)
+    # wider one runs the joint kernel); the sharded kernel a mesh wave
+    # with TOPK rows a shard for its local top-k merge whose cards' rows
+    # its cluster holds (any other runs the joint sharded kernel)
     want_fused = _FUSED_WAVE
     fused = want_fused and fused_wave_supported(feats) and (
-        n_nodes // mesh_size >= TOPK if sharded
+        sharded_kernel_fits(mesh, n_nodes, b_pad, feats.with_shuffle)
+        if sharded
         else fused_wave_fits(dev, n_nodes, b_pad, feats.with_shuffle))
     if sharded:
         sharded_wave_stats.note_launch(mesh_size)

@@ -46,9 +46,10 @@ composite computes for it.
 mesh: evals split over ``evals``, nodes over ``nodes``. Each eval is a
 placement problem of its own: in the fused envelope a one-member wave
 through ``sharded_wave_place`` over its evals row's node shards, or
-through B1 (``fused_wave_place``) on a row of one shard; outside it
-through the joint hand kernels, ``joint_sharded_wave_place`` over the
-row's shards or ``joint_wave_place`` on a row of one.
+through B1 (``fused_wave_place``) on a row of one shard, where their
+cluster holds its rows (``sharded_wave_fits``, ``fused_wave_fits``); any
+other eval through the joint hand kernels, ``joint_sharded_wave_place``
+over the row's shards or ``joint_wave_place`` on a row of one.
 """
 
 from __future__ import annotations
@@ -62,10 +63,12 @@ import torch
 
 from nomad_tpu_torch.device import DeviceLike
 from nomad_tpu_torch.ops.cuda_kernel import (
+    fused_wave_fits,
     fused_wave_place,
     joint_sharded_wave_place,
     joint_wave_place,
     raise_on_wave_error,
+    sharded_wave_fits,
     sharded_wave_place,
     wave_active_steps,
     wave_kernel_out,
@@ -814,11 +817,12 @@ def unstack_kernel_outs(out: KernelOut) -> List[KernelOut]:
 class _PlaceBatchStats:
     """``make_place_batch``'s routes, counted per eval as it is sent:
     ``fused_calls`` calls of B1 (``fused_wave_place``: an eval in the
-    fused envelope on an evals row of one node shard), ``joint_calls``
-    calls of the joint kernel (``joint_wave_place``: any other eval on a
-    row of one), ``sharded_calls`` calls of the sharded kernels on a row
-    of two or more (``sharded_wave_place`` for an eval in the envelope,
-    ``joint_sharded_wave_place`` for any other), ``plain_evals`` evals
+    fused envelope on an evals row of one node shard, which B1's cluster
+    holds), ``joint_calls`` calls of the joint kernel
+    (``joint_wave_place``: any other eval on a row of one),
+    ``sharded_calls`` calls of the sharded kernels on a row of two or
+    more (``sharded_wave_place`` for an eval in the envelope whose shards
+    it takes, ``joint_sharded_wave_place`` for any other), ``plain_evals`` evals
     through the wave body as torch ops (every eval of a ``plain`` step).
     On CPU shards the four wrappers run their plain versions and are
     counted the same."""
@@ -975,8 +979,16 @@ def _launch_rows(row_shards: list, feats: list, b_loc: int,
     for r, shards in enumerate(row_shards):
         for e in range(b_loc):
             f = feats[r * b_loc + e]
-            fused = fused_wave_supported(f)
             one = _one_eval(shards, e)
+            # the fused kernels where the eval is in their envelope and
+            # their cluster holds its rows, else the joint hand kernels
+            n_loc = int(one[0].cap_cpu.shape[-1])
+            fused = fused_wave_supported(f) and (
+                fused_wave_fits(one[0].cap_cpu.device, n_loc, 1,
+                                f.with_shuffle) if len(one) == 1
+                else n_loc >= TOPK and sharded_wave_fits(
+                    [s.cap_cpu.device for s in one], n_loc, 1,
+                    f.with_shuffle))
             if len(one) == 1:
                 dev = one[0].cap_cpu.device
                 sm_sl = maps.get(dev)

@@ -2017,7 +2017,7 @@ def test_cuda_joint_sharded_kernel_buffers_outlive_every_card(
     with pytest.raises(RuntimeError, match="launch failed"):
         ck.joint_sharded_wave_place(parts, sm, sl, t_pad, feats)
     assert ck.joint_sharded_kernel_launches() - clusters == 1
-    n = ck._joint_mail_bytes(2, len(stacked.n_steps))
+    n = ck._joint_mail(2, len(stacked.n_steps))
     held = [torch.full((n,), 0x5A, dtype=torch.uint8, device=cuda_device)
             for _ in range(64)]
     _assert_joined(s0, s1)
@@ -2043,6 +2043,248 @@ def test_cuda_joint_sharded_kernel_over_several_cards(variant, layout,
     stacked, sm, sl, t_pad = tp.stack_wave(kins)
     g = _joint_sharded_check(stacked, sm, sl, t_pad, feats, devices)
     assert g["found"].any()
+
+
+def _force_sharded_clusters(monkeypatch, dev, clusters, limit=None):
+    """Force the joint sharded plan to ``clusters`` clusters a card
+    ("max": every cluster the card holds, at most the kernel's most),
+    laid out as the plan lays them out; with ``limit`` the shared memory a
+    block may take is that (a limit under a CTA's rows puts them in the
+    global scratch). Returns the count."""
+    if clusters == "max":
+        clusters = min(ck._joint_sharded_card(dev.index or 0)[1],
+                       ck.JOINT_MAX_CLUSTERS)
+    monkeypatch.setattr(
+        ck, "joint_sharded_clusters",
+        lambda rows, b, shuffle, ns, lim, most, n_cards:
+        ck.joint_sharded_layout(rows, b, shuffle, ns,
+                                lim if limit is None else limit, clusters,
+                                n_cards))
+    return clusters
+
+
+def _joint_sharded_run(stacked, sm, sl, t_pad, feats, devices):
+    """The joint sharded kernel's whole output over ``devices`` (carries
+    gathered on the first), its error word read; one C call."""
+    parts = _shards_on(stacked, devices)
+    calls = ck.joint_sharded_launches
+    got = _whole(ck.joint_sharded_wave_place(parts, sm, sl, t_pad, feats),
+                 devices[0])
+    assert ck.joint_sharded_launches == calls + 1
+    ck.raise_on_wave_error(got.packed.cpu().numpy(), t_pad,
+                           len(stacked.n_steps))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clusters", [2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("shards", [2, 4, 8, 16])
+@pytest.mark.parametrize("variant", JOINT_UNIONS)
+def test_cuda_joint_sharded_clusters_match_one_cluster(variant, shards,
+                                                       clusters, cuda_device,
+                                                       monkeypatch):
+    """Every union at N=16384 over D virtual shards on one card, as each
+    forced count of clusters (at most the card's): one launch, its CTAs'
+    ranges crossing the positions' edges, the clusters trading each step
+    through the card's mailbox; bit for bit the one-cluster run, which
+    equals the one-device joint kernel."""
+    kins, feats = tp.wave_members(12, variant, 10_000, lib="port",
+                                  n_pad=16384)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    devices = [cuda_device] * shards
+    if clusters > ck._joint_sharded_card(cuda_device.index or 0)[1]:
+        pytest.skip(f"the card holds fewer than {clusters} clusters")
+    _force_sharded_clusters(monkeypatch, cuda_device, 1)
+    base = _joint_sharded_run(stacked, sm, sl, t_pad, feats, devices)
+    _force_sharded_clusters(monkeypatch, cuda_device, clusters)
+    launches = ck.joint_sharded_kernel_launches()
+    got = _joint_sharded_run(stacked, sm, sl, t_pad, feats, devices)
+    assert ck.joint_sharded_kernel_launches() - launches == 1
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    one = ck.joint_wave_place(kin, torch.from_numpy(sm).to(cuda_device),
+                              torch.from_numpy(sl).to(cuda_device), t_pad,
+                              feats)
+    torch.cuda.synchronize()
+    _assert_same(got, base)
+    assert _assert_fused(got, one, t_pad, tp.B, atol=0.0)["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clusters", [1, 2, "max"])
+@pytest.mark.parametrize("mode", ["interleaved", "idle", "no_topk"])
+def test_cuda_joint_sharded_global_rows(mode, clusters, cuda_device,
+                                        monkeypatch):
+    """The global-row instantiation: a shared-memory limit that holds
+    only the members' sums puts every CTA's rows in the card's global
+    scratch. The everything wave over four shards with members
+    interleaved, with idle steps, and without top-k: bit for bit the
+    shared-memory run on one cluster, and the plain version."""
+    kins, feats = tp.wave_members(33, "everything", 2100, lib="port",
+                                  n_pad=16384)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    if mode == "interleaved":
+        sm, sl = _interleaved()
+        t_pad = len(sm)
+    elif mode == "idle":
+        sm, sl = sm.copy(), sl.copy()
+        sm[1::5] = -1
+        sl[2::7] = tp.K + 3
+    else:
+        feats = feats._replace(with_topk=False)
+    devices = [cuda_device] * 4
+    _force_sharded_clusters(monkeypatch, cuda_device, 1)
+    base = _joint_sharded_run(stacked, sm, sl, t_pad, feats, devices)
+    member = tp.B * (len(ck.FUSED_METRIC_FIELDS) + 1) * 4
+    c = _force_sharded_clusters(monkeypatch, cuda_device, clusters,
+                                limit=member)
+    plan = ck.joint_sharded_plan([cuda_device.index or 0], 16384, tp.B,
+                                 True, feats.n_spreads)
+    assert plan.clusters == c and plan.global_rows > 0
+    calls = ck.joint_sharded_global_calls
+    got = _joint_sharded_run(stacked, sm, sl, t_pad, feats, devices)
+    assert ck.joint_sharded_global_calls == calls + 1
+    plain = _whole(ck.joint_sharded_wave_place_reference(
+        _shards_on(stacked, devices), sm, sl, t_pad, feats), cuda_device)
+    torch.cuda.synchronize()
+    _assert_same(got, base)
+    _assert_fused(got, plain, t_pad, tp.B, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["shuffle", "everything"])
+def test_cuda_joint_sharded_kernel_past_one_cluster(variant, cuda_device):
+    """N=524288 over four virtual shards on one card, which one cluster's
+    shared memory does not hold (the parent's wrapper raised here): the
+    plan takes every cluster the card holds with the rows in shared
+    memory; one launch, bit for bit the one-device joint kernel."""
+    kins, feats = tp.wave_members(27, variant, 300_000, lib="port",
+                                  n_pad=1 << 19)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    plan = ck.joint_sharded_plan([cuda_device.index or 0], 1 << 19, tp.B,
+                                 feats.with_shuffle, feats.n_spreads)
+    assert plan.clusters == min(
+        ck._joint_sharded_card(cuda_device.index or 0)[1],
+        ck.JOINT_MAX_CLUSTERS) > 1
+    assert plan.global_rows == 0
+    launches = ck.joint_sharded_kernel_launches()
+    got = _joint_sharded_run(stacked, sm, sl, t_pad, feats,
+                             [cuda_device] * 4)
+    assert ck.joint_sharded_kernel_launches() - launches == 1
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    one = ck.joint_wave_place(kin, torch.from_numpy(sm).to(cuda_device),
+                              torch.from_numpy(sl).to(cuda_device), t_pad,
+                              feats)
+    torch.cuda.synchronize()
+    assert _assert_fused(got, one, t_pad, tp.B, atol=0.0)["found"].any()
+
+
+@pytest.mark.gpu
+def test_cuda_joint_sharded_layout_mirrors_the_kernel(cuda_device):
+    """``joint_sharded_layout``'s shared memory, global-row scratch and
+    mailbox, as csrc/joint_sharded_wave.cu computes them; the structs
+    and bounds are held at the first plan (``_joint_sharded_card``)."""
+    ck._joint_sharded_card(cuda_device.index or 0)
+    lib = ck._LIBS["joint_sharded_wave"][2]
+    out = (ctypes.c_longlong * 3)()
+    for rows, b, shuffle, ns, c, cards in (
+            (16384, 32, 1, 1, 1, 1), (131072, 32, 1, 4, 7, 1),
+            (1000, 4, 0, 0, 3, 2), (4004, 1, 1, 2, 8, 4),
+            (1 << 19, 32, 1, 4, 7, 1), (262144, 32, 1, 4, 7, 4)):
+        lib.joint_sharded_layout(rows, b, shuffle, ns, c, c * cards, out)
+        member = b * 9 * 4
+        shared = ck.joint_sharded_layout(rows, b, shuffle, ns, 1 << 30, c,
+                                         cards)
+        spilled = ck.joint_sharded_layout(rows, b, shuffle, ns, member, c,
+                                          cards)
+        assert (out[0], out[1]) == (shared.smem, spilled.global_rows)
+        assert out[2] == ck._joint_mail(c * cards, b)
+        assert shared.mail == (out[2] if c * cards > 1 else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clusters", [2, 3])
+@pytest.mark.parametrize("variant", ["spread", "everything"])
+def test_cuda_joint_sharded_clusters_on_two_cards_of_one(variant, clusters,
+                                                        cuda_device,
+                                                        monkeypatch):
+    """The several-card kernel with several clusters a card (every
+    cluster of every card a participant of the flat exchange) as two
+    "cards" on two streams of one card: bit for bit the one-device joint
+    kernel and the one-cluster run, no error word."""
+    ck.load_library("joint_sharded_wave")
+    kins, feats = tp.wave_members(12, variant, 10_000, lib="port",
+                                  n_pad=16384)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    devices = [cuda_device] * 4
+    _force_sharded_clusters(monkeypatch, cuda_device, 1)
+    base = _joint_sharded_run(stacked, sm, sl, t_pad, feats, devices)
+    s0, s1 = _two_clusters_on_one_card(
+        monkeypatch, cuda_device, [(0, [0, 2]), (0, [1, 3])],
+        lib_name="joint_sharded_wave")
+    _force_sharded_clusters(monkeypatch, cuda_device, clusters)
+    launches = ck.joint_sharded_kernel_launches()
+    got = _joint_sharded_run(stacked, sm, sl, t_pad, feats, devices)
+    _assert_joined(s0, s1)
+    assert ck.joint_sharded_kernel_launches() - launches == 2
+    kin = kernel_in_from_numpy(stacked, device=cuda_device)
+    one = ck.joint_wave_place(kin, torch.from_numpy(sm).to(cuda_device),
+                              torch.from_numpy(sl).to(cuda_device), t_pad,
+                              feats)
+    torch.cuda.synchronize()
+    _assert_same(got, base)
+    assert _assert_fused(got, one, t_pad, tp.B, atol=0.0)["found"].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clusters", [1, 2, 4, 7])
+def test_cuda_joint_sharded_clusters_over_several_cards(clusters,
+                                                        cuda_device,
+                                                        monkeypatch):
+    """Every card of the host as a mesh position, at N=131072, forced to
+    each count of clusters a card: bit for bit the one-device joint
+    kernel on the first card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards or more; this host has {n}")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    if clusters * n > ck.JOINT_SHARDED_MAX_PARTS:
+        pytest.skip(f"{clusters} clusters on {n} cards is over the wave's "
+                    f"{ck.JOINT_SHARDED_MAX_PARTS} participants")
+    _force_sharded_clusters(monkeypatch, cuda_device, clusters)
+    kins, feats = tp.wave_members(13, "everything", 100_000, lib="port",
+                                  n_pad=131072)
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    g = _joint_sharded_check(stacked, sm, sl, t_pad, feats, cards)
+    assert g["found"].any()
+
+
+@pytest.mark.gpu
+def test_cuda_joint_sharded_clusters_wait_is_bounded(cuda_device,
+                                                     monkeypatch):
+    """One of two clusters on one card never publishes its entries: the
+    other's wait gives up at the bound, every cluster waits no more, the
+    wave ends, and the error word raises; nothing hangs."""
+    import time
+
+    ck.load_library("joint_sharded_wave")
+    _force_sharded_clusters(monkeypatch, cuda_device, 2)
+    monkeypatch.setattr(ck, "SPIN_S", 0.25)
+    fn, built, lib = ck._LIBS["joint_sharded_wave"]
+
+    def launch(ref):
+        ref._obj.absent = 1
+        return fn(ref)
+
+    monkeypatch.setitem(ck._LIBS, "joint_sharded_wave", (launch, built, lib))
+    kins, feats = tp.wave_members(31, "everything", 383, lib="port")
+    stacked, sm, sl, t_pad = tp.stack_wave(kins)
+    parts = _shards_on(stacked, [cuda_device] * 4)
+    t0 = time.perf_counter()
+    got = ck.joint_sharded_wave_place(parts, sm, sl, t_pad, feats)
+    packed = got.packed.cpu().numpy()
+    assert time.perf_counter() - t0 < 30
+    with pytest.raises(RuntimeError, match=r"ran past.*\[0\]"):
+        ck.raise_on_wave_error(packed, t_pad, tp.B)
 
 
 @pytest.mark.gpu

@@ -128,6 +128,64 @@ def test_route_matches_reference(mixed, shape):
     assert all(np.asarray(o.found)[:K].any() for o in outs)
 
 
+@pytest.mark.parametrize("shape", [(8, 1), (2, 4)], ids=["8x1", "2x4"])
+def test_evals_past_the_fused_plans_run_the_joint_kernels(mixed, shape,
+                                                         monkeypatch):
+    """An eval in the fused envelope whose row B1's plan (a row of one
+    shard) or the sharded kernel's plan (a row of several) does not hold,
+    as the card's plans do not at N=524288 with shuffle: the step sends
+    it to the joint hand kernels, ``joint_wave_place`` on a row of one and
+    ``joint_sharded_wave_place`` on wider rows, asked before any launch;
+    every eval equals JAX's ``make_place_batch`` on the same mesh (i32
+    exact, scores within one f32 ulp)."""
+    asked, calls = [], {"joint": 0, "joint_sharded": 0}
+
+    def no_b1(dev, n, b, shuffle):
+        asked.append(("b1", n, b))
+        return False
+
+    def no_sharded(devices, n_loc, b, shuffle):
+        asked.append(("sharded", len(devices), n_loc, b))
+        return False
+
+    def counted(name, real):
+        def place(*a, **k):
+            calls[name] += 1
+            return real(*a, **k)
+        return place
+
+    def refused(*a, **k):
+        pytest.fail("a fused kernel whose plan does not hold the eval")
+
+    monkeypatch.setattr(sharded, "fused_wave_fits", no_b1)
+    monkeypatch.setattr(sharded, "sharded_wave_fits", no_sharded)
+    monkeypatch.setattr(sharded, "fused_wave_place", refused)
+    monkeypatch.setattr(sharded, "sharded_wave_place", refused)
+    for name in calls:
+        monkeypatch.setattr(sharded, f"{name}_wave_place", counted(
+            name, getattr(sharded, f"{name}_wave_place")))
+    k_pad = pad_steps(K)
+    refs = _ref_outs(mixed, shape, k_pad)
+    before = sharded.place_batch_stats.snapshot()
+    out = _port_step(shape, k_pad)(_port(mixed))
+    after = sharded.place_batch_stats.snapshot()
+    for i, (got, ref) in enumerate(zip(sharded.unstack_kernel_outs(out),
+                                       refs)):
+        _assert_outs(got, ref, exact=False, ctx=f"eval {i} ({MIX[i]})")
+    routed = {k: after[k] - before[k] for k in after}
+    one = shape[1] == 1
+    assert routed == {"fused_calls": 0,
+                      "joint_calls": len(MIX) if one else 0,
+                      "sharded_calls": 0 if one else len(MIX),
+                      "kernel_calls": len(MIX), "plain_evals": 0}
+    assert calls == {"joint": len(MIX) if one else 0,
+                     "joint_sharded": 0 if one else len(MIX)}
+    kernel = sum(IN_ENVELOPE)
+    assert asked == ([("b1", N_PAD, 1)] * kernel if one
+                     else [("sharded", shape[1], N_PAD // shape[1], 1)]
+                     * kernel)
+
+
 @pytest.mark.parametrize("variant", MIX)
 def test_narrowed_features_change_nothing(mixed, variant):
     """The plain body gives an eval the same outputs under

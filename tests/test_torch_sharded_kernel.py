@@ -253,7 +253,8 @@ class _FakeJointLibrary:
         cards = (ck._JCard * a.n_cards).from_address(a.card)
         got = {"shape": (a.n_glob, a.n_loc, a.n_cards, a.b, a.t, a.p, a.ns,
                          a.with_shuffle),
-               "packed": a.packed, "cards": []}
+               "clusters": a.clusters, "absent": a.absent,
+               "spin_ns": a.spin_ns, "packed": a.packed, "cards": []}
         for c in cards:
             table = (ck._JointArgs * c.n_pos).from_address(c.table)
             at = c.table + ctypes.sizeof(table)
@@ -263,7 +264,7 @@ class _FakeJointLibrary:
                     at + 4 * ck.MAX_POSITIONS)).reshape(2, a.t).copy()
             got["cards"].append({
                 "n_pos": c.n_pos, "g0": g0[:c.n_pos], "maps": maps,
-                "mail": c.mail, "spc": c.spc,
+                "mail": c.mail, "spc": c.spc, "rows": c.rows,
                 "leaves": [list(p.leaf) for p in table],
                 "strides": [list(p.stride) for p in table],
                 "shape": [(p.n, p.b, p.t, p.k, p.p, p.bp, p.ns, p.single,
@@ -283,13 +284,13 @@ def test_joint_packing_one_jointargs_a_position(monkeypatch):
     holds its own shard's leaves (node planes, spread buckets and device
     planes its rows), the shape with ``n`` its rows, the flags, and its
     own slices of the card's carries and scratch; the first global rows
-    and the step maps follow the table; a counts scratch where the wave
-    spreads, no mailbox on one card."""
+    and the step maps follow the table; the plan's one cluster on one
+    card: a counts scratch where the wave spreads, no mailbox and no
+    global-row scratch."""
     fake = _FakeJointLibrary()
     monkeypatch.setitem(ck._LIBS, "joint_sharded_wave", (fake, None, None))
-    monkeypatch.setattr(ck, "_joint_sharded_plan",
-                        lambda o, n_pos, n_loc, b, sh: (
-                            ck.SHARDED_CLUSTER, 1024, _H100_LIMIT, 1))
+    monkeypatch.setattr(ck, "_joint_sharded_card",
+                        lambda o: (_H100_LIMIT, 7))
     monkeypatch.setattr(ck, "_card_of", lambda dev: (0, 0))
     monkeypatch.setattr(ck, "_enable_peers",
                         lambda c: pytest.fail("one card needs no peers"))
@@ -306,9 +307,11 @@ def test_joint_packing_one_jointargs_a_position(monkeypatch):
                              tk.MAX_PENALTY_NODES, pf.n_spreads, 1)
     assert call["packed"] == out.packed.data_ptr()
     assert out.packed.numel() == tk.fused_pack_len(t_pad, tp.B) + 1
+    assert (call["clusters"], call["absent"]) == (1, -1)
+    assert call["spin_ns"] == int(ck.SPIN_S * 1e9)
     (card,) = call["cards"]
     assert card["n_pos"] == 4 and card["mail"] is None
-    assert card["spc"] is not None
+    assert card["spc"] is not None and card["rows"] is None
     assert card["g0"] == [p * n_loc for p in range(4)]
     np.testing.assert_array_equal(card["maps"], np.stack([sm, sl]))
     for p in range(4):
@@ -653,3 +656,127 @@ def test_fused_switch_off_runs_the_joint_sharded_wave(switch):
         "launches": 0, "fallbacks": 0}
     assert coalesce.sharded_wave_stats.snapshot()["launches"] == 1 == \
         ref_coalesce.sharded_wave_stats.snapshot()["launches"]
+
+
+# ---------------------------------------------------------------------------
+# The routes: a wave or an eval the sharded kernel's cluster cannot hold
+# goes to the joint sharded kernel, decided from the plan before a launch.
+# ---------------------------------------------------------------------------
+
+def test_sharded_wave_fits_checks_every_card(monkeypatch):
+    """``sharded_wave_fits`` asks the sharded kernel's plan of each card
+    for its own positions: it holds a wave only where every card's rows
+    fit one cluster's shared memory; CPU devices hold any width."""
+    asked = []
+
+    def plan(ordinal, n_pos, n_loc, b, shuffle):
+        asked.append((ordinal, n_pos, n_loc))
+        return _mirror_plan(ordinal, n_pos, n_loc, b, shuffle)
+
+    monkeypatch.setattr(ck, "_sharded_plan", plan)
+    monkeypatch.setattr(ck, "_card_of", lambda dev: (dev.index, 0))
+    two = [torch.device("cuda", i) for i in (0, 1, 0, 1)]
+    one = [torch.device("cuda", 0)] * 4
+    b = tp.B
+    # two positions a card of 2**17 rows fit; four on one card do not
+    assert ck.sharded_wave_fits(two, 1 << 17, b, True)
+    assert asked == [(0, 2, 1 << 17), (1, 2, 1 << 17)]
+    assert not ck.sharded_wave_fits(one, 1 << 17, b, True)
+    assert not ck.sharded_wave_fits(two, 1 << 18, b, True)
+    # without shuffle a row takes 4 B, not 8
+    assert ck.sharded_wave_fits(one, 1 << 17, b, False)
+    assert ck.sharded_wave_fits([CPU] * 4, 1 << 22, b, True)
+    for n_loc in (1 << 16, 1 << 17, 1 << 18):
+        need = ck.sharded_smem_bytes(4, n_loc, b, True)
+        assert ck.sharded_wave_fits(one, n_loc, b, True) == (
+            need <= _H100_LIMIT)
+
+
+def _wide_wave_stats():
+    return (coalesce.fused_wave_stats.snapshot(),
+            coalesce.joint_wave_stats.snapshot(),
+            coalesce.sharded_wave_stats.snapshot()["launches"])
+
+
+def _count_joint_sharded(monkeypatch):
+    """Count the joint sharded kernel's wrapper calls; the sharded
+    kernel's wrapper fails the test if it is called."""
+    calls = []
+    real = sharded.joint_sharded_wave_place
+    monkeypatch.setattr(sharded, "joint_sharded_wave_place",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(
+        sharded, "sharded_wave_place",
+        lambda *a, **k: pytest.fail("the sharded kernel cannot hold it"))
+    return calls
+
+
+def test_wave_past_the_sharded_plan_runs_the_joint_sharded_kernel(
+        switch, monkeypatch):
+    """A mesh wave in the fused envelope whose cards' rows the sharded
+    kernel's cluster does not hold (its plan answering so, as a card's
+    does at N=524288 over four positions): ``launch_wave`` runs the joint
+    sharded kernel, one counted fused fallback and one sharded launch;
+    the members' outputs equal the JAX package's wave over the same mesh
+    (i32 exact, scores within one f32 ulp)."""
+    ref_kins, ref_feats, kins, feats, steps = _switch_wave(seed=12)
+    asked = []
+
+    def fits(devices, n_loc, b, shuffle):
+        asked.append((len(devices), n_loc, b))
+        return False
+
+    monkeypatch.setattr(coalesce, "sharded_wave_fits", fits)
+    calls = _count_joint_sharded(monkeypatch)
+    for mod in (coalesce, ref_coalesce):
+        mod.fused_wave_stats.reset()
+        mod.sharded_wave_stats.reset()
+    coalesce.joint_wave_stats.reset()
+    port = coalesce.launch_wave(kins, steps, feats, device="cpu",
+                                mesh=sharded.wave_mesh(devices=[CPU] * 4))
+    ref = ref_coalesce.launch_wave(ref_kins, steps, ref_feats,
+                                   mesh=ref_sharded.wave_mesh(4))
+    _same(port, ref, exact=False)
+    n_pad = int(kins[0].cap_cpu.shape[-1])
+    assert asked == [(4, n_pad // 4, len(kins))]
+    assert calls == [1]
+    # the joint sharded wave on CPU shards: its plain version, counted
+    # as a torch-op wave (on the card, a sharded launch)
+    assert _wide_wave_stats() == (
+        {"launches": 0, "fallbacks": 1, "failures": 0},
+        {"launches": 0, "sharded_launches": 0, "global_rows": 0,
+         "torch_waves": 1}, 1)
+    assert ref_coalesce.fused_wave_stats.snapshot()["launches"] == 1
+    coalesce.joint_wave_stats.reset()
+
+
+def test_warm_mesh_pass_past_the_sharded_plan_warms_the_joint_sharded(
+        monkeypatch):
+    """The warm mesh pass makes ``launch_wave``'s choice: a lean entry the
+    sharded kernel's plan does not hold warms the joint sharded kernel,
+    once; held, the sharded kernel."""
+    from nomad_tpu_torch.ops import warmup
+
+    feats = tk.LEAN_FEATURES._replace(with_topk=True)
+    entry = {"kernel": "joint", "wave": 4, "steps": 64, "nodes": 256,
+             "shared": True, "neutral_shared": True, "job_shared": True,
+             "features": dict(feats._asdict())}
+    mesh = sharded.wave_mesh(devices=[CPU] * 4)
+    warmup.warmup_stats.reset()
+    assert warmup.warmup_entries([entry], device="cpu", mesh=mesh,
+                                 mesh_only=True) == (1, 0)
+    assert warmup.warmup_stats.snapshot() == {"fused_wave_sharded": 1}
+    asked = []
+
+    def fits(devices, n_loc, b, shuffle):
+        asked.append((len(devices), n_loc, b))
+        return False
+
+    monkeypatch.setattr(coalesce, "sharded_wave_fits", fits)
+    calls = _count_joint_sharded(monkeypatch)
+    warmup.warmup_stats.reset()
+    assert warmup.warmup_entries([entry], device="cpu", mesh=mesh,
+                                 mesh_only=True) == (1, 0)
+    assert asked == [(4, 64, 4)] and calls == [1]
+    assert warmup.warmup_stats.snapshot() == {"joint_sharded": 1}
+    warmup.warmup_stats.reset()
