@@ -7,7 +7,7 @@ The quickest proof that the port (``nomad_tpu_torch``) starts and is right
 on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
 
 1. card and build: the card's name and power limit (nvidia-smi), then the
-   six kernel libraries built from csrc/ at once (one nvcc each) with
+   seven kernel libraries built from csrc/ at once (one nvcc each) with
    ptxas's register/spill report;
 2. kernel against its plain torch version at the live shape: a C2M
    cluster of 10k nodes (N=16384) with 100k resident allocs, waves of 32
@@ -64,7 +64,13 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     capacity; the resident state's counters, 0 errors, and the upload
     bytes per wave); B1 against its plain version on one wave of round 1's
     recorded members, in a fixed order; then 8 evals one at a time
-    through ``default_kernel_launch``. Each thread's round is split by the
+    through ``default_kernel_launch``, each lean eval's candidate set one
+    call of its kernel (``csrc/candidate_set.cu``: the calls must equal
+    the candidate sets counted, and every call is held bit for bit to the
+    plain version, ``place_taskgroup_topk``, on a copy of its planes),
+    then the kernel, the plain version and the full-width joint kernel
+    timed on one recorded eval's planes (CUDA events, 10 calls each)
+    beside the kernel's bound. Each thread's round is split by the
     host clock into the scheduler before its launch, the launch (park and
     wave) and plan assembly and submit; one ``sched: {...}`` line. Then,
     after the store's bytes are taken for phase 11, one system job (a
@@ -103,7 +109,11 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     resident generation of the store's final snapshot must equal a fresh
     ``ClusterTensors.build`` of it uploaded whole (``torch.equal``, plane
     by plane), and the dirty-row scatter is timed on the card (320 rows
-    of the five usage planes, CUDA events);
+    of the five usage planes, CUDA events). Then one arm at the server's
+    default ``worker_batch_size`` of 1: 40 warm-up jobs, then 40 lean
+    jobs, each eval through the single-eval launcher (no B1 launch), its
+    candidate set one call of the candidate-set kernel; evals/s, e2e
+    p50/p99, the single evals' route and the kernel's calls;
 12. the warm start: phase 11's snapshot bytes, written once to a
     temporary file, restored in three fresh Python processes (no CUDA
     context, no kernel library loaded) into a server with
@@ -226,7 +236,8 @@ on the GPU. It imports nothing of JAX or of ``nomad_tpu``. Phases:
     prints ``CUDA_VISIBLE_DEVICES``, which must read ``0``. The second
     also spreads over datacenters. The device asks' route is counted:
     the single-eval launcher, no B1 launch, fallback or failure; the
-    holder's through the candidate set (torch ops), the reader's two
+    holder's through the candidate set (one call of its kernel), the
+    reader's two
     evals through the full width, one joint-kernel launch each. One
     ``client: {...}`` line: start, restore and
     re-registration seconds, evals/s, waves, fill, B1 launches, register
@@ -345,7 +356,10 @@ kernel launches there under ``cluster_launches``, and its calls in
 phase 18's batches under ``place_batch_launches``; the joint sharded
 kernel's counts its calls in phase 17 part C's spread arm, its kernel
 launches there under ``cluster_launches``, and its calls in phase 18's
-batches under ``place_batch_launches``).
+batches under ``place_batch_launches``; the candidate-set kernel's counts
+its calls in phase 10's single evals, in phase 11's batch-of-one burst
+under ``server_batch1_launches`` and in phase 16 part B under
+``client_launches``).
 A full
 record goes to chiprun_out/chip_smoke.json.
 """
@@ -375,8 +389,10 @@ from nomad_tpu_torch.ops.kernel import (
     LEAN_FEATURES,
     KernelOut,
     MAX_PENALTY_NODES,
+    TOPK,
     _upload_kin,
     build_kernel_in,
+    canonical_features,
     neutral_planes,
     pad_steps,
     place_taskgroup_topk,
@@ -759,6 +775,7 @@ def main() -> int:
     kline["kernels"] += run_batch_phases(dev, record)
     sched, state_bytes = run_sched_phase(dev, record)
     kline["kernels"][0]["sched_launches"] = sched["b1_launches"]
+    kline["kernels"].append(candidate_entry(sched["candidate_set"]))
     server = run_server_phase(dev, record, state_bytes)
     run_warm_start_phase(record, state_bytes)
     workerproc = run_workerproc_phase(dev, record, state_bytes, server[-1])
@@ -771,6 +788,12 @@ def main() -> int:
     place_batch = run_place_batch_phase(dev, record)
     kline["kernels"][0]["server_launches"] = sum(
         arm["b1_launches"] for arm in server)
+    candidate = next(k for k in kline["kernels"]
+                     if k["name"] == "candidate_eval_place")
+    candidate["server_batch1_launches"] = record["server_batch1"][
+        "candidate_launches"]
+    candidate["client_launches"] = client["device_plugin"]["route"][
+        "candidate_launches"]
     kline["kernels"][0]["workerproc_launches"] = sum(
         arm["b1_launches"] for arm in workerproc)
     kline["kernels"][0]["raft_launches"] = raft["b1_launches"]
@@ -1813,21 +1836,159 @@ def new_evals(harness, rng, first: int, n: int):
     return jobs, evals
 
 
+def candidate_entry(cand: dict) -> dict:
+    """The candidate-set kernel's entry of the kernels line: phase 10's
+    single evals (its launches on the main path) and its times on one
+    eval's planes there."""
+    return {
+        "name": "candidate_eval_place",
+        "route": "cuda",
+        "source": "nomad_tpu_torch/csrc/candidate_set.cu",
+        "replaces": "nomad_tpu/ops/kernel.py:974",
+        "launches": cand["launches"],
+        "max_abs_err": cand["max_abs_err"],
+        "ms": cand["ms"],
+        "plain_ms": cand["plain_ms"],
+        "bound_ms": cand["bound_ms"],
+        "bound_by": cand["bound_by"],
+        "library_ms": None,
+        "call_ms": cand["call_ms"],
+        "joint_eval_ms": cand["joint_eval_ms"],
+    }
+
+
+def candidate_vs_plain(one, k_steps: int, features, ctx: str,
+                       out=None) -> float:
+    """The candidate-set kernel (``ck.candidate_eval_place``,
+    csrc/candidate_set.cu) against its plain version
+    (``place_taskgroup_topk``, torch ops) on the same tensors on the card:
+    every output and ``valid`` equal bit for bit; ``out`` is the kernel's
+    ``(KernelOut, valid)`` where it already ran. Returns the max abs error
+    of the scores (0.0)."""
+    got, ok = out if out is not None else ck.candidate_eval_place(
+        one, k_steps, features)
+    want, want_ok = place_taskgroup_topk(one, k_steps, features)
+    check(bool(ok) == bool(want_ok), f"{ctx}: valid {bool(ok)}, the plain "
+          f"version's {bool(want_ok)}")
+    for name in KernelOut._fields:
+        check(torch.equal(getattr(got, name), getattr(want, name)),
+              f"{ctx}: {name} differs from the plain version")
+    return max(float((got.scores - want.scores).abs().max()),
+               float((got.topk_scores - want.topk_scores).abs().max()))
+
+
+def kernel_device_ms(fn, names, reps: int) -> tuple:
+    """``(device ms a call, kernel launches a call)`` of the kernels whose
+    names hold one of ``names``, from the profiler's device trace (CUPTI)
+    over ``reps`` calls of ``fn``; ``(None, 0)`` where the trace shows no
+    device time. The events around back-to-back calls measure the larger
+    of this and the host's time to enqueue a call."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if any(name in e.key for name in names)]
+    total = sum(getattr(e, "device_time_total", 0)
+                or getattr(e, "cuda_time_total", 0) for e in rows)
+    launches = sum(e.count for e in rows)
+    return (total / 1e3 / reps if total else None), launches / reps
+
+
 def candidate_set_time(kin, k_steps: int, features,
                        dev: torch.device) -> dict:
-    """The single eval's candidate set (``ops/kernel.place_taskgroup_topk``,
-    torch ops, the route ``default_kernel_launch`` takes first) on one
-    eval's planes on ``dev``: its CUDA-event ms over 10 calls beside its
-    bound, the bytes of the fused envelope's leaves its pass reads once
-    (``wave_bytes``' leaves for one eval)."""
+    """The single eval's candidate set on one eval's planes on ``dev``, as
+    ``default_kernel_launch`` runs it (canonical features): the kernel held
+    to its plain version, then over 10 calls each the kernel's device time
+    (the profiler's, its two launches a call) and the CUDA-event ms of
+    back-to-back calls (the wrapper's host work bounds those), the plain
+    version's (torch ops) and the full-width joint kernel's
+    (``ck.joint_eval_place``) on the same planes. The bound: the fused
+    envelope's leaves of one eval read once and the outputs written once,
+    against the pass's operations over every node and each active step's
+    over the candidate rows."""
+    features = canonical_features(features)
     one = _upload_kin(kin, dev)
-    place_taskgroup_topk(one, k_steps, features)
-    ms = cuda_ms(lambda: place_taskgroup_topk(one, k_steps, features), 10)
+    err = candidate_vs_plain(one, k_steps, features, "sched/candidate set")
+
+    def kernel():
+        return ck.candidate_eval_place(one, k_steps, features)
+
+    def plain():
+        return place_taskgroup_topk(one, k_steps, features)
+
+    def full():
+        return ck.joint_eval_place(one, k_steps, features)
+
+    times = {}
+    for name, fn in (("call_ms", kernel), ("plain_ms", plain),
+                     ("joint_eval_call_ms", full)):
+        fn()
+        times[name] = cuda_ms(fn, 10)
+    times["ms"], times["kernel_launches"] = kernel_device_ms(
+        kernel, ("cand_pass_kernel", "cand_scan_kernel"), 10)
+    times["joint_eval_ms"], _ = kernel_device_ms(
+        full, ("joint_wave_kernel",), 10)
+    if times["ms"] is None:
+        log("sched candidate set: the profiler shows no device time; the "
+            "kernel's ms are the events'")
+        times["ms"] = times["call_ms"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        kernel()
+    times["host_ms"] = (time.perf_counter() - t0) * 1e2
+    torch.cuda.synchronize()
+    out, _ = kernel()
+    n = int(one.cap_cpu.shape[-1])
+    k_cand = min(n, max(2 * k_steps, k_steps + 8, TOPK))
+    rows = k_cand + (k_steps if features.with_preferred else 0)
+    active = min(int(one.n_steps), k_steps)
     nbytes = sum(getattr(one, name).nbytes for name, _ in ck._LEAVES)
-    bound_ms, bound_by = bound(nbytes, 0)
-    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes, "k_steps": k_steps,
-            "n": int(one.cap_cpu.shape[-1])}
+    nbytes += sum(x.nbytes for x in out[:5]) + 4 * len(FUSED_METRIC_FIELDS)
+    ops = (n * (OPS_PER_NODE_SCORE + OPS_PER_NODE_METRIC)
+           + active * rows * (OPS_PER_NODE_SCORE + OPS_PER_NODE_SELECT))
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {**times, "max_abs_err": err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+            "k_steps": k_steps, "k_cand": k_cand, "rows": rows,
+            "active_steps": active, "n": n}
+
+
+class CandidateRecorder:
+    """``ck.candidate_eval_place`` wrapped for the single evals: each call
+    keeps a copy of its input planes and its outputs, so that every single
+    eval's candidate set is held to the plain version afterwards; the
+    copies' host seconds are kept apart from the evals' times."""
+
+    def __init__(self) -> None:
+        self.calls: list = []
+        self.copy_s = 0.0
+        self._real = ck.candidate_eval_place
+
+    def __enter__(self):
+        ck.candidate_eval_place = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        ck.candidate_eval_place = self._real
+
+    def __call__(self, kin, k_steps, features, n_candidates=0):
+        out = self._real(kin, k_steps, features, n_candidates)
+        t0 = time.perf_counter()
+        copy = type(kin)(*[x.clone() for x in kin])
+        self.calls.append((copy, k_steps, features, out))
+        self.copy_s += time.perf_counter() - t0
+        return out
+
+    def check(self, ctx: str) -> float:
+        """Every recorded call against the plain version; the max abs
+        error."""
+        return max((candidate_vs_plain(kin, k, f, f"{ctx} {i}", out)
+                    for i, (kin, k, f, out) in enumerate(self.calls)),
+                   default=0.0)
 
 
 def run_sched_phase(dev: torch.device, record: dict) -> dict:
@@ -1961,22 +2122,36 @@ def run_sched_phase(dev: torch.device, record: dict) -> dict:
           f"sched/round1 wave placed {vs_plain['placed']}")
     log(f"sched b1 vs plain: {json.dumps(vs_plain)}")
 
-    # the single-eval route: one eval at a time, default launcher on dev
+    # the single-eval route: one eval at a time, default launcher on dev;
+    # each eval's candidate set is recorded and held to the plain version
+    # after the loop
     single_eval_stats.reset()
+    ck.candidate_launches = 0
     single_s = []
-    for i in range(SCHED_SINGLE):
-        jobs, evals = new_evals(harness, rng, 10_000 + i, 1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        harness.process(jobs[0].type, evals[0])
-        single_s.append(time.perf_counter() - t0)
-        check_evals(harness, jobs, evals, f"single eval {i}")
+    with CandidateRecorder() as recorder:
+        for i in range(SCHED_SINGLE):
+            jobs, evals = new_evals(harness, rng, 10_000 + i, 1)
+            torch.cuda.synchronize()
+            copy0 = recorder.copy_s
+            t0 = time.perf_counter()
+            harness.process(jobs[0].type, evals[0])
+            single_s.append(time.perf_counter() - t0
+                            - (recorder.copy_s - copy0))
+            check_evals(harness, jobs, evals, f"single eval {i}")
     single = single_eval_stats.snapshot()
+    candidate_launches = ck.candidate_launches
     check(single["topk"] + single["full"] - single["breaches"]
           == SCHED_SINGLE, f"single-eval launches {single}")
+    check(candidate_launches == single["topk"] > 0,
+          f"candidate kernel launches {candidate_launches} != the single "
+          f"evals' candidate sets {single}")
+    single_err = recorder.check("single eval")
     over = store_over_capacity(harness.state, coalesce.ClusterCache(dev))
     check(over == 0, f"single evals: {over} nodes over capacity")
     candidate_set = candidate_set_time(*members[0][2:5], dev)
+    candidate_set["launches"] = candidate_launches
+    candidate_set["max_abs_err"] = max(candidate_set["max_abs_err"],
+                                       single_err)
     log(f"sched candidate set: {json.dumps(candidate_set)}")
 
     sched = {
@@ -2009,6 +2184,8 @@ def run_sched_phase(dev: torch.device, record: dict) -> dict:
         "single_eval_ms": float(np.mean(single_s)) * 1e3,
         "single_eval_ms_each": [x * 1e3 for x in single_s],
         "single_eval_stats": single,
+        "single_eval_copy_ms": recorder.copy_s / SCHED_SINGLE * 1e3,
+        "candidate_launches": candidate_launches,
         "candidate_set": candidate_set,
         "b1_vs_plain": vs_plain,
     }
@@ -2035,6 +2212,9 @@ SERVER_DEADLINE_S = 300.0   # per burst; a burst that takes longer fails
 #: with phase 13's worker processes
 SERVER_ARMS = ((False, True, SERVER_JOBS // 2), (True, True, SERVER_JOBS),
                (True, False, SERVER_JOBS))
+#: the arm at the server's default worker_batch_size of 1: every lean eval
+#: through the single-eval launcher's candidate set, one kernel call each
+SERVER_BATCH1_JOBS = 40
 
 
 def rss_gb() -> float:
@@ -2114,14 +2294,17 @@ def check_server_burst(srv, jobs, ctx: str) -> int:
 
 
 def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
-               adaptive: bool, n_jobs: int, rng) -> dict:
-    """One ``Server`` on ``dev`` over the restored state: warm-up, then the
-    timed burst of ``n_jobs``, with every count set to 0 just before
-    it."""
-    ctx = f"server gc_tuning={gc_tuning} coalesce_adaptive={adaptive}"
+               adaptive: bool, n_jobs: int, rng,
+               batch: int = SERVER_BATCH) -> dict:
+    """One ``Server`` on ``dev`` over the restored state, its worker taking
+    ``batch`` evals at a time: warm-up, then the timed burst of
+    ``n_jobs``, with every count set to 0 just before it. A batch of one
+    places each eval through the single-eval launcher (no wave)."""
+    ctx = (f"server gc_tuning={gc_tuning} coalesce_adaptive={adaptive}"
+           f" worker_batch_size={batch}")
     # B1's server: no mesh, also on a host of several cards, where the
     # default would split its waves over every card
-    srv = Server(ServerConfig(num_workers=1, worker_batch_size=SERVER_BATCH,
+    srv = Server(ServerConfig(num_workers=1, worker_batch_size=batch,
                               heartbeat_ttl=3600.0, gc_tuning=gc_tuning,
                               coalesce_adaptive=adaptive,
                               use_device_mesh=False),
@@ -2136,7 +2319,8 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
     w = srv.workers[0]
     try:
         tag = ("gcon" if gc_tuning else "gcoff") + (
-            "" if adaptive else "-full")
+            "" if adaptive else "-full") + (
+            "" if batch == SERVER_BATCH else f"-b{batch}")
         warm = [c2m.burst_job(rng, i, prefix=f"{tag}-warm")
                 for i in range(SERVER_WARMUP_JOBS)]
         t0 = time.perf_counter()
@@ -2158,7 +2342,9 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
         waves0, requests0 = w.batch_launches, w.batch_requests
         released0 = srv.failed_evals_unblocked
         pauses = GcPauses()
+        single_eval_stats.reset()
         ck.launches = 0
+        ck.candidate_launches = 0
         gc.callbacks.append(pauses)
         t0 = time.perf_counter()
         for job in jobs:
@@ -2167,6 +2353,8 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
                                   time.time() + SERVER_DEADLINE_S)
         gc.callbacks.remove(pauses)
         b1_launches = ck.launches
+        candidate_launches = ck.candidate_launches
+        single = single_eval_stats.snapshot()
         burst_s = t_done - t0
         dstate = default_device_state.snapshot()
         uploads = (coalesce.upload_stats.uploads,
@@ -2196,14 +2384,26 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
           f"{ctx}: waves fell back or failed: {fstats}")
     check(b1_launches == fstats["launches"],
           f"{ctx}: B1 launches {b1_launches} != fused waves {fstats}")
-    check(1 <= b1_launches < n_jobs,
-          f"{ctx}: {b1_launches} B1 launches for {n_jobs} evals")
+    check(candidate_launches == single["topk"],
+          f"{ctx}: {candidate_launches} candidate kernel calls for the "
+          f"single evals' candidate sets {single}")
+    if batch == 1:
+        # every eval alone: no wave, each lean eval's candidate set one
+        # call of its kernel, the full width only where it breached
+        check(b1_launches == 0 and single["topk"] >= n_jobs
+              and single["full"] == single["breaches"],
+              f"{ctx}: {b1_launches} B1 launches, single evals {single} "
+              f"for {n_jobs} evals")
+    else:
+        check(1 <= b1_launches < n_jobs,
+              f"{ctx}: {b1_launches} B1 launches for {n_jobs} evals")
     # an eval processed again (a blocked eval released) adds a sample
     check(e2e_n >= n_jobs, f"{ctx}: {e2e_n} e2e samples")
     check(dstate["errors"] == 0,
           f"{ctx}: device state errors: {dstate}")
     return {
         "gc_tuning": gc_tuning, "coalesce_adaptive": adaptive,
+        "worker_batch_size": batch,
         "restore_s": restore_s, "start_s": start_s,
         "threads_after_start": threads, "rss_gb": rss,
         "warmup_s": warmup_s, "shutdown_s": shutdown_s,
@@ -2214,6 +2414,8 @@ def server_arm(dev: torch.device, state_bytes: bytes, gc_tuning: bool,
         "plan_p99_ms": percentile(plan_lat, 0.99) * 1e3,
         "plans": len(plan_lat),
         "b1_launches": b1_launches, "waves": waves,
+        "candidate_launches": candidate_launches,
+        "single_eval_stats": single,
         "wave_fill": requests / waves if waves else 0.0,
         "deadline_waves": wstats["deadline_launches"],
         "wave_latency_p50_ms": wstats["wave_latency_p50_ms"],
@@ -2310,6 +2512,15 @@ def run_server_phase(dev: torch.device, record: dict,
             f"plans, {arm['rejected_node_plans']} rejected node plans")
         arms.append(arm)
     record["server"] = arms
+    one = server_arm(dev, state_bytes, True, True, SERVER_BATCH1_JOBS, rng,
+                     batch=1)
+    gc.collect()
+    log(f"server batch 1: {json.dumps(one)}")
+    log(f"server batch 1: {one['evals_per_s']:.1f} evals/s, e2e p50 "
+        f"{one['e2e_p50_ms']:.2f} ms, single evals "
+        f"{one['single_eval_stats']}, {one['candidate_launches']} "
+        "candidate kernel calls")
+    record["server_batch1"] = one
     return arms
 
 
@@ -4659,6 +4870,7 @@ def run_device_part(dev: torch.device, card: str, nonce: str) -> dict:
             waves0 = coalesce.fused_wave_stats.snapshot()
             single0 = single_eval_stats.snapshot()
             joint0 = ck.joint_launches
+            cand0 = ck.candidate_launches
 
             def job_allocs(job):
                 return srv.state.snapshot().allocs_by_job(job.namespace,
@@ -4710,17 +4922,21 @@ def run_device_part(dev: torch.device, card: str, nonce: str) -> dict:
             route.update({"single_" + k: single1[k] - single0[k]
                           for k in single1})
             route["joint_launches"] = ck.joint_launches - joint0
+            route["candidate_launches"] = ck.candidate_launches - cand0
             res["route"] = route
-            # one eval at a time: the holder's through the candidate set
-            # (torch ops), the reader's (blocked, then released) through
-            # the full width, one joint launch each
+            # one eval at a time: the holder's through the candidate set,
+            # one call of its kernel, the reader's (blocked, then
+            # released) through the full width, one joint launch each
+            on_card = dev.type == "cuda"
             check(route["fused_wave_launches"] == 0
                   and route["fused_wave_fallbacks"] == 0
                   and route["fused_wave_failures"] == 0
                   and route["single_topk"] >= 1
                   and route["single_full"] >= 2
+                  and route["candidate_launches"] == (
+                      route["single_topk"] if on_card else 0)
                   and route["joint_launches"] == (
-                      route["single_full"] if dev.type == "cuda" else 0),
+                      route["single_full"] if on_card else 0),
                   f"{ctx}: the device asks' route {route}")
             log(f"{ctx}: route {route}")
         finally:

@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
 Counterpart of ``nomad_tpu/ops/pallas_kernel.py``, and of the XLA
-programs on a main path that became kernels. Six kernels, each built at
+programs on a main path that became kernels. Seven kernels, each built at
 first use by ``ops/build.py`` from ``csrc/`` and launched through a plain
 C entry point loaded with ctypes:
 
@@ -42,13 +42,20 @@ C entry point loaded with ctypes:
   (``joint_sharded_plan``), its rows in a global scratch past what those
   clusters' shared memory holds. Plain version:
   ``joint_sharded_wave_place_reference``, ``_sharded_wave`` packed.
+- ``candidate_eval_place`` (``csrc/candidate_set.cu``; the XLA program
+  ``nomad_tpu/ops/kernel.py`` ``place_taskgroup_topk`` :726-973, jitted at
+  :974): the single eval's candidate set, the first route of
+  ``ops/kernel.default_kernel_launch``: one full-width pass, the exact top
+  k_cand and rest max, and the K-step scan over the candidates and pins,
+  in one C call of two launches. Plain version: ``place_taskgroup_topk``.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version only for CPU tensors. ``launches``, ``joint_launches``
 (of those ``joint_global_calls``, the global-row instantiation's),
 ``place_batch_launches``, ``topk_place_batch_launches``,
-``sharded_launches`` and ``joint_sharded_launches`` (of those
-``joint_sharded_global_calls``) count kernel calls and nothing else.
+``sharded_launches``, ``joint_sharded_launches`` (of those
+``joint_sharded_global_calls``) and ``candidate_launches`` count kernel
+calls and nothing else.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from nomad_tpu_torch.ops import kernel as tk
 from nomad_tpu_torch.ops.build import BuiltLibrary, build_library
 from nomad_tpu_torch.ops.kernel import (
     FUSED_METRIC_FIELDS,
@@ -151,7 +159,8 @@ _ENTRY = {"fused_wave": "fused_wave_launch",
           "place_batch": "place_batch_launch",
           "topk_place_batch": "topk_place_batch_launch",
           "sharded_wave": "sharded_wave_launch",
-          "joint_sharded_wave": "joint_sharded_wave_launch"}
+          "joint_sharded_wave": "joint_sharded_wave_launch",
+          "candidate_set": "candidate_set_launch"}
 #: the entry points' arguments: (args, stream) unless listed (the sharded
 #: waves carry each card's stream in their args)
 _ARGTYPES = {"sharded_wave": [ctypes.c_void_p],
@@ -832,6 +841,138 @@ def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
         joint_launches += 1
         joint_global_calls += int(plan.global_rows > 0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The single eval's candidate set.
+# ---------------------------------------------------------------------------
+
+#: kernel calls made by ``candidate_eval_place`` (csrc/candidate_set.cu: one
+#: C call, two launches on the stream)
+candidate_launches = 0
+
+
+class _CandLaunch(ctypes.Structure):
+    """Mirror of ``struct CandLaunch`` in csrc/candidate_set.cu."""
+
+    _fields_ = [
+        ("a", _JointArgs),
+        ("scratch", ctypes.c_void_p),
+        ("scratch_bytes", ctypes.c_int64),
+        ("chosen", ctypes.c_void_p),
+        ("scores", ctypes.c_void_p),
+        ("found", ctypes.c_void_p),
+        ("metrics", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p),
+        ("k_steps", ctypes.c_int), ("k_cand", ctypes.c_int),
+    ]
+
+
+_CAND_PLANS: dict = {}    # (device, n, k_steps, k_cand, pins) -> plan
+
+
+def candidate_plan(dev: torch.device, n: int, k_steps: int, k_cand: int,
+                   with_pref: bool) -> tuple:
+    """``candidate_set_plan`` on card ``dev``, once per shape: (the scratch
+    bytes a call of these widths takes: its keys, the pass's partial
+    counts and the rows where they pass shared memory; the rows' shared
+    memory, 0 when they live in the scratch)."""
+    key = (dev.index, n, k_steps, k_cand, bool(with_pref))
+    got = _CAND_PLANS.get(key)
+    if got is None:
+        load_library("candidate_set")
+        fn = _LIBS["candidate_set"][2].candidate_set_plan
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_longlong * 2)()
+        with torch.cuda.device(dev):
+            err = fn(n, k_steps, k_cand, int(bool(with_pref)), out)
+        if err != 0:
+            raise RuntimeError(f"candidate_set_plan failed: cudaError {err}")
+        got = _CAND_PLANS[key] = (int(out[0]), int(out[1]))
+    return got
+
+
+def candidate_eval_place(kin: KernelIn, k_steps: int,
+                         features: KernelFeatures, n_candidates: int = 0):
+    """One eval's candidate-set placement, as ``place_taskgroup_topk``
+    places it: ``(KernelOut, valid)``, ``kin`` one eval's planes (torch
+    tensors, ``n_steps`` a scalar), ``n_candidates`` the candidates (0:
+    ``min(N, max(2K, K + 8, TOPK))``). On the card csrc/candidate_set.cu
+    (or raise); on the CPU the plain version, ``place_taskgroup_topk``,
+    looked up on its module at each call. The outputs stay on the
+    device."""
+    if kin.n_steps.dim() != 0:
+        raise ValueError("candidate_eval_place takes one eval: n_steps must "
+                         "be a scalar")
+    dev = kin.cap_cpu.device
+    if dev.type == "cpu":
+        return tk.place_taskgroup_topk(kin, k_steps, features, n_candidates)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _candidate_launch(kin, k_steps, features, n_candidates)
+
+
+def _candidate_launch(kin: KernelIn, k_steps: int, f: KernelFeatures,
+                      n_candidates: int):
+    global candidate_launches
+    dev = kin.cap_cpu.device
+    n = int(kin.cap_cpu.shape[-1])
+    k = int(kin.step_preferred.shape[-1])
+    if f.n_spreads:
+        raise ValueError("the top-K path requires no spread stanzas")
+    if n >= 1 << 24:
+        raise ValueError("node ids are packed as f32: N must stay below 2**24")
+    if not 1 <= k_steps <= k:
+        raise ValueError(f"k_steps={k_steps}: want 1..{k}, the step planes' "
+                         "width")
+    k_cand = n_candidates or min(n, max(2 * k_steps, k_steps + 8, TOPK))
+    if not 1 <= k_cand <= n:
+        raise ValueError(f"{k_cand} candidates of {n} nodes")
+    if f.with_topk and k_cand + (k_steps if f.with_preferred else 0) < TOPK:
+        raise ValueError(f"a top-{TOPK} over {k_cand} candidates")
+    one = kin._replace(n_steps=kin.n_steps.reshape(1))
+    w = _CandLaunch()
+    args = w.a
+    for slot, stride in enumerate(_joint_strides(one, 1, n, n, k)):
+        args.stride[slot] = stride
+        args.leaf[slot] = getattr(one, _JOINT_LEAVES[slot][0]).data_ptr()
+    scratch_bytes, _ = candidate_plan(dev, n, k_steps, k_cand,
+                                      f.with_preferred)
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+    chosen = torch.empty(k_steps, dtype=torch.int32, device=dev)
+    scores = torch.empty(k_steps, dtype=torch.float32, device=dev)
+    found = torch.empty(k_steps, dtype=torch.bool, device=dev)
+    topk_idx = torch.empty((k_steps, TOPK), dtype=torch.int32, device=dev)
+    topk_scores = torch.empty((k_steps, TOPK), dtype=torch.float32,
+                              device=dev)
+    metrics = torch.empty(len(FUSED_METRIC_FIELDS), dtype=torch.int32,
+                          device=dev)
+    valid = torch.empty(1, dtype=torch.bool, device=dev)
+    args.topk_idx = topk_idx.data_ptr()
+    args.topk_scores = topk_scores.data_ptr()
+    args.n, args.b, args.t, args.k = n, 1, k_steps, k
+    args.p, args.ns, args.bp = MAX_PENALTY_NODES, 0, 1
+    for name in ("with_topk", "with_ports", "with_distinct", "with_shuffle",
+                 "with_devices", "with_cores", "with_network"):
+        setattr(args, name, int(getattr(f, name)))
+    args.with_step_pen = int(f.with_step_penalties)
+    args.with_pref = int(f.with_preferred)
+    args.single = 1
+    w.scratch = scratch.data_ptr()
+    w.scratch_bytes = scratch_bytes
+    w.chosen = chosen.data_ptr()
+    w.scores = scores.data_ptr()
+    w.found = found.data_ptr()
+    w.metrics = metrics.data_ptr()
+    w.valid = valid.data_ptr()
+    w.k_steps, w.k_cand = k_steps, k_cand
+
+    _call("candidate_set", w, dev, "candidate_set_kernel")
+    with _LAUNCH_LOCK:
+        candidate_launches += 1
+    return KernelOut(chosen, scores, found, topk_idx, topk_scores,
+                     *metrics.unbind(0)), valid[0]
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,11 @@ Counterpart of ``nomad_tpu/ops/kernel.py``. Two halves:
   are recognisable by ``is`` and ship once per wave.
 - Device half (torch): ``place_taskgroups_joint``, the composite wave
   over the full feature set (spreads, devices, cores and network
-  included), and ``place_taskgroup``, one eval. They are the plain
-  versions of the CUDA wave kernels (ops/cuda_kernel.py: B1 inside the
-  fused envelope, the joint kernel under any union) and of the single
-  eval's full-width route through the joint kernel. JAX's ``lax.scan``
+  included), ``place_taskgroup``, one eval, and ``place_taskgroup_topk``,
+  one eval's candidate set. They are the plain versions of the CUDA wave
+  kernels (ops/cuda_kernel.py: B1 inside the fused envelope, the joint
+  kernel under any union), of the single eval's full-width route through
+  the joint kernel and of its candidate-set kernel. JAX's ``lax.scan``
   over steps is a Python loop here and ``vmap`` over members is a
   written-out member axis.
 
@@ -932,9 +933,11 @@ def place_taskgroup(kin: KernelIn, k_steps: int,
 
 
 def place_taskgroup_topk(kin: KernelIn, k_steps: int,
-                         features: KernelFeatures = FULL_FEATURES):
+                         features: KernelFeatures = FULL_FEATURES,
+                         n_candidates: int = 0):
     """Candidate-set placement: one full-width scoring pass, then the
-    K-step scan over the top ``k_cand`` candidates only.
+    K-step scan over the top ``k_cand`` candidates only: ``n_candidates``,
+    or ``min(N, max(2K, K + 8, TOPK))`` when it is 0.
 
     The (k_cand+1)-th initial score bounds everything outside the set
     while placements only move non-chosen scores down (utilization,
@@ -951,7 +954,7 @@ def place_taskgroup_topk(kin: KernelIn, k_steps: int,
     kin, bshape = _eval_axis(kin, f)
     n = kin.cap_cpu.shape[-1]
     dev = kin.cap_cpu.device
-    k_cand = min(n, max(2 * k_steps, k_steps + 8, TOPK))
+    k_cand = n_candidates or min(n, max(2 * k_steps, k_steps + 8, TOPK))
 
     init = _carry_init(kin, f)
     feas0, ask_cpu_total0, metrics = _first_step(kin, init, f, bshape)
@@ -1335,7 +1338,11 @@ def _resident_kin(kin: KernelIn, dev: torch.device) -> KernelIn:
 
 def _place_topk(kin: KernelIn, k_steps: int, features: KernelFeatures,
                 dev: torch.device):
-    return place_taskgroup_topk(_upload_kin(kin, dev), k_steps, features)
+    # on the card csrc/candidate_set.cu, on the CPU its plain version,
+    # place_taskgroup_topk
+    from nomad_tpu_torch.ops.cuda_kernel import candidate_eval_place
+
+    return candidate_eval_place(_upload_kin(kin, dev), k_steps, features)
 
 
 def _place_full(kin: KernelIn, k_steps: int, features: KernelFeatures,
@@ -1386,9 +1393,11 @@ def default_kernel_launch(kin: KernelIn, k_steps: int,
     spread stanzas, binpack scoring), and the full-width placement runs
     otherwise or where the candidate set's bound broke (``valid`` False),
     the reference's rule, counted in ``single_eval_stats``. On the card
-    the full-width placement is one launch of the joint kernel
-    (``ops/cuda_kernel.joint_eval_place``). The result comes back as host
-    numpy in one packed readback, top-k planes included. Shared planes
+    the candidate set is one call of its kernel
+    (``ops/cuda_kernel.candidate_eval_place``) and the full-width placement
+    one launch of the joint kernel (``ops/cuda_kernel.joint_eval_place``).
+    The result comes back as host numpy in one packed readback, top-k
+    planes included. Shared planes
     resident on ``dev`` are not uploaded again, and both placements are
     profiled under the ``single_topk`` and ``single_full`` keys
     ``(n_pad, k_steps, features)``."""

@@ -452,6 +452,58 @@ def check_joint_case(case, info, chosen, found, topk_idx, metrics, k=K):
                 == metrics["nodes_evaluated"] - len(info["hosts"])).all()
 
 
+#: the single eval's candidate set: every variant but the spread one, then
+#: "everything"'s planes without its stanza (devices, cores, bandwidth and
+#: the kitchen sink's planes: the device jobs' route)
+CANDIDATE_VARIANTS = tuple(
+    v for v in FUSED_VARIANTS + COMPOSITE_VARIANTS if v[0] != "spread") + (
+    ("no_spread", 383),)
+
+
+def candidate_member(seed, variant, n_nodes, k, lib="ref", n_pad=None):
+    """One eval's planes (numpy) and features for ``k`` candidate-set
+    steps: ``wave_members``' member of ``variant`` (``no_spread``: of
+    "everything" with no stanza), its step planes at least two wide."""
+    kins, f = wave_members(seed, "everything" if variant == "no_spread"
+                           else variant, n_nodes, b=1, k=max(k, 2),
+                           lib=lib, n_pad=n_pad)
+    return kins[0], f._replace(n_spreads=0)
+
+
+def candidate_missing_case(lib="ref"):
+    """``(kin, features, k_steps, n_candidates)``: two candidates under
+    distinct_hosts take two of four placements, then the rest is missing
+    while the cluster could take it (``valid`` False, top-k off: a top-8
+    of two rows has no reference)."""
+    kin, f = candidate_member(80, "distinct", 60, 4, lib)
+    return kin, f._replace(with_topk=False), 4, 2
+
+
+def candidate_bound_case(lib="ref"):
+    """``(kin, features, k_steps, n_candidates)``: job anti-affinity drives
+    eight candidates below the rest max within twelve placements, every
+    one found (``valid`` False by the bound)."""
+    kin, f = candidate_member(81, "lean", 60, 12, lib)
+    return kin, f, 12, 8
+
+
+def candidate_pinned_case(lib="ref"):
+    """``(kin, features, k_steps)``: the kitchen sink's member (shuffle,
+    step penalties, pins) whose pins at every other step repeat nodes of
+    its top candidates, so rows k_cand + i duplicate candidate rows."""
+    from nomad_tpu_torch.convert import kernel_in_from_numpy
+
+    kin, f = candidate_member(82, "kitchen_sink", 383, 12, lib)
+    pref = np.full_like(np.asarray(kin.step_preferred), -1)
+    # the nodes the unpinned eval takes are candidates
+    out, _ = tk.place_taskgroup_topk(
+        kernel_in_from_numpy(kin._replace(step_preferred=pref),
+                             device="cpu"), 12, port_features(f))
+    taken = out.chosen.numpy()[out.found.numpy()]
+    pref[0:12:2] = taken[5::-1]
+    return kin._replace(step_preferred=pref), f, 12
+
+
 #: score tolerance: XLA-CPU and torch round ``pow`` and division in
 #: their own ways, a few ulps of values in [-2, 1]
 SCORE_ATOL = 1e-5

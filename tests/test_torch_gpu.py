@@ -2319,3 +2319,142 @@ def test_cuda_launch_wave_spread_over_a_virtual_mesh(cuda_device):
             np.testing.assert_array_equal(np.asarray(getattr(g, name)),
                                           np.asarray(getattr(w, name)),
                                           err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The single eval's candidate set (csrc/candidate_set.cu) against its plain
+# version, place_taskgroup_topk, on the card: bit for bit.
+# ---------------------------------------------------------------------------
+
+def _candidate_check(kin, k, feats, dev, n_candidates=0):
+    """One call of the kernel on one eval's planes against the plain
+    version on the same tensors: outputs and ``valid`` equal bit for bit.
+    Returns ``(out, valid)``."""
+    one = kernel_in_from_numpy(kin, device=dev)
+    before = ck.candidate_launches
+    got, ok = ck.candidate_eval_place(one, k, feats, n_candidates)
+    assert ck.candidate_launches == before + 1
+    want, want_ok = tk.place_taskgroup_topk(one, k, feats, n_candidates)
+    _assert_single(got, want)
+    assert bool(ok) == bool(want_ok)
+    return got, bool(ok)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,n_nodes", tp.CANDIDATE_VARIANTS,
+                         ids=[v for v, _ in tp.CANDIDATE_VARIANTS])
+def test_cuda_candidate_eval_matches_plain_version(variant, n_nodes,
+                                                   cuda_device):
+    for k in (1, 4, 12, 40):
+        kin, feats = tp.candidate_member(50, variant, n_nodes, k, lib="port")
+        got, ok = _candidate_check(kin, k, feats, cuda_device)
+        assert ok and bool(got.found.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_nodes", (60, 1000, 16384, 131072))
+def test_cuda_candidate_eval_at_every_width(n_nodes, cuda_device):
+    """16 steps, 10 of them active (the live bucket of 10 placements)."""
+    for variant in ("lean", "kitchen_sink", "no_spread"):
+        kin, feats = tp.candidate_member(51, variant, n_nodes, 16,
+                                         lib="port")
+        kin = kin._replace(n_steps=np.asarray(10, np.int32))
+        got, _ = _candidate_check(kin, 16, feats, cuda_device)
+        assert not bool(got.found[10:].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", (1, 8, 64, 256, 600))
+def test_cuda_candidate_rows_past_shared_memory(k, cuda_device):
+    """K to 600 at N=4096: 1800 rows pass a block's shared memory and live
+    in the global scratch; no K is refused."""
+    kin, feats = tp.candidate_member(52, "kitchen_sink", 4000, k, lib="port")
+    _, smem = ck.candidate_plan(cuda_device, 4096, k, max(2 * k, k + 8),
+                                True)
+    assert (smem == 0) == (k == 600)
+    _candidate_check(kin, k, feats, cuda_device)
+
+
+@pytest.mark.gpu
+def test_cuda_candidate_tie_run_straddles_the_candidate_edge(cuda_device):
+    """Eight candidates end inside a run of equal scores: the kernel keeps
+    the run's lowest nodes and the run's score as rest max."""
+    kin, uc, um, ac, am, _ = tp.tie_straddle_case(41, lib="port")
+    kin = kin._replace(used_cpu=uc, used_mem=um, ask_cpu=ac[0],
+                       ask_mem=am[0])
+    feats = tk.LEAN_FEATURES._replace(with_topk=True)
+    for n_candidates in (8, 0):
+        _candidate_check(kin, 10, feats, cuda_device, n_candidates)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ("missing", "bound"))
+def test_cuda_candidate_valid_false(case, cuda_device):
+    """Both of ``valid``'s conditions, reached through few candidates."""
+    make = {"missing": tp.candidate_missing_case,
+            "bound": tp.candidate_bound_case}[case]
+    kin, feats, k, n_candidates = make(lib="port")
+    _, ok = _candidate_check(kin, k, feats, cuda_device, n_candidates)
+    assert not ok
+
+
+@pytest.mark.gpu
+def test_cuda_candidate_pins_repeat_candidates(cuda_device):
+    kin, feats, k = tp.candidate_pinned_case(lib="port")
+    got, ok = _candidate_check(kin, k, feats, cuda_device)
+    assert ok and bool(got.found.all())
+
+
+@pytest.mark.gpu
+def test_cuda_default_launch_candidate_route(cuda_device, monkeypatch):
+    """``default_kernel_launch`` of a lean eval on the card is one call of
+    the candidate kernel and no joint launch; a breach (two candidates,
+    forced) is one of each and hands back the full-width placement."""
+    kin, feats = tp.candidate_member(53, "lean", 200, tp.K, lib="port")
+    feats = tk.canonical_features(feats)
+    tk.single_eval_stats.reset()
+    before = (ck.candidate_launches, ck.joint_launches)
+    got = tk.default_kernel_launch(kin, tp.K, feats, device=cuda_device)
+    assert (ck.candidate_launches, ck.joint_launches) == (
+        before[0] + 1, before[1])
+    assert tk.single_eval_stats.snapshot() == {
+        "topk": 1, "breaches": 0, "full": 0}
+    want = tk.default_kernel_launch(kin, tp.K, feats, device="cpu")
+    for name in ("chosen", "found", "topk_idx") + tk.FUSED_METRIC_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(got, name)),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=ATOL)
+
+    kin, feats, k, n_candidates = tp.candidate_missing_case(lib="port")
+    feats = tk.canonical_features(feats)
+    real = ck.candidate_eval_place
+    monkeypatch.setattr(ck, "candidate_eval_place",
+                        lambda kin, k, f: real(kin, k, f, n_candidates))
+    tk.single_eval_stats.reset()
+    before = (ck.candidate_launches, ck.joint_launches)
+    got = tk.default_kernel_launch(kin, k, feats, device=cuda_device)
+    assert (ck.candidate_launches, ck.joint_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert tk.single_eval_stats.snapshot() == {
+        "topk": 1, "breaches": 1, "full": 1}
+    full = tk.place_taskgroup(kernel_in_from_numpy(kin, device=cuda_device),
+                              k, feats)
+    for name in ("chosen", "found", "scores", "topk_idx"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(got, name)),
+            getattr(full, name).cpu().numpy(), err_msg=name)
+
+
+@pytest.mark.gpu
+def test_cuda_warmup_launches_the_candidate_kernel(cuda_device):
+    """A ``single_topk`` warmup entry is one call of the candidate kernel."""
+    from nomad_tpu_torch.ops import warmup
+
+    feats = tk.canonical_features(tk.LEAN_FEATURES._replace(with_topk=True))
+    entry = {"kernel": "single_topk", "nodes": 256, "steps": 16,
+             "features": dict(feats._asdict())}
+    before = (ck.candidate_launches, ck.joint_launches)
+    assert warmup.warmup_entries([entry], device=cuda_device) == (1, 0)
+    assert (ck.candidate_launches, ck.joint_launches) == (
+        before[0] + 1, before[1])

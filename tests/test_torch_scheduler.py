@@ -378,8 +378,8 @@ def test_default_kernel_launch_reruns_a_breach_full_width(monkeypatch):
     want = tk.default_kernel_launch(kins[0], 6, pf, device="cpu")
     topk = tk.place_taskgroup_topk
 
-    def breached(kin, k_steps, features):
-        out, ok = topk(kin, k_steps, features)
+    def breached(kin, k_steps, features, n_candidates=0):
+        out, ok = topk(kin, k_steps, features, n_candidates)
         # the candidate set's own answer, spoiled: it must not come back
         return out._replace(chosen=torch.zeros_like(out.chosen)), ~ok
 
