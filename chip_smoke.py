@@ -771,21 +771,35 @@ def main() -> int:
         log(f"build: {b.path} (cached={b.cached})")
     log(f"build: {len(builds)} libraries in {record['build_s']:.2f} s")
 
-    kline = run_phases(dev, record)
-    kline["kernels"] += run_batch_phases(dev, record)
-    sched, state_bytes = run_sched_phase(dev, record)
+    seconds = record["phase_seconds"] = {}
+
+    def timed(fn, *args):
+        # each phase's wall seconds, so that the run's time against its
+        # limit can be read phase by phase
+        t0 = time.perf_counter()
+        got = fn(*args)
+        name = fn.__name__.removeprefix("run_")
+        seconds[name] = time.perf_counter() - t0
+        log(f"{name}: {seconds[name]:.1f} s")
+        return got
+
+    kline = timed(run_phases, dev, record)
+    kline["kernels"] += timed(run_batch_phases, dev, record)
+    sched, state_bytes = timed(run_sched_phase, dev, record)
     kline["kernels"][0]["sched_launches"] = sched["b1_launches"]
     kline["kernels"].append(candidate_entry(sched["candidate_set"]))
-    server = run_server_phase(dev, record, state_bytes)
-    run_warm_start_phase(record, state_bytes)
-    workerproc = run_workerproc_phase(dev, record, state_bytes, server[-1])
-    raft = run_raft_phase(record, state_bytes, smi)
-    agent = run_agent_phase(dev, record, state_bytes, server[-1], smi)
-    client = run_client_phase(dev, record, state_bytes, smi)
-    mesh = run_mesh_phase(dev, record, state_bytes, server[-1],
-                          record["warm_start_manifest"])
+    server = timed(run_server_phase, dev, record, state_bytes)
+    timed(run_warm_start_phase, record, state_bytes)
+    workerproc = timed(run_workerproc_phase, dev, record, state_bytes,
+                       server[-1])
+    raft = timed(run_raft_phase, record, state_bytes, smi)
+    agent = timed(run_agent_phase, dev, record, state_bytes, server[-1],
+                  smi)
+    client = timed(run_client_phase, dev, record, state_bytes, smi)
+    mesh = timed(run_mesh_phase, dev, record, state_bytes, server[-1],
+                 record["warm_start_manifest"])
     del state_bytes
-    place_batch = run_place_batch_phase(dev, record)
+    place_batch = timed(run_place_batch_phase, dev, record)
     kline["kernels"][0]["server_launches"] = sum(
         arm["b1_launches"] for arm in server)
     candidate = next(k for k in kline["kernels"]
@@ -1877,24 +1891,79 @@ def candidate_vs_plain(one, k_steps: int, features, ctx: str,
                float((got.topk_scores - want.topk_scores).abs().max()))
 
 
-def kernel_device_ms(fn, names, reps: int) -> tuple:
-    """``(device ms a call, kernel launches a call)`` of the kernels whose
-    names hold one of ``names``, from the profiler's device trace (CUPTI)
-    over ``reps`` calls of ``fn``; ``(None, 0)`` where the trace shows no
-    device time. The events around back-to-back calls measure the larger
-    of this and the host's time to enqueue a call."""
+def kernel_device_parts(fn, names, reps: int) -> tuple:
+    """``({name: device ms a call, or None}, kernel launches a call)`` of
+    the kernels whose names hold one of ``names`` (each kernel counted
+    under the first it holds), from one profiler device trace (CUPTI) over
+    ``reps`` calls of ``fn``."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if any(name in e.key for name in names)]
-    total = sum(getattr(e, "device_time_total", 0)
-                or getattr(e, "cuda_time_total", 0) for e in rows)
-    launches = sum(e.count for e in rows)
-    return (total / 1e3 / reps if total else None), launches / reps
+    total = dict.fromkeys(names, 0.0)
+    launches = 0
+    for e in prof.key_averages():
+        name = next((name for name in names if name in e.key), None)
+        if name is not None:
+            total[name] += (getattr(e, "device_time_total", 0)
+                            or getattr(e, "cuda_time_total", 0))
+            launches += e.count
+    return ({name: (t / 1e3 / reps if t else None)
+             for name, t in total.items()}, launches / reps)
+
+
+def kernel_device_ms(fn, names, reps: int) -> tuple:
+    """``(device ms a call, kernel launches a call)`` of the kernels whose
+    names hold one of ``names``, from the profiler's device trace (CUPTI)
+    over ``reps`` calls of ``fn``; ``(None, 0)`` where the trace shows no
+    device time. The events around back-to-back calls measure the larger
+    of this and the host's time to enqueue a call."""
+    parts, launches = kernel_device_parts(fn, names, reps)
+    total = sum(t for t in parts.values() if t)
+    return (total or None), launches
+
+
+def c_call_ms(fn, reps: int) -> float:
+    """The device time in ms of one C call of a kernel, on the stream:
+    ``fn`` makes one call through ``ck._call`` (a wrapper such as
+    ``ck.candidate_eval_place``), and that C call, its arguments and
+    buffers still alive, is repeated ``reps`` times back to back between
+    CUDA events. A C call's own host work (its launches, a few us) is
+    shorter than a kernel's, so the card runs the calls back to back and
+    the time holds every launch of the call and what lies between them on
+    the stream, without the wrapper's host work. The repeats bypass the
+    wrapper and its count."""
+    import ctypes
+
+    real = ck._call
+    got = []
+
+    def timed(name, args, dev, what):
+        real(name, args, dev, what)
+        lib = ck._LIBS[name][0]
+        arg = ctypes.byref(args)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+            for _ in range(reps):
+                err = lib(arg, stream)
+                if err != 0:
+                    raise RuntimeError(f"{what} launch failed: cudaError "
+                                       f"{err}")
+            stop.record()
+            stop.synchronize()
+        got.append(start.elapsed_time(stop) / reps)
+
+    ck._call = timed
+    try:
+        fn()
+    finally:
+        ck._call = real
+    return got[0]
 
 
 def candidate_set_time(kin, k_steps: int, features,
@@ -1908,7 +1977,10 @@ def candidate_set_time(kin, k_steps: int, features,
     (``ck.joint_eval_place``) on the same planes. The bound: the fused
     envelope's leaves of one eval read once and the outputs written once,
     against the pass's operations over every node and each active step's
-    over the candidate rows."""
+    over the candidate rows. The kernel's device time a call comes from
+    back-to-back C calls (``c_call_ms``); one profiler trace gives each
+    launch's own (``pass_ms``, ``scan_ms``: the scan, the pass's
+    programmatic dependent launch, may start while the pass runs)."""
     features = canonical_features(features)
     one = _upload_kin(kin, dev)
     err = candidate_vs_plain(one, k_steps, features, "sched/candidate set")
@@ -1927,14 +1999,13 @@ def candidate_set_time(kin, k_steps: int, features,
                      ("joint_eval_call_ms", full)):
         fn()
         times[name] = cuda_ms(fn, 10)
-    times["ms"], times["kernel_launches"] = kernel_device_ms(
+    parts, times["kernel_launches"] = kernel_device_parts(
         kernel, ("cand_pass_kernel", "cand_scan_kernel"), 10)
+    times["pass_ms"] = parts["cand_pass_kernel"]
+    times["scan_ms"] = parts["cand_scan_kernel"]
+    times["ms"] = c_call_ms(kernel, 50)
     times["joint_eval_ms"], _ = kernel_device_ms(
         full, ("joint_wave_kernel",), 10)
-    if times["ms"] is None:
-        log("sched candidate set: the profiler shows no device time; the "
-            "kernel's ms are the events'")
-        times["ms"] = times["call_ms"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(10):

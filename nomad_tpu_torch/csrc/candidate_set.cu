@@ -1,5 +1,6 @@
 // The single eval's candidate set for NVIDIA Hopper (sm_90a): one C call,
-// two launches on the caller's stream.
+// two launches on the caller's stream, the second a programmatic dependent
+// launch.
 //
 // Replaces: the XLA program nomad_tpu/ops/kernel.py `place_taskgroup_topk`
 // (:726-973), jitted as `place_taskgroup_topk_jit` (:974), which the
@@ -28,56 +29,101 @@
 //
 // What bounds it. Bytes: the pass reads each of the eval's node planes once
 // (770,396 B for a lean eval at N=16384: 0.23 us at 3.35 TB/s). Operations:
-// ~25 f32 operations a node in the pass, then K dependent steps over k_cand
-// (+ K) rows, a rescore and a compare each. Neither is the limit at the
-// live width: the K steps are a chain, each a few hundred cycles of one
-// SM's latency (two powf and three divisions a row, the block's argmax and
-// top-8, two barriers), so the kernel's time is its step chain, the radix
-// passes of its selection and the two launches.
+// ~25 f32 operations a node in the pass, then K dependent steps. Neither is
+// the limit at the live width. The kernel's time is latency: the pass's
+// one node a thread and its selection (a few radix passes, two barriers
+// each), the scan's selection and rows, and then the step chain, in which
+// each step waits on the rescore of the node the last one placed on (two
+// powf and three divisions in a dependent chain) and two barriers.
 //
-// Design, simple first:
+// Design (redesigned for the H100; the first kernel rescored every row at
+// every step, walked every row to commit and sorted each pass CTA's keys):
 // - Launch 1, cand_pass_kernel: one thread a node over a grid of
 //   PASS_THREADS-thread CTAs. A node's masked score becomes a u64 key, the
 //   order-preserving score bits (wave_score.cuh `score_key`: -0.0 and +0.0
 //   share a key, as torch compares them) above ~node, so keys are distinct
-//   and key order is (score desc, node asc). Each CTA sorts its range's
-//   keys (bitonic, in shared memory) and hands on its best mm = min(m,
-//   PASS_THREADS), m = k_cand + 1 (or N): every key of the m best overall
-//   is among its CTA's m best. Its metric counts go to one row of partial
-//   sums. (Without that cut the one CTA of launch 2 read all N keys in
-//   each selection pass: 87-90 us at N=16384, 282-584 us at N=131072 on an
-//   NVIDIA H100, nomad_tpu_torch/tools/candidate_split.py.)
-// - Launch 2, cand_scan_kernel: one CTA. It sums the partial counts; finds
-//   the m-th largest of the handed-on keys by radix selection, eight bits
-//   a pass from the top, stopping at the first pass whose bin holds
-//   exactly the keys still wanted (two or three passes on real scores);
-//   gathers the m keys at or above it and orders them by counting (a key's
-//   place is the number of keys above it); builds the rows (each a JNode of
-//   csrc/joint_node.cuh with its node id and tie rank); then runs the K
-//   steps on the warps that hold rows, one named barrier before the merge
-//   of their argmaxes and top-8 lists (none where one warp holds them all)
-//   and one after it. The steps past n_steps (the live path pads 10
-//   placements to a bucket of 16) write their fixed outputs unscored.
-// - The selection buffers and the rows live in shared memory while they fit
-//   what a block may take; past that (k_steps in the hundreds) in the
-//   global scratch after the keys, read through the same generic pointer.
-//   No k_steps is refused. The host asks candidate_set_plan for the
-//   scratch's bytes; the layout stays here.
-// - The per-node arithmetic is csrc/joint_node.cuh's (node_fits, node_rest,
-//   count_metrics): the torch version's operation order, built with
-//   -fmad=false and no fast-math, so the kernel places bit for bit as the
-//   plain version does on the card. A row keeps its node's carries and
-//   takes each placement in turn, as joint_node.cuh's single-eval commit.
+//   and key order is (score desc, node asc). A CTA whose range holds more
+//   than mm = min(m, PASS_THREADS) nodes, m = k_cand + 1 (or N), hands on
+//   its best mm keys in no order (pass_take): radix passes of eight bits on
+//   the score key alone, from the highest bit where the CTA's scores
+//   differ, each stopping at the first pass whose bin holds exactly the
+//   keys still wanted; a score tied across the cut gives its lowest nodes,
+//   which are the CTA's threads in order. Then the keys taken are
+//   compacted by ballot. Every key of the m best overall is among its
+//   CTA's mm best. The metric counts go to one row of partial sums.
+// - Launch 2, cand_scan_kernel: one CTA, launched with programmatic stream
+//   serialisation: it may start while the pass runs (each pass CTA lets it
+//   go at its start) and waits in griddepcontrol.wait, which returns once
+//   the pass has finished and its writes are visible. That takes the
+//   launch gap off the stream without any state shared between calls: the
+//   other way, the last pass CTA running the scan behind a ticket counter,
+//   needs a counter that concurrent calls on several streams (worker
+//   threads beside the warmup) cannot share, so one zeroed each call, and
+//   it runs the scan on a 1024-thread CTA's resources. A plain second
+//   launch, timed beside this one on an H100 (N=16384, K=16), took about
+//   1.5 us more a call: the gap between the two launches. The scan sums the
+//   partial counts, stages the pass's keys in shared memory where they fit,
+//   selects the m-th key by the same radix passes on the whole u64 key
+//   (scan_select), orders the m keys by counting, and builds the rows.
+// - Rows. Row r is a candidate (r < k_cand) or the pin of step r - k_cand.
+//   Each row names its head: the first row of its node (its candidate row,
+//   found by the node's pass key, else the first pin on the node). That is
+//   the node-to-rows link: rows of one node share their carries and their
+//   score (a pin below 0 is only ever infeasible), so the head alone keeps
+//   the node's JNode (planes and carries) and its cached keys: without and
+//   with a step penalty (equal under the static penalty), and whether the
+//   node is feasible. A commit touches the head only.
+// - Steps. A row's key at a step is its head's key with or without the
+//   penalty (the step's penalty nodes, held in shared memory), or the
+//   infeasible key for a pin below 0. The rescoring set: a row's key
+//   changes between steps only by a placement on its node and by its node
+//   entering or leaving the step's penalty set (a choice between the two
+//   cached keys). A head also keeps its keys after one more placement
+//   (hnext), so a placement switches to keys computed before it. Warps:
+//   the commit warp (0), the row warps (1..nw, STEP_ROWS rows a lane up to
+//   14 warps) and the top warp. Phase 1: a row warp whose rows hold a node
+//   of the rescoring set rebuilds its argmax and its lanes' top-8 lists
+//   from the cached keys (one warp holds every row to ~40 steps and always
+//   rebuilds; it hands its lanes' lists to the top warp), while the commit
+//   warp applies the last placement to its head's carries and computes the
+//   head's keys after one more (the one rescore a step, both keys from one
+//   node_rest_base) and reads the pin's cached keys. A barrier. Phase 2:
+//   the commit warp merges the argmaxes, takes the pin or the argmax,
+//   writes the step's outputs and switches the head to its next keys;
+//   several row warps merge their lanes' lists into each warp's top-8. A
+//   second barrier, without the top warp, which merges the step's lists
+//   into its top-8 outputs while the next step runs and meets the others
+//   only at the first barrier. The steps past n_steps (the live path pads
+//   10 placements to a bucket of 16) write their fixed outputs unscored.
+// - The selection buffers and the row arrays live in shared memory while
+//   they fit what a block may take (the staged keys where the heads'
+//   JNodes go once the selection is done); past that (k_steps in the hundreds)
+//   the heads' JNodes, then the rest, go to the global scratch after the
+//   keys, read through the same generic pointer. No k_steps is refused.
+//   The host asks candidate_set_plan for the scratch's bytes; the layout
+//   stays here. The outputs go to the caller's one buffer
+//   (ops/cuda_kernel.candidate_layout), which the host reads back in one
+//   copy.
+// - The per-node arithmetic is csrc/joint_node.cuh's (node_fits,
+//   node_rest_base and node_rest_tail, count_metrics): the torch version's
+//   operation order, built with -fmad=false and no fast-math, so the
+//   kernel places bit for bit as the plain version does on the card. A
+//   head takes each placement on its node in turn, as joint_node.cuh's
+//   single-eval commit.
 //
 // Built by nomad_tpu_torch/ops/build.py, loaded with ctypes.
 
 #include "joint_node.cuh"
 
 #define PASS_THREADS 1024         // nodes a CTA of the pass, one a thread
+#define PASS_WARPS (PASS_THREADS / 32)
 #define SCAN_THREADS 512
 #define SCAN_WARPS (SCAN_THREADS / 32)
-#define SCAN_BAR 1                 // the named barrier of the scan's warps
+#define SCAN_BAR 1                 // the named barrier of the steps' warps
+#define STEP_BAR 2                 // and the one the top warp stays out of
 #define RADIX 256                  // bins of one selection pass
+#define STEP_ROWS 4                // rows a lane of a row warp holds
+#define MAX_ROW_WARPS (SCAN_WARPS - 2)  // beside the commit and top warps
 #define MAX_DEVICES 64
 
 static_assert(N_MET == 8 && SCAN_THREADS % N_MET == 0,
@@ -98,25 +144,39 @@ struct CandLaunch {
   unsigned char* found;    // bool [k_steps]
   int* metrics;            // i32 [N_MET], FUSED_METRIC_FIELDS order
   unsigned char* valid;    // bool [1]
+  long long* stamps;       // i64 [4] the scan's clock64 stamps, or 0
   int k_steps, k_cand;
 };
 
-// One candidate row: its node's planes and carries, the node, and its
-// place among equal scores (node_perm[node] with shuffle, else the row).
-struct CRow {
-  JNode d;
-  int node;
+// One row: its node, its head (the node's first row), its place among
+// equal scores (node_perm[node] with shuffle, else the row), and whether it
+// is the pin of a step pinned below 0 (its base cleared: never feasible).
+struct CRef {
+  int node, head;
   unsigned tie;
+  int pad;
+};
+
+// A head's cached keys: its node's masked score without and with a step
+// penalty, and whether the node is feasible (the pin's test).
+struct CKey {
+  unsigned kn, kp;
+  int ok, unused;
 };
 
 // Where a call's buffers are (bytes), from its widths.
 struct CandPlan {
-  long long keys, parts, area, scratch;
-  int blocks;   // CTAs of the pass
-  int m;        // keys selected: the candidates, then the rest max's
-  int mm;       // keys each CTA of the pass hands on: its best min(m, range)
-  int k_all;    // rows: candidates, then one pin a step
-  int smem;     // the area in shared memory (0: in the scratch)
+  long long keys, parts, scratch;
+  long long sel, refs, hkeys, steps, small, rows;  // hkeys: cur, then next
+  int blocks;        // CTAs of the pass
+  int m;             // keys selected: the candidates, then the rest max's
+  int mm;            // keys each CTA of the pass hands on
+  int k_all;         // rows: candidates, then one pin a step
+  int nw;            // the steps' row warps
+  int smem;          // the scan's dynamic shared memory
+  int small_shared;  // the selection buffers and row arrays in it
+  int rows_shared;   // the heads' JNodes in it too
+  int stage_shared;  // the pass's keys staged in it for the selection
 };
 
 static long long align16(long long x) { return (x + 15) & ~15LL; }
@@ -128,12 +188,29 @@ static CandPlan cand_plan(int n, int k_steps, int k_cand, int with_pref,
   p.m = k_cand < n ? k_cand + 1 : n;
   p.mm = p.m < PASS_THREADS ? p.m : PASS_THREADS;
   p.k_all = k_cand + (with_pref ? k_steps : 0);
+  const int lanes = (p.k_all + STEP_ROWS - 1) / STEP_ROWS;
+  const int w = (lanes + 31) / 32;
+  p.nw = w < 1 ? 1 : (w < MAX_ROW_WARPS ? w : MAX_ROW_WARPS);
   p.keys = align16(8LL * p.blocks * p.mm);
   p.parts = align16(4LL * N_MET * p.blocks);
-  // the unordered keys, the ordered keys, the rows
-  p.area = 16LL * p.m + (long long)sizeof(CRow) * p.k_all;
-  p.smem = p.area <= limit ? (int)p.area : 0;
-  p.scratch = p.keys + p.parts + (p.smem ? 0 : align16(p.area));
+  // the unordered keys and the ordered keys; the rows' refs; the heads'
+  // keys; the step nodes; then the heads' JNodes
+  p.sel = align16(16LL * p.m);
+  p.refs = align16((long long)sizeof(CRef) * p.k_all);
+  p.hkeys = align16((long long)sizeof(CKey) * 2 * p.k_all);
+  p.steps = align16(4LL * (MAX_P + 1) * k_steps);
+  p.small = p.sel + p.refs + p.hkeys + p.steps;
+  p.rows = align16((long long)sizeof(JNode) * p.k_all);
+  p.small_shared = p.small <= limit;
+  p.rows_shared = p.small + p.rows <= limit;
+  // the pass's keys, staged after the small arrays where the rows go later
+  const long long stage = align16(8LL * p.blocks * p.mm);
+  p.stage_shared = p.small_shared && p.small + stage <= limit;
+  const long long after = p.rows_shared ? p.rows : 0;
+  const long long big = p.stage_shared && stage > after ? stage : after;
+  p.smem = p.small_shared ? (int)(p.small + big) : 0;
+  p.scratch = p.keys + p.parts + (p.small_shared ? 0 : p.small) +
+              (p.rows_shared ? 0 : p.rows);
   return p;
 }
 
@@ -201,7 +278,30 @@ __device__ __forceinline__ float masked_value(const JointArgs& a,
   return cnt != 0 ? sum / (float)cnt : NEG_INF_F;
 }
 
-// One placement on a row's node (ops/kernel._deduct at that node): the
+// A head's keys from its node's planes and carries: the very values a
+// rescore of any of its rows gives at a step without and with a penalty,
+// both finished from one node_rest_base (joint_node.cuh's order).
+__device__ __forceinline__ CKey head_keys(const JointArgs& a,
+                                          const JMember& v, const JNode& d) {
+  CKey k;
+  k.unused = 0;
+  float s;
+  unsigned c;
+  k.ok = node_rest_base(a, v, d, s, c);
+  if (!k.ok) {
+    k.kn = k.kp = score_key(NEG_INF_F);
+    return k;
+  }
+  float sn = s, sp = s;
+  unsigned cn = c, cp = c;
+  node_rest_tail(d, d.pen, sn, cn);
+  node_rest_tail(d, true, sp, cp);
+  k.kn = score_key(sn / (float)cn);
+  k.kp = score_key(sp / (float)cp);
+  return k;
+}
+
+// One placement on a head's node (ops/kernel._deduct at that node): the
 // used planes take the ask in turn, as joint_node.cuh's single-eval commit.
 __device__ __forceinline__ void cand_commit(const JointArgs& a,
                                             const JMember& v, JNode& d) {
@@ -227,13 +327,253 @@ __device__ __forceinline__ void scan_bar(int nt) {
   asm volatile("bar.sync %0, %1;" ::"n"(SCAN_BAR), "r"(nt) : "memory");
 }
 
+// The second barrier of a step: the commit and row warps, not the top warp.
+__device__ __forceinline__ void step_bar(int nt) {
+  asm volatile("bar.sync %0, %1;" ::"n"(STEP_BAR), "r"(nt) : "memory");
+}
+
+// The split tool's probe: thread 0's clock at edge j of the scan's phases
+// (0-3: after the pass, the selection, the rows, the steps), where the
+// tool passes a buffer.
+__device__ __forceinline__ void stamp(const CandLaunch& c, int j) {
+  if (c.stamps && threadIdx.x == 0) c.stamps[j] = clock64();
+}
+
+__device__ __forceinline__ bool in_set(const int* s, int node) {
+  bool hit = false;
+#pragma unroll
+  for (int q = 0; q < MAX_P; ++q) hit = hit || s[q] == node;
+  return hit;
+}
+
+// One key a lane into a pass's histogram where `in`: a warp whose lanes
+// all hold one digit adds once, else each lane adds its own.
+__device__ __forceinline__ void hist_count(unsigned* h, unsigned dg,
+                                           bool in) {
+  const unsigned lead = __shfl_sync(FULL_MASK, dg, 0);
+  const bool lead_in = __shfl_sync(FULL_MASK, in, 0);
+  if (__all_sync(FULL_MASK, dg == lead && in == lead_in)) {
+    if (lead_in && (threadIdx.x & 31) == 0) atomicAdd(&h[lead], 32u);
+  } else if (in) {
+    atomicAdd(&h[dg], 1u);
+  }
+}
+
+// Warp 0: the bin of a pass's histogram `h` that holds the `remaining`-th
+// largest key (sel[0]), the keys in the bins above it (sel[1]) and in it
+// (sel[2]); and `next`, the next pass's histogram, zeroed (its last
+// readers, the last pass's, are past a barrier).
+__device__ __forceinline__ void find_bin(const unsigned* h, int remaining,
+                                         int* sel, unsigned* next) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < RADIX / 32; ++j) next[lane + 32 * j] = 0u;
+  // lane l holds bins 255 - 8l .. 248 - 8l, the largest first
+  const uint4 lo4 = *reinterpret_cast<const uint4*>(h + RADIX - 8 - 8 * lane);
+  const uint4 hi4 = *reinterpret_cast<const uint4*>(h + RADIX - 4 - 8 * lane);
+  const unsigned cb[8] = {hi4.w, hi4.z, hi4.y, hi4.x,
+                          lo4.w, lo4.z, lo4.y, lo4.x};
+  unsigned sum = 0u;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sum += cb[j];
+  unsigned incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned t = __shfl_up_sync(FULL_MASK, incl, off);
+    if (lane >= off) incl += t;
+  }
+  unsigned acc = incl - sum;
+  if (acc < (unsigned)remaining && (unsigned)remaining <= incl) {
+    bool done = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!done && acc + cb[j] >= (unsigned)remaining) {
+        sel[0] = RADIX - 1 - 8 * lane - j;
+        sel[1] = (int)acc;
+        sel[2] = (int)cb[j];
+        done = true;
+      }
+      acc += cb[j];
+    }
+  }
+}
+
+// The pass CTA's keys to hand on: whether this thread's key is among the
+// CTA's best `want` (every thread calls it; `valid` marks a node). Its
+// score key `sk` decides, over radix passes of eight bits from the highest
+// bit where the CTA's scores differ, each ending at the first pass whose
+// bin holds exactly the keys still wanted; a score tied across the cut
+// gives its lowest nodes, the threads in order (a key's ~node order).
+// `hist` is 2 * RADIX counters, `sel` three ints and `wred` 3 * PASS_WARPS
+// words of shared memory.
+__device__ __forceinline__ bool pass_take(unsigned sk, bool valid, int want,
+                                          unsigned* hist, int* sel,
+                                          unsigned* wred) {
+  static_assert(PASS_WARPS == 32, "a warp reduces the warps' words");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int x = tid; x < RADIX; x += PASS_THREADS) hist[x] = 0u;
+  const unsigned wmax = __reduce_max_sync(FULL_MASK, valid ? sk : 0u);
+  const unsigned wmin = __reduce_min_sync(FULL_MASK, valid ? sk : ~0u);
+  if (lane == 0) {
+    wred[warp] = wmax;
+    wred[PASS_WARPS + warp] = wmin;
+  }
+  __syncthreads();
+  const unsigned smax = __reduce_max_sync(FULL_MASK, wred[lane]);
+  const unsigned smin = __reduce_min_sync(FULL_MASK, wred[PASS_WARPS + lane]);
+  const unsigned diff = smax ^ smin;
+  unsigned prefix = smax;
+  int remaining = want;
+  bool tie = true;
+  if (diff != 0u) {
+    int hi = 31 - __clz(diff);
+    unsigned mask = hi == 31 ? 0u : ~((2u << hi) - 1u);
+    prefix = smax & mask;
+    for (int pass = 0;; ++pass) {
+      const int w = min(8, hi + 1), lo = hi - w + 1;
+      const unsigned dm = (1u << w) - 1u;
+      unsigned* h = hist + (pass & 1) * RADIX;
+      const bool in = valid && (sk & mask) == prefix;
+      hist_count(h, in ? (sk >> lo) & dm : 0u, in);
+      __syncthreads();
+      if (warp == 0) find_bin(h, remaining, sel, hist + ((pass + 1) & 1) * RADIX);
+      __syncthreads();
+      const int bin = sel[0], above = sel[1], inbin = sel[2];
+      remaining -= above;
+      prefix |= (unsigned)bin << lo;
+      mask |= dm << lo;
+      if (inbin == remaining) {
+        tie = false;
+        break;
+      }
+      if (lo == 0) break;  // a whole score, tied across the cut
+      hi = lo - 1;
+    }
+  }
+  if (!tie) return valid && sk >= prefix;
+  const bool eq = valid && sk == prefix;
+  const unsigned bal = __ballot_sync(FULL_MASK, eq);
+  if (lane == 0) wred[2 * PASS_WARPS + warp] = __popc(bal);
+  __syncthreads();
+  const unsigned before = __reduce_add_sync(
+      FULL_MASK, lane < warp ? wred[2 * PASS_WARPS + lane] : 0u);
+  const int rank = (int)(before + __popc(bal & ((1u << lane) - 1u)));
+  return valid && (sk > prefix || (eq && rank < remaining));
+}
+
+__device__ __forceinline__ u64 warp_max64(u64 x) {
+  const unsigned hi = __reduce_max_sync(FULL_MASK, (unsigned)(x >> 32));
+  const unsigned lo = __reduce_max_sync(
+      FULL_MASK, (unsigned)(x >> 32) == hi ? (unsigned)x : 0u);
+  return ((u64)hi << 32) | lo;
+}
+
+__device__ __forceinline__ u64 warp_min64(u64 x) {
+  const unsigned hi = __reduce_min_sync(FULL_MASK, (unsigned)(x >> 32));
+  const unsigned lo = __reduce_min_sync(
+      FULL_MASK, (unsigned)(x >> 32) == hi ? (unsigned)x : ~0u);
+  return ((u64)hi << 32) | lo;
+}
+
+// The scan's threshold: exactly `want` of ks[0..nk) at or above it (keys
+// distinct, 0 the pass's padding), over the block, by the pass's radix
+// passes on the whole u64 key from the highest bit where the keys differ.
+// `hist` is 2 * RADIX counters, zeroed past a barrier; `sel` three ints;
+// `wred` 2 * SCAN_WARPS u64.
+__device__ __forceinline__ u64 scan_select(const u64* ks, int nk, int want,
+                                           unsigned* hist, int* sel,
+                                           u64* wred) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  u64 mx = 0ull, mn = ~0ull;
+  for (int i = tid; i < nk; i += SCAN_THREADS) {
+    const u64 k = ks[i];
+    if (k != 0ull) {
+      mx = k > mx ? k : mx;
+      mn = k < mn ? k : mn;
+    }
+  }
+  mx = warp_max64(mx);
+  mn = warp_min64(mn);
+  if (lane == 0) {
+    wred[warp] = mx;
+    wred[SCAN_WARPS + warp] = mn;
+  }
+  __syncthreads();
+  mx = warp_max64(lane < SCAN_WARPS ? wred[lane] : 0ull);
+  mn = warp_min64(lane < SCAN_WARPS ? wred[SCAN_WARPS + lane] : ~0ull);
+  const u64 diff = mx ^ mn;
+  if (diff == 0ull) return mx;
+  int hi = 63 - __clzll(diff);
+  u64 mask = hi == 63 ? 0ull : ~((2ull << hi) - 1ull);
+  u64 prefix = mx & mask;
+  int remaining = want;
+  for (int pass = 0;; ++pass) {
+    // digits stop at bit 32, the score's end: past it a tie is cut on the
+    // bits where the tied keys' nodes differ
+    const int lo = max(hi - 7, hi >= 32 ? 32 : 0), w = hi - lo + 1;
+    const u64 dm = (1ull << w) - 1ull;
+    unsigned* h = hist + (pass & 1) * RADIX;
+    for (int i0 = 0; i0 < nk; i0 += SCAN_THREADS) {
+      const int i = i0 + tid;
+      const u64 k = i < nk ? ks[i] : 0ull;
+      const bool in = k != 0ull && (k & mask) == prefix;
+      hist_count(h, in ? (unsigned)((k >> lo) & dm) : 0u, in);
+    }
+    __syncthreads();
+    if (warp == 0) find_bin(h, remaining, sel, hist + ((pass + 1) & 1) * RADIX);
+    __syncthreads();
+    const int bin = sel[0], above = sel[1], inbin = sel[2];
+    remaining -= above;
+    prefix |= (u64)bin << lo;
+    mask |= dm << lo;
+    // every key of the bin is wanted (at the last bits the bin is one key)
+    if (inbin == remaining || lo == 0) break;
+    hi = lo - 1;
+    if (lo == 32) {
+      // a score tied across the cut: the highest bit where its keys' ~node
+      // differ (at least two keys hold it), the bits above it common
+      unsigned nx = 0u, nn = ~0u;
+      for (int i = tid; i < nk; i += SCAN_THREADS) {
+        const u64 k = ks[i];
+        if (k != 0ull && (k & mask) == prefix) {
+          nx = max(nx, (unsigned)k);
+          nn = min(nn, (unsigned)k);
+        }
+      }
+      nx = __reduce_max_sync(FULL_MASK, nx);
+      nn = __reduce_min_sync(FULL_MASK, nn);
+      if (lane == 0) {
+        wred[warp] = nx;
+        wred[SCAN_WARPS + warp] = nn;
+      }
+      __syncthreads();
+      nx = __reduce_max_sync(FULL_MASK,
+                             lane < SCAN_WARPS ? (unsigned)wred[lane] : 0u);
+      nn = __reduce_min_sync(
+          FULL_MASK, lane < SCAN_WARPS ? (unsigned)wred[SCAN_WARPS + lane]
+                                       : ~0u);
+      hi = 31 - __clz(nx ^ nn);
+      const u64 common = hi == 31 ? 0ull : 0xffffffffull & ~((2ull << hi) - 1ull);
+      prefix |= (u64)nx & common;
+      mask |= common;
+    }
+  }
+  return prefix;
+}
+
 __global__ void __launch_bounds__(PASS_THREADS)
     cand_pass_kernel(const CandLaunch c, const CandPlan p) {
-  __shared__ int part[PASS_THREADS / 32][N_MET];
-  __shared__ u64 sk[PASS_THREADS];
+  __shared__ int part[PASS_WARPS][N_MET];
+  __shared__ __align__(16) unsigned hist[2 * RADIX];
+  __shared__ unsigned wred[3 * PASS_WARPS];
+  __shared__ int sel[3];
+  __shared__ int cnt_at;
+  // the scan may launch now; it waits for the whole pass before reading
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const JointArgs& a = c.a;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i = blockIdx.x * PASS_THREADS + tid;
+  const int lo = blockIdx.x * PASS_THREADS;
+  const int i = lo + tid;
   int cnt[N_MET];
 #pragma unroll
   for (int q = 0; q < N_MET; ++q) cnt[q] = 0;
@@ -244,28 +584,21 @@ __global__ void __launch_bounds__(PASS_THREADS)
     count_metrics(a, v, d, cnt);
     key = cand_key(masked_value(a, v, d, d.pen), i);
   }
-  // the CTA's best mm keys hold every one of the m best its range has:
-  // bitonic sort of the range's keys, largest first, where mm < range
   u64* pre = reinterpret_cast<u64*>(c.scratch) + (long long)blockIdx.x * p.mm;
-  if (p.mm < PASS_THREADS) {
-    sk[tid] = key;
-    __syncthreads();
-    for (int size = 2; size <= PASS_THREADS; size <<= 1) {
-      for (int j = size >> 1; j > 0; j >>= 1) {
-        const int q = tid ^ j;
-        if (q > tid) {
-          const u64 x = sk[tid], y = sk[q];
-          if (((tid & size) == 0) ? x < y : x > y) {
-            sk[tid] = y;
-            sk[q] = x;
-          }
-        }
-        __syncthreads();
-      }
-    }
-    if (tid < p.mm) pre[tid] = sk[tid];
+  const int range = min(PASS_THREADS, a.n - lo);
+  if (range <= p.mm) {
+    // every node of the range is handed on (padding keys after them)
+    if (tid < p.mm) pre[tid] = key;
   } else {
-    pre[tid] = key;
+    // the range's best mm keys, in no order
+    if (tid == 0) cnt_at = 0;
+    const bool take = pass_take((unsigned)(key >> 32), i < a.n, p.mm, hist,
+                                sel, wred);
+    const unsigned bal = __ballot_sync(FULL_MASK, take);
+    int at = 0;
+    if (lane == 0 && bal) at = atomicAdd(&cnt_at, __popc(bal));
+    at = __shfl_sync(FULL_MASK, at, 0);
+    if (take) pre[at + __popc(bal & ((1u << lane) - 1u))] = key;
   }
 #pragma unroll
   for (int q = 0; q < N_MET; ++q) {
@@ -276,24 +609,67 @@ __global__ void __launch_bounds__(PASS_THREADS)
   if (tid < N_MET) {
     int s = 0;
 #pragma unroll
-    for (int w = 0; w < PASS_THREADS / 32; ++w) s += part[w][tid];
+    for (int w = 0; w < PASS_WARPS; ++w) s += part[w][tid];
     reinterpret_cast<int*>(c.scratch + p.keys)[blockIdx.x * N_MET + tid] = s;
   }
+}
+
+// Step i's top-8 outputs (ops/kernel._place_scan's stable descending sort
+// over rows, mapped to node ids) from a warp's top-8 (every lane holds it).
+__device__ __forceinline__ void write_top(const JointArgs& a,
+                                          const CRef* refs, int k_all, int i,
+                                          const unsigned* tk, const int* ti,
+                                          int lane) {
+  if (lane >= TOPK) return;
+  unsigned k = PAD_KEY;
+  int r = 0;
+#pragma unroll
+  for (int q = 0; q < TOPK; ++q)
+    if (q == lane) {
+      k = tk[q];
+      r = ti[q];
+    }
+  a.topk_idx[i * TOPK + lane] = r >= 0 && r < k_all ? refs[r].node : 0;
+  a.topk_scores[i * TOPK + lane] = key_score(k);
+}
+
+// The top warp: step i's top-8 from the row warps' lists (warps 1..nw of
+// lk / li), written out.
+__device__ __forceinline__ void merge_top_write(const JointArgs& a,
+                                                const CRef* refs, int k_all,
+                                                int i, int nw,
+                                                unsigned (*lk)[TOPK],
+                                                int (*li)[TOPK],
+                                                int lane) {
+  unsigned k[TOPK], tk[TOPK];
+  int r[TOPK], ti[TOPK];
+  list_clear(k, r);
+  if (lane < nw) {
+#pragma unroll
+    for (int q = 0; q < TOPK; ++q) {
+      k[q] = lk[lane + 1][q];
+      r[q] = li[lane + 1][q];
+    }
+  }
+  warp_top(k, r, tk, ti);
+  write_top(a, refs, k_all, i, tk, ti, lane);
 }
 
 __global__ void __launch_bounds__(SCAN_THREADS, 1)
     cand_scan_kernel(const CandLaunch c, const CandPlan p) {
   extern __shared__ __align__(16) unsigned char dyn_smem[];
-  __shared__ unsigned hist[RADIX];
+  __shared__ __align__(16) unsigned hist[2 * RADIX];
+  __shared__ u64 wred[2 * SCAN_WARPS];
+  __shared__ int sh_sel[3];
   __shared__ int sh_met[N_MET];
-  __shared__ int sh_sel[3];   // the bin, the keys above it, the keys in it
   __shared__ int sh_cnt;
-  __shared__ Best sh_best[SCAN_WARPS];
-  __shared__ unsigned sh_tk[SCAN_WARPS][TOPK];
-  __shared__ int sh_ti[SCAN_WARPS][TOPK];
-  __shared__ int sh_pin_ok;
-  __shared__ float sh_pin_v;
+  __shared__ Best sh_best[SCAN_WARPS];         // each row warp's argmax
+  __shared__ unsigned sh_tk[2][SCAN_WARPS][TOPK];  // and its top-8, by
+  __shared__ int sh_ti[2][SCAN_WARPS][TOPK];       // the step's parity
   __shared__ int sh_win;      // the node the step placed on, or -1
+  // one row warp's lanes' top-8 lists, by the step's parity
+  __shared__ unsigned sh_lk[2][32][TOPK];
+  __shared__ int sh_li[2][32][TOPK];
 
   const JointArgs& a = c.a;
   const int n = a.n, kc = c.k_cand, m = p.m, k_all = p.k_all;
@@ -301,87 +677,74 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const u64* keys = reinterpret_cast<const u64*>(c.scratch);
   const int* parts = reinterpret_cast<const int*>(c.scratch + p.keys);
-  unsigned char* area = p.smem ? dyn_smem : c.scratch + p.keys + p.parts;
-  u64* cand = reinterpret_cast<u64*>(area);
+  unsigned char* gbase = c.scratch + p.keys + p.parts;
+  unsigned char* small = p.small_shared ? dyn_smem : gbase;
+  unsigned char* rows_at =
+      p.rows_shared ? dyn_smem + p.small
+                    : (p.small_shared ? gbase : gbase + p.small);
+  u64* cand = reinterpret_cast<u64*>(small);
   u64* sorted = cand + m;
-  CRow* rows = reinterpret_cast<CRow*>(sorted + m);
+  CRef* refs = reinterpret_cast<CRef*>(small + p.sel);
+  CKey* hkeys = reinterpret_cast<CKey*>(small + p.sel + p.refs);
+  CKey* hnext = hkeys + k_all;  // a head's keys after one more placement
+  int* steps = reinterpret_cast<int*>(small + p.sel + p.refs + p.hkeys);
+  JNode* rows = reinterpret_cast<JNode*>(rows_at);
 
-  // ---- the metrics: thread tid sums metric tid % N_MET of every CTA ----
   if (tid < N_MET) sh_met[tid] = 0;
   if (tid == 0) sh_cnt = 0;
+  for (int x = tid; x < 2 * RADIX; x += SCAN_THREADS) hist[x] = 0u;
+  const JMember v = load_member(a, 0);
+  // the pass's keys and counts: wait for the whole pass
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   __syncthreads();
-  {
-    int s = 0;
-    for (int x = tid; x < p.blocks * N_MET; x += SCAN_THREADS) s += parts[x];
-    s += __shfl_xor_sync(FULL_MASK, s, 8);
-    s += __shfl_xor_sync(FULL_MASK, s, 16);
-    if (lane < N_MET) atomicAdd(&sh_met[lane], s);
-  }
+  stamp(c, 0);
 
-  // ---- the m-th largest key, eight bits a pass from the top ----
-  u64 prefix = 0ull, mask = 0ull;
-  int remaining = m;  // keys still wanted among those matching the prefix
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int x = tid; x < RADIX; x += SCAN_THREADS) hist[x] = 0u;
-    __syncthreads();
-    for (int i0 = 0; i0 < nk; i0 += SCAN_THREADS) {
-      const int i = i0 + tid;
-      const u64 key = i < nk ? keys[i] : 0ull;
-      const bool in = i < nk && (key & mask) == prefix;
-      const unsigned dg = in ? (unsigned)(key >> shift) & 0xffu : RADIX;
-      const unsigned peers = __match_any_sync(FULL_MASK, dg);
-      if (in && lane == __ffs(peers) - 1)
-        atomicAdd(&hist[dg], (unsigned)__popc(peers));
-    }
-    __syncthreads();
-    if (warp == 0) {
-      // lane l holds bins 255 - 8l .. 248 - 8l, the largest first
-      unsigned cb[8], s = 0u;
+  // the metrics: thread tid sums metric tid % N_MET of every CTA (its
+  // first partial in flight beside the keys' loads below)
+  const int n_parts = p.blocks * N_MET;
+  int met = tid < n_parts ? parts[tid] : 0;
+
+  // ---- the m keys at or above the m-th largest, then in order ----
+  // the pass's keys into shared memory where they fit (one read of L2,
+  // four loads a thread in flight), so the radix passes read them there
+  const u64* ks = keys;
+  if (p.stage_shared) {
+    u64* stage = reinterpret_cast<u64*>(dyn_smem + p.small);
+    for (int i0 = 0; i0 < nk; i0 += 4 * SCAN_THREADS) {
+      u64 kk[4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        cb[j] = hist[RADIX - 1 - 8 * lane - j];
-        s += cb[j];
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * SCAN_THREADS + tid;
+        kk[u] = i < nk ? keys[i] : 0ull;
       }
-      unsigned incl = s;
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const unsigned t = __shfl_up_sync(FULL_MASK, incl, off);
-        if (lane >= off) incl += t;
-      }
-      unsigned acc = incl - s;
-      if (acc < (unsigned)remaining && (unsigned)remaining <= incl) {
-        bool done = false;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (!done && acc + cb[j] >= (unsigned)remaining) {
-            sh_sel[0] = RADIX - 1 - 8 * lane - j;
-            sh_sel[1] = (int)acc;
-            sh_sel[2] = (int)cb[j];
-            done = true;
-          }
-          acc += cb[j];
-        }
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * SCAN_THREADS + tid;
+        if (i < nk) stage[i] = kk[u];
       }
     }
-    __syncthreads();
-    remaining -= sh_sel[1];
-    prefix |= (u64)sh_sel[0] << shift;
-    mask |= 0xffull << shift;
-    // every key of the bin is wanted: the m keys are those >= prefix
-    if (sh_sel[2] == remaining) break;
+    ks = stage;
   }
-
-  // ---- the m keys at or above it, then in order ----
+  for (int x = tid + SCAN_THREADS; x < n_parts; x += SCAN_THREADS)
+    met += parts[x];
+  met += __shfl_xor_sync(FULL_MASK, met, 8);
+  met += __shfl_xor_sync(FULL_MASK, met, 16);
+  if (lane < N_MET) atomicAdd(&sh_met[lane], met);
+  __syncthreads();
+  const u64 prefix = scan_select(ks, nk, m, hist, sh_sel, wred);
   for (int i0 = 0; i0 < nk; i0 += SCAN_THREADS) {
     const int i = i0 + tid;
-    const u64 key = i < nk ? keys[i] : 0ull;
-    const bool take = i < nk && key >= prefix;
+    const u64 key = i < nk ? ks[i] : 0ull;
+    const bool take = key != 0ull && key >= prefix;
     const unsigned bal = __ballot_sync(FULL_MASK, take);
     int at = 0;
     if (lane == 0 && bal) at = atomicAdd(&sh_cnt, __popc(bal));
     at = __shfl_sync(FULL_MASK, at, 0);
     if (take) cand[at + __popc(bal & ((1u << lane) - 1u))] = key;
   }
+  // the steps' penalty nodes and pins, one row of MAX_P + 1 a step
+  for (int x = tid; x < c.k_steps; x += SCAN_THREADS)
+    load_step_nodes(a, 0, x, steps + x * (MAX_P + 1));
   __syncthreads();
   for (int x = tid; x < m; x += SCAN_THREADS) {
     const u64 key = cand[x];
@@ -390,37 +753,70 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1)
     sorted[r] = key;
   }
   __syncthreads();
+  stamp(c, 1);
 
   // ---- the rows: the candidates, then each step's pin ----
   const float rest = m > kc ? key_value(sorted[kc]) : NEG_INF_F;
-  const int* prefs = leaf_of<int>(a, J_STEP_PREF, 0);
   const int* perm = leaf_of<int>(a, J_PERM, 0);
   for (int r = tid; r < k_all; r += SCAN_THREADS) {
-    int node;
-    bool pad = false;
+    CRef f;
+    f.head = r;
+    f.pad = 0;
     if (r < kc) {
-      node = key_node(sorted[r]);
+      f.node = key_node(sorted[r]);
     } else {
-      const int pin = __ldg(prefs + (r - kc));
-      node = min(max(pin, 0), n - 1);
-      pad = pin < 0;
+      const int i = r - kc;
+      const int pin = steps[i * (MAX_P + 1) + MAX_P];
+      f.node = min(max(pin, 0), n - 1);
+      f.pad = pin < 0;
     }
-    CRow row;
-    row.d = cand_node(a, node);
-    row.d.base = row.d.base && !pad;
-    row.node = node;
-    row.tie = a.with_shuffle ? (unsigned)__ldg(perm + node) : (unsigned)r;
-    rows[r] = row;
+    const JNode d = cand_node(a, f.node);
+    const CKey h = head_keys(a, v, d);
+    if (r >= kc) {
+      // the node's row among the candidates (its pass key, whose score is
+      // the head's key without a step penalty, among theirs), else the
+      // first pin on it
+      const int i = r - kc;
+      const u64 key = ((u64)h.kn << 32) | (unsigned)(~f.node);
+      if (key >= sorted[kc - 1]) {
+        int lo = 0, hi = kc - 1;  // sorted[lo..hi] descending holds key
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (sorted[mid] > key) lo = mid + 1;
+          else hi = mid;
+        }
+        f.head = lo;
+      } else {
+        int first = i;
+        for (int j = 0; j < i; ++j) {
+          const int pj = steps[j * (MAX_P + 1) + MAX_P];
+          if (first == i && min(max(pj, 0), n - 1) == f.node) first = j;
+        }
+        f.head = kc + first;
+      }
+    }
+    f.tie = a.with_shuffle ? (unsigned)__ldg(perm + f.node) : (unsigned)r;
+    refs[r] = f;
+    if (f.head == r) {
+      rows[r] = d;
+      hkeys[r] = h;
+      JNode dn = d;
+      cand_commit(a, v, dn);
+      hnext[r] = head_keys(a, v, dn);
+    }
   }
   if (tid < N_MET) c.metrics[tid] = sh_met[tid];
   __syncthreads();
+  stamp(c, 2);
 
-  // ---- the K steps, on the warps that hold rows ----
-  const int nt = min(SCAN_THREADS, (k_all + 31) & ~31);
+  // ---- the K steps: the commit warp, the row warps, the top warp ----
+  const int nw = p.nw;
+  const bool lane_lists = nw == 1;  // the top warp merges the lanes' lists
+  const int nt_step = 32 * (nw + 1);
+  const int nt = nt_step + (a.with_topk ? 32 : 0);
   if (tid >= nt) return;
-  const int nw = nt >> 5;
-  const JMember v = load_member(a, 0);
   const int n_steps = *leaf_of<int>(a, J_NSTEPS, 0);
+  const unsigned neg_key = score_key(NEG_INF_F);
   // the steps past n_steps place nothing and score every row NEG_INF: no
   // row need be scored for their outputs (no placement; the top-8 the
   // first eight rows, as a stable sort of equal values leaves them)
@@ -433,115 +829,170 @@ __global__ void __launch_bounds__(SCAN_THREADS, 1)
         c.found[i] = 0;
       }
       if (lane < TOPK) {
-        a.topk_idx[i * TOPK + lane] = a.with_topk ? rows[lane].node : 0;
+        a.topk_idx[i * TOPK + lane] = a.with_topk ? refs[lane].node : 0;
         a.topk_scores[i * TOPK + lane] = NEG_INF_F;
       }
     }
   }
+  const bool row_warp = warp >= 1 && warp <= nw;
+  const bool top_warp = warp == nw + 1;
+  const int r0 = (warp - 1) * 32 + lane;  // a row warp lane's first row
+  const int stride = 32 * nw;             // and the rows apart on it
   bool ok = true, missing = false;
+  int last = -1;                  // the node the last step placed on
+  int pending = -1;               // the head the last step placed on
+  int prev[MAX_P];                // the last step's penalty nodes
+#pragma unroll
+  for (int q = 0; q < MAX_P; ++q) prev[q] = -1;
+  // a row warp's top-8 over its rows (first the lane's own list), kept
+  // between steps
+  unsigned wk[TOPK];
+  int wi[TOPK];
+  list_clear(wk, wi);
   for (int i = 0; i < active_steps; ++i) {
     int sp[MAX_P + 1];  // the step's penalty nodes, then its pin
-    load_step_nodes(a, 0, i, sp);
-    const int pin_row = a.with_pref ? kc + i : -1;
-    unsigned bk = 0u, br = NO_RANK;
-    int bi = -1;
-    unsigned lk[TOPK];
-    int li[TOPK];
-    list_clear(lk, li);
-    for (int r = tid; r < k_all; r += nt) {
-      const CRow row = rows[r];
-      bool pen = row.d.pen;
 #pragma unroll
-      for (int q = 0; q < MAX_P; ++q) pen = pen || sp[q] == row.node;
-      float sum;
-      unsigned cnt;
-      node_rest(a, v, row.d, pen, sum, cnt);
-      const float val = cnt != 0 ? sum / (float)cnt : NEG_INF_F;
-      if (r == pin_row) {
-        sh_pin_ok = cnt != 0;
-        sh_pin_v = val;
+    for (int q = 0; q <= MAX_P; ++q) sp[q] = steps[i * (MAX_P + 1) + q];
+    bool fresh = false;
+    bool pref_ok = false;
+    float pin_v = 0.0f;
+    if (row_warp) {
+      // rebuild where a row's key may have changed: its node was placed on,
+      // or entered or left the penalty set (one warp holds every row for
+      // ~40 steps, and then the node just placed on is always its own)
+      bool dirty = i == 0 || nw == 1;
+      for (int r = r0; !dirty && r < k_all; r += stride) {
+        const int node = refs[r].node;
+        dirty = node == last || in_set(sp, node) || in_set(prev, node);
       }
-      const unsigned k = score_key(val);
-      if (k > bk || (k == bk && row.tie < br)) {
-        bk = k;
-        br = row.tie;
-        bi = r;
-      }
-      if (a.with_topk) list_insert(lk, li, k, r);
-    }
-    // each warp's argmax and top-8 in every lane; with one warp holding
-    // every row they are the step's, and no merge follows
-    warp_best(bk, br, bi);
-    unsigned tk[TOPK];
-    int ti[TOPK];
-    list_clear(tk, ti);
-    if (a.with_topk) {
-      warp_top(lk, li, tk, ti);
-#pragma unroll
-      for (int q = 0; q < TOPK; ++q)
-        if (q == lane) {
-          sh_tk[warp][q] = tk[q];
-          sh_ti[warp][q] = ti[q];
+      fresh = __any_sync(FULL_MASK, dirty);
+      if (fresh) {
+        unsigned bk = 0u, br = NO_RANK;
+        int bi = -1;
+        list_clear(wk, wi);
+        for (int r = r0; r < k_all; r += stride) {
+          const CRef f = refs[r];
+          const CKey h = hkeys[f.head];
+          const unsigned k =
+              f.pad ? neg_key : (in_set(sp, f.node) ? h.kp : h.kn);
+          if (k > bk || (k == bk && f.tie < br)) {
+            bk = k;
+            br = f.tie;
+            bi = r;
+          }
+          if (a.with_topk) list_insert(wk, wi, k, r);
         }
+        warp_best(bk, br, bi);
+        if (lane == 0) sh_best[warp] = Best{bk, br, bi};
+        if (a.with_topk && lane_lists) {
+#pragma unroll
+          for (int q = 0; q < TOPK; ++q) {
+            sh_lk[i & 1][lane][q] = wk[q];
+            sh_li[i & 1][lane][q] = wi[q];
+          }
+        }
+      }
+    } else if (warp == 0) {
+      // the last step's placement on its head: the carries, and the keys
+      // after one more placement (the ones this placement switched to
+      // were ready); only this warp reads and writes the heads
+      if (pending >= 0) {
+        JNode d = rows[pending];
+        cand_commit(a, v, d);
+        JNode dn = d;
+        cand_commit(a, v, dn);
+        const CKey hn = head_keys(a, v, dn);
+        if (lane == 0) {
+          rows[pending] = d;
+          hnext[pending] = hn;
+        }
+      }
+      // the pin, from its head's cached keys
+      if (a.with_pref && sp[MAX_P] >= 0) {
+        const CRef f = refs[kc + i];
+        const CKey h = hkeys[f.head];
+        pref_ok = !f.pad && h.ok;
+        pin_v = key_score(in_set(sp, f.node) ? h.kp : h.kn);
+      }
     }
-    if (lane == 0) sh_best[warp] = Best{bk, br, bi};
     scan_bar(nt);
     if (warp == 0) {
-      Best b = Best{bk, br, bi};
-      if (nw > 1) {
-        b = lane < nw ? sh_best[lane] : Best{0u, NO_RANK, -1};
-        warp_best(b.k, b.r, b.i);
-      }
-      const int pref = a.with_pref ? sp[MAX_P] : -1;
-      const bool pref_ok = pref >= 0 && sh_pin_ok;
-      const int idx = pref_ok ? pin_row : b.i;
-      const float val = pref_ok ? sh_pin_v : key_score(b.k);
+      Best b = lane < nw ? sh_best[lane + 1] : Best{0u, NO_RANK, -1};
+      warp_best(b.k, b.r, b.i);
+      const int idx = pref_ok ? kc + i : b.i;
+      const float val = pref_ok ? pin_v : key_score(b.k);
       const bool fnd = val > NEG_INF_F / 2.0f;
-      const int node = rows[idx].node;
+      const CRef f = refs[idx];
       ok = ok && (!fnd || pref_ok || val >= rest);
       missing = missing || !fnd;
       if (lane == 0) {
-        c.chosen[i] = fnd ? node : -1;
+        c.chosen[i] = fnd ? f.node : -1;
         c.scores[i] = fnd ? val : 0.0f;
         c.found[i] = fnd ? 1 : 0;
-        sh_win = fnd ? node : -1;
+        // the placement's keys, computed at the last step that touched
+        // the head; its carries follow at the next step
+        if (fnd) hkeys[f.head] = hnext[f.head];
+        sh_win = fnd ? f.node : -1;
       }
-      if (a.with_topk && nw > 1) {
-        unsigned lk2[TOPK];
-        int li2[TOPK];
-        list_clear(lk2, li2);
-        if (lane < nw) {
+      if (!a.with_topk && lane < TOPK) {
+        a.topk_idx[i * TOPK + lane] = 0;
+        a.topk_scores[i * TOPK + lane] = NEG_INF_F;
+      }
+      pending = fnd ? f.head : -1;
+    } else if (row_warp) {
+      if (a.with_topk && !lane_lists) {
+        if (fresh) {
+          unsigned lk[TOPK];
+          int li[TOPK];
 #pragma unroll
           for (int q = 0; q < TOPK; ++q) {
-            lk2[q] = sh_tk[lane][q];
-            li2[q] = sh_ti[lane][q];
+            lk[q] = wk[q];
+            li[q] = wi[q];
           }
+          warp_top(lk, li, wk, wi);
         }
-        warp_top(lk2, li2, tk, ti);
-      }
-      if (lane < TOPK) {
-        unsigned k = PAD_KEY;
-        int r = 0;
 #pragma unroll
         for (int q = 0; q < TOPK; ++q)
           if (q == lane) {
-            k = tk[q];
-            r = ti[q];
+            sh_tk[i & 1][warp][q] = wk[q];
+            sh_ti[i & 1][warp][q] = wi[q];
           }
-        a.topk_idx[i * TOPK + lane] =
-            a.with_topk && r < k_all ? rows[r].node : 0;
-        a.topk_scores[i * TOPK + lane] =
-            a.with_topk ? key_score(k) : NEG_INF_F;
       }
+    } else if (lane_lists) {
+      // the top warp: this step's top-8 from the lanes' lists, written
+      // while the next step runs (it waits at the next first barrier only)
+      unsigned lk[TOPK], tk[TOPK];
+      int li[TOPK], ti[TOPK];
+#pragma unroll
+      for (int q = 0; q < TOPK; ++q) {
+        lk[q] = sh_lk[i & 1][lane][q];
+        li[q] = sh_li[i & 1][lane][q];
+      }
+      warp_top(lk, li, tk, ti);
+      write_top(a, refs, k_all, i, tk, ti, lane);
+    } else if (i > 0) {
+      merge_top_write(a, refs, k_all, i - 1, nw, sh_tk[(i - 1) & 1],
+                      sh_ti[(i - 1) & 1], lane);
     }
-    scan_bar(nt);
-    const int win = sh_win;
-    if (win >= 0)
-      for (int r = tid; r < k_all; r += nt)
-        if (rows[r].node == win) cand_commit(a, v, rows[r].d);
+    if (!top_warp) {
+      step_bar(nt_step);
+      last = sh_win;
+#pragma unroll
+      for (int q = 0; q < MAX_P; ++q) prev[q] = sp[q];
+    }
   }
-  if (tid == 0)
+  if (a.with_topk && !lane_lists && active_steps > 0) {
+    // the last step's row-warp lists, then the top warp's merge
+    scan_bar(nt);
+    if (top_warp)
+      merge_top_write(a, refs, k_all, active_steps - 1, nw,
+                      sh_tk[(active_steps - 1) & 1],
+                      sh_ti[(active_steps - 1) & 1], lane);
+  }
+  if (tid == 0) {
     c.valid[0] = (ok && (!missing || rest <= NEG_INF_F / 2.0f)) ? 1 : 0;
+    stamp(c, 3);
+  }
 }
 
 // The dynamic shared memory the scan kernel may take on the current device
@@ -572,7 +1023,8 @@ static cudaError_t scan_smem_limit(int* limit) {
 }
 
 // out[0]: the scratch bytes a call of these widths needs on the current
-// device; out[1]: its rows' bytes in shared memory (0: in the scratch).
+// device; out[1]: the scan's shared memory where the heads' rows live in it
+// (0: they are in the scratch).
 extern "C" int candidate_set_plan(int n, int k_steps, int k_cand,
                                   int with_pref, long long* out) {
   int limit = 0;
@@ -580,7 +1032,7 @@ extern "C" int candidate_set_plan(int n, int k_steps, int k_cand,
   if (e != cudaSuccess) return (int)e;
   const CandPlan p = cand_plan(n, k_steps, k_cand, with_pref, limit);
   out[0] = p.scratch;
-  out[1] = p.smem;
+  out[1] = p.rows_shared ? p.smem : 0;
   return 0;
 }
 
@@ -601,6 +1053,17 @@ extern "C" int candidate_set_launch(const CandLaunch* c, void* stream) {
   cand_pass_kernel<<<p.blocks, PASS_THREADS, 0, s>>>(*c, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  cand_scan_kernel<<<1, SCAN_THREADS, p.smem, s>>>(*c, p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(SCAN_THREADS);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, cand_scan_kernel, *c, p);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -239,18 +239,15 @@ __device__ __forceinline__ unsigned node_fits(const JointArgs& a,
 
 #define ALL_FITS 0xffu
 
-// The score's planes before the spread term (ops/kernel._score in its
-// operation order): their sum and their count; a count of 0 marks an
-// infeasible node.
-__device__ __forceinline__ void node_rest(const JointArgs& a,
-                                          const JMember& v, const JNode& d,
-                                          bool pen, float& sum,
-                                          unsigned& cnt) {
-  if (!d.base || node_fits(a, v, d) != ALL_FITS) {
-    sum = 0.0f;
-    cnt = 0;
-    return;
-  }
+// The score's planes before the step penalty (ops/kernel._score in its
+// operation order): their sum and their count; false for an infeasible
+// node. csrc/candidate_set.cu finishes one such sum both without and with
+// the penalty.
+__device__ __forceinline__ bool node_rest_base(const JointArgs& a,
+                                               const JMember& v,
+                                               const JNode& d, float& sum,
+                                               unsigned& cnt) {
+  if (!d.base || node_fits(a, v, d) != ALL_FITS) return false;
   const float util_cpu = (d.used_cpu + d.a_cpu) + ask_cpu_total(a, v, d);
   const float util_mem = (d.used_mem + d.a_mem) + v.ask_mem;
   const float fc = d.cap_cpu > 0.0f ? 1.0f - util_cpu / d.cap_cpu : 0.0f;
@@ -271,16 +268,36 @@ __device__ __forceinline__ void node_rest(const JointArgs& a,
     s = s + (-(collisions + 1.0f) / denom);
     c += 1;
   }
-  if (pen) {
-    s = s + -1.0f;
-    c += 1;
-  }
-  if (d.aff != 0.0f) {
-    s = s + d.aff;
-    c += 1;
-  }
   sum = s;
   cnt = c;
+  return true;
+}
+
+// The planes from the step penalty on, added to node_rest_base's sum.
+__device__ __forceinline__ void node_rest_tail(const JNode& d, bool pen,
+                                               float& sum, unsigned& cnt) {
+  if (pen) {
+    sum = sum + -1.0f;
+    cnt += 1;
+  }
+  if (d.aff != 0.0f) {
+    sum = sum + d.aff;
+    cnt += 1;
+  }
+}
+
+// The score's planes before the spread term: their sum and their count; a
+// count of 0 marks an infeasible node.
+__device__ __forceinline__ void node_rest(const JointArgs& a,
+                                          const JMember& v, const JNode& d,
+                                          bool pen, float& sum,
+                                          unsigned& cnt) {
+  if (!node_rest_base(a, v, d, sum, cnt)) {
+    sum = 0.0f;
+    cnt = 0;
+    return;
+  }
+  node_rest_tail(d, pen, sum, cnt);
 }
 
 // The row key of a node: the parts before the spread term, and the

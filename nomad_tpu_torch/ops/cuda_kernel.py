@@ -47,7 +47,8 @@ C entry point loaded with ctypes:
   :974): the single eval's candidate set, the first route of
   ``ops/kernel.default_kernel_launch``: one full-width pass, the exact top
   k_cand and rest max, and the K-step scan over the candidates and pins,
-  in one C call of two launches. Plain version: ``place_taskgroup_topk``.
+  in one C call of two launches into one buffer of outputs and scratch.
+  Plain version: ``place_taskgroup_topk``.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version only for CPU tensors. ``launches``, ``joint_launches``
@@ -61,8 +62,10 @@ calls and nothing else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from operator import attrgetter, methodcaller
 from typing import NamedTuple
 
 import numpy as np
@@ -848,7 +851,7 @@ def _joint_launch(kin: KernelIn, step_member, step_local, t_steps: int,
 # ---------------------------------------------------------------------------
 
 #: kernel calls made by ``candidate_eval_place`` (csrc/candidate_set.cu: one
-#: C call, two launches on the stream)
+#: C call, a grid pass and the scan as its programmatic dependent launch)
 candidate_launches = 0
 
 
@@ -864,19 +867,51 @@ class _CandLaunch(ctypes.Structure):
         ("found", ctypes.c_void_p),
         ("metrics", ctypes.c_void_p),
         ("valid", ctypes.c_void_p),
+        ("stamps", ctypes.c_void_p),
         ("k_steps", ctypes.c_int), ("k_cand", ctypes.c_int),
     ]
 
 
+class CandLayout(NamedTuple):
+    """One call's outputs in its one buffer, in 4-byte words, in the order
+    ``ops/kernel._read_single`` reads them: ``valid`` (a word), ``chosen``
+    i32 [K], ``scores`` f32 [K], ``found`` bool [K] (padded to words),
+    ``topk_idx`` i32 [K, TOPK], ``topk_scores`` f32 [K, TOPK], the metrics
+    i32 [8]. ``words`` holds each section's words; the outputs end at
+    byte ``nbytes`` and the scratch starts at byte ``scratch``."""
+
+    words: tuple
+    starts: tuple  # each section's first word, then the end
+    nbytes: int
+    scratch: int
+
+    def at(self, section: int) -> int:
+        """The byte offset of section ``section`` (0: valid)."""
+        return 4 * self.starts[section]
+
+
+@functools.lru_cache(maxsize=None)
+def candidate_layout(k_steps: int) -> CandLayout:
+    k = k_steps
+    words = (1, k, k, -(-k // 4), k * TOPK, k * TOPK,
+             len(FUSED_METRIC_FIELDS))
+    starts = tuple(int(x) for x in np.cumsum((0,) + words))
+    nbytes = 4 * starts[-1]
+    return CandLayout(words, starts, nbytes, -(-nbytes // 256) * 256)
+
+
 _CAND_PLANS: dict = {}    # (device, n, k_steps, k_cand, pins) -> plan
+#: (device, k_steps, k_cand, features, leaf signature) -> (the call's
+#: ``_CandLaunch`` with everything but its pointers, its layout, its bytes)
+_CAND_CALLS: dict = {}
 
 
 def candidate_plan(dev: torch.device, n: int, k_steps: int, k_cand: int,
                    with_pref: bool) -> tuple:
     """``candidate_set_plan`` on card ``dev``, once per shape: (the scratch
     bytes a call of these widths takes: its keys, the pass's partial
-    counts and the rows where they pass shared memory; the rows' shared
-    memory, 0 when they live in the scratch)."""
+    counts and the row arrays where they pass shared memory; the scan's
+    shared memory where the heads' rows live in it, else 0)."""
     key = (dev.index, n, k_steps, k_cand, bool(with_pref))
     got = _CAND_PLANS.get(key)
     if got is None:
@@ -899,9 +934,10 @@ def candidate_eval_place(kin: KernelIn, k_steps: int,
     places it: ``(KernelOut, valid)``, ``kin`` one eval's planes (torch
     tensors, ``n_steps`` a scalar), ``n_candidates`` the candidates (0:
     ``min(N, max(2K, K + 8, TOPK))``). On the card csrc/candidate_set.cu
-    (or raise); on the CPU the plain version, ``place_taskgroup_topk``,
-    looked up on its module at each call. The outputs stay on the
-    device."""
+    (or raise), its outputs views of one buffer (``candidate_layout``,
+    read back in one copy by ``candidate_readback``); on the CPU the plain
+    version, ``place_taskgroup_topk``, looked up on its module at each
+    call. The outputs stay on the device."""
     if kin.n_steps.dim() != 0:
         raise ValueError("candidate_eval_place takes one eval: n_steps must "
                          "be a scalar")
@@ -913,9 +949,63 @@ def candidate_eval_place(kin: KernelIn, k_steps: int,
     return _candidate_launch(kin, k_steps, features, n_candidates)
 
 
+_LEAF_TYPE = attrgetter("dtype", "shape")
+_LEAF_CARD = methodcaller("get_device")
+_LEAF_DENSE = methodcaller("is_contiguous")
+
+
+def _candidate_call(kin: KernelIn, dev: torch.device, n: int, k: int,
+                    k_steps: int, k_cand: int, f: KernelFeatures) -> tuple:
+    """The call's ``_CandLaunch`` bytes without pointers, its layout and
+    its buffer's bytes, once per shape: the leaves are checked (dtype,
+    shape, contiguity, and on card ``dev``) where their signature is
+    new."""
+    key = (dev.index, k_steps, k_cand, f, tuple(map(_LEAF_TYPE, kin)),
+           tuple(map(_LEAF_CARD, kin)), all(map(_LEAF_DENSE, kin)))
+    got = _CAND_CALLS.get(key)
+    if got is None:
+        if any(x.device != dev for x in kin):
+            raise ValueError(f"every leaf must be on {dev}")
+        w = _CandLaunch()
+        args = w.a
+        for slot, stride in enumerate(_joint_strides(kin, 1, n, n, k)):
+            args.stride[slot] = stride
+        scratch_bytes, _ = candidate_plan(dev, n, k_steps, k_cand,
+                                          f.with_preferred)
+        args.n, args.b, args.t, args.k = n, 1, k_steps, k
+        args.p, args.ns, args.bp = MAX_PENALTY_NODES, 0, 1
+        for name in ("with_topk", "with_ports", "with_distinct",
+                     "with_shuffle", "with_devices", "with_cores",
+                     "with_network"):
+            setattr(args, name, int(getattr(f, name)))
+        args.with_step_pen = int(f.with_step_penalties)
+        args.with_pref = int(f.with_preferred)
+        args.single = 1
+        w.scratch_bytes = scratch_bytes
+        w.k_steps, w.k_cand = k_steps, k_cand
+        lay = candidate_layout(k_steps)
+        got = _CAND_CALLS[key] = (bytes(w), lay, lay.scratch + scratch_bytes)
+    return got
+
+
 def _candidate_launch(kin: KernelIn, k_steps: int, f: KernelFeatures,
                       n_candidates: int):
     global candidate_launches
+    w, buf = candidate_args(kin, k_steps, f, n_candidates)
+    _call("candidate_set", w, buf.device, "candidate_set_kernel")
+    with _LAUNCH_LOCK:
+        candidate_launches += 1
+    return candidate_views(buf, k_steps)
+
+
+def candidate_args(kin: KernelIn, k_steps: int, f: KernelFeatures,
+                   n_candidates: int = 0, stamps=None) -> tuple:
+    """``(the C call's _CandLaunch, its buffer)`` for one eval on the
+    card, checked and filled in: the buffer (outputs, then scratch) is
+    allocated here, once a call. ``stamps``, an i64 [4] CUDA tensor, takes
+    the scan's ``clock64`` at its phases' edges (after the pass, the
+    selection, the rows, the steps): ``tools/candidate_split.py`` passes
+    one."""
     dev = kin.cap_cpu.device
     n = int(kin.cap_cpu.shape[-1])
     k = int(kin.step_preferred.shape[-1])
@@ -931,48 +1021,61 @@ def _candidate_launch(kin: KernelIn, k_steps: int, f: KernelFeatures,
         raise ValueError(f"{k_cand} candidates of {n} nodes")
     if f.with_topk and k_cand + (k_steps if f.with_preferred else 0) < TOPK:
         raise ValueError(f"a top-{TOPK} over {k_cand} candidates")
-    one = kin._replace(n_steps=kin.n_steps.reshape(1))
-    w = _CandLaunch()
-    args = w.a
-    for slot, stride in enumerate(_joint_strides(one, 1, n, n, k)):
-        args.stride[slot] = stride
-        args.leaf[slot] = getattr(one, _JOINT_LEAVES[slot][0]).data_ptr()
-    scratch_bytes, _ = candidate_plan(dev, n, k_steps, k_cand,
-                                      f.with_preferred)
-    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
-    chosen = torch.empty(k_steps, dtype=torch.int32, device=dev)
-    scores = torch.empty(k_steps, dtype=torch.float32, device=dev)
-    found = torch.empty(k_steps, dtype=torch.bool, device=dev)
-    topk_idx = torch.empty((k_steps, TOPK), dtype=torch.int32, device=dev)
-    topk_scores = torch.empty((k_steps, TOPK), dtype=torch.float32,
-                              device=dev)
-    metrics = torch.empty(len(FUSED_METRIC_FIELDS), dtype=torch.int32,
-                          device=dev)
-    valid = torch.empty(1, dtype=torch.bool, device=dev)
-    args.topk_idx = topk_idx.data_ptr()
-    args.topk_scores = topk_scores.data_ptr()
-    args.n, args.b, args.t, args.k = n, 1, k_steps, k
-    args.p, args.ns, args.bp = MAX_PENALTY_NODES, 0, 1
-    for name in ("with_topk", "with_ports", "with_distinct", "with_shuffle",
-                 "with_devices", "with_cores", "with_network"):
-        setattr(args, name, int(getattr(f, name)))
-    args.with_step_pen = int(f.with_step_penalties)
-    args.with_pref = int(f.with_preferred)
-    args.single = 1
-    w.scratch = scratch.data_ptr()
-    w.scratch_bytes = scratch_bytes
-    w.chosen = chosen.data_ptr()
-    w.scores = scores.data_ptr()
-    w.found = found.data_ptr()
-    w.metrics = metrics.data_ptr()
-    w.valid = valid.data_ptr()
-    w.k_steps, w.k_cand = k_steps, k_cand
+    template, lay, nbytes = _candidate_call(kin, dev, n, k, k_steps, k_cand,
+                                            f)
+    # one allocation a call for the outputs and the scratch: concurrent
+    # callers (worker threads, the warmup) never share one
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    w = _CandLaunch.from_buffer_copy(template)
+    w.a.leaf[:] = [x.data_ptr() for x in kin]
+    w.valid, w.chosen, w.scores, w.found, w.a.topk_idx, w.a.topk_scores, \
+        w.metrics = (base + lay.at(s) for s in range(7))
+    w.scratch = base + lay.scratch
+    if stamps is not None:
+        w.stamps = stamps.data_ptr()
+    return w, buf
 
-    _call("candidate_set", w, dev, "candidate_set_kernel")
-    with _LAUNCH_LOCK:
-        candidate_launches += 1
-    return KernelOut(chosen, scores, found, topk_idx, topk_scores,
-                     *metrics.unbind(0)), valid[0]
+
+def candidate_views(buf: torch.Tensor, k_steps: int):
+    """``(KernelOut, valid)`` as views of one call's u8 buffer, laid out
+    as ``candidate_layout(k_steps)`` says."""
+    lay = candidate_layout(k_steps)
+    ok, chosen, scores, found, idx, top, metrics = buf[:lay.nbytes].view(
+        torch.int32).split_with_sizes(lay.words)
+    out = KernelOut(
+        chosen, scores.view(torch.float32),
+        found.view(torch.bool)[:k_steps], idx.view(k_steps, TOPK),
+        top.view(torch.float32).view(k_steps, TOPK), *metrics.unbind(0))
+    return out, ok.view(torch.bool)[0]
+
+
+def candidate_readback(out: KernelOut, ok, k_steps: int):
+    """``(KernelOut of host numpy and ints, valid)`` of a kernel call's
+    outputs through one device-to-host copy of its buffer, with no torch
+    op between the kernel and the copy: ``ops/kernel.default_kernel_launch``
+    reads the ``single_topk`` route's outputs on the card so. Raises where
+    ``(out, ok)`` are not ``candidate_views`` of one buffer (the plain
+    version's tensors)."""
+    lay = candidate_layout(k_steps)
+    storage = ok.untyped_storage()
+    base = storage.data_ptr()
+    if (ok.dtype != torch.bool or storage.nbytes() < lay.nbytes
+            or ok.data_ptr() != base
+            or out.chosen.data_ptr() != base + lay.at(1)
+            or out.topk_scores.data_ptr() != base + lay.at(5)):
+        raise ValueError("candidate_readback reads the outputs of one "
+                         "candidate_eval_place call on the card")
+    raw = ok.view(torch.uint8).as_strided((lay.nbytes,), (1,)).cpu().numpy()
+    words = raw.view(np.int32)
+    _, c, s, f, i, t, m, end = lay.starts
+    host = KernelOut(
+        words[c:s], words[s:f].view(np.float32),
+        raw[4 * f:4 * f + k_steps].view(np.bool_),
+        words[i:t].reshape(k_steps, TOPK),
+        words[t:m].view(np.float32).reshape(k_steps, TOPK),
+        *words[m:end].tolist())
+    return host, bool(raw[0])
 
 
 # ---------------------------------------------------------------------------

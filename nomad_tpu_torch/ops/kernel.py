@@ -1411,7 +1411,14 @@ def default_kernel_launch(kin: KernelIn, k_steps: int,
     if features.n_spreads == 0 and not bool(np.asarray(kin.algorithm_spread)):
         out, ok = profiler.call("single_topk", _place_topk, (kin,),
                                 (k_steps, features, dev), key, dev)
-        host, valid = _read_single(out, ok, k_steps)
+        if dev.type == "cuda":
+            # the kernel's outputs are views of one buffer: one copy back,
+            # no torch op between the kernel and the copy
+            from nomad_tpu_torch.ops.cuda_kernel import candidate_readback
+
+            host, valid = candidate_readback(out, ok, k_steps)
+        else:
+            host, valid = _read_single(out, ok, k_steps)
         single_eval_stats.note(topk=True, breach=not valid, full=not valid)
         if valid:
             return host

@@ -504,6 +504,42 @@ def candidate_pinned_case(lib="ref"):
     return kin._replace(step_preferred=pref), f, 12
 
 
+def candidate_churn_case(seed, n_nodes, k, variant="kitchen_sink",
+                         lib="ref"):
+    """``(kin, features)``: ``variant``'s member whose step penalties hit
+    candidate rows at every step and change from step to step (four of
+    the step's top-8 nodes as the member places without them), and whose
+    pins repeat candidates and each other: in turn a node the member
+    takes, that pin again, a node outside the top lists, that one again,
+    and none (a pad row on node 0)."""
+    from nomad_tpu_torch.convert import kernel_in_from_numpy
+
+    kin, f = candidate_member(seed, variant, n_nodes, k, lib)
+    kp = np.asarray(kin.step_preferred).shape[0]
+    pen = np.full(np.asarray(kin.step_penalty).shape, -1, np.int32)
+    pref = np.full(kp, -1, np.int32)
+    f = f._replace(with_step_penalties=True, with_preferred=True,
+                   with_topk=True)
+    out, _ = tk.place_taskgroup_topk(
+        kernel_in_from_numpy(kin._replace(step_penalty=pen,
+                                          step_preferred=pref),
+                             device="cpu"), k, port_features(f))
+    top = out.topk_idx.numpy()
+    taken = out.chosen.numpy()[out.found.numpy()]
+    rng = np.random.default_rng(seed)
+    outside = np.setdiff1d(np.arange(n_nodes), top.reshape(-1))
+    for i in range(k):
+        pen[i, :] = top[i, (i + 2 * np.arange(pen.shape[1])) % tk.TOPK]
+        turn = i % 5
+        if turn == 0 and len(taken):
+            pref[i] = taken[(i // 5) % len(taken)]
+        elif turn in (1, 3):
+            pref[i] = pref[i - 1]
+        elif turn == 2 and len(outside):
+            pref[i] = rng.choice(outside)
+    return kin._replace(step_penalty=pen, step_preferred=pref), f
+
+
 #: score tolerance: XLA-CPU and torch round ``pow`` and division in
 #: their own ways, a few ulps of values in [-2, 1]
 SCORE_ATOL = 1e-5

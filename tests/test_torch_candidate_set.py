@@ -46,11 +46,21 @@ def _check(kin, k, feats, n_candidates=0):
     return got, bool(ok)
 
 
-@pytest.mark.parametrize("k", STEPS)
-@pytest.mark.parametrize("variant,n_nodes", tp.CANDIDATE_VARIANTS,
-                         ids=[v for v, _ in tp.CANDIDATE_VARIANTS])
+#: every union at each of STEPS, then ``churn``: the kitchen sink's member
+#: at K=64 whose step penalties hit candidate rows at every step and change
+#: from step to step, its pins repeating candidates and each other
+#: (``tp.candidate_churn_case``)
+REFERENCE_CASES = [(v, n, k) for v, n in tp.CANDIDATE_VARIANTS
+                   for k in STEPS] + [("churn", 383, 64)]
+
+
+@pytest.mark.parametrize("variant,n_nodes,k", REFERENCE_CASES,
+                         ids=[f"{v}-{k}" for v, _, k in REFERENCE_CASES])
 def test_candidate_eval_matches_reference(variant, n_nodes, k):
-    kin, feats = tp.candidate_member(60, variant, n_nodes, k)
+    if variant == "churn":
+        kin, feats = tp.candidate_churn_case(66, n_nodes, k)
+    else:
+        kin, feats = tp.candidate_member(60, variant, n_nodes, k)
     got, ok = _check(kin, k, feats)
     assert ok and got.found.any()
 
@@ -142,3 +152,82 @@ def test_default_kernel_launch_places_through_the_candidate_set():
         else:
             np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL,
                                        err_msg=name)
+
+
+@pytest.mark.parametrize("variant,n_nodes", tp.CANDIDATE_VARIANTS,
+                         ids=[v for v, _ in tp.CANDIDATE_VARIANTS])
+def test_rows_outside_the_rescoring_set_keep_their_scores(variant, n_nodes):
+    """The fact csrc/candidate_set.cu's cached rows rest on, through the
+    port's own ``_feasible``, ``_score`` and ``_deduct``: after one
+    placement, a node that is neither the one placed on nor a penalty node
+    of step 0 or step 1 keeps a bit-identical masked score; and each
+    node's score at a step is its score without or with the penalty (the
+    two keys a head caches), as the node is a penalty node or not."""
+    kin, feats = tp.candidate_churn_case(67, n_nodes, 4, variant, lib="port")
+    f = tp.port_features(feats)
+    kin = kernel_in_from_numpy(kin, device="cpu")
+    n = kin.cap_cpu.shape[-1]
+    ids = torch.arange(n)
+
+    def masked(st, pen_ids):
+        feasible, act, _ = tk._feasible(kin, st, f)
+        pen = kin.penalty | torch.any(ids[:, None] == pen_ids.long(), dim=-1)
+        final = tk._score(kin, st, act, pen, f)
+        return torch.where(feasible, final, tk.NEG_INF), act
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    st0 = tk._carry_init(kin, f)
+    m0, act0 = masked(st0, kin.step_penalty[0])
+    x = int(tk._argmax_first(m0))
+    assert m0[x] > tk.NEG_INF / 2
+    one = (ids == x).to(torch.float32)
+    st1 = tk._deduct(kin, st0, one, one.to(torch.int32), act0, f, None)
+    m1, _ = masked(st1, kin.step_penalty[1])
+    rescored = torch.zeros(n, dtype=torch.bool)
+    rescored[x] = True
+    for step in (0, 1):
+        pen = kin.step_penalty[step].long()
+        rescored[pen[pen >= 0]] = True
+    assert rescored.sum() < n
+    assert torch.equal(bits(m1[~rescored]), bits(m0[~rescored]))
+    assert not torch.equal(bits(m1[x:x + 1]), bits(m0[x:x + 1]))
+    # without and with the penalty: the keys of a head at step 1
+    none = torch.full_like(kin.step_penalty[1], -1)
+    m1_off, _ = masked(st1, none)
+    m1_on, _ = masked(st1, ids[:, None].to(torch.int32))
+    pen1 = torch.any(ids[:, None] == kin.step_penalty[1].long(), dim=-1)
+    assert torch.equal(bits(m1), bits(torch.where(pen1, m1_on, m1_off)))
+
+
+@pytest.mark.parametrize("variant,k", [("kitchen_sink", 16),
+                                       ("no_spread", 3), ("lean", 1)])
+def test_packed_outputs_read_back_as_the_torch_op_route(variant, k):
+    """``ck.candidate_views`` lays a call's outputs in one buffer and
+    ``ck.candidate_readback`` reads them in one copy: the plain version's
+    outputs written through those views read back as ``_read_single``
+    reads the plain tensors through torch ops, dtypes and shapes too; it
+    refuses tensors that are not views of one such buffer."""
+    kin, feats = tp.candidate_member(58, variant, 383, k, lib="port")
+    want, want_ok = tk.place_taskgroup_topk(
+        kernel_in_from_numpy(kin, device="cpu"), k, feats)
+    lay = ck.candidate_layout(k)
+    buf = torch.full((lay.scratch,), 0xA5, dtype=torch.uint8)
+    out, ok = ck.candidate_views(buf, k)
+    for dst, src in zip(out, want):
+        dst.copy_(src)
+    ok.copy_(want_ok)
+    with pytest.raises(ValueError):
+        ck.candidate_readback(want, want_ok, k)
+    got = ck.candidate_readback(out, ok, k)
+    for host in (got, tk._read_single(out, ok, k)):
+        (g, g_ok), (w, w_ok) = host, tk._read_single(want, want_ok, k)
+        assert g_ok == w_ok
+        for name in tk.KernelOut._fields:
+            a, b = getattr(g, name), getattr(w, name)
+            if isinstance(b, int):
+                assert type(a) is int and a == b, name
+            else:
+                assert a.dtype == b.dtype and a.shape == b.shape, name
+                np.testing.assert_array_equal(a, b, err_msg=name)

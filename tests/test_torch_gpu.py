@@ -2366,8 +2366,8 @@ def test_cuda_candidate_eval_at_every_width(n_nodes, cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", (1, 8, 64, 256, 600))
 def test_cuda_candidate_rows_past_shared_memory(k, cuda_device):
-    """K to 600 at N=4096: 1800 rows pass a block's shared memory and live
-    in the global scratch; no K is refused."""
+    """K to 600 at N=4096: the heads' rows of 1800 rows pass a block's
+    shared memory and live in the global scratch; no K is refused."""
     kin, feats = tp.candidate_member(52, "kitchen_sink", 4000, k, lib="port")
     _, smem = ck.candidate_plan(cuda_device, 4096, k, max(2 * k, k + 8),
                                 True)
@@ -2403,6 +2403,126 @@ def test_cuda_candidate_pins_repeat_candidates(cuda_device):
     kin, feats, k = tp.candidate_pinned_case(lib="port")
     got, ok = _candidate_check(kin, k, feats, cuda_device)
     assert ok and bool(got.found.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", (1, 16, 64, 256, 600))
+def test_cuda_candidate_penalties_and_pins_change_every_step(k, cuda_device):
+    """Step penalties that hit candidate rows at every step and change
+    from step to step, and pins that repeat candidates and each other
+    (``tp.candidate_churn_case``), to K=600 where the heads' rows live in
+    the global scratch: every cached key is what a rescore gives."""
+    for variant in ("kitchen_sink", "no_spread"):
+        kin, feats = tp.candidate_churn_case(56, 4000, k, variant,
+                                             lib="port")
+        _candidate_check(kin, k, feats, cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_nodes", (16384, 131072))
+def test_cuda_candidate_every_union_at_the_live_widths(n_nodes, cuda_device):
+    """Every union without a spread, 16 steps of which 10 active."""
+    for variant, _ in tp.CANDIDATE_VARIANTS:
+        kin, feats = tp.candidate_member(57, variant, n_nodes, 16,
+                                         lib="port")
+        kin = kin._replace(n_steps=np.asarray(10, np.int32))
+        _candidate_check(kin, 16, feats, cuda_device)
+
+
+def _host_equal(got, want):
+    """Two ``_read_single`` results: equal values, dtypes and shapes."""
+    (g, g_ok), (w, w_ok) = got, want
+    assert g_ok == w_ok
+    for name in tk.KernelOut._fields:
+        a, b = getattr(g, name), getattr(w, name)
+        if isinstance(b, int):
+            assert type(a) is int and a == b, name
+        else:
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.gpu
+def test_cuda_candidate_packed_readback(cuda_device):
+    """The kernel's outputs are views of one buffer that
+    ``ck.candidate_readback`` copies back at once; the host arrays equal
+    those of the plain version's outputs read back through torch ops
+    (``_read_single``), and the plain tensors are refused."""
+    for variant, k in (("kitchen_sink", 16), ("no_spread", 3), ("lean", 1)):
+        kin, feats = tp.candidate_member(58, variant, 383, k, lib="port")
+        one = kernel_in_from_numpy(kin, device=cuda_device)
+        got, ok = ck.candidate_eval_place(one, k, feats)
+        want, want_ok = tk.place_taskgroup_topk(one, k, feats)
+        with pytest.raises(ValueError):
+            ck.candidate_readback(want, want_ok, k)
+        _host_equal(ck.candidate_readback(got, ok, k),
+                    tk._read_single(want, want_ok, k))
+
+
+@pytest.mark.gpu
+def test_cuda_candidate_readback_is_one_copy(cuda_device):
+    """The ``single_topk`` route (``default_kernel_launch``) as the device
+    sees it, in the profiler's trace: after the planes' upload, the
+    kernel's two launches, then one device-to-host copy of all the call's
+    outputs, and no torch op between the kernel and that copy."""
+    from torch.autograd import DeviceType
+
+    kin, feats = tp.candidate_member(58, "kitchen_sink", 383, 16,
+                                     lib="port")
+    feats = tk.canonical_features(feats)
+    tk.single_eval_stats.reset()
+    want = tk.default_kernel_launch(kin, 16, feats, device=cuda_device)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = tk.default_kernel_launch(kin, 16, feats, device=cuda_device)
+        torch.cuda.synchronize()
+    assert tk.single_eval_stats.snapshot() == {
+        "topk": 2, "breaches": 0, "full": 0}
+    _host_equal((got, True), (want, True))
+    ops = [e.name for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
+    first = next(i for i, name in enumerate(ops) if "cand_pass" in name)
+    assert len(ops) == first + 3, ops
+    assert "cand_scan" in ops[first + 1] and "DtoH" in ops[first + 2], ops
+
+
+@pytest.mark.gpu
+def test_cuda_candidate_concurrent_calls(cuda_device):
+    """Four threads call the kernel at once on one card, each on a stream
+    of its own (worker threads and the warmup thread do): each call has its
+    own buffer, so each gets its own eval's answer."""
+    from concurrent.futures import ThreadPoolExecutor
+    import threading
+
+    evals = []
+    for j, variant in enumerate(("lean", "shuffle", "kitchen_sink",
+                                 "no_spread")):
+        kin, feats = tp.candidate_member(59 + j, variant, 383, 16,
+                                         lib="port")
+        one = kernel_in_from_numpy(kin, device=cuda_device)
+        evals.append((one, feats,
+                      tk._read_single(*tk.place_taskgroup_topk(one, 16,
+                                                               feats), 16)))
+    torch.cuda.synchronize()
+    start = threading.Barrier(len(evals))
+
+    def run(j):
+        one, feats, _ = evals[j]
+        with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+            start.wait()
+            return [ck.candidate_readback(
+                *ck.candidate_eval_place(one, 16, feats), 16)
+                for _ in range(20)]
+
+    before = ck.candidate_launches
+    with ThreadPoolExecutor(len(evals)) as pool:
+        results = list(pool.map(run, range(len(evals))))
+    assert ck.candidate_launches == before + 20 * len(evals)
+    for (_, _, want), got in zip(evals, results):
+        for host in got:
+            _host_equal(host, want)
 
 
 @pytest.mark.gpu
